@@ -2,26 +2,45 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path (``deepspeed_tpu_torch.init_inference`` ->
-``generate``) on GPT-2 350M at full width with random weights from a seed,
-after building every CUDA kernel of that path from the sources in this
-checkout and holding each against its plain PyTorch version on the card.
-Prints JSON lines as it goes; the line before the last names the card and
-its power limit (as nvidia-smi reports them), and the last line is
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero without
-that line. Needs one CUDA card; exits non-zero without one. Imports nothing
-of JAX or of the reference package.
+Builds every CUDA kernel of the port from the sources in this checkout (one
+nvcc per source, started together), holds each against its plain PyTorch
+version on the card, and drives the port's two paths with random weights
+from a seed:
+  - serving (``deepspeed_tpu_torch.init_inference`` -> ``generate``) on
+    GPT-2 350M at full width and depth: three requests, then a profiled
+    breakdown;
+  - training (``deepspeed_tpu_torch.initialize`` -> ``forward`` /
+    ``backward`` / ``step``) on GPT-2 125M at full width and depth, seq
+    1024, micro-batch 8, bf16, flash attention, AdamW: 2 warm-up and 10
+    timed steps on one fixed batch, a first-step comparison with the
+    xla-attention engine on the same weights, a gradient check of the flash
+    engine against the xla engine in f32 at 2 layers, then a profiled
+    breakdown.
+Each path is driven with the kernel launch counts set to 0 just before it
+and read just after. Prints JSON lines as it goes; the line before the last
+names the card and its power limit (as nvidia-smi reports them), and the
+last line is ``{"ok": true, "device": {...}}``. Any failed check exits
+non-zero without that line. Needs one CUDA card; exits non-zero without one.
+Imports nothing of JAX or of the reference package.
 """
 
 import json
+import math
+import os
+import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-import torch
+# the port is imported from this checkout, whatever the working directory
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
-PEAK_BF16_FLOPS = 989e12
+import torch  # noqa: E402
+
+# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit):
+# the tensor cores in bf16, the CUDA cores in f32, and memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_HBM_BYTES = 3.35e12
 
 # K1 against mha_reference: the kernel rounds p to the input dtype before
@@ -30,6 +49,31 @@ PEAK_HBM_BYTES = 3.35e12
 # |o| <= 4 two roundings are up to 3e-2. lse is f32 on both sides.
 K1_O_TOL = 3e-2
 K1_LSE_TOL = 1e-5
+# K2/K3 against _reference_bwd on the same (q, k, v, o, lse, do), as max |Δ|
+# over the largest |gradient| of the plain version. bf16: the kernels round
+# ds (and, in K3, p) to bf16 before the products that use them, as the TPU
+# kernels do, and round their f32 sums once at the output, where the plain
+# version keeps f32; each rounding is unbiased and at most 2**-9 relative,
+# so the gradients differ by a few such ulps: 2**-6. f32: the same values in
+# another summation order: 1e-4.
+GRAD_REL_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
+# training: the first loss of a randomly initialised GPT-2 is near ln(V)
+# (logits of std ~0.5 add ~0.15), so within 0.5 of it; on one fixed batch at
+# lr 1e-4 the mean of the last 3 of 12 losses falls at least 0.25 below the
+# first. Against the xla-attention engine on the same weights, first step
+# in bf16: the two attention paths round at different places (bf16 q.k
+# logits on the xla path, bf16 p and ds in the kernels); loss within 1e-3
+# and global grad norm within 1 %. The per-layer q/k/v blocks of the wqkv
+# gradient are reported. The model's gradients are held in f32 (TF32 off),
+# 2 layers: every gradient leaf of the flash engine within 1e-4 of the
+# largest |gradient| of the same leaf of the xla engine, and the loss (~11)
+# within 1e-4 (1e-5 relative): summation order only.
+FIRST_LOSS_TOL = 0.5
+LOSS_DROP = 0.25
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GNORM_REL_TOL = 0.01
+F32_GRAD_REL_TOL = 1e-4
+F32_LOSS_TOL = 1e-4
 # pallas-engine prefill logits against the xla-attention engine, both bf16
 # on the same weights: the two attention paths round at different places
 # (bf16 q.k logits on the xla path, bf16 p in the kernel), and the
@@ -38,6 +82,8 @@ K1_LSE_TOL = 1e-5
 # stream. Top-1 must agree on every row whose top-2 margin exceeds twice
 # the tolerance (closer rows are ties either path may break).
 LOGITS_TOL = 0.1
+
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 failures = []
 
@@ -101,11 +147,81 @@ def attention_pairs(Sq, Sk, causal, window):
     return int(ok.sum())
 
 
-def flash_bound(B, S, H, Hkv, hd, causal, window, itemsize):
+def bound(flops, nbytes, dtype):
+    """(least ms on the card, what bounds it) for this work."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_bound(B, S, H, Hkv, hd, causal, window, dtype):
+    """K1: 4 hd FLOPs per pair over q, k, v, o (and the f32 lse)."""
+    itemsize = torch.finfo(dtype).bits // 8
     flops = 4.0 * B * H * hd * attention_pairs(S, S, causal, window)
     nbytes = (2 * B * H * S + 2 * B * Hkv * S) * hd * itemsize + 4 * B * H * S
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return bound(flops, nbytes, dtype)
+
+
+def flash_bwd_bounds(B, S, H, Hkv, hd, causal, window, dtype):
+    """K2: 6 hd FLOPs per pair over q, do, dq, k, v, lse, delta; K3: 8 hd
+    over q, do, k, v, dk, dv, lse, delta (each read or written once)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    pairs = attention_pairs(S, S, causal, window)
+    q_bytes, kv_bytes, row_bytes = B * H * S * hd * itemsize, B * Hkv * S * hd * itemsize, 8 * B * H * S
+    k2 = bound(6.0 * hd * pairs * B * H, 3 * q_bytes + 2 * kv_bytes + row_bytes, dtype)
+    k3 = bound(8.0 * hd * pairs * B * H, 2 * q_bytes + 4 * kv_bytes + row_bytes, dtype)
+    return k2, k3
+
+
+def build_all(libs):
+    """nvcc for every kernel source at once, one thread each; a failed build
+    raises."""
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.load(), libs))
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted name, tensor) of a param tree, in the engine's leaf order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in named_leaves(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in named_leaves(v, f"{prefix}{i}.")]
+    return [(prefix[:-1], tree)]
+
+
+def wqkv_grad_blocks(engine, cfg):
+    """The f32 gradient accumulators of every layer's wqkv, split into its q,
+    k and v row blocks (read after backward, before step)."""
+    acc = {id(p): g for p, g in zip(engine._param_leaves, engine.grad_acc)}
+    rows = [cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim,
+            cfg.kv_heads * cfg.head_dim]
+    return [acc[id(ly["attn"]["wqkv"])].split(rows, dim=0) for ly in engine.params["layers"]]
+
+
+KERNEL_CATEGORIES = (  # first match wins, on the kernel's name
+    ("flash (K1-K3)", ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("optimizer (foreach)", ("multi_tensor_apply",)),
+    ("reduction", ("reduce_kernel", "softmax", "norm")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def by_category(kernels):
+    """Device seconds and launches per kernel category."""
+    out = {}
+    for name, t, n in kernels:
+        cat = next((c for c, tags in KERNEL_CATEGORIES if any(x in name for x in tags)), "other")
+        s, c = out.get(cat, (0.0, 0))
+        out[cat] = (s + t, c + n)
+    return {c: {"device_s": s, "launches": n} for c, (s, n) in out.items()}
+
+
+def device_kernels(prof):
+    """(name, device seconds, launches) of every kernel in a profile."""
+    from torch.autograd import DeviceType
+
+    return [(e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
 def main():
@@ -131,14 +247,24 @@ def main():
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import op_builder
 
-    # ---- build: the path's one kernel library (nvcc, from the checkout's source)
+    # ---- build: every kernel library, one nvcc per source, all started together
     t0 = time.perf_counter()
-    fa.KERNEL_LIB.load()
+    build_all([fa.KERNEL_LIB, fa.BWD_KERNEL_LIB])
+    fwd_out, bwd_out = fa.KERNEL_LIB.compiler_output, fa.BWD_KERNEL_LIB.compiler_output
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": fa.KERNEL_LIB.build_seconds,
-          "ptxas_bf16_hd64": ptxas_summary(fa.KERNEL_LIB.compiler_output, "nv_bfloat16Li64")})
+          "nvcc_seconds": {"flash_fwd.cu": fa.KERNEL_LIB.build_seconds,
+                           "flash_bwd.cu": fa.BWD_KERNEL_LIB.build_seconds},
+          "ptxas": {
+              "flash_fwd_bf16_hd64": ptxas_summary(fwd_out, "fwd_kernelI13__nv_bfloat16Li64"),
+              "flash_bwd_dq_bf16_hd64": ptxas_summary(bwd_out, "bwd_dq_kernelI13__nv_bfloat16Li64"),
+              "flash_bwd_dkv_bf16_hd64": ptxas_summary(bwd_out, "bwd_dkv_kernelI13__nv_bfloat16Li64"),
+              "flash_bwd_dq_bf16_hd128": ptxas_summary(bwd_out, "bwd_dq_kernelI13__nv_bfloat16Li128"),
+              "flash_bwd_dkv_bf16_hd128": ptxas_summary(bwd_out, "bwd_dkv_kernelI13__nv_bfloat16Li128"),
+              "flash_bwd_dq_f32_hd64": ptxas_summary(bwd_out, "bwd_dq_kernelIfLi64"),
+              "flash_bwd_dkv_f32_hd64": ptxas_summary(bwd_out, "bwd_dkv_kernelIfLi64"),
+          }})
 
-    # ---- K1 against its plain version at the path's shapes
+    # ---- K1 against its plain version at the paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = {
         "a_prefill_b8_s128": (8, 128, 16, 16, 64, True, None),
@@ -146,6 +272,7 @@ def main():
         "c_ragged_b4_s100": (4, 100, 16, 16, 64, True, None),
         "d_gqa_window64": (2, 512, 8, 2, 64, True, 64),
         "d_gqa_noncausal": (2, 512, 8, 2, 64, False, None),
+        "e_train_b8_s1024": (8, 1024, 12, 12, 64, True, None),
     }
     k1 = {}
     for name, (B, S, H, Hkv, hd, causal, window) in shapes.items():
@@ -164,7 +291,7 @@ def main():
         if window is not None:
             ar = torch.arange(S, device="cuda")
             mask = (ar[None, :] <= ar[:, None]) & (ar[:, None] - ar[None, :] < window)
-        bound_ms, bound_by = flash_bound(B, S, H, Hkv, hd, causal, window, 2)
+        bound_ms, bound_by = flash_bound(B, S, H, Hkv, hd, causal, window, torch.bfloat16)
         row = {
             "phase": "k1", "shape": name, "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
             "causal": causal, "window": window, "dtype": "bfloat16",
@@ -181,7 +308,73 @@ def main():
         k1[name] = row
         emit(row)
 
-    # ---- the main path: GPT-2 350M serving, pallas (flash) attention
+    # ---- K2 and K3 against their plain version (_reference_bwd) on the same inputs
+    bwd_shapes = {
+        "a_train_b8_s1024": (8, 1024, 12, 12, 64, True, None, torch.bfloat16),
+        "b_ragged_b4_s100": (4, 100, 16, 16, 64, True, None, torch.bfloat16),
+        "c_gqa_window64": (2, 512, 8, 2, 64, True, 64, torch.bfloat16),
+        "d_gqa_noncausal": (2, 512, 8, 2, 64, False, None, torch.bfloat16),
+        "e_train_b8_s1024_f32": (8, 1024, 12, 12, 64, True, None, torch.float32),
+    }
+    k23 = {}
+    for name, (B, S, H, Hkv, hd, causal, window, dtype) in bwd_shapes.items():
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda", dtype=dtype)
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda", dtype=dtype)
+        v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda", dtype=dtype)
+        do = torch.randn(B, S, H, hd, generator=gen, device="cuda", dtype=dtype)
+        scale = hd ** -0.5
+        o, lse = fa._reference_fwd(q, k, v, causal, scale, window)
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        torch.cuda.synchronize()
+        rq, rk, rv = fa._reference_bwd(q, k, v, o, lse, do, causal, scale, window)
+        errs = {}
+        for gname, got, ref in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+            d = (got.float() - ref.float()).abs().max().item()
+            rel = d / ref.float().abs().max().item()
+            errs[gname] = (d, rel)
+            check(rel <= GRAD_REL_TOL[dtype] and bool(torch.isfinite(got).all()),
+                  f"K2/K3 {name}: max |{gname} - plain| {d} ({rel} of max |{gname}|)")
+        delta = fa._delta(o, do)
+        (k2_bound, k2_by), (k3_bound, k3_by) = flash_bwd_bounds(B, S, H, Hkv, hd, causal,
+                                                                window, dtype)
+        k2_ms = cuda_ms(lambda: fa._cuda_bwd_dq(q, k, v, do, lse, delta, causal, scale, window))
+        k3_ms = cuda_ms(lambda: fa._cuda_bwd_dkv(q, k, v, do, lse, delta, causal, scale, window))
+        plain_iters = 2 if S >= 1024 else 10
+        plain_ms = cuda_ms(lambda: fa._reference_bwd(q, k, v, o, lse, do, causal, scale, window),
+                           iters=plain_iters, replays=2)
+        # the library yardstick, timed only: SDPA forward + backward minus SDPA forward
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        mask = None
+        if window is not None:
+            ar = torch.arange(S, device="cuda")
+            mask = (ar[None, :] <= ar[:, None]) & (ar[:, None] - ar[None, :] < window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=causal and mask is None,
+                                                  enable_gqa=H != Hkv)
+
+        sdpa_fwd_ms = cuda_ms(sdpa)
+        sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+        row = {
+            "phase": "k2_k3", "shape": name, "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
+            "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
+            "max_abs_err": {g: e[0] for g, e in errs.items()},
+            "max_err_over_max_ref": {g: e[1] for g, e in errs.items()},
+            "rel_tol": GRAD_REL_TOL[dtype],
+            "k2_ms": k2_ms, "k3_ms": k3_ms, "plain_bwd_ms": plain_ms,
+            "k2_bound_ms": k2_bound, "k2_bound_by": k2_by,
+            "k3_bound_ms": k3_bound, "k3_bound_by": k3_by,
+            "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+            "sdpa_bwd_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms,
+        }
+        k23[name] = row
+        emit(row)
+        del q, k, v, do, o, lse, dq, dk, dv, rq, rk, rv, qt, kt, vt, dot, delta
+    torch.cuda.empty_cache()
+
+    # ---- the serving path: GPT-2 350M, pallas (flash) attention
     model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16")
     eng = deepspeed_tpu_torch.init_inference(
         model, config={"dtype": "bfloat16", "attn_impl": "pallas"}, seed=0)
@@ -211,7 +404,7 @@ def main():
         wall = time.perf_counter() - t0
         launched = op_builder.launch_counts()["flash_fwd"] - before
         per_request.append((r, out, wall, launched))
-    main_counts = op_builder.launch_counts()
+    serve_counts = op_builder.launch_counts()
 
     for r, out, wall, launched in per_request:
         B, P, new = r["B"], r["P"], r["new"]
@@ -243,11 +436,10 @@ def main():
               "prefill_logits_max_abs_diff_vs_xla": d, "logits_tol": LOGITS_TOL,
               "top1_agree_rows": int(agree.sum()), "top1_decided_rows": int(decided.sum()),
               "rows": B, "card": card})
-    check(main_counts["flash_fwd"] > 0, "K1 never launched on the main path")
+    check(serve_counts["flash_fwd"] > 0, "K1 never launched on the serving path")
 
     # ---- where the time goes: a short generate at the first request's shape,
     # timed, then again under the profiler for the device's kernel time
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     toks, n_new = prompts[requests[0]["name"]], 16
@@ -266,30 +458,210 @@ def main():
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         eng.generate(toks, max_new_tokens=n_new)
         torch.cuda.synchronize()
-    device_events = [e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    kernels = [(e.key, e.self_device_time_total / 1e6) for e in device_events]
-    device_s = sum(t for _, t in kernels)
+    kernels = device_kernels(prof)
+    device_s = sum(t for _, t, _ in kernels)
     emit({"phase": "breakdown", "request": requests[0]["name"], "new_tokens": n_new,
           "generate_s": wall, "prefill_s": prefill_s,
           "decode_step_ms": (wall - prefill_s) / (n_new - 1) * 1e3,
           "device_kernel_s": device_s if kernels else "not measured",
           "device_busy_share": device_s / wall if kernels else "not measured",
-          "k1_device_s": sum(t for k, t in kernels if "flash_fwd_kernel" in k),
-          "device_kernel_launches": sum(e.count for e in device_events),
+          "k1_device_s": sum(t for k, t, _ in kernels if "flash_fwd_kernel" in k),
+          "device_kernel_launches": sum(n for _, _, n in kernels),
           "top_kernels": [{"name": k[:90], "s": t}
-                          for k, t in sorted(kernels, key=lambda kt: -kt[1])[:8]],
+                          for k, t, _ in sorted(kernels, key=lambda x: -x[1])[:8]],
           "card": card})
 
-    a = k1["a_prefill_b8_s128"]
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda", "source": "deepspeed_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:85",
-        "launches": main_counts["flash_fwd"],
-        "max_abs_err": max(row["max_abs_err_o"] for row in k1.values()),
-        "ms": a["kernel_ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-        "bound_by": a["bound_by"], "library_ms": a["library_ms"],
-    }]})
+    del eng, ref, prompts, per_request, cache
+    torch.cuda.empty_cache()
+
+    # ---- the training path: GPT-2 125M, seq 1024, micro-batch 8, bf16, flash
+    # attention, no remat, with the JAX package's bench config
+    # (_bench_impl.py:1017-1036 _gpt2_model / _gpt2_config(8))
+    train_config = {
+        "train_micro_batch_size_per_gpu": 8,
+        "gradient_accumulation_steps": 1,
+        "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+        "bf16": {"enabled": True},
+        "zero_optimization": {"stage": 0},
+        "steps_per_print": 1000000,
+        "mesh": {"data": -1},
+    }
+    model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="pallas")
+    engine = deepspeed_tpu_torch.initialize(model=model, config=train_config)[0]
+    tcfg = engine.model.cfg
+    B_T, S_T, L_T, V_T = 8, 1024, tcfg.num_layers, tcfg.vocab_size
+    init_params = tf.map_params(lambda p: p.detach().clone(), engine.master_params)
+    batch = {"input_ids": torch.randint(0, V_T, (B_T, S_T), generator=gen, device="cuda")}
+
+    def train_step(e, before_step=None):
+        loss = e.forward(batch)
+        e.backward(loss)
+        got = before_step(e) if before_step is not None else None
+        e.step()
+        return (loss, got) if before_step is not None else loss
+
+    def snapshot(e):
+        return [tuple(b.clone() for b in blocks) for blocks in wqkv_grad_blocks(e, tcfg)]
+
+    warmup, steps = 2, 10
+    loss0, wqkv0 = train_step(engine, snapshot)
+    losses = [float(loss0)]
+    gnorm0 = engine.get_global_grad_norm()
+    for _ in range(warmup - 1):
+        losses.append(float(train_step(engine)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    op_builder.reset_launch_counts()
+    step_s = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = train_step(engine)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    train_counts = op_builder.launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    for kname in KERNELS:
+        check(train_counts[kname] == L_T * steps,
+              f"train: {kname} launched {train_counts[kname]} times in {steps} steps, "
+              f"expected {L_T} per step")
+    ln_v = math.log(V_T)
+    check(all(math.isfinite(x) for x in losses) and abs(losses[0] - ln_v) <= FIRST_LOSS_TOL,
+          f"train: first loss {losses[0]} not finite or not within {FIRST_LOSS_TOL} of ln V {ln_v}")
+    late = statistics.mean(losses[-3:])
+    check(late <= losses[0] - LOSS_DROP,
+          f"train: loss fell from {losses[0]} to {late} (last 3), less than {LOSS_DROP}")
+
+    # the same first step through the xla-attention engine on the same weights
+    xla_model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="xla")
+    xla_engine = deepspeed_tpu_torch.initialize(model=xla_model, config=train_config,
+                                                params=init_params)[0]
+    xla_loss, wqkv_rel = train_step(xla_engine, lambda e: [
+        [float((a - b).norm() / b.norm()) for a, b in zip(mine, theirs)]
+        for mine, theirs in zip(wqkv0, wqkv_grad_blocks(e, tcfg))])
+    xla_loss = float(xla_loss)
+    xla_gnorm = xla_engine.get_global_grad_norm()
+    del xla_engine, init_params, wqkv0
+    torch.cuda.empty_cache()
+    gnorm_rel = abs(gnorm0 - xla_gnorm) / xla_gnorm
+    check(abs(losses[0] - xla_loss) <= TRAIN_LOSS_TOL and gnorm_rel <= TRAIN_GNORM_REL_TOL,
+          f"train: first step vs xla engine: loss {losses[0]} vs {xla_loss}, "
+          f"grad norm {gnorm0} vs {xla_gnorm}")
+    wqkv_worst = {part: max(layer[i] for layer in wqkv_rel) for i, part in enumerate("qkv")}
+    med_s = statistics.median(step_s)
+    tokens_per_s = B_T * S_T / med_s
+    emit({"phase": "train", "model": "gpt2-125m", "batch": B_T, "seq": S_T, "layers": L_T,
+          "dtype": "bfloat16", "attn_impl": "pallas", "optimizer": "AdamW lr 1e-4 wd 0.01",
+          "warmup_steps": warmup, "steps": steps, "losses": losses,
+          "first_loss_vs_ln_v": losses[0] - ln_v, "loss_drop_last3": losses[0] - late,
+          "loss_drop_min": LOSS_DROP,
+          "step_ms_median": med_s * 1e3, "step_ms_min": min(step_s) * 1e3,
+          "step_ms_max": max(step_s) * 1e3, "tokens_per_s": tokens_per_s,
+          "mfu": tcfg.flops_per_token(S_T) * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
+          "flops_per_token": tcfg.flops_per_token(S_T),
+          "peak_memory_bytes": peak_bytes,
+          "launches": {k: train_counts[k] for k in KERNELS},
+          "launches_per_step": {k: train_counts[k] / steps for k in KERNELS},
+          "first_step_vs_xla": {"loss": losses[0], "xla_loss": xla_loss,
+                                "grad_norm": gnorm0, "xla_grad_norm": xla_gnorm,
+                                "grad_norm_rel_diff": gnorm_rel, "loss_tol": TRAIN_LOSS_TOL,
+                                "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL,
+                                "wqkv_grad_rel_diff_worst_layer": wqkv_worst,
+                                "wqkv_grad_rel_diff_per_layer_qkv": wqkv_rel},
+          "card": card})
+
+    # ---- the model's gradients through K1-K3 in f32 (TF32 off), 2 layers at
+    # the same width: the flash engine against the xla-attention engine
+    f32_config = {k: v for k, v in train_config.items() if k != "bf16"}
+    grads, f32_params = {}, None
+    for impl in ("pallas", "xla"):
+        m = tf.TransformerModel.from_preset("gpt2-125m", dtype="float32", attn_impl=impl,
+                                            num_layers=2)
+        e = deepspeed_tpu_torch.initialize(model=m, config=f32_config, params=f32_params)[0]
+        f32_params = e.params  # the xla engine starts from the same weights
+        f32_loss = e.forward(batch)
+        e.backward(f32_loss)
+        grads[impl] = (float(f32_loss), {name: g for (name, _), g in
+                                         zip(named_leaves(e.params), e.grad_acc)})
+        del e
+    torch.cuda.synchronize()
+    f32_rel = {}
+    for name, ref_g in grads["xla"][1].items():
+        got = grads["pallas"][1][name]
+        f32_rel[name] = float((got - ref_g).abs().max() / ref_g.abs().max())
+    worst = max(f32_rel, key=f32_rel.get)
+    f32_dloss = abs(grads["pallas"][0] - grads["xla"][0])
+    check(f32_rel[worst] <= F32_GRAD_REL_TOL and f32_dloss <= F32_LOSS_TOL,
+          f"train f32: flash vs xla engine: loss {grads['pallas'][0]} vs {grads['xla'][0]}, "
+          f"worst leaf {worst} at {f32_rel[worst]} of its max |grad|")
+    emit({"phase": "train_f32_grads", "model": "gpt2-125m width, 2 layers", "dtype": "float32",
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "loss_flash": grads["pallas"][0], "loss_xla": grads["xla"][0],
+          "loss_abs_diff": f32_dloss, "loss_tol": F32_LOSS_TOL,
+          "leaves": len(f32_rel), "worst_leaf": worst, "worst_rel": f32_rel[worst],
+          "rel_tol": F32_GRAD_REL_TOL,
+          "rel_per_leaf": {k: f32_rel[k] for k in sorted(f32_rel)}, "card": card})
+    del grads
+    torch.cuda.empty_cache()
+
+    # ---- where the training step's time goes: one step under the profiler
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(engine)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    tk = device_kernels(prof)
+    tdev = sum(t for _, t, _ in tk)
+    per_kernel = {}
+    for kname in KERNELS:
+        tag = f"{kname}_kernel"
+        t = sum(x for k, x, _ in tk if tag in k)
+        per_kernel[kname] = {"device_s": t, "share_of_device_time": t / tdev if tdev else None,
+                             "launches": sum(n for k, _, n in tk if tag in k)}
+    emit({"phase": "train_breakdown", "step_wall_s_under_profiler": prof_wall,
+          "step_ms_median_unprofiled": med_s * 1e3,
+          "device_kernel_s": tdev if tk else "not measured",
+          "device_busy_share": tdev / prof_wall if tk else "not measured",
+          "device_busy_share_of_unprofiled_step": tdev / med_s if tk else "not measured",
+          "device_kernel_launches": sum(n for _, _, n in tk),
+          "flash_kernels": per_kernel,
+          "by_category": by_category(tk),
+          "top_kernels": [{"name": k[:120], "s": t, "launches": n}
+                          for k, t, n in sorted(tk, key=lambda x: -x[1])[:15]],
+          "card": card})
+    check(bool(tk), "train breakdown: the profiler saw no device kernel")
+
+    e1, a23 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"]
+
+    def bwd_err(grad_names):
+        return max(row["max_abs_err"][g] for row in k23.values() for g in grad_names)
+
+    def launches(kname):
+        return {"launches": serve_counts[kname] + train_counts[kname],
+                "launches_by_path": {"serve": serve_counts[kname], "train": train_counts[kname]}}
+
+    src = "deepspeed_tpu_torch/ops/csrc"
+    emit({"kernels": [
+        {"name": "flash_fwd", "route": "cuda", "source": f"{src}/flash_fwd.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:85", **launches("flash_fwd"),
+         "max_abs_err": max(row["max_abs_err_o"] for row in k1.values()),
+         "shape": "B8 S1024 H12 hd64 causal bf16",
+         "ms": e1["kernel_ms"], "plain_ms": e1["plain_ms"], "bound_ms": e1["bound_ms"],
+         "bound_by": e1["bound_by"], "library_ms": e1["library_ms"]},
+        {"name": "flash_bwd_dq", "route": "cuda", "source": f"{src}/flash_bwd.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:222",
+         **launches("flash_bwd_dq"), "max_abs_err": bwd_err(["dq"]),
+         "shape": "B8 S1024 H12 hd64 causal bf16",
+         "ms": a23["k2_ms"], "plain_ms": a23["plain_bwd_ms"], "bound_ms": a23["k2_bound_ms"],
+         "bound_by": a23["k2_bound_by"], "library_ms": a23["sdpa_bwd_ms"]},
+        {"name": "flash_bwd_dkv", "route": "cuda", "source": f"{src}/flash_bwd.cu",
+         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:271",
+         **launches("flash_bwd_dkv"), "max_abs_err": bwd_err(["dk", "dv"]),
+         "shape": "B8 S1024 H12 hd64 causal bf16",
+         "ms": a23["k3_ms"], "plain_ms": a23["plain_bwd_ms"], "bound_ms": a23["k3_bound_ms"],
+         "bound_by": a23["k3_bound_by"], "library_ms": a23["sdpa_bwd_ms"]},
+    ]})
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
         return 1

@@ -17,4 +17,33 @@ def init_inference(model, config=None, params=None, device=None, seed: int = 0):
     return _init(model, config=config, params=params, device=device, seed=seed)
 
 
-__all__ = ["__version__", "init_inference"]
+def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None,
+               lr_scheduler=None, loss_fn=None, params=None, collate_fn=None, config=None,
+               config_params=None, device=None, seed=None):
+    """Create a training engine (reference: ``deepspeed_tpu.initialize``) on
+    one device: a ``TransformerModel`` (or its config) and a config dict or
+    JSON path. ``params`` is the reference's numpy tree or this package's
+    own, else the weights come from ``seed`` (default: the config's
+    ``seed``). Runs on ``cuda`` unless ``device="cpu"``. Returns
+    ``(engine, optimizer, training_dataloader, lr_scheduler)``; the data
+    loader is not ported, so the third is always None."""
+    from deepspeed_tpu_torch.runtime.config import TpuConfig
+    from deepspeed_tpu_torch.runtime.engine import TpuEngine
+    from deepspeed_tpu_torch.utils import not_ported
+
+    if config is None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    if config is None:
+        raise ValueError("provide config= (dict or path to JSON)")
+    if model is None or loss_fn is not None or model_parameters is not None:
+        raise not_ported("initialize(loss_fn=..., model_parameters=...) without a TransformerModel")
+    if training_data is not None or collate_fn is not None:
+        raise not_ported("initialize(training_data=...): the data loader")
+    engine = TpuEngine(model, TpuConfig(config), params=params, optimizer=optimizer,
+                       lr_scheduler=lr_scheduler, device=device, seed=seed)
+    return engine, engine.optimizer, None, engine.lr_scheduler
+
+
+__all__ = ["__version__", "init_inference", "initialize"]

@@ -1,21 +1,26 @@
-"""Decoder-only transformer, the serving slice of the PyTorch/CUDA port.
+"""Decoder-only transformer of the PyTorch/CUDA port: the serving and the
+training slices.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py``, keeping its names:
 ``TransformerConfig``/``PRESETS``/``get_config``, ``init``, ``_norm``,
-``_qkv``, ``_linear``, ``_mlp_block``, ``_attention``, ``init_cache``,
-``_layer_body_cached``, ``forward_with_cache``, ``_vocab_head`` and the
-inference subset of ``forward``/``apply``.
+``_qkv``, ``_linear``, ``_mlp_block``, ``_attention``, ``_layer_body``,
+``forward``/``apply``, ``_ce_from_logits``,
+``loss_fn``, ``init_cache``, ``_layer_body_cached``, ``forward_with_cache``
+and ``_vocab_head``. Gradients flow through plain autograd and, for
+``attn_impl="pallas"``, through the flash kernels' own backward.
 
 Parameters are a nested dict of tensors, one dict per layer under
 ``"layers"``. Matrix weights use PyTorch's ``F.linear`` layout (out, in),
 and the q/k/v projections are one fused ``wqkv`` matrix whose output the
 attention reads through strides. :func:`params_from_numpy` bridges the
 reference's param tree (numpy arrays, layers stacked ``(L, ...)``, weights
-laid out ``x @ w``) so that both packages compute the same function.
+laid out ``x @ w``) so that both packages compute the same function, and
+:func:`params_to_numpy` maps a tree (parameters or their gradients) back.
 
-Features outside the slice (rope/alibi, MoE, windows and the rolling cache,
-int8 KV, post-LN and parallel residual, encoders, sequence parallelism)
-raise ``NotImplementedError``; see ROADMAP.md.
+Features outside the slices (rope/alibi, MoE, windows and the rolling cache,
+int8 KV, post-LN and parallel residual, encoders, sequence parallelism, and
+for training dropout, remat, random-LTD and progressive layer drop) raise
+``NotImplementedError``; see ROADMAP.md.
 """
 
 import math
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.ops.cross_entropy import softmax_cross_entropy
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention, supports_seq_len
 from deepspeed_tpu_torch.ops.transformer.fused_ops import fused_softmax
 from deepspeed_tpu_torch.ops.transformer.inference_ops import softmax_context, update_kv_cache
@@ -257,7 +263,7 @@ def get_config(preset: str, **overrides) -> TransformerConfig:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for every config feature outside the serving slice, so that no
+    """Raise for every config feature outside the port's slices, so that no
     such config silently takes another path."""
     checks = [
         (cfg.pos_embedding not in ("learned", "none"), f"pos_embedding={cfg.pos_embedding!r}"),
@@ -394,6 +400,50 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
     return params
 
 
+def params_to_numpy(tree, cfg: TransformerConfig):
+    """The inverse of :func:`params_from_numpy`: this package's tree (of
+    parameters or of their gradients) -> the reference's layout as f32 numpy
+    arrays: ``wqkv`` split back into ``wq``/``wk``/``wv``, weights transposed
+    to ``x @ w``, layers stacked ``(L, ...)``."""
+    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    split = [nh * hd, nkv * hd, nkv * hd]
+
+    def n(t, transpose=False):
+        a = t.detach().float().cpu().numpy()
+        return np.ascontiguousarray(a.T if transpose else a)
+
+    def stack(fn):
+        return np.stack([fn(layer) for layer in tree["layers"]])
+
+    out = {
+        "embed": {k: n(v) for k, v in tree["embed"].items()},
+        "final_norm": {k: n(v) for k, v in tree["final_norm"].items()},
+    }
+    if "lm_head" in tree:
+        out["lm_head"] = {"w": n(tree["lm_head"]["w"], transpose=True)}
+        if "b" in tree["lm_head"]:
+            out["lm_head"]["b"] = n(tree["lm_head"]["b"])
+    first = tree["layers"][0]
+    attn = {}
+    for i, name in enumerate(("wq", "wk", "wv")):
+        attn[name] = stack(lambda ly, i=i: n(ly["attn"]["wqkv"].split(split, dim=0)[i], True))
+    attn["wo"] = stack(lambda ly: n(ly["attn"]["wo"], True))
+    if "bqkv" in first["attn"]:
+        for i, name in enumerate(("bq", "bk", "bv")):
+            attn[name] = stack(lambda ly, i=i: n(ly["attn"]["bqkv"].split(split)[i]))
+        attn["bo"] = stack(lambda ly: n(ly["attn"]["bo"]))
+    mlp = {k: stack(lambda ly, k=k: n(ly["mlp"][k], True))
+           for k in ("wi", "wo", "wg") if k in first["mlp"]}
+    mlp.update({k: stack(lambda ly, k=k: n(ly["mlp"][k]))
+                for k in ("bi", "bo") if k in first["mlp"]})
+    out["layers"] = {
+        "attn": attn, "mlp": mlp,
+        "ln1": {k: stack(lambda ly, k=k: n(ly["ln1"][k])) for k in first["ln1"]},
+        "ln2": {k: stack(lambda ly, k=k: n(ly["ln2"][k])) for k in first["ln2"]},
+    }
+    return out
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -480,8 +530,9 @@ def _layer_body(x, layer_p, cfg: TransformerConfig):
 
 
 def forward(params, cfg: TransformerConfig, tokens):
-    """tokens (B, S) int -> logits (B, S, V). Inference subset of the
-    reference's ``forward``: no dropout, LTD, PLD or token types."""
+    """tokens (B, S) int -> logits (B, S, V). The reference's ``forward``
+    without dropout, LTD, PLD or token types; differentiable in ``params``
+    (the flash path through its own backward kernels)."""
     check_supported(cfg)
     S = tokens.shape[1]
     x = _embed(params, cfg, tokens)
@@ -506,6 +557,55 @@ def _vocab_head(x, params, cfg: TransformerConfig):
 def apply(params, cfg: TransformerConfig, tokens):
     """tokens (B, S) int -> logits (B, S, V)."""
     return forward(params, cfg, tokens)
+
+
+def _ce_from_logits(logits, batch, tokens, denom=None):
+    """Shift + masked token cross-entropy (the reference's, shared with its
+    pipeline head). ``labels`` in the batch are taken as they are, else the
+    tokens are shifted by one; ``loss_mask`` weights the tokens, and
+    ``denom`` overrides the normaliser."""
+    if "labels" in batch:
+        labels = batch["labels"]
+        logits_for_loss = logits
+    else:
+        labels = tokens[..., 1:]
+        logits_for_loss = logits[..., :-1, :]
+    nll = softmax_cross_entropy(logits_for_loss, labels)
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask[..., : nll.shape[-1]].float()
+        if denom is None:
+            denom = torch.clamp(mask.sum(), min=1.0)
+        return (nll * mask).sum() / denom
+    if denom is not None:
+        return nll.sum() / denom
+    return nll.mean()
+
+
+def check_trainable(cfg: TransformerConfig) -> None:
+    """Raise for the training features outside the training slice."""
+    check_supported(cfg)
+    checks = [
+        (cfg.dropout > 0.0, f"dropout={cfg.dropout}"),
+        (cfg.remat, "activation checkpointing (remat)"),
+        (cfg.random_ltd, "random-LTD"),
+        (cfg.pld_enabled, "progressive layer drop"),
+    ]
+    for bad, feature in checks:
+        if bad:
+            raise not_ported(feature)
+
+
+def loss_fn(params, cfg: TransformerConfig, batch, rng=None):
+    """Next-token cross entropy. batch: {'input_ids': (B, S) int} and
+    optional 'labels' (shifted internally if absent) and 'loss_mask'.
+    ``rng`` is the reference's dropout key: dropout is not ported
+    (:func:`check_trainable` raises for it), so it is accepted and unused."""
+    check_trainable(cfg)
+    if "token_type_ids" in batch:
+        raise not_ported("token_type_ids (encoder embeddings)")
+    tokens = batch["input_ids"]
+    return _ce_from_logits(forward(params, cfg, tokens), batch, tokens)
 
 
 # ---------------------------------------------------------------------------
@@ -616,7 +716,7 @@ def forward_with_cache(params, cfg: TransformerConfig, tokens, cache, pos, posit
 
 
 class TransformerModel:
-    """Protocol wrapper (cfg + init/apply), as the reference's."""
+    """Engine-protocol wrapper (cfg + init/loss/apply), as the reference's."""
 
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
@@ -627,6 +727,9 @@ class TransformerModel:
 
     def init(self, generator: torch.Generator):
         return init(generator, self.cfg)
+
+    def loss(self, params, batch, rng=None):
+        return loss_fn(params, self.cfg, batch, rng=rng)
 
     def apply(self, params, tokens):
         return apply(params, self.cfg, tokens)

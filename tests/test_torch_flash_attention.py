@@ -104,12 +104,19 @@ def test_tiling_rules_agree_with_reference():
 
 
 def test_forward_only_until_backward_kernels_land():
+    """The backward kernels have landed: a call that needs a gradient now
+    builds a graph through the autograd function (its gradients are held
+    to the reference in tests/test_torch_flash_attention_bwd.py), and one that
+    does not stays forward only."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 16, 2, 2, 16))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        tfa.flash_attention(q, k, v)
-    with torch.no_grad():  # no gradient wanted: the forward runs
-        assert tfa.flash_attention(q, k, v).shape == (1, 16, 2, 16)
+    o = tfa.flash_attention(q, k, v)
+    assert type(o.grad_fn).__name__ == "_FlashAttentionBackward"
+    o.sum().backward()
+    assert q.grad.shape == q.shape and torch.isfinite(q.grad).all()
+    with torch.no_grad():  # no gradient wanted: the forward runs alone
+        out = tfa.flash_attention(q, k, v)
+        assert out.shape == (1, 16, 2, 16) and out.grad_fn is None
 
 
 def test_wrapper_rejects_bad_inputs_and_devices():

@@ -23,7 +23,12 @@ TINY = ttf.TransformerConfig(vocab_size=128, hidden_size=64, num_layers=2, num_h
 def test_import_pulls_in_neither_jax_nor_the_reference():
     code = ("import sys, deepspeed_tpu_torch\n"
             "from deepspeed_tpu_torch.inference import engine\n"
-            "from deepspeed_tpu_torch.ops import flash_attention\n"
+            "from deepspeed_tpu_torch.ops import flash_attention, cross_entropy\n"
+            "from deepspeed_tpu_torch.ops.adam import fused_adam\n"
+            "from deepspeed_tpu_torch.runtime import config, engine, lr_schedules\n"
+            "from deepspeed_tpu_torch.runtime.zero import config as zero_config\n"
+            "from deepspeed_tpu_torch.runtime.fp16 import loss_scaler\n"
+            "from deepspeed_tpu_torch.utils import timer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'deepspeed_tpu'))\n"
             "print(','.join(bad))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -44,7 +49,7 @@ def _imported_modules(path):
 
 def test_no_module_of_the_package_names_jax_or_the_reference():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    assert len(files) >= 15
+    assert len(files) >= 25
     for path in files:
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "deepspeed_tpu"), (path, mod)
@@ -60,6 +65,12 @@ def test_entry_point_without_cuda_raises(monkeypatch):
         deepspeed_tpu_torch.init_inference(ttf.TransformerModel(TINY), device="cuda")
     eng = deepspeed_tpu_torch.init_inference(ttf.TransformerModel(TINY), device="cpu")
     assert eng.device.type == "cpu"
+    train = {"train_micro_batch_size_per_gpu": 2, "optimizer": {"type": "AdamW"}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        deepspeed_tpu_torch.initialize(model=ttf.TransformerModel(TINY), config=train)
+    engine = deepspeed_tpu_torch.initialize(model=ttf.TransformerModel(TINY), config=train,
+                                            device="cpu")[0]
+    assert engine.device.type == "cpu" and engine.params["embed"]["tok"].device.type == "cpu"
 
 
 def test_accelerator_resolves_the_card_by_default(monkeypatch):
