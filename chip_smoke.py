@@ -4,8 +4,9 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, started together), holds each against its plain PyTorch
-version on the card, and drives the port's two paths with random weights
-from a seed:
+version on the card (K1-K3 flash attention, K4-K6 block-sparse attention,
+and K3's GQA head sum bit for bit), and drives the port's three paths with
+random weights from a seed:
   - serving (``deepspeed_tpu_torch.init_inference`` -> ``generate``) on
     GPT-2 350M at full width and depth: three requests, then a profiled
     breakdown;
@@ -15,7 +16,12 @@ from a seed:
     timed steps on one fixed batch, a first-step comparison with the
     xla-attention engine on the same weights, a gradient check of the flash
     engine against the xla engine in f32 at 2 layers, then a profiled
-    breakdown.
+    breakdown;
+  - block-sparse training, the same entry points on GPT-2 125M at full
+    width and depth, seq 4096, micro-batch 2, bf16, the fixed sparsity
+    layout: 2 warm-up and 10 timed steps, a model-level check of the
+    block-sparse kernels with the dense layout (against the flash engine in
+    bf16, against the xla engine in f32), then a profiled breakdown.
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after. Prints JSON lines as it goes; the line before the last
 names the card and its power limit (as nvidia-smi reports them), and the
@@ -74,6 +80,19 @@ TRAIN_LOSS_TOL = 1e-3
 TRAIN_GNORM_REL_TOL = 0.01
 F32_GRAD_REL_TOL = 1e-4
 F32_LOSS_TOL = 1e-4
+# K4-K6 against their plain versions (block_sparse_attention._reference_fwd /
+# _reference_bwd) on the same inputs, as max |Δ| over max |plain|: the kernels
+# keep f32 throughout, as the plain versions do, and round once at the store,
+# so bf16 is one rounding (2**-9) plus summation order: 2**-8; f32 1e-5. lse
+# is f32 on both sides: 1e-5 absolute. A layout row that is all zero gives
+# o = 0 exactly.
+BS_REL_TOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+BS_LSE_TOL = 1e-5
+# the block-sparse model with the dense layout computes full causal
+# attention: against the flash engine, first step in bf16, the same bounds
+# as the flash engine against the xla engine (the kernels round p and ds at
+# different places); in f32 at 2 layers against the xla engine, the same
+# bounds as the flash engine's f32 check (summation order only)
 # pallas-engine prefill logits against the xla-attention engine, both bf16
 # on the same weights: the two attention paths round at different places
 # (bf16 q.k logits on the xla path, bf16 p in the kernel), and the
@@ -84,6 +103,7 @@ F32_LOSS_TOL = 1e-4
 LOGITS_TOL = 0.1
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 
 failures = []
 
@@ -135,8 +155,20 @@ def ptxas_summary(output, tag):
     return []
 
 
-def attention_pairs(Sq, Sk, causal, window):
-    """(query, key) pairs the masks let through: the work this input needs."""
+def attention_pairs(Sq, Sk, causal, window, layout=None, block=None):
+    """(query, key) pairs the masks let through: the work this input needs.
+    For one head; with a block-sparse ``layout`` (H, Sq/b, Sk/b) and its
+    tile ``block``, summed over the layout's heads: a live tile below the
+    diagonal (or any live tile when not causal) holds b * b pairs, a live
+    diagonal tile b (b + 1) / 2 when causal, a tile above it none."""
+    if layout is not None:
+        live = torch.tensor(layout) > 0
+        qi = torch.arange(live.shape[1])[:, None]
+        ki = torch.arange(live.shape[2])[None, :]
+        if not causal:
+            return int(live.sum()) * block * block
+        below, diag = (live & (ki < qi)).sum(), (live & (ki == qi)).sum()
+        return int(below) * block * block + int(diag) * block * (block + 1) // 2
     qp = torch.arange(Sq)[:, None]
     kp = torch.arange(Sk)[None, :]
     ok = torch.ones(Sq, Sk, dtype=torch.bool)
@@ -172,6 +204,36 @@ def flash_bwd_bounds(B, S, H, Hkv, hd, causal, window, dtype):
     return k2, k3
 
 
+def sparse_bounds(B, S, H, hd, pairs, dtype):
+    """K4, K5, K6 on ``pairs`` (summed over heads, per batch row): 4, 6 and
+    8 hd FLOPs per pair; K4 over q, k, v, o and lse, K5 over q, k, v, do,
+    dq, lse and delta, K6 over q, k, v, do, dk, dv, lse and delta (each read
+    or written once). Each (bound ms, bound_by, the same work's ms at the
+    f32 CUDA-core peak)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    t, row = B * S * H * hd * itemsize, 4 * B * H * S
+    out = []
+    for per_pair, nbytes in ((4, 4 * t + row), (6, 5 * t + 2 * row), (8, 6 * t + 2 * row)):
+        flops = float(per_pair) * hd * pairs * B
+        out.append((*bound(flops, nbytes, dtype), flops / PEAK_FLOPS[torch.float32] * 1e3))
+    return out
+
+
+def events_ms(fn, iters=3):
+    """Mean time of one eager call of ``fn`` between CUDA events, after one
+    warm-up call: for the plain versions, whose large kernels outweigh
+    their launches (and whose mask upload a CUDA graph cannot capture)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def build_all(libs):
     """nvcc for every kernel source at once, one thread each; a failed build
     raises."""
@@ -199,6 +261,8 @@ def wqkv_grad_blocks(engine, cfg):
 
 KERNEL_CATEGORIES = (  # first match wins, on the kernel's name
     ("flash (K1-K3)", ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
+    ("block-sparse (K4-K6)", ("block_sparse_fwd_kernel", "block_sparse_bwd_dq_kernel",
+                              "block_sparse_bwd_dkv_kernel")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reduction", ("reduce_kernel", "softmax", "norm")),
@@ -244,17 +308,36 @@ def main():
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.inference.decoding import bounded_cache_len
     from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import block_sparse_attention as bs
     from deepspeed_tpu_torch.ops import flash_attention as fa
     from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 
     # ---- build: every kernel library, one nvcc per source, all started together
     t0 = time.perf_counter()
-    build_all([fa.KERNEL_LIB, fa.BWD_KERNEL_LIB])
+    libs = [fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, bs.FWD_KERNEL_LIB, bs.BWD_KERNEL_LIB]
+    build_all(libs)
     fwd_out, bwd_out = fa.KERNEL_LIB.compiler_output, fa.BWD_KERNEL_LIB.compiler_output
+    bs_fwd_out, bs_bwd_out = bs.FWD_KERNEL_LIB.compiler_output, bs.BWD_KERNEL_LIB.compiler_output
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": {"flash_fwd.cu": fa.KERNEL_LIB.build_seconds,
-                           "flash_bwd.cu": fa.BWD_KERNEL_LIB.build_seconds},
+          "nvcc_seconds": {os.path.basename(lib.source): lib.build_seconds for lib in libs},
           "ptxas": {
+              "block_sparse_fwd_bf16_hd64_tile64": ptxas_summary(
+                  bs_fwd_out, "fwd_kernelI13__nv_bfloat16Li64ELi64"),
+              "block_sparse_dq_bf16_hd64_tile64": ptxas_summary(
+                  bs_bwd_out, "dq_kernelI13__nv_bfloat16Li64ELi64"),
+              "block_sparse_dkv_bf16_hd64_tile64": ptxas_summary(
+                  bs_bwd_out, "dkv_kernelI13__nv_bfloat16Li64ELi64"),
+              "block_sparse_fwd_f32_hd64_tile64": ptxas_summary(
+                  bs_fwd_out, "fwd_kernelIfLi64ELi64"),
+              "block_sparse_dq_f32_hd64_tile64": ptxas_summary(
+                  bs_bwd_out, "dq_kernelIfLi64ELi64"),
+              "block_sparse_dkv_f32_hd64_tile64": ptxas_summary(
+                  bs_bwd_out, "dkv_kernelIfLi64ELi64"),
+              "block_sparse_dq_bf16_hd128_tile64": ptxas_summary(
+                  bs_bwd_out, "dq_kernelI13__nv_bfloat16Li128ELi64"),
+              "block_sparse_dkv_bf16_hd128_tile64": ptxas_summary(
+                  bs_bwd_out, "dkv_kernelI13__nv_bfloat16Li128ELi64"),
               "flash_fwd_bf16_hd64": ptxas_summary(fwd_out, "fwd_kernelI13__nv_bfloat16Li64"),
               "flash_bwd_dq_bf16_hd64": ptxas_summary(bwd_out, "bwd_dq_kernelI13__nv_bfloat16Li64"),
               "flash_bwd_dkv_bf16_hd64": ptxas_summary(bwd_out, "bwd_dkv_kernelI13__nv_bfloat16Li64"),
@@ -373,6 +456,129 @@ def main():
         emit(row)
         del q, k, v, do, o, lse, dq, dk, dv, rq, rk, rv, qt, kt, vt, dot, delta
     torch.cuda.empty_cache()
+
+    # ---- K4, K5 and K6 against their plain versions on the same inputs
+    sparse_shapes = {  # (B, S, H, hd, layout config, causal, dtype)
+        "a_fixed_b2_s4096": (2, 4096, 12, 64, sc.FixedSparsityConfig(num_heads=12), True,
+                             torch.bfloat16),
+        "b_fixed_b2_s4096_f32": (2, 4096, 12, 64, sc.FixedSparsityConfig(num_heads=12), True,
+                                 torch.float32),
+        "c_bigbird_b2_s2048": (2, 2048, 12, 64, sc.BigBirdSparsityConfig(num_heads=12), True,
+                               torch.bfloat16),
+        "d_bslongformer_b2_s2048_noncausal": (
+            2, 2048, 12, 64, sc.BSLongformerSparsityConfig(num_heads=12), False, torch.bfloat16),
+        "e_variable_block32_b2_s2048": (
+            2, 2048, 12, 64, sc.VariableSparsityConfig(num_heads=12, block=32,
+                                                       attention="unidirectional"),
+            True, torch.bfloat16),
+        "f_zero_row_b1_s512_h4_hd128": (
+            1, 512, 4, 128, sc.FixedSparsityConfig(num_heads=4, block=128, num_local_blocks=2),
+            True, torch.bfloat16),
+    }
+    k456 = {}
+    for name, (B, S, H, hd, conf, causal, dtype) in sparse_shapes.items():
+        layout = conf.make_layout(S)
+        b = min(conf.block, S)
+        zero_rows = None
+        if name.startswith("f_"):
+            layout[1, 2, :] = 0  # head 1, query block 2 attends nothing
+            zero_rows = slice(2 * b, 3 * b)
+        q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda", dtype=dtype)
+                       for _ in range(4))
+        scale = hd ** -0.5
+        o, lse = bs.block_sparse_attention_fwd(q, k, v, layout, causal=causal, block=conf.block)
+        torch.cuda.synchronize()
+        ro, rl = bs._reference_fwd(q, k, v, layout, b, causal, scale)
+        dq, dk, dv = bs.block_sparse_attention_bwd(q, k, v, ro, rl, do, layout, causal=causal,
+                                                   block=conf.block)
+        torch.cuda.synchronize()
+        rq, rk, rv = bs._reference_bwd(q, k, v, ro, rl, do, layout, b, causal, scale)
+        errs = {}
+        for gname, got, ref in (("o", o, ro), ("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+            d = (got.float() - ref.float()).abs().max().item()
+            rel = d / ref.float().abs().max().item()
+            errs[gname] = (d, rel)
+            check(rel <= BS_REL_TOL[dtype] and bool(torch.isfinite(got).all()),
+                  f"K4-K6 {name}: max |{gname} - plain| {d} ({rel} of max |{gname}|)")
+        d_lse = (lse - rl).abs().max().item()
+        check(d_lse <= BS_LSE_TOL, f"K4 {name}: max |lse - plain| {d_lse}")
+        zero = None
+        if zero_rows is not None:
+            zero = max(o[:, zero_rows, 1].abs().max().item(),
+                       dq[:, zero_rows, 1].abs().max().item())
+            check(zero == 0.0, f"K4/K5 {name}: the all-zero layout row gave |o|, |dq| up to {zero}")
+        lists = bs.tile_lists(layout, b, causal)
+        pairs = attention_pairs(S, S, causal, None, layout=layout, block=b)
+        (k4b, k4by, k4f), (k5b, k5by, k5f), (k6b, k6by, k6f) = sparse_bounds(B, S, H, hd, pairs,
+                                                                             dtype)
+        delta = fa._delta(ro, do)
+        k4_ms = cuda_ms(lambda: bs._cuda_fwd(q, k, v, layout, b, causal, scale))
+        k5_ms = cuda_ms(lambda: bs._cuda_bwd_dq(q, k, v, do, rl, delta, layout, b, causal, scale))
+        k6_ms = cuda_ms(lambda: bs._cuda_bwd_dkv(q, k, v, do, rl, delta, layout, b, causal,
+                                                 scale))
+        plain_fwd_ms = events_ms(lambda: bs._reference_fwd(q, k, v, layout, b, causal, scale))
+        plain_bwd_ms = events_ms(lambda: bs._reference_bwd(q, k, v, ro, rl, do, layout, b,
+                                                           causal, scale))
+        # the library yardstick, timed only: SDPA over all pairs with the
+        # expanded block-and-causal mask; backward = forward + backward - forward
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        dot = do.transpose(1, 2)
+        mask = bs._mask(layout, b, S, S, causal, "cuda")[None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        sdpa_fwd_ms = cuda_ms(sdpa)
+        sdpa_fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+        row = {
+            "phase": "k4_k6", "shape": name, "B": B, "S": S, "H": H, "hd": hd,
+            "layout": type(conf).__name__, "block": b, "causal": causal,
+            "dtype": str(dtype).split(".")[-1],
+            "kernel_tile": lists["tile"], "listed_tiles_per_head": lists["cols"].size / H,
+            "pairs_per_batch_row": pairs,
+            "max_abs_err": {g: e[0] for g, e in errs.items()},
+            "max_err_over_max_ref": {g: e[1] for g, e in errs.items()},
+            "max_abs_err_lse": d_lse, "zero_row_max_abs": zero,
+            "rel_tol": BS_REL_TOL[dtype], "lse_tol": BS_LSE_TOL,
+            "k4_ms": k4_ms, "k5_ms": k5_ms, "k6_ms": k6_ms,
+            "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+            "k4_bound_ms": k4b, "k4_bound_by": k4by, "k5_bound_ms": k5b, "k5_bound_by": k5by,
+            "k6_bound_ms": k6b, "k6_bound_by": k6by,
+            "f32_core_ms": {"k4": k4f, "k5": k5f, "k6": k6f},
+            "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+            "sdpa_bwd_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms, "card": card,
+        }
+        k456[name] = row
+        emit(row)
+        del q, k, v, do, o, lse, dq, dk, dv, ro, rl, rq, rk, rv, qt, kt, vt, dot, delta, mask
+        torch.cuda.empty_cache()
+
+    # ---- K3's GQA head sum, bit for bit: each query head's dk/dv partial
+    # rounded to bf16, summed over the group in f32 in head order, rounded once
+    B, S, H, Hkv, hd = 2, 512, 8, 2, 64
+    group = H // Hkv
+    q, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    o, lse = fa._reference_fwd(q, k, v, True, hd ** -0.5, None)
+    _, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    _, dk1, dv1 = fa.flash_attention_bwd(q, k.repeat_interleave(group, 2),
+                                         v.repeat_interleave(group, 2), o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    gqa = {}
+    for gname, got, per_head in (("dk", dk, dk1), ("dv", dv, dv1)):
+        parts = per_head.reshape(B, S, Hkv, group, hd)
+        total = parts[..., 0, :].float()
+        for i in range(1, group):
+            total = total + parts[..., i, :].float()
+        want = total.to(torch.bfloat16)
+        gqa[gname] = {"bitwise_equal": bool(torch.equal(got, want)),
+                      "max_abs_diff": (got.float() - want.float()).abs().max().item()}
+        check(gqa[gname]["bitwise_equal"], f"K3 GQA {gname}: not the per-head-rounded group sum")
+    emit({"phase": "k3_gqa_rounding", "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
+          "dtype": "bfloat16", **gqa})
+    del q, k, v, do, o, lse, dk, dv, dk1, dv1
 
     # ---- the serving path: GPT-2 350M, pallas (flash) attention
     model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16")
@@ -493,8 +699,8 @@ def main():
     init_params = tf.map_params(lambda p: p.detach().clone(), engine.master_params)
     batch = {"input_ids": torch.randint(0, V_T, (B_T, S_T), generator=gen, device="cuda")}
 
-    def train_step(e, before_step=None):
-        loss = e.forward(batch)
+    def train_step(e, before_step=None, data=None):
+        loss = e.forward(batch if data is None else data)
         e.backward(loss)
         got = before_step(e) if before_step is not None else None
         e.step()
@@ -541,7 +747,7 @@ def main():
         for mine, theirs in zip(wqkv0, wqkv_grad_blocks(e, tcfg))])
     xla_loss = float(xla_loss)
     xla_gnorm = xla_engine.get_global_grad_norm()
-    del xla_engine, init_params, wqkv0
+    del xla_engine, wqkv0  # init_params stays for the block-sparse dense-layout check
     torch.cuda.empty_cache()
     gnorm_rel = abs(gnorm0 - xla_gnorm) / xla_gnorm
     check(abs(losses[0] - xla_loss) <= TRAIN_LOSS_TOL and gnorm_rel <= TRAIN_GNORM_REL_TOL,
@@ -573,22 +779,28 @@ def main():
     # ---- the model's gradients through K1-K3 in f32 (TF32 off), 2 layers at
     # the same width: the flash engine against the xla-attention engine
     f32_config = {k: v for k, v in train_config.items() if k != "bf16"}
-    grads, f32_params = {}, None
-    for impl in ("pallas", "xla"):
-        m = tf.TransformerModel.from_preset("gpt2-125m", dtype="float32", attn_impl=impl,
-                                            num_layers=2)
-        e = deepspeed_tpu_torch.initialize(model=m, config=f32_config, params=f32_params)[0]
-        f32_params = e.params  # the xla engine starts from the same weights
-        f32_loss = e.forward(batch)
-        e.backward(f32_loss)
-        grads[impl] = (float(f32_loss), {name: g for (name, _), g in
-                                         zip(named_leaves(e.params), e.grad_acc)})
-        del e
-    torch.cuda.synchronize()
-    f32_rel = {}
-    for name, ref_g in grads["xla"][1].items():
-        got = grads["pallas"][1][name]
-        f32_rel[name] = float((got - ref_g).abs().max() / ref_g.abs().max())
+
+    def f32_grads(models):
+        """{key: (loss, {leaf: f32 gradient})} of one f32 step on ``batch``
+        for each model, every engine from the first engine's weights."""
+        out, f32_params = {}, None
+        for key, m in models.items():
+            e = deepspeed_tpu_torch.initialize(model=m, config=f32_config, params=f32_params)[0]
+            f32_params = e.params
+            f32_loss = e.forward(batch)
+            e.backward(f32_loss)
+            out[key] = (float(f32_loss), {name: g for (name, _), g in
+                                          zip(named_leaves(e.params), e.grad_acc)})
+            del e
+        torch.cuda.synchronize()
+        return out
+
+    def rel_per_leaf(got, ref):
+        return {name: float((got[name] - g).abs().max() / g.abs().max()) for name, g in ref.items()}
+
+    grads = f32_grads({impl: tf.TransformerModel.from_preset(
+        "gpt2-125m", dtype="float32", attn_impl=impl, num_layers=2) for impl in ("pallas", "xla")})
+    f32_rel = rel_per_leaf(grads["pallas"][1], grads["xla"][1])
     worst = max(f32_rel, key=f32_rel.get)
     f32_dloss = abs(grads["pallas"][0] - grads["xla"][0])
     check(f32_rel[worst] <= F32_GRAD_REL_TOL and f32_dloss <= F32_LOSS_TOL,
@@ -604,63 +816,211 @@ def main():
     del grads
     torch.cuda.empty_cache()
 
-    # ---- where the training step's time goes: one step under the profiler
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_step(engine)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    tk = device_kernels(prof)
-    tdev = sum(t for _, t, _ in tk)
-    per_kernel = {}
-    for kname in KERNELS:
-        tag = f"{kname}_kernel"
-        t = sum(x for k, x, _ in tk if tag in k)
-        per_kernel[kname] = {"device_s": t, "share_of_device_time": t / tdev if tdev else None,
-                             "launches": sum(n for k, _, n in tk if tag in k)}
-    emit({"phase": "train_breakdown", "step_wall_s_under_profiler": prof_wall,
-          "step_ms_median_unprofiled": med_s * 1e3,
-          "device_kernel_s": tdev if tk else "not measured",
-          "device_busy_share": tdev / prof_wall if tk else "not measured",
-          "device_busy_share_of_unprofiled_step": tdev / med_s if tk else "not measured",
-          "device_kernel_launches": sum(n for _, _, n in tk),
-          "flash_kernels": per_kernel,
-          "by_category": by_category(tk),
-          "top_kernels": [{"name": k[:120], "s": t, "launches": n}
-                          for k, t, n in sorted(tk, key=lambda x: -x[1])[:15]],
-          "card": card})
-    check(bool(tk), "train breakdown: the profiler saw no device kernel")
+    def step_breakdown(e, data, kernel_names, med_ms):
+        """One training step under the profiler: device time by kernel and
+        by category (the ``*_breakdown`` lines)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step(e, data=data)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        tk = device_kernels(prof)
+        tdev = sum(t for _, t, _ in tk)
+        per_kernel = {}
+        for kname in kernel_names:
+            tag = f"{kname}_kernel"
+            t = sum(x for k, x, _ in tk if tag in k)
+            per_kernel[kname] = {"device_s": t, "share_of_device_time": t / tdev if tdev else None,
+                                 "launches": sum(n for k, _, n in tk if tag in k)}
+        return tk, {
+            "step_wall_s_under_profiler": prof_wall, "step_ms_median_unprofiled": med_ms,
+            "device_kernel_s": tdev if tk else "not measured",
+            "device_busy_share": tdev / prof_wall if tk else "not measured",
+            "device_busy_share_of_unprofiled_step": tdev / med_ms * 1e3 if tk else "not measured",
+            "device_kernel_launches": sum(n for _, _, n in tk),
+            "kernels": per_kernel,
+            "by_category": by_category(tk),
+            "top_kernels": [{"name": k[:120], "s": t, "launches": n}
+                            for k, t, n in sorted(tk, key=lambda x: -x[1])[:15]],
+            "card": card}
 
-    e1, a23 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"]
+    # ---- where the training step's time goes: one step under the profiler
+    tk, row = step_breakdown(engine, batch, KERNELS, med_s * 1e3)
+    emit({"phase": "train_breakdown", **row})
+    check(bool(tk), "train breakdown: the profiler saw no device kernel")
+    del engine
+    torch.cuda.empty_cache()
+
+    # ---- the block-sparse training path: GPT-2 125M at seq 4096, micro-batch
+    # 2, bf16, no remat, the JAX package's long_ctx bench shape
+    # (_bench_impl.py:277-296 bench_long_ctx) with the attention switched to
+    # the block-sparse kernels and the default layout (the fixed pattern,
+    # block 64, 4 local blocks, 1 global block, bidirectional, masked causal)
+    sparse_config = dict(train_config, train_micro_batch_size_per_gpu=2)
+    smodel = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", max_seq_len=4096,
+                                             attn_impl="block_sparse")
+    sengine = deepspeed_tpu_torch.initialize(model=smodel, config=sparse_config)[0]
+    scfg = sengine.model.cfg
+    B_S, S_S = 2, 4096
+    sbatch = {"input_ids": torch.randint(0, V_T, (B_S, S_S), generator=gen, device="cuda")}
+    slosses = [float(train_step(sengine, data=sbatch)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    op_builder.reset_launch_counts()
+    sstep_s = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = train_step(sengine, data=sbatch)
+        torch.cuda.synchronize()
+        sstep_s.append(time.perf_counter() - t0)
+        slosses.append(float(loss))
+    sparse_counts = op_builder.launch_counts()
+    speak_bytes = torch.cuda.max_memory_allocated()
+    for kname in SPARSE_KERNELS:
+        check(sparse_counts[kname] == L_T * steps,
+              f"train_sparse: {kname} launched {sparse_counts[kname]} times in {steps} steps, "
+              f"expected {L_T} per step")
+    for kname in KERNELS:
+        check(sparse_counts[kname] == 0,
+              f"train_sparse: {kname} launched {sparse_counts[kname]} times, expected none")
+    check(all(math.isfinite(x) for x in slosses) and abs(slosses[0] - ln_v) <= FIRST_LOSS_TOL,
+          f"train_sparse: first loss {slosses[0]} not finite or not within {FIRST_LOSS_TOL} "
+          f"of ln V {ln_v}")
+    slate = statistics.mean(slosses[-3:])
+    check(slate <= slosses[0] - LOSS_DROP,
+          f"train_sparse: loss fell from {slosses[0]} to {slate} (last 3), less than {LOSS_DROP}")
+    slayout, sblock = tf._sparse_layout((("mode", "fixed"),), scfg.num_heads, S_S)
+    live_pairs = attention_pairs(S_S, S_S, True, None, layout=slayout, block=sblock)
+    dense_fpt = scfg.flops_per_token(S_S)
+    attn_dense = 12 * scfg.num_layers * scfg.hidden_size * S_S
+    sparse_fpt = dense_fpt - attn_dense + attn_dense * live_pairs / scfg.num_heads / S_S ** 2
+    smed_s = statistics.median(sstep_s)
+    stokens_per_s = B_S * S_S / smed_s
+    emit({"phase": "train_sparse", "model": "gpt2-125m", "batch": B_S, "seq": S_S,
+          "layers": L_T, "dtype": "bfloat16", "attn_impl": "block_sparse",
+          "sparse_attention": "default (fixed, block 64)", "optimizer": "AdamW lr 1e-4 wd 0.01",
+          "live_causal_pairs_per_head": live_pairs / scfg.num_heads,
+          "warmup_steps": warmup, "steps": steps, "losses": slosses,
+          "first_loss_vs_ln_v": slosses[0] - ln_v, "loss_drop_last3": slosses[0] - slate,
+          "loss_drop_min": LOSS_DROP,
+          "step_ms_median": smed_s * 1e3, "step_ms_min": min(sstep_s) * 1e3,
+          "step_ms_max": max(sstep_s) * 1e3, "tokens_per_s": stokens_per_s,
+          "mfu_dense_attention_count": dense_fpt * stokens_per_s / PEAK_FLOPS[torch.bfloat16],
+          "flops_per_token_dense_attention": dense_fpt,
+          "mfu_live_pairs_count": sparse_fpt * stokens_per_s / PEAK_FLOPS[torch.bfloat16],
+          "flops_per_token_live_pairs": sparse_fpt,
+          "peak_memory_bytes": speak_bytes,
+          "launches": {k: sparse_counts[k] for k in SPARSE_KERNELS + KERNELS},
+          "launches_per_step": {k: sparse_counts[k] / steps for k in SPARSE_KERNELS + KERNELS},
+          "card": card})
+
+    # ---- the block-sparse kernels in the model with the dense layout (full
+    # causal attention): the first bf16 step against the flash engine's first
+    # step above (GPT-2 125M B8 S1024, same weights), and in f32 at 2 layers
+    # every gradient leaf against the xla engine
+    dense_layout = {"mode": "dense", "block": 64}
+    dmodel = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16",
+                                             attn_impl="block_sparse",
+                                             sparse_attention=dense_layout)
+    dengine = deepspeed_tpu_torch.initialize(model=dmodel, config=train_config,
+                                             params=init_params)[0]
+    dloss = float(train_step(dengine))
+    dgnorm = dengine.get_global_grad_norm()
+    del dengine, init_params
+    torch.cuda.empty_cache()
+    dgnorm_rel = abs(dgnorm - gnorm0) / gnorm0
+    check(abs(dloss - losses[0]) <= TRAIN_LOSS_TOL and dgnorm_rel <= TRAIN_GNORM_REL_TOL,
+          f"train_sparse_dense_layout: first step vs flash engine: loss {dloss} vs {losses[0]}, "
+          f"grad norm {dgnorm} vs {gnorm0}")
+    grads = f32_grads({
+        "block_sparse": tf.TransformerModel.from_preset(
+            "gpt2-125m", dtype="float32", attn_impl="block_sparse", num_layers=2,
+            sparse_attention=dense_layout),
+        "xla": tf.TransformerModel.from_preset("gpt2-125m", dtype="float32", attn_impl="xla",
+                                               num_layers=2)})
+    d_rel = rel_per_leaf(grads["block_sparse"][1], grads["xla"][1])
+    d_worst = max(d_rel, key=d_rel.get)
+    d_dloss = abs(grads["block_sparse"][0] - grads["xla"][0])
+    check(d_rel[d_worst] <= F32_GRAD_REL_TOL and d_dloss <= F32_LOSS_TOL,
+          f"train_sparse_dense_layout f32: block-sparse vs xla engine: loss "
+          f"{grads['block_sparse'][0]} vs {grads['xla'][0]}, worst leaf {d_worst} at "
+          f"{d_rel[d_worst]} of its max |grad|")
+    emit({"phase": "train_sparse_dense_layout", "sparse_attention": dense_layout,
+          "bf16_first_step_vs_flash": {
+              "model": "gpt2-125m", "batch": B_T, "seq": S_T, "loss": dloss,
+              "flash_loss": losses[0], "loss_abs_diff": abs(dloss - losses[0]),
+              "grad_norm": dgnorm, "flash_grad_norm": gnorm0, "grad_norm_rel_diff": dgnorm_rel,
+              "loss_tol": TRAIN_LOSS_TOL, "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL},
+          "f32_vs_xla": {
+              "model": "gpt2-125m width, 2 layers",
+              "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+              "loss": grads["block_sparse"][0], "xla_loss": grads["xla"][0],
+              "loss_abs_diff": d_dloss, "loss_tol": F32_LOSS_TOL, "leaves": len(d_rel),
+              "worst_leaf": d_worst, "worst_rel": d_rel[d_worst], "rel_tol": F32_GRAD_REL_TOL},
+          "card": card})
+    del grads
+    torch.cuda.empty_cache()
+
+    # ---- where the block-sparse training step's time goes
+    tk, row = step_breakdown(sengine, sbatch, SPARSE_KERNELS, smed_s * 1e3)
+    emit({"phase": "train_sparse_breakdown", **row})
+    check(bool(tk), "train_sparse breakdown: the profiler saw no device kernel")
+    del sengine
+    torch.cuda.empty_cache()
+
+    e1, a23, a456 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"], k456["a_fixed_b2_s4096"]
 
     def bwd_err(grad_names):
         return max(row["max_abs_err"][g] for row in k23.values() for g in grad_names)
 
+    def sparse_err(grad_names):
+        return max(row["max_abs_err"][g] for row in k456.values() for g in grad_names)
+
     def launches(kname):
-        return {"launches": serve_counts[kname] + train_counts[kname],
-                "launches_by_path": {"serve": serve_counts[kname], "train": train_counts[kname]}}
+        by_path = {"serve": serve_counts[kname], "train": train_counts[kname],
+                   "train_sparse": sparse_counts[kname]}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
+    pallas = "deepspeed_tpu/ops/pallas"
+    sparse_shape = "B2 S4096 H12 hd64 fixed layout causal bf16"
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": f"{src}/flash_fwd.cu",
-         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:85", **launches("flash_fwd"),
+         "replaces": f"{pallas}/flash_attention.py:85", **launches("flash_fwd"),
          "max_abs_err": max(row["max_abs_err_o"] for row in k1.values()),
          "shape": "B8 S1024 H12 hd64 causal bf16",
          "ms": e1["kernel_ms"], "plain_ms": e1["plain_ms"], "bound_ms": e1["bound_ms"],
          "bound_by": e1["bound_by"], "library_ms": e1["library_ms"]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": f"{src}/flash_bwd.cu",
-         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:222",
+         "replaces": f"{pallas}/flash_attention.py:222",
          **launches("flash_bwd_dq"), "max_abs_err": bwd_err(["dq"]),
          "shape": "B8 S1024 H12 hd64 causal bf16",
          "ms": a23["k2_ms"], "plain_ms": a23["plain_bwd_ms"], "bound_ms": a23["k2_bound_ms"],
          "bound_by": a23["k2_bound_by"], "library_ms": a23["sdpa_bwd_ms"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": f"{src}/flash_bwd.cu",
-         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:271",
+         "replaces": f"{pallas}/flash_attention.py:271",
          **launches("flash_bwd_dkv"), "max_abs_err": bwd_err(["dk", "dv"]),
          "shape": "B8 S1024 H12 hd64 causal bf16",
          "ms": a23["k3_ms"], "plain_ms": a23["plain_bwd_ms"], "bound_ms": a23["k3_bound_ms"],
          "bound_by": a23["k3_bound_by"], "library_ms": a23["sdpa_bwd_ms"]},
+        {"name": "block_sparse_fwd", "route": "cuda", "source": f"{src}/block_sparse_fwd.cu",
+         "replaces": f"{pallas}/block_sparse_attention.py:31", **launches("block_sparse_fwd"),
+         "max_abs_err": sparse_err(["o"]), "shape": sparse_shape,
+         "ms": a456["k4_ms"], "plain_ms": a456["plain_fwd_ms"], "bound_ms": a456["k4_bound_ms"],
+         "bound_by": a456["k4_bound_by"], "library_ms": a456["sdpa_fwd_ms"]},
+        {"name": "block_sparse_bwd_dq", "route": "cuda", "source": f"{src}/block_sparse_bwd.cu",
+         "replaces": f"{pallas}/block_sparse_attention.py:69",
+         **launches("block_sparse_bwd_dq"), "max_abs_err": sparse_err(["dq"]),
+         "shape": sparse_shape,
+         "ms": a456["k5_ms"], "plain_ms": a456["plain_bwd_ms"], "bound_ms": a456["k5_bound_ms"],
+         "bound_by": a456["k5_bound_by"], "library_ms": a456["sdpa_bwd_ms"]},
+        {"name": "block_sparse_bwd_dkv", "route": "cuda", "source": f"{src}/block_sparse_bwd.cu",
+         "replaces": f"{pallas}/block_sparse_attention.py:99",
+         **launches("block_sparse_bwd_dkv"), "max_abs_err": sparse_err(["dk", "dv"]),
+         "shape": sparse_shape,
+         "ms": a456["k6_ms"], "plain_ms": a456["plain_bwd_ms"], "bound_ms": a456["k6_bound_ms"],
+         "bound_by": a456["k6_bound_by"], "library_ms": a456["sdpa_bwd_ms"]},
     ]})
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

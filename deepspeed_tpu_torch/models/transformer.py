@@ -1,13 +1,16 @@
 """Decoder-only transformer of the PyTorch/CUDA port: the serving and the
-training slices.
+training slices, with flash or block-sparse attention.
 
 Counterpart of ``deepspeed_tpu/models/transformer.py``, keeping its names:
 ``TransformerConfig``/``PRESETS``/``get_config``, ``init``, ``_norm``,
-``_qkv``, ``_linear``, ``_mlp_block``, ``_attention``, ``_layer_body``,
-``forward``/``apply``, ``_ce_from_logits``,
-``loss_fn``, ``init_cache``, ``_layer_body_cached``, ``forward_with_cache``
-and ``_vocab_head``. Gradients flow through plain autograd and, for
-``attn_impl="pallas"``, through the flash kernels' own backward.
+``_qkv``, ``_linear``, ``_mlp_block``, ``_sparse_layout``, ``_attention``,
+``_layer_body``, ``forward``/``apply``, ``_ce_from_logits``, ``loss_fn``,
+``init_cache``, ``_layer_body_cached``, ``forward_with_cache`` and
+``_vocab_head``. Gradients flow through plain autograd and, for
+``attn_impl="pallas"`` and ``"block_sparse"``, through the attention
+kernels' own backward. As in the reference, block-sparse attention serves
+the full-sequence ``forward`` (training, eval, ``InferenceEngine.forward``);
+the cached path of ``generate`` attends densely.
 
 Parameters are a nested dict of tensors, one dict per layer under
 ``"layers"``. Matrix weights use PyTorch's ``F.linear`` layout (out, in),
@@ -18,11 +21,13 @@ laid out ``x @ w``) so that both packages compute the same function, and
 :func:`params_to_numpy` maps a tree (parameters or their gradients) back.
 
 Features outside the slices (rope/alibi, MoE, windows and the rolling cache,
-int8 KV, post-LN and parallel residual, encoders, sequence parallelism, and
-for training dropout, remat, random-LTD and progressive layer drop) raise
-``NotImplementedError``; see ROADMAP.md.
+int8 KV, post-LN and parallel residual, encoders and bidirectional
+attention, sequence parallelism, and for training dropout, remat,
+random-LTD and progressive layer drop) raise ``NotImplementedError``, with
+block-sparse attention as without it; see ROADMAP.md.
 """
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -31,8 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch.ops.block_sparse_attention import block_sparse_attention
 from deepspeed_tpu_torch.ops.cross_entropy import softmax_cross_entropy
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention, supports_seq_len
+from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 from deepspeed_tpu_torch.ops.transformer.fused_ops import fused_softmax
 from deepspeed_tpu_torch.ops.transformer.inference_ops import softmax_context, update_kv_cache
 from deepspeed_tpu_torch.utils import not_ported
@@ -280,7 +287,7 @@ def check_supported(cfg: TransformerConfig) -> None:
         (cfg.moe_num_experts > 0, "MoE layers"),
         (cfg.seq_parallel != "none", f"seq_parallel={cfg.seq_parallel!r}"),
         (cfg.act_quant_bits > 0, "activation fake-quant"),
-        (cfg.attn_impl not in ("xla", "pallas"), f"attn_impl={cfg.attn_impl!r}"),
+        (cfg.attn_impl not in ("xla", "pallas", "block_sparse"), f"attn_impl={cfg.attn_impl!r}"),
     ]
     for bad, feature in checks:
         if bad:
@@ -477,17 +484,45 @@ def _qkv(h, attn_p, cfg: TransformerConfig):
     return q.unflatten(-1, (nh, hd)), k.unflatten(-1, (nkv, hd)), v.unflatten(-1, (nkv, hd))
 
 
+_SPARSITY_CONFIGS = {
+    "dense": sc.DenseSparsityConfig,
+    "fixed": sc.FixedSparsityConfig,
+    "bigbird": sc.BigBirdSparsityConfig,
+    "bslongformer": sc.BSLongformerSparsityConfig,
+    "variable": sc.VariableSparsityConfig,
+}
+
+
+@functools.lru_cache(maxsize=32)
+def _sparse_layout(sparse_attention: tuple, num_heads: int, seq_len: int):
+    """Static block-sparse layout for (pattern, heads, seq): the numpy int32
+    layout (read-only, since the cache hands the same array to every
+    caller) and its block."""
+    opts = dict(sparse_attention)
+    mode = opts.pop("mode", "fixed")
+    config = _SPARSITY_CONFIGS[mode](num_heads=num_heads, **opts)
+    layout = np.asarray(config.make_layout(seq_len), np.int32)
+    layout.setflags(write=False)
+    return layout, config.block
+
+
 def _attention(q, k, v, cfg: TransformerConfig):
     """Causal multi-head / grouped-query attention over a whole segment:
-    the flash kernel for ``attn_impl="pallas"``, else einsum-softmax-einsum
-    with f32 logits (the reference's "xla" branch)."""
+    the flash kernel for ``attn_impl="pallas"``, the block-sparse kernels
+    for ``"block_sparse"`` (kv heads repeated first, the layout from
+    ``cfg.sparse_attention``, default the fixed pattern), else
+    einsum-softmax-einsum with f32 logits (the reference's "xla" branch)."""
     B, S, nh, hd = q.shape
     if cfg.attn_impl == "pallas":
         return flash_attention(q, k, v, causal=cfg.causal, sm_scale=cfg.attn_scale)
     nkv = k.shape[2]
-    if nkv != nh:
+    if nkv != nh:  # autograd sums the repeated heads' gradients per group
         k = k.repeat_interleave(nh // nkv, dim=2)
         v = v.repeat_interleave(nh // nkv, dim=2)
+    if cfg.attn_impl == "block_sparse":
+        layout, block = _sparse_layout(cfg.sparse_attention or (("mode", "fixed"),), nh, S)
+        return block_sparse_attention(q, k, v, layout, causal=cfg.causal, block=block,
+                                      sm_scale=cfg.attn_scale)
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if cfg.causal:

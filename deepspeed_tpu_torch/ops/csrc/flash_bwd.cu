@@ -25,10 +25,12 @@
 //  - K3: one block per (64-row key tile, batch * kv head). It loops over
 //    the `group` query heads that share the kv head and, for each, over the
 //    query tiles from the diagonal (or all, when not causal) to the end of
-//    the window band. dk and dv of the whole group sum in f32 registers, so
-//    the GQA head sum that _bwd does outside its kernel (:412-414) needs no
-//    second pass and no atomics. The JAX package rounds each head's partial
-//    to the input dtype before summing; this kernel rounds the sum once.
+//    the window band. Each head's dk and dv sum in f32 registers; with GQA
+//    (group > 1) each head's partial is then rounded to the input dtype and
+//    added into an f32 group total in shared memory, and the total is
+//    rounded once at the store. That is the GQA head sum _bwd does outside
+//    its kernel (:412-414), where each head's dk_full / dv_full is in the
+//    input dtype, done without a second pass and without atomics.
 // Ragged edges (S not a multiple of 64) are masked in the kernel; q, k, v
 // and do are read through strides, so views of a fused QKV projection need
 // no copy.
@@ -107,9 +109,12 @@ constexpr int dq_smem_floats() {
   return 4 * kBlock * (HD + 1) + kBlock * kSP + 2 * kBlock;
 }
 
+// with GQA (group > 1) the f32 group totals of dk and dv follow: 2 * kBlock * HD
+// more floats (at HD 128, 231,424 bytes in all, under the 232,448 a block may use)
 template <int HD>
-constexpr int dkv_smem_floats() {
-  return 4 * kBlock * (HD + 1) + 2 * kBlock * kSP + 2 * kBlock;
+constexpr int dkv_smem_floats(bool group_totals) {
+  return 4 * kBlock * (HD + 1) + 2 * kBlock * kSP + 2 * kBlock
+         + (group_totals ? 2 * kBlock * HD : 0);
 }
 
 // K2: dq for one 64-row query tile of one (batch, head)
@@ -256,6 +261,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* dSs = Ps + kBlock * kSP;    // kBlock x kSP
   float* lse_s = dSs + kBlock * kSP;  // kBlock
   float* delta_s = lse_s + kBlock;    // kBlock
+  float* dk_tot = delta_s + kBlock;   // kBlock x HD, only when group > 1
+  float* dv_tot = dk_tot + kBlock * HD;
 
   const int tid = threadIdx.x;
   const int rg = tid >> 3;  // key rows rg*4 .. rg*4+3
@@ -272,7 +279,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < DT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int j = 0; j < DT; ++j) {
+      dk_acc[i][j] = dv_acc[i][j] = 0.f;
+      // each thread reads and writes only its own total entries: no barrier
+      if (group > 1) dk_tot[(rg * 4 + i) * HD + cg + 8 * j] = 0.f;
+      if (group > 1) dv_tot[(rg * 4 + i) * HD + cg + 8 * j] = 0.f;
+    }
 
   // query range that can see this key tile: [q_lo, q_hi)
   const int q_lo = causal ? k0 : 0;
@@ -377,6 +389,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
         }
       }
     }
+    if (group > 1) {  // this head's partial, rounded to the input dtype, into the group total
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < DT; ++j) {
+          const int at = (rg * 4 + i) * HD + cg + 8 * j;
+          dk_tot[at] += round_to<T>(dk_acc[i][j]);
+          dv_tot[at] += round_to<T>(dv_acc[i][j]);
+          dk_acc[i][j] = dv_acc[i][j] = 0.f;
+        }
+    }
   }
 
 #pragma unroll
@@ -386,8 +409,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       const long long at = ((static_cast<long long>(b) * Sk + kpos) * Hkv + hk) * HD;
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
-        dk[at + cg + 8 * j] = from_f32<T>(dk_acc[i][j]);
-        dv[at + cg + 8 * j] = from_f32<T>(dv_acc[i][j]);
+        const int own = (rg * 4 + i) * HD + cg + 8 * j;
+        dk[at + cg + 8 * j] = from_f32<T>(group > 1 ? dk_tot[own] : dk_acc[i][j]);
+        dv[at + cg + 8 * j] = from_f32<T>(group > 1 ? dv_tot[own] : dv_acc[i][j]);
       }
     }
   }
@@ -421,7 +445,7 @@ int launch_dq(const Args& a) {
 
 template <typename T, int HD>
 int launch_dkv(const Args& a) {
-  constexpr int smem = dkv_smem_floats<HD>() * static_cast<int>(sizeof(float));
+  const int smem = dkv_smem_floats<HD>(a.H > a.Hkv) * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

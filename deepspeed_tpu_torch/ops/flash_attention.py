@@ -150,7 +150,9 @@ def _reference_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
                    window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels: (dq, dk, dv) in the
     inputs' dtypes from the forward's o and f32 lse (B, H, Sq, 1). f32 math
-    throughout; GQA's dk/dv are summed over each kv head's query heads."""
+    throughout; GQA's dk/dv are summed over each kv head's query heads after
+    each head's partial is rounded to the input dtype, as the reference's
+    ``_bwd`` sums its per-head ``dk_full``/``dv_full``."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
@@ -167,8 +169,8 @@ def _reference_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     if group > 1:
-        dk = dk.reshape(B, Sk, Hkv, group, hd).sum(3)
-        dv = dv.reshape(B, Sk, Hkv, group, hd).sum(3)
+        dk = dk.to(k.dtype).float().reshape(B, Sk, Hkv, group, hd).sum(3)
+        dv = dv.to(v.dtype).float().reshape(B, Sk, Hkv, group, hd).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -5,8 +5,8 @@ Counterpart of ``deepspeed_tpu/ops/op_builder.py``. Each kernel source under
 (``sm_90a``) into a shared library that ``ctypes`` loads. Nothing here
 includes PyTorch's headers, so a build takes seconds. Libraries land in
 ``ops/build/`` (listed in ``.gitignore``) under a name keyed by a hash of the
-source and the flags: an unchanged source is never rebuilt, and a changed one
-never loads a stale library.
+source, the shared ``.cuh`` headers and the flags: an unchanged source is
+never rebuilt, and a changed source or header never loads a stale library.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), so a caller can show that a run went through the
@@ -63,9 +63,14 @@ class CudaKernelLib:
         self.compiler_output = ""
 
     def lib_path(self) -> str:
-        with open(self.source, "rb") as fh:
-            digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return os.path.join(BUILD_DIR, f"{self.name}-{digest[:16]}.so")
+        """The library's path, keyed by the source, every ``.cuh`` header
+        under ``csrc/`` (a source may include any of them) and the flags."""
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+        for path in [self.source] + [os.path.join(CSRC_DIR, f) for f in headers]:
+            with open(path, "rb") as fh:
+                digest.update(os.path.basename(path).encode() + b"\0" + fh.read())
+        return os.path.join(BUILD_DIR, f"{self.name}-{digest.hexdigest()[:16]}.so")
 
     def load(self) -> ctypes.CDLL:
         """Build the library unless it exists, then load it (once)."""

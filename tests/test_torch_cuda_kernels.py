@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the flash kernels K1-K3 and the block-sparse kernels K4-K6.
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -23,11 +24,14 @@ few such ulps of the gradient's own scale: the bound is 2**-6 (bfloat16),
 |gradient| of the reference.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
+from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as tsc
 
 pytestmark = pytest.mark.cuda
 
@@ -159,3 +163,160 @@ def test_flash_backward_rejects_a_do_of_another_dtype():
     o, lse = tfa.flash_attention_fwd(q, q, q)
     with pytest.raises(TypeError, match="dtype"):
         tfa.flash_attention_bwd(q, q, q, o, lse, o.float())
+
+
+# ---------------------------------------------------------------------------
+# block-sparse attention: K4 (forward), K5 (dq), K6 (dk/dv)
+# ---------------------------------------------------------------------------
+#
+# Against the plain versions (_reference_fwd / _reference_bwd of
+# ops/block_sparse_attention.py) on the same inputs, as max |Δ| over max
+# |plain|. The kernels keep f32 throughout, as the plain versions do, and
+# round once at the store: in bfloat16 one rounding is 2**-9 relative, so
+# 2**-8 of max |plain| leaves room for the summation order; float16 2**-11;
+# float32 1e-5 (summation order only). lse is f32 on both sides: 1e-5
+# absolute over values of magnitude ~10 (a few ulps). A row that nothing may
+# attend is held exactly: o = 0.
+
+BS_TOL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: 1e-5}
+BS_LSE_TOL = 1e-5
+# name: (B, S, H, hd, config, kwargs, causal, dtype); (a)-(f) are chip_smoke.py's k4_k6 shapes
+BS_SHAPES = {
+    "a_fixed_b2_s4096": (2, 4096, 12, 64, "FixedSparsityConfig", {}, True, torch.bfloat16),
+    "b_fixed_b2_s4096_f32": (2, 4096, 12, 64, "FixedSparsityConfig", {}, True, torch.float32),
+    "c_bigbird_s2048": (2, 2048, 12, 64, "BigBirdSparsityConfig", {}, True, torch.bfloat16),
+    "d_bslongformer_s2048_noncausal": (2, 2048, 12, 64, "BSLongformerSparsityConfig", {}, False,
+                                       torch.bfloat16),
+    "e_variable_block32_s2048": (2, 2048, 12, 64, "VariableSparsityConfig",
+                                 dict(block=32, attention="unidirectional"), True, torch.bfloat16),
+    "f_zero_row_hd128_s512": (1, 512, 4, 128, "FixedSparsityConfig",
+                              dict(block=128, num_local_blocks=2), True, torch.bfloat16),
+    "g_block16_hd16_f16": (2, 256, 4, 16, "BigBirdSparsityConfig", dict(block=16), True,
+                           torch.float16),
+    "h_block128_hd32_noncausal_f32": (1, 512, 2, 32, "BigBirdSparsityConfig",
+                                      dict(block=128, different_layout_per_head=True), False,
+                                      torch.float32),
+}
+
+
+def _bs_layout(S, H, config, kw, zero_row):
+    layout = getattr(tsc, config)(num_heads=H, **kw).make_layout(S)
+    if zero_row:
+        layout[1, 2, :] = 0  # head 1, q-block 2 attends nothing
+    return layout, kw.get("block", 64)
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("name", sorted(BS_SHAPES))
+def test_block_sparse_kernels_match_plain_version(name):
+    _need_card()
+    B, S, H, hd, config, kw, causal, dtype = BS_SHAPES[name]
+    layout, block = _bs_layout(S, H, config, kw, zero_row=name.startswith("f_"))
+    g = torch.Generator(device="cuda").manual_seed(S + H)
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=g, device="cuda", dtype=dtype)
+                   for _ in range(4))
+    scale, b = hd ** -0.5, min(block, S)
+    before = dict(LAUNCHES)
+    o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, causal=causal, block=block)
+    torch.cuda.synchronize()
+    assert LAUNCHES["block_sparse_fwd"] == before["block_sparse_fwd"] + 1
+    ro, rl = tbs._reference_fwd(q, k, v, layout, b, causal, scale)
+    assert o.dtype == dtype and torch.isfinite(o).all()
+    assert _rel_err(o, ro) <= BS_TOL[dtype]
+    assert (lse - rl).abs().max().item() <= BS_LSE_TOL
+    dq, dk, dv = tbs.block_sparse_attention_bwd(q, k, v, ro, rl, do, layout, causal=causal,
+                                                block=block)
+    torch.cuda.synchronize()
+    assert LAUNCHES["block_sparse_bwd_dq"] == before["block_sparse_bwd_dq"] + 1
+    assert LAUNCHES["block_sparse_bwd_dkv"] == before["block_sparse_bwd_dkv"] + 1
+    rq, rk, rv = tbs._reference_bwd(q, k, v, ro, rl, do, layout, b, causal, scale)
+    for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
+        assert got.shape == ref.shape and got.dtype == dtype and torch.isfinite(got).all()
+        assert _rel_err(got, ref) <= BS_TOL[dtype]
+    if name.startswith("f_"):
+        rows = slice(2 * block, 3 * block)
+        assert o[:, rows, 1].abs().max().item() == 0.0
+        assert dq[:, rows, 1].abs().max().item() == 0.0
+
+
+def test_block_sparse_kernels_read_strided_qkv():
+    """q/k/v as views of one fused projection, as the model passes them,
+    through autograd, against autograd of the dense masked reference."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    layout = tsc.BigBirdSparsityConfig(num_heads=4, block=32).make_layout(256)
+    base = torch.randn(2, 256, 3 * 4 * 64, generator=g, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(2, 256, 4, 64, generator=g, device="cuda", dtype=torch.bfloat16)
+    grads = []
+    for fn in (tbs.block_sparse_attention, tbs.sparse_attention_reference):
+        qkv = base.clone().requires_grad_(True)
+        q, k, v = (t.unflatten(-1, (4, 64)) for t in qkv.split(4 * 64, dim=-1))
+        (fn(q, k, v, layout, causal=True, block=32).float() * w.float()).sum().backward()
+        grads.append(qkv.grad)
+    assert _rel_err(grads[0], grads[1]) <= 2 * BS_TOL[torch.bfloat16]
+
+
+def test_block_sparse_model_launches_each_kernel_once_per_layer():
+    _need_card()
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.ops.op_builder import reset_launch_counts
+
+    cfg = ttf.TransformerConfig(vocab_size=128, hidden_size=128, num_layers=3, num_heads=2,
+                                num_kv_heads=1, max_seq_len=256, dtype="bfloat16",
+                                attn_impl="block_sparse",
+                                sparse_attention={"mode": "fixed", "block": 32})
+    params = ttf.map_params(lambda p: p.to(torch.bfloat16).requires_grad_(True),
+                            ttf.init(torch.Generator(device="cuda").manual_seed(0), cfg))
+    toks = torch.randint(0, 128, (2, 256), device="cuda")
+    reset_launch_counts()
+    loss = ttf.loss_fn(params, cfg, {"input_ids": toks})
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (LAUNCHES["block_sparse_fwd"] == LAUNCHES["block_sparse_bwd_dq"]
+            == LAUNCHES["block_sparse_bwd_dkv"] == 3)
+    assert LAUNCHES["flash_fwd"] == LAUNCHES["flash_bwd_dq"] == LAUNCHES["flash_bwd_dkv"] == 0
+    assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all()
+                                        for p in params["layers"][0]["attn"].values())
+
+
+def test_block_sparse_kernels_reject_what_they_do_not_take():
+    _need_card()
+    layout = tsc.FixedSparsityConfig(num_heads=2, block=16).make_layout(64)
+    q = torch.randn(1, 64, 2, 48, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        tbs.block_sparse_attention(q, q, q, layout, block=16)
+    q = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32/float16/bfloat16"):
+        tbs.block_sparse_attention(q, q, q, layout, block=16)
+    q = torch.randn(1, 64, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="block must be one of"):
+        tbs.block_sparse_attention(q, q, q, np.ones((2, 8, 8), np.int32), block=8)
+
+
+def test_flash_dkv_gqa_sums_per_head_rounded_partials():
+    """K3 with GQA rounds each query head's dk/dv partial to the input dtype
+    and sums the group in f32, rounding once: bit for bit what K3 gives on
+    k and v repeated to every query head (group 1), summed over each group
+    in f32 in head order and rounded once, as the reference's _bwd does."""
+    _need_card()
+    B, S, H, Hkv, hd = 2, 512, 8, 2, 64
+    group = H // Hkv
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, do = (torch.randn(B, S, H, hd, generator=g, device="cuda", dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, hd, generator=g, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    o, lse = tfa._reference_fwd(q, k, v, True, hd ** -0.5, None)
+    _, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    _, dk1, dv1 = tfa.flash_attention_bwd(q, k.repeat_interleave(group, 2),
+                                          v.repeat_interleave(group, 2), o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for got, per_head in ((dk, dk1), (dv, dv1)):
+        parts = per_head.reshape(B, S, Hkv, group, hd)
+        total = parts[..., 0, :].float()
+        for i in range(1, group):
+            total = total + parts[..., i, :].float()
+        assert torch.equal(got, total.to(torch.bfloat16))

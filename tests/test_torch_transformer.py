@@ -175,7 +175,10 @@ def test_kv_read_bytes_match_reference():
 @pytest.mark.parametrize("over", [
     dict(pos_embedding="rope"), dict(pos_embedding="alibi"), dict(moe_num_experts=4),
     dict(local_attn_windows=(8, 8)), dict(rolling_kv_cache=True), dict(kv_cache_dtype="int8"),
-    dict(norm_position="post"), dict(parallel_residual=True), dict(attn_impl="block_sparse"),
+    dict(norm_position="post"), dict(parallel_residual=True),
+    dict(attn_impl="block_sparse", causal=False),
+    dict(attn_impl="block_sparse", local_attn_windows=(8, 8)),
+    dict(attn_impl="block_sparse", pos_embedding="alibi"),
 ])
 def test_features_outside_the_slice_raise(over):
     cfg = ttf.TransformerConfig(**dict(TINY, **over))
