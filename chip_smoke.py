@@ -5,8 +5,13 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, started together), holds each against its plain PyTorch
 version on the card (K1-K3 flash attention, K4-K6 block-sparse attention,
-and K3's GQA head sum bit for bit), and drives the port's three paths with
-random weights from a seed:
+K3's GQA head sum bit for bit, K7-K8 fused LayerNorm/RMSNorm), and drives the
+port's four paths with random weights from a seed:
+  - the fused-op surface (``ops/transformer/fused_ops``: ``fused_layernorm``
+    -> a 768 x 3072 matmul -> ``fused_bias_gelu`` -> a 3072 x 768 matmul ->
+    ``fused_bias_dropout_residual``) at GPT-2 125M's training width, B8 S1024
+    bf16, forward and backward through K7/K8, against the same chain built
+    from the plain versions, and its dropout at ratio 0.1;
   - serving (``deepspeed_tpu_torch.init_inference`` -> ``generate``) on
     GPT-2 350M at full width and depth: three requests, then a profiled
     breakdown;
@@ -88,6 +93,24 @@ F32_LOSS_TOL = 1e-4
 # o = 0 exactly.
 BS_REL_TOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
 BS_LSE_TOL = 1e-5
+# K7/K8 against their plain versions (fused_norm._reference_fwd/_reference_bwd)
+# on the same inputs, as max |Δ| over max |plain|: both compute in f32 and
+# round once at the output, so out and dx are one rounding plus summation
+# order apart: 2**-8 in bf16/f16, 1e-5 in f32; mu and rstd (f32) 1e-5;
+# dscale and dbias are f32 sums over all rows in another order (K8's
+# per-block partials, then torch.sum): 1e-4, and 2**-8 after a cast to bf16.
+NORM_TOL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -8, torch.float32: 1e-5}
+NORM_STAT_TOL = 1e-5
+NORM_SUM_TOL = 1e-4
+NORM_SUM_BF16_TOL = 2.0 ** -8
+# the fused-op chain in bf16, K7/K8 against the plain LayerNorm under
+# autograd, the rest of the chain the same: loss within 1e-3 relative, every
+# gradient within 2**-6 of its largest |plain| value (a few bf16 roundings
+# through two matmuls); the dropout's keep rate within 4 sigma of 1 - ratio
+FUSED_LOSS_REL_TOL = 1e-3
+FUSED_GRAD_REL_TOL = 2.0 ** -6
+# the H100's L2: a memory-bound kernel timed on one input reads it from L2
+L2_BYTES = 50 * 2 ** 20
 # the block-sparse model with the dense layout computes full causal
 # attention: against the flash engine, first step in bf16, the same bounds
 # as the flash engine against the xla engine (the kernels round p and ds at
@@ -104,6 +127,7 @@ LOGITS_TOL = 0.1
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
+NORM_KERNELS = ("fused_norm_fwd", "fused_norm_bwd")
 
 failures = []
 
@@ -142,6 +166,51 @@ def cuda_ms(fn, iters=20, replays=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def rotation_sets(input_bytes):
+    """How many distinct input sets ``rotating_ms`` needs so that one pass
+    over them reads more than twice the L2."""
+    return 2 * L2_BYTES // input_bytes + 1
+
+
+def rotating_ms(fn, sets, min_calls=20):
+    """``cuda_ms`` of ``fn(*inputs)`` with the input sets taken in turn, each
+    call's result kept until its set comes round again: one pass reads more
+    than twice the L2 (``rotation_sets``), so a memory-bound kernel reads its
+    inputs from device memory, and no output is written over memory another
+    call wrote while it may still sit in L2."""
+    state = {"i": 0, "keep": [None] * len(sets)}
+
+    def step():
+        i = state["i"] % len(sets)
+        state["i"] += 1
+        state["keep"][i] = fn(*sets[i])
+
+    return cuda_ms(step, iters=len(sets) * -(-min_calls // len(sets)))
+
+
+def reference_partial_rows(N, cap=256):
+    """Rows of the partials that the TPU backward writes at its default
+    ``block_rows`` of 256: one per row block of its tiling, the largest
+    multiple-of-8 divisor of N up to ``cap``, or N itself when there is none."""
+    block = max((br for br in range(8, min(cap, N) + 1, 8) if N % br == 0), default=N)
+    return N // block
+
+
+def norm_bounds(N, D, dtype, wdtype, has_bias, partial_rows):
+    """K7 and K8 on (N, D): (bound ms, bound_by) each. K7 reads x, scale (and
+    bias) and writes out, mu and rstd; K8 reads x, do, scale, mu and rstd and
+    writes dx and (partial_rows, D) f32 partials of dscale and dbias; each
+    once. The partials are counted at the function's own row blocks
+    (``reference_partial_rows``), not at the port's block count, so that the
+    bound does not grow with a choice of the kernel. FLOPs (8 per element
+    for K7, 16 for K8) at the f32 CUDA-core peak."""
+    isz, wsz = torch.finfo(dtype).bits // 8, torch.finfo(wdtype).bits // 8
+    rows = 2 * N * 4
+    k7 = 2 * N * D * isz + D * wsz * (2 if has_bias else 1) + rows
+    k8 = 3 * N * D * isz + D * wsz + rows + 2 * partial_rows * D * 4
+    return (bound(8.0 * N * D, k7, torch.float32), bound(16.0 * N * D, k8, torch.float32))
 
 
 def ptxas_summary(output, tag):
@@ -288,6 +357,234 @@ def device_kernels(prof):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
+def k7_k8_phase(gen, card):
+    """K7 and K8 against their plain versions on the same inputs at the
+    fused-norm shapes of the models the repo supports, timed over rotating
+    inputs (one pass reads more than twice the L2), beside the plain
+    versions and F.layer_norm / F.rms_norm: the ``k7_k8`` lines."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    norm_shapes = {  # (rows, D, kind, x dtype, scale/bias dtype)
+        "a_ln_8192x768_bf16": (8192, 768, "ln", torch.bfloat16, torch.bfloat16),
+        "b_ln_1024x1024_bf16": (1024, 1024, "ln", torch.bfloat16, torch.bfloat16),
+        "c_rms_4096x4096_bf16": (4096, 4096, "rms", torch.bfloat16, torch.bfloat16),
+        "d_ln_2048x1600_f32": (2048, 1600, "ln", torch.float32, torch.float32),
+        "e_ln_nobias_77x100_f16_f32_scale": (77, 100, "ln_nobias", torch.float16,
+                                             torch.float32),
+    }
+    k78 = {}
+    for name, (N, D, kind, dtype, wdtype) in norm_shapes.items():
+        rms = kind == "rms"
+        n_sets = rotation_sets(N * D * torch.finfo(dtype).bits // 8)
+        xs, dos = (torch.randn(n_sets, N, D, generator=gen, device="cuda", dtype=dtype)
+                   for _ in range(2))
+        scale = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(wdtype)
+        bias = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(wdtype)
+        bias = bias if kind == "ln" else None
+        _, mus, rstds = fnorm._reference_fwd(xs.reshape(-1, D), scale, bias, 1e-5, rms)
+        sets = [(xs[i], dos[i], mus[i * N:(i + 1) * N], rstds[i * N:(i + 1) * N])
+                for i in range(n_sets)]
+        x, do, mu, rstd = sets[0]
+        out, kmu, krstd = fnorm._cuda_fwd(x, scale, bias, 1e-5, rms)
+        dx, dscale, dbias = fnorm._cuda_bwd(x, scale, mu, rstd, do, rms)
+        torch.cuda.synchronize()
+        ro, rmu, rrstd = fnorm._reference_fwd(x, scale, bias, 1e-5, rms)
+        rdx, rdscale, rdbias = fnorm._reference_bwd(x, scale, mu, rstd, do, rms)
+        bf = torch.bfloat16
+        errs = {}
+        for gname, got, ref, tol in (
+                ("out", out, ro, NORM_TOL[dtype]), ("mu", kmu, rmu, NORM_STAT_TOL),
+                ("rstd", krstd, rrstd, NORM_STAT_TOL), ("dx", dx, rdx, NORM_TOL[dtype]),
+                ("dscale", dscale, rdscale, NORM_SUM_TOL), ("dbias", dbias, rdbias, NORM_SUM_TOL),
+                ("dscale_bf16", dscale.to(bf), rdscale.to(bf), NORM_SUM_BF16_TOL),
+                ("dbias_bf16", dbias.to(bf), rdbias.to(bf), NORM_SUM_BF16_TOL)):
+            d = (got.float() - ref.float()).abs().max().item()
+            m = ref.float().abs().max().item()
+            rel = d / m if m > 0 else d  # RMSNorm's mu is 0 on both sides
+            errs[gname] = (d, rel, tol)
+            check(rel <= tol and bool(torch.isfinite(got).all()),
+                  f"K7/K8 {name}: max |{gname} - plain| {d} ({rel} of max |{gname}|, tol {tol})")
+        partial_rows = reference_partial_rows(N)
+        (k7b, k7by), (k8b, k8by) = norm_bounds(N, D, dtype, wdtype, bias is not None,
+                                               partial_rows)
+        (lib_k7b, _), (lib_k8b, _) = norm_bounds(N, D, dtype, dtype, bias is not None, 0)
+        k7_ms = rotating_ms(lambda x, do, mu, rstd: fnorm._cuda_fwd(x, scale, bias, 1e-5, rms),
+                            sets)
+        k8_ms = rotating_ms(lambda x, do, mu, rstd: fnorm._cuda_bwd(x, scale, mu, rstd, do, rms),
+                            sets)
+        plain_fwd_ms = rotating_ms(
+            lambda x, do, mu, rstd: fnorm._reference_fwd(x, scale, bias, 1e-5, rms), sets)
+        plain_bwd_ms = rotating_ms(
+            lambda x, do, mu, rstd: fnorm._reference_bwd(x, scale, mu, rstd, do, rms), sets)
+        # warm L2, for comparison only: the same kernels over one input
+        k7_warm_ms = cuda_ms(lambda: fnorm._cuda_fwd(x, scale, bias, 1e-5, rms))
+        k8_warm_ms = cuda_ms(lambda: fnorm._cuda_bwd(x, scale, mu, rstd, do, rms))
+
+        # the library yardstick, timed only, with scale and bias in x's dtype
+        # (F.layer_norm does not take every mix of dtypes on every build):
+        # forward, and forward + backward - forward for the backward
+        def library(xl, w, b):
+            if rms:
+                return F.rms_norm(xl, (D,), w, 1e-5)
+            return F.layer_norm(xl, (D,), w, b, 1e-5)
+
+        lw = scale.to(dtype).requires_grad_(True)
+        lb = bias.to(dtype).requires_grad_(True) if bias is not None else None
+        lparams = [lw] + ([lb] if lb is not None else [])
+        leaf_sets = [(xi.detach().requires_grad_(True), doi) for xi, doi, _, _ in sets]
+        lib_fwd_ms = rotating_ms(lambda xl, dol: library(xl.detach(), lw.detach(),
+                                                         None if lb is None else lb.detach()),
+                                 leaf_sets)
+        lib_fwd_bwd_ms = rotating_ms(
+            lambda xl, dol: torch.autograd.grad(library(xl, lw, lb), [xl] + lparams, dol),
+            leaf_sets)
+        for what, ms, least in (("K7", k7_ms, k7b), ("K8", k8_ms, k8b),
+                                ("library forward", lib_fwd_ms, lib_k7b),
+                                ("library forward + backward", lib_fwd_bwd_ms,
+                                 lib_k7b + lib_k8b)):
+            check(ms >= least, f"K7/K8 {name}: {what} timed {ms} ms, under its bound {least} ms:"
+                               f" a timing fault")
+        row = {
+            "phase": "k7_k8", "shape": name, "rows": N, "D": D, "kind": kind,
+            "dtype": str(dtype).split(".")[-1], "param_dtype": str(wdtype).split(".")[-1],
+            "max_abs_err": {g: e[0] for g, e in errs.items()},
+            "max_err_over_max_ref": {g: e[1] for g, e in errs.items()},
+            "tol": {g: e[2] for g, e in errs.items()},
+            "rotation_sets": n_sets,
+            "rotation_bytes_per_pass": {"x": n_sets * N * D * torch.finfo(dtype).bits // 8,
+                                        "x_and_do": 2 * n_sets * N * D * torch.finfo(dtype).bits
+                                        // 8},
+            "k8_bound_partial_rows": partial_rows,
+            "k7_ms": k7_ms, "k8_ms": k8_ms, "k7_warm_l2_ms": k7_warm_ms,
+            "k8_warm_l2_ms": k8_warm_ms, "plain_fwd_ms": plain_fwd_ms,
+            "plain_bwd_ms": plain_bwd_ms, "k7_bound_ms": k7b, "k7_bound_by": k7by,
+            "k8_bound_ms": k8b, "k8_bound_by": k8by,
+            "library": "F.rms_norm" if rms else "F.layer_norm",
+            "library_param_dtype": str(dtype).split(".")[-1],
+            "library_fwd_ms": lib_fwd_ms, "library_fwd_bwd_ms": lib_fwd_bwd_ms,
+            "library_bwd_ms": lib_fwd_bwd_ms - lib_fwd_ms, "card": card,
+        }
+        k78[name] = row
+        emit(row)
+        del xs, dos, mus, rstds, sets, leaf_sets, x, do, mu, rstd, out, kmu, krstd, dx, dscale
+        del dbias, ro, rmu, rrstd, rdx, rdscale, rdbias
+        torch.cuda.empty_cache()
+    return k78
+
+
+def fused_ops_phase(gen, card):
+    """The fused-op surface's path, driven with the launch counts set to 0
+    just before it and read just after (returned): the ``fused_ops`` line."""
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.ops.transformer import fused_ops as fo
+
+    # GPT-2 125M's training width, B8 S1024, bf16 parameters as the engine
+    # keeps them: fused_layernorm -> @ W1 -> fused_bias_gelu -> @ W2 ->
+    # fused_bias_dropout_residual(..., x, ratio, gen) -> a scalar loss ->
+    # backward, against the same chain with the plain LayerNorm under
+    # autograd (the other ops are plain PyTorch in both)
+    B_F, S_F, D_F, H_F = 8, 1024, 768, 3072
+    bf16 = torch.bfloat16
+
+    def rand_bf16(*shape, std=1.0, loc=0.0):
+        return (loc + std * torch.randn(*shape, generator=gen, device="cuda")).to(bf16)
+
+    x_f = rand_bf16(B_F, S_F, D_F)
+    leaves_f = {"ln_scale": rand_bf16(D_F, std=0.1, loc=1.0), "ln_bias": rand_bf16(D_F, std=0.1),
+                "w1": rand_bf16(D_F, H_F, std=0.02), "b1": rand_bf16(H_F, std=0.02),
+                "w2": rand_bf16(H_F, D_F, std=0.02), "b2": rand_bf16(D_F, std=0.02)}
+
+    def plain_layernorm(xp, sp, bp):
+        return fnorm._reference_fwd(xp.reshape(-1, D_F), sp, bp, 1e-5, False)[0].reshape(xp.shape)
+
+    def fused_chain(layernorm, ratio, rng):
+        """(loss, {leaf: gradient}) of one forward and backward of the chain."""
+        xl = x_f.clone().requires_grad_(True)
+        p = {key: v.clone().requires_grad_(True) for key, v in leaves_f.items()}
+        h = layernorm(xl, p["ln_scale"], p["ln_bias"])
+        h = fo.fused_bias_gelu(h @ p["w1"], p["b1"])
+        y = fo.fused_bias_dropout_residual(h @ p["w2"], p["b2"], xl, ratio, rng)
+        loss = y.float().square().mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {"x": xl.grad, **{key: v.grad for key, v in p.items()}}
+
+    op_builder.reset_launch_counts()
+    loss_k, grads_k = fused_chain(fo.fused_layernorm, 0.0,
+                                  torch.Generator(device="cuda").manual_seed(3))
+    fused_counts = op_builder.launch_counts()
+    for kname in NORM_KERNELS:
+        check(fused_counts.get(kname, 0) == 1,
+              f"fused_ops: {kname} launched {fused_counts.get(kname, 0)} times, expected 1")
+    for kname in KERNELS + SPARSE_KERNELS:
+        check(fused_counts.get(kname, 0) == 0,
+              f"fused_ops: {kname} launched {fused_counts.get(kname, 0)} times, expected none")
+    loss_p, grads_p = fused_chain(plain_layernorm, 0.0, None)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    grad_rel = {key: float((grads_k[key].float() - g.float()).abs().max() / g.float().abs().max())
+                for key, g in grads_p.items()}
+    worst_leaf = max(grad_rel, key=grad_rel.get)
+    check(math.isfinite(loss_k) and loss_rel <= FUSED_LOSS_REL_TOL
+          and grad_rel[worst_leaf] <= FUSED_GRAD_REL_TOL
+          and all(bool(torch.isfinite(g).all()) and g.dtype == bf16 for g in grads_k.values()),
+          f"fused_ops ratio 0: loss {loss_k} vs plain {loss_p}, worst gradient {worst_leaf} at "
+          f"{grad_rel[worst_leaf]} of its max")
+    # the dropout at ratio 0.1 on the chain's own activations: the keep rate,
+    # kept elements h / (1 - ratio) in bf16 exactly, with (1 - ratio) in bf16
+    # first as the reference's weakly typed scalar is (the CPU tests hold this
+    # against JAX bit for bit), dropped elements the residual exactly, the
+    # same mask for the same seed; then one forward and backward at 0.1
+    ratio = 0.1
+    with torch.no_grad():
+        h2 = fo.fused_bias_gelu(fo.fused_layernorm(x_f, leaves_f["ln_scale"], leaves_f["ln_bias"])
+                                @ leaves_f["w1"], leaves_f["b1"]) @ leaves_f["w2"]
+        hb = h2 + leaves_f["b2"]
+
+        def dropout(residual, seed):
+            return fo.fused_bias_dropout_residual(h2, leaves_f["b2"], residual, ratio,
+                                                  torch.Generator(device="cuda").manual_seed(seed))
+
+        dropped_only = dropout(torch.zeros_like(x_f), 7)
+        y1, y2, y3 = dropout(x_f, 7), dropout(x_f, 7), dropout(x_f, 8)
+        want = (hb.float() / torch.tensor(1.0 - ratio, dtype=bf16).item()).to(bf16)
+        decided = hb != 0  # where h is 0 a kept and a dropped element look alike
+        kept = dropped_only != 0
+        keep_rate = kept[decided].float().mean().item()
+        sigma = math.sqrt(ratio * (1 - ratio) / int(decided.sum()))
+        scaled_exact = bool(torch.equal(dropped_only[kept], want[kept]))
+        residual_exact = bool(torch.equal(y1[~kept], x_f[~kept])
+                              and torch.equal(y1[kept], (x_f + want)[kept]))
+        same_seed = bool(torch.equal(y1, y2))
+        other_seed_differs = not torch.equal(y1, y3)
+    check(abs(keep_rate - (1 - ratio)) <= 4 * sigma,
+          f"fused_ops ratio 0.1: keep rate {keep_rate}, not within 4 sigma ({4 * sigma}) of 0.9")
+    check(scaled_exact and residual_exact and same_seed and other_seed_differs,
+          f"fused_ops ratio 0.1: kept = h/(1-ratio) {scaled_exact}, dropped = residual "
+          f"{residual_exact}, same seed same mask {same_seed}, other seed differs "
+          f"{other_seed_differs}")
+    loss_d, grads_d = fused_chain(fo.fused_layernorm, ratio,
+                                  torch.Generator(device="cuda").manual_seed(9))
+    check(math.isfinite(loss_d) and all(bool(torch.isfinite(g).all()) for g in grads_d.values()),
+          f"fused_ops ratio 0.1: loss {loss_d} or a gradient not finite")
+    emit({"phase": "fused_ops", "x": [B_F, S_F, D_F], "ffn": H_F, "dtype": "bfloat16",
+          "chain": "fused_layernorm -> @W1 -> fused_bias_gelu -> @W2 -> "
+                   "fused_bias_dropout_residual(., x, ratio, gen) -> mean(y^2) -> backward",
+          "launches": {k: fused_counts.get(k, 0) for k in NORM_KERNELS + KERNELS + SPARSE_KERNELS},
+          "ratio_0": {"loss": loss_k, "plain_loss": loss_p, "loss_rel_diff": loss_rel,
+                      "loss_rel_tol": FUSED_LOSS_REL_TOL, "grad_rel_diff": grad_rel,
+                      "worst_leaf": worst_leaf, "grad_rel_tol": FUSED_GRAD_REL_TOL},
+          "ratio_0_1": {"keep_rate": keep_rate, "sigma": sigma, "decided": int(decided.sum()),
+                        "kept_equal_h_over_keep": scaled_exact,
+                        "dropped_equal_residual": residual_exact,
+                        "same_seed_same_mask": same_seed,
+                        "other_seed_differs": other_seed_differs, "loss": loss_d},
+          "card": card})
+    return fused_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
@@ -310,15 +607,18 @@ def main():
     from deepspeed_tpu_torch.models import transformer as tf
     from deepspeed_tpu_torch.ops import block_sparse_attention as bs
     from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
     from deepspeed_tpu_torch.ops import op_builder
     from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 
     # ---- build: every kernel library, one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = [fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, bs.FWD_KERNEL_LIB, bs.BWD_KERNEL_LIB]
+    libs = [fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, bs.FWD_KERNEL_LIB, bs.BWD_KERNEL_LIB,
+            fnorm.KERNEL_LIB]
     build_all(libs)
     fwd_out, bwd_out = fa.KERNEL_LIB.compiler_output, fa.BWD_KERNEL_LIB.compiler_output
     bs_fwd_out, bs_bwd_out = bs.FWD_KERNEL_LIB.compiler_output, bs.BWD_KERNEL_LIB.compiler_output
+    norm_out = fnorm.KERNEL_LIB.compiler_output
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": {os.path.basename(lib.source): lib.build_seconds for lib in libs},
           "ptxas": {
@@ -345,6 +645,19 @@ def main():
               "flash_bwd_dkv_bf16_hd128": ptxas_summary(bwd_out, "bwd_dkv_kernelI13__nv_bfloat16Li128"),
               "flash_bwd_dq_f32_hd64": ptxas_summary(bwd_out, "bwd_dq_kernelIfLi64"),
               "flash_bwd_dkv_f32_hd64": ptxas_summary(bwd_out, "bwd_dkv_kernelIfLi64"),
+              "fused_norm_fwd_warp_bf16_vpt24": ptxas_summary(
+                  norm_out, "fused_norm_fwd_warp_kernelI13__nv_bfloat16Li24E"),
+              "fused_norm_bwd_warp_bf16_vpt24": ptxas_summary(
+                  norm_out, "fused_norm_bwd_warp_kernelI13__nv_bfloat16Li24E"),
+              "fused_norm_bwd_warp_bf16_vpt32": ptxas_summary(
+                  norm_out, "fused_norm_bwd_warp_kernelI13__nv_bfloat16Li32E"),
+              "fused_norm_bwd_warp_f32_vpt32": ptxas_summary(
+                  norm_out, "fused_norm_bwd_warp_kernelIfLi32E"),
+              "fused_norm_fwd_block_bf16": ptxas_summary(
+                  norm_out, "fused_norm_fwd_block_kernelI13__nv_bfloat16E"),
+              "fused_norm_bwd_block_bf16": ptxas_summary(
+                  norm_out, "fused_norm_bwd_block_kernelI13__nv_bfloat16E"),
+              "fused_norm_bwd_block_f32": ptxas_summary(norm_out, "fused_norm_bwd_block_kernelIfE"),
           }})
 
     # ---- K1 against its plain version at the paths' shapes
@@ -579,6 +892,10 @@ def main():
     emit({"phase": "k3_gqa_rounding", "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
           "dtype": "bfloat16", **gqa})
     del q, k, v, do, o, lse, dk, dv, dk1, dv1
+
+    k78 = k7_k8_phase(gen, card)
+    fused_counts = fused_ops_phase(gen, card)
+    torch.cuda.empty_cache()
 
     # ---- the serving path: GPT-2 350M, pallas (flash) attention
     model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16")
@@ -970,6 +1287,7 @@ def main():
     torch.cuda.empty_cache()
 
     e1, a23, a456 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"], k456["a_fixed_b2_s4096"]
+    a78 = k78["a_ln_8192x768_bf16"]
 
     def bwd_err(grad_names):
         return max(row["max_abs_err"][g] for row in k23.values() for g in grad_names)
@@ -979,12 +1297,13 @@ def main():
 
     def launches(kname):
         by_path = {"serve": serve_counts[kname], "train": train_counts[kname],
-                   "train_sparse": sparse_counts[kname]}
+                   "train_sparse": sparse_counts[kname], "fused_ops": fused_counts[kname]}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
     pallas = "deepspeed_tpu/ops/pallas"
     sparse_shape = "B2 S4096 H12 hd64 fixed layout causal bf16"
+    norm_shape = "LayerNorm rows 8192 x D 768 bf16 (GPT-2 125M, B8 S1024)"
     emit({"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": f"{src}/flash_fwd.cu",
          "replaces": f"{pallas}/flash_attention.py:85", **launches("flash_fwd"),
@@ -1021,6 +1340,18 @@ def main():
          "shape": sparse_shape,
          "ms": a456["k6_ms"], "plain_ms": a456["plain_bwd_ms"], "bound_ms": a456["k6_bound_ms"],
          "bound_by": a456["k6_bound_by"], "library_ms": a456["sdpa_bwd_ms"]},
+        {"name": "fused_norm_fwd", "route": "cuda", "source": f"{src}/fused_norm.cu",
+         "replaces": f"{pallas}/fused_norm.py:37", **launches("fused_norm_fwd"),
+         "max_abs_err": max(row["max_abs_err"]["out"] for row in k78.values()),
+         "shape": norm_shape, "ms": a78["k7_ms"], "plain_ms": a78["plain_fwd_ms"],
+         "bound_ms": a78["k7_bound_ms"], "bound_by": a78["k7_bound_by"],
+         "library_ms": a78["library_fwd_ms"]},
+        {"name": "fused_norm_bwd", "route": "cuda", "source": f"{src}/fused_norm.cu",
+         "replaces": f"{pallas}/fused_norm.py:55", **launches("fused_norm_bwd"),
+         "max_abs_err": max(row["max_abs_err"]["dx"] for row in k78.values()),
+         "shape": norm_shape, "ms": a78["k8_ms"], "plain_ms": a78["plain_bwd_ms"],
+         "bound_ms": a78["k8_bound_ms"], "bound_by": a78["k8_bound_by"],
+         "library_ms": a78["library_bwd_ms"]},
     ]})
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

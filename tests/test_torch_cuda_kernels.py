@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the flash kernels K1-K3 and the block-sparse kernels K4-K6.
+the flash kernels K1-K3, the block-sparse kernels K4-K6 and the fused norm
+kernels K7-K8.
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -22,6 +23,14 @@ keeps f32 throughout. Each rounding is unbiased and at most half an ulp
 few such ulps of the gradient's own scale: the bound is 2**-6 (bfloat16),
 2**-9 (float16) and 1e-5 (float32, summation order only) times the largest
 |gradient| of the reference.
+
+Tolerances for the fused norm kernels (K7 forward, K8 backward) against
+``_reference_fwd``/``_reference_bwd`` on the same inputs: both compute in f32
+and round once at the output, so out and dx are one rounding plus summation
+order apart, 2**-8 of the largest |plain| value in bfloat16 and float16, 1e-5
+in float32; mu and rstd (f32) 1e-5. dscale and dbias are f32 sums over all
+rows in another order (per-block partials, then torch.sum): 1e-4 of the
+largest |plain| value, and 2**-8 after the cast to bfloat16.
 """
 
 import numpy as np
@@ -30,6 +39,7 @@ import torch
 
 from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
 from deepspeed_tpu_torch.ops import flash_attention as tfa
+from deepspeed_tpu_torch.ops import fused_norm as tfn
 from deepspeed_tpu_torch.ops.op_builder import LAUNCHES
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as tsc
 
@@ -320,3 +330,135 @@ def test_flash_dkv_gqa_sums_per_head_rounded_partials():
         for i in range(1, group):
             total = total + parts[..., i, :].float()
         assert torch.equal(got, total.to(torch.bfloat16))
+
+
+NORM_TOL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -8, torch.float32: 1e-5}
+NORM_STAT_TOL = 1e-5
+NORM_SUM_TOL = 1e-4
+# name: (rows N, width D); (a)-(e) are chip_smoke.py's k7_k8 shapes: GPT-2 125M
+# training, GPT-2 350M prefill, llama2-7b at S 4096, gpt2-1.5b's width, ragged;
+# then one row, one feature, and the widths where fused_norm.cu changes path
+NORM_SHAPES = {
+    "a_8192x768": (8192, 768),
+    "b_1024x1024": (1024, 1024),
+    "c_4096x4096": (4096, 4096),
+    "d_2048x1600": (2048, 1600),
+    "e_77x100": (77, 100),
+    "n1_1x768": (1, 768),
+    "d1_64x1": (64, 1),
+    "d8192_256x8192": (256, 8192),
+    # above 25,568 K8 sums its columns in device memory, above 51,136 K7
+    # reads the row again instead of keeping it in shared memory
+    "d30000_16x30000": (16, 30000),
+    "d60000_4x60000": (4, 60000),
+}
+# kind: LayerNorm with a bias, without one, RMSNorm, LayerNorm with f32 scale and bias
+NORM_KINDS = ("ln", "ln_nobias", "rms", "ln_f32_params")
+
+
+def _norm_err(got, ref):
+    """max |got - ref| over the largest |ref| (absolute where ref is all 0)."""
+    d = (got.float() - ref.float()).abs().max().item()
+    m = ref.float().abs().max().item()
+    return d / m if m > 0 else d
+
+
+def _norm_inputs(N, D, kind, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    wdtype = torch.float32 if kind == "ln_f32_params" else dtype
+    x = torch.randn(N, D, generator=g, device="cuda", dtype=dtype)
+    do = torch.randn(N, D, generator=g, device="cuda", dtype=dtype)
+    scale = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(wdtype)
+    bias = (0.1 * torch.randn(D, generator=g, device="cuda")).to(wdtype)
+    return x, do, scale, None if kind in ("ln_nobias", "rms") else bias
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("kind", NORM_KINDS)
+@pytest.mark.parametrize("name", sorted(NORM_SHAPES))
+def test_fused_norm_kernels_match_plain_version(name, kind, dtype):
+    _need_card()
+    N, D = NORM_SHAPES[name]
+    rms = kind == "rms"
+    x, do, scale, bias = _norm_inputs(N, D, kind, dtype, seed=N + D)
+    before = dict(LAUNCHES)
+    out, mu, rstd = tfn._fwd(x, scale, bias, 1e-5, rms)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_norm_fwd"] == before["fused_norm_fwd"] + 1
+    ro, rmu, rrstd = tfn._reference_fwd(x, scale, bias, 1e-5, rms)
+    assert out.dtype == dtype and out.shape == (N, D) and torch.isfinite(out).all()
+    assert _norm_err(out, ro) <= NORM_TOL[dtype]
+    assert mu.shape == rstd.shape == (N, 1) and mu.dtype == rstd.dtype == torch.float32
+    assert _norm_err(mu, rmu) <= NORM_STAT_TOL and _norm_err(rstd, rrstd) <= NORM_STAT_TOL
+    if rms:
+        assert not mu.any()
+    dx, dscale, dbias = tfn._bwd(x, scale, rmu, rrstd, do, rms)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_norm_bwd"] == before["fused_norm_bwd"] + 1
+    rdx, rdscale, rdbias = tfn._reference_bwd(x, scale, rmu, rrstd, do, rms)
+    assert dx.dtype == dtype and torch.isfinite(dx).all()
+    assert _norm_err(dx, rdx) <= NORM_TOL[dtype]
+    for got, ref in ((dscale, rdscale), (dbias, rdbias)):
+        assert got.dtype == torch.float32 and got.shape == (D,)
+        assert _norm_err(got, ref) <= NORM_SUM_TOL
+        assert _norm_err(got.to(torch.bfloat16), ref.to(torch.bfloat16)) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("name", ["a_8192x768", "c_4096x4096", "d8192_256x8192"])
+def test_fused_norm_kernels_give_the_same_bits_twice(name):
+    """No float atomics: K7 and K8 (with the sum of its partials) give
+    bit-equal results on the same inputs."""
+    _need_card()
+    N, D = NORM_SHAPES[name]
+    x, do, scale, bias = _norm_inputs(N, D, "ln", torch.bfloat16, seed=3)
+    first = tfn._fwd(x, scale, bias, 1e-5, False)
+    again = tfn._fwd(x, scale, bias, 1e-5, False)
+    _, mu, rstd = first
+    grads = [tfn._bwd(x, scale, mu, rstd, do, False) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+def test_fused_layernorm_launches_each_kernel_once_and_reads_a_strided_x():
+    """Through autograd on a transposed (non-contiguous) x, which the wrapper
+    copies to contiguous rows first, and an expanded output gradient: one
+    K7 and one K8 launch, and the gradients of the plain version."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    base = torch.randn(768, 4, 256, generator=g, device="cuda", dtype=torch.bfloat16)
+    scale = (1 + 0.1 * torch.randn(768, generator=g, device="cuda")).to(torch.bfloat16)
+    bias = (0.1 * torch.randn(768, generator=g, device="cuda")).to(torch.bfloat16)
+    grads = []
+    for fn in (tfn.fused_layernorm, None):
+        x, s, b = (t.clone().requires_grad_(True) for t in (base, scale, bias))
+        xt = x.permute(1, 2, 0)  # (4, 256, 768), not contiguous
+        assert not xt.is_contiguous()
+        before = dict(LAUNCHES)
+        if fn is None:
+            out = tfn._reference_fwd(xt.reshape(-1, 768), s, b, 1e-5, False)[0].reshape(xt.shape)
+        else:
+            out = fn(xt, s, b)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        launched = 0 if fn is None else 1
+        assert LAUNCHES["fused_norm_fwd"] == before["fused_norm_fwd"] + launched
+        assert LAUNCHES["fused_norm_bwd"] == before["fused_norm_bwd"] + launched
+        grads.append((out, x.grad, s.grad, b.grad))
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype
+        assert _norm_err(got, ref) <= 2.0 ** -7
+
+
+def test_fused_norm_rejects_what_it_does_not_take():
+    _need_card()
+    x = torch.randn(8, 64, device="cuda", dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32/float16/bfloat16"):
+        tfn.fused_layernorm(x, torch.ones(64, device="cuda", dtype=torch.float64))
+    x = torch.randn(8, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="scale is on cpu"):
+        tfn.fused_layernorm(x, torch.ones(64))
+    with pytest.raises(ValueError, match="must have shape"):
+        tfn.fused_rmsnorm(x, torch.ones(32, device="cuda"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfn.fused_layernorm(torch.empty(8, 64, device="meta"), torch.empty(64, device="meta"))

@@ -24,7 +24,8 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
     code = ("import sys, deepspeed_tpu_torch\n"
             "from deepspeed_tpu_torch.inference import engine\n"
             "from deepspeed_tpu_torch.ops import flash_attention, cross_entropy\n"
-            "from deepspeed_tpu_torch.ops import block_sparse_attention\n"
+            "from deepspeed_tpu_torch.ops import block_sparse_attention, fused_norm\n"
+            "from deepspeed_tpu_torch.ops.transformer import fused_ops\n"
             "from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config\n"
             "from deepspeed_tpu_torch.ops.adam import fused_adam\n"
             "from deepspeed_tpu_torch.runtime import config, engine, lr_schedules\n"
