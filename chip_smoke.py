@@ -3,10 +3,13 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from the sources in this checkout (one
-nvcc per source, started together), holds each against its plain PyTorch
-version on the card (K1-K3 flash attention, K4-K6 block-sparse attention,
-K3's GQA head sum bit for bit, K7-K8 fused LayerNorm/RMSNorm), and drives the
-port's four paths with random weights from a seed:
+nvcc per source, started together), reports ptxas's registers and spills and
+counts the tensor-core (HGMMA) instructions of the flash backward's 16-bit
+kernels in their SASS, holds each kernel against its plain PyTorch version on
+the card (K1-K3 flash attention, K2/K3 in both of their variants: tensor core
+for bf16, f32 FMA for f32; K4-K6 block-sparse attention, K3's GQA head sum bit
+for bit, K7-K8 fused LayerNorm/RMSNorm), and drives the port's four paths
+with random weights from a seed:
   - the fused-op surface (``ops/transformer/fused_ops``: ``fused_layernorm``
     -> a 768 x 3072 matmul -> ``fused_bias_gelu`` -> a 3072 x 768 matmul ->
     ``fused_bias_dropout_residual``) at GPT-2 125M's training width, B8 S1024
@@ -109,6 +112,10 @@ NORM_SUM_BF16_TOL = 2.0 ** -8
 # through two matmuls); the dropout's keep rate within 4 sigma of 1 - ratio
 FUSED_LOSS_REL_TOL = 1e-3
 FUSED_GRAD_REL_TOL = 2.0 ** -6
+# the profiler's kernel times against CUDA events around the same step:
+# kernels on one stream do not overlap, so their sum stays within the span
+# between the events; 2 % for the two clocks' granularity
+PROFILER_SPAN_TOL = 0.02
 # the H100's L2: a memory-bound kernel timed on one input reads it from L2
 L2_BYTES = 50 * 2 ** 20
 # the block-sparse model with the dense layout computes full causal
@@ -126,6 +133,18 @@ L2_BYTES = 50 * 2 ** 20
 LOGITS_TOL = 0.1
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# K2/K3's kernels by (kernel, dtype, head dim), as substrings of their mangled
+# names: the tensor-core kernels for bf16, the FMA kernels for f32
+BWD_PTXAS_TAGS = {
+    "dq_bf16_hd64": "flash_bwd_dq_kernel_wgmmaI13__nv_bfloat16Li64E",
+    "dkv_bf16_hd64": "flash_bwd_dkv_kernel_wgmmaI13__nv_bfloat16Li64E",
+    "dq_bf16_hd128": "flash_bwd_dq_kernel_wgmmaI13__nv_bfloat16Li128E",
+    "dkv_bf16_hd128": "flash_bwd_dkv_kernel_wgmmaI13__nv_bfloat16Li128E",
+    "dq_f32_hd64": "flash_bwd_dq_kernelIfLi64E",
+    "dkv_f32_hd64": "flash_bwd_dkv_kernelIfLi64E",
+    "dq_f32_hd128": "flash_bwd_dq_kernelIfLi128E",
+    "dkv_f32_hd128": "flash_bwd_dkv_kernelIfLi128E",
+}
 SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 NORM_KERNELS = ("fused_norm_fwd", "fused_norm_bwd")
 
@@ -211,6 +230,32 @@ def norm_bounds(N, D, dtype, wdtype, has_bias, partial_rows):
     k7 = 2 * N * D * isz + D * wsz * (2 if has_bias else 1) + rows
     k8 = 3 * N * D * isz + D * wsz + rows + 2 * partial_rows * D * 4
     return (bound(8.0 * N * D, k7, torch.float32), bound(16.0 * N * D, k8, torch.float32))
+
+
+def sass_counts(lib_path, tags, ops=("HGMMA", "HMMA", "FFMA")):
+    """Instructions of each kind in the SASS of the kernel whose mangled name
+    contains each tag (cuobjdump -sass of the built library, from the toolkit
+    that holds nvcc)."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    tool = os.path.join(os.path.dirname(op_builder.nvcc_path()), "cuobjdump")
+    check(os.path.exists(tool), f"no cuobjdump beside nvcc ({tool}): SASS not read")
+    if not os.path.exists(tool):
+        return {tag: "cuobjdump not found" for tag in tags}
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=300).stdout
+    out, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            current = next((t for t in tags if t in name), None)
+            if current is not None:
+                out[current] = {op: 0 for op in ops}
+        elif current is not None:
+            words = line.replace(";", " ").split()
+            for op in ops:
+                out[current][op] += sum(1 for w in words if w == op or w.startswith(op + "."))
+    return {tag: out.get(tag, "kernel not found") for tag in tags}
 
 
 def ptxas_summary(output, tag):
@@ -639,12 +684,8 @@ def main():
               "block_sparse_dkv_bf16_hd128_tile64": ptxas_summary(
                   bs_bwd_out, "dkv_kernelI13__nv_bfloat16Li128ELi64"),
               "flash_fwd_bf16_hd64": ptxas_summary(fwd_out, "fwd_kernelI13__nv_bfloat16Li64"),
-              "flash_bwd_dq_bf16_hd64": ptxas_summary(bwd_out, "bwd_dq_kernelI13__nv_bfloat16Li64"),
-              "flash_bwd_dkv_bf16_hd64": ptxas_summary(bwd_out, "bwd_dkv_kernelI13__nv_bfloat16Li64"),
-              "flash_bwd_dq_bf16_hd128": ptxas_summary(bwd_out, "bwd_dq_kernelI13__nv_bfloat16Li128"),
-              "flash_bwd_dkv_bf16_hd128": ptxas_summary(bwd_out, "bwd_dkv_kernelI13__nv_bfloat16Li128"),
-              "flash_bwd_dq_f32_hd64": ptxas_summary(bwd_out, "bwd_dq_kernelIfLi64"),
-              "flash_bwd_dkv_f32_hd64": ptxas_summary(bwd_out, "bwd_dkv_kernelIfLi64"),
+              **{f"flash_bwd_{name}": ptxas_summary(bwd_out, tag)
+                 for name, tag in BWD_PTXAS_TAGS.items()},
               "fused_norm_fwd_warp_bf16_vpt24": ptxas_summary(
                   norm_out, "fused_norm_fwd_warp_kernelI13__nv_bfloat16Li24E"),
               "fused_norm_bwd_warp_bf16_vpt24": ptxas_summary(
@@ -659,6 +700,17 @@ def main():
                   norm_out, "fused_norm_bwd_block_kernelI13__nv_bfloat16E"),
               "fused_norm_bwd_block_f32": ptxas_summary(norm_out, "fused_norm_bwd_block_kernelIfE"),
           }})
+    # the flash backward's products in the SASS: HGMMA (wgmma) in the bf16
+    # kernels, f32 FMAs only in the f32 kernels (and the bf16 kernels' few
+    # elementwise ones)
+    bwd_sass = sass_counts(fa.BWD_KERNEL_LIB.lib_path(), list(BWD_PTXAS_TAGS.values()))
+    bwd_sass = {name: bwd_sass[tag] for name, tag in BWD_PTXAS_TAGS.items()}
+    emit({"phase": "build_sass", "library": os.path.basename(fa.BWD_KERNEL_LIB.lib_path()),
+          "flash_bwd": bwd_sass})
+    for name, counts in bwd_sass.items():
+        if "bf16" in name:
+            check(isinstance(counts, dict) and counts["HGMMA"] > 0,
+                  f"flash_bwd {name}: no HGMMA in its SASS ({counts})")
 
     # ---- K1 against its plain version at the paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -733,6 +785,7 @@ def main():
         delta = fa._delta(o, do)
         (k2_bound, k2_by), (k3_bound, k3_by) = flash_bwd_bounds(B, S, H, Hkv, hd, causal,
                                                                 window, dtype)
+        pairs = attention_pairs(S, S, causal, window) * B * H
         k2_ms = cuda_ms(lambda: fa._cuda_bwd_dq(q, k, v, do, lse, delta, causal, scale, window))
         k3_ms = cuda_ms(lambda: fa._cuda_bwd_dkv(q, k, v, do, lse, delta, causal, scale, window))
         plain_iters = 2 if S >= 1024 else 10
@@ -759,11 +812,14 @@ def main():
             "max_abs_err": {g: e[0] for g, e in errs.items()},
             "max_err_over_max_ref": {g: e[1] for g, e in errs.items()},
             "rel_tol": GRAD_REL_TOL[dtype],
+            "variant": "tensor_core" if dtype in fa.TENSOR_CORE_DTYPES else "f32_fma",
             "k2_ms": k2_ms, "k3_ms": k3_ms, "plain_bwd_ms": plain_ms,
+            "k2_tflops": 6.0 * hd * pairs / k2_ms * 1e-9,
+            "k3_tflops": 8.0 * hd * pairs / k3_ms * 1e-9,
             "k2_bound_ms": k2_bound, "k2_bound_by": k2_by,
             "k3_bound_ms": k3_bound, "k3_bound_by": k3_by,
             "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
-            "sdpa_bwd_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms,
+            "sdpa_bwd_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms, "card": card,
         }
         k23[name] = row
         emit(row)
@@ -1135,15 +1191,25 @@ def main():
 
     def step_breakdown(e, data, kernel_names, med_ms):
         """One training step under the profiler: device time by kernel and
-        by category (the ``*_breakdown`` lines)."""
+        by category (the ``*_breakdown`` lines), cross-checked against CUDA
+        events recorded around the same step: the kernels of one stream
+        cannot add up to more than the events' span, and their sum over the
+        span is the device's busy share."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
+            start.record()
             train_step(e, data=data)
+            end.record()
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t0
+        events_ms = start.elapsed_time(end)
         tk = device_kernels(prof)
         tdev = sum(t for _, t, _ in tk)
+        check(not tk or tdev * 1e3 <= events_ms * (1 + PROFILER_SPAN_TOL),
+              f"breakdown: the profiler's kernels add up to {tdev * 1e3} ms, more than the "
+              f"{events_ms} ms between CUDA events around the same step")
         per_kernel = {}
         for kname in kernel_names:
             tag = f"{kname}_kernel"
@@ -1153,6 +1219,8 @@ def main():
         return tk, {
             "step_wall_s_under_profiler": prof_wall, "step_ms_median_unprofiled": med_ms,
             "device_kernel_s": tdev if tk else "not measured",
+            "cuda_events_step_ms": events_ms,
+            "profiler_device_ms_over_events_ms": tdev * 1e3 / events_ms if tk else "not measured",
             "device_busy_share": tdev / prof_wall if tk else "not measured",
             "device_busy_share_of_unprofiled_step": tdev / med_ms * 1e3 if tk else "not measured",
             "device_kernel_launches": sum(n for _, _, n in tk),
@@ -1162,8 +1230,17 @@ def main():
                             for k, t, n in sorted(tk, key=lambda x: -x[1])[:15]],
             "card": card}
 
-    # ---- where the training step's time goes: one step under the profiler
+    # ---- where the training step's time goes: one step under the profiler;
+    # each flash kernel's profiled time per launch beside its CUDA-graph time
+    # from the k1 / k2_k3 phases at the same shape
     tk, row = step_breakdown(engine, batch, KERNELS, med_s * 1e3)
+    graph_ms = {"flash_fwd": k1["e_train_b8_s1024"]["kernel_ms"],
+                "flash_bwd_dq": k23["a_train_b8_s1024"]["k2_ms"],
+                "flash_bwd_dkv": k23["a_train_b8_s1024"]["k3_ms"]}
+    row["profiler_vs_graph_ms_per_launch"] = {
+        kname: {"profiler": row["kernels"][kname]["device_s"] * 1e3
+                / max(1, row["kernels"][kname]["launches"]), "cuda_graph": graph_ms[kname]}
+        for kname in KERNELS}
     emit({"phase": "train_breakdown", **row})
     check(bool(tk), "train breakdown: the profiler saw no device kernel")
     del engine
@@ -1296,8 +1373,9 @@ def main():
         return max(row["max_abs_err"][g] for row in k456.values() for g in grad_names)
 
     def launches(kname):
-        by_path = {"serve": serve_counts[kname], "train": train_counts[kname],
-                   "train_sparse": sparse_counts[kname], "fused_ops": fused_counts[kname]}
+        by_path = {"serve": serve_counts.get(kname, 0), "train": train_counts.get(kname, 0),
+                   "train_sparse": sparse_counts.get(kname, 0),
+                   "fused_ops": fused_counts.get(kname, 0)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
@@ -1313,13 +1391,14 @@ def main():
          "bound_by": e1["bound_by"], "library_ms": e1["library_ms"]},
         {"name": "flash_bwd_dq", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{pallas}/flash_attention.py:222",
-         **launches("flash_bwd_dq"), "max_abs_err": bwd_err(["dq"]),
+         **launches("flash_bwd_dq"), "max_abs_err": bwd_err(["dq"]), "variant": a23["variant"],
          "shape": "B8 S1024 H12 hd64 causal bf16",
          "ms": a23["k2_ms"], "plain_ms": a23["plain_bwd_ms"], "bound_ms": a23["k2_bound_ms"],
          "bound_by": a23["k2_bound_by"], "library_ms": a23["sdpa_bwd_ms"]},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{pallas}/flash_attention.py:271",
          **launches("flash_bwd_dkv"), "max_abs_err": bwd_err(["dk", "dv"]),
+         "variant": a23["variant"],
          "shape": "B8 S1024 H12 hd64 causal bf16",
          "ms": a23["k3_ms"], "plain_ms": a23["plain_bwd_ms"], "bound_ms": a23["k3_bound_ms"],
          "bound_by": a23["k3_bound_by"], "library_ms": a23["sdpa_bwd_ms"]},

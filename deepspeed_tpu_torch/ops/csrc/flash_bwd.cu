@@ -10,27 +10,65 @@
 //     dv = sum_q p^T do,        dk = sum_q ds^T q
 // Numerics follow the TPU kernels. Products of input-dtype values are exact
 // in f32 and summed in f32 (the TPU's bf16 dots with f32 accumulation).
-// K2 rounds ds to the input dtype before ds k. K3 rounds p to do's dtype
-// before p^T do, computes ds in f32 from that rounded p and rounds ds to q's
-// dtype before ds^T q. Accumulators are f32; outputs are in the input dtype.
+// K2 keeps p in f32 and rounds ds to the input dtype before ds k. K3 rounds
+// p to do's dtype before p^T do, computes ds in f32 from that rounded p and
+// rounds ds to q's dtype before ds^T q. Accumulators are f32; outputs are in
+// the input dtype, rounded once. No atomics: two calls give the same bits.
 //
-// Design. 4 warps per block; a thread owns a 4 x 8 register tile of the
-// 64 x 64 score block and a 4 x HD/8 tile of its f32 accumulator; tiles of
-// q, k, v and do are staged in shared memory as f32 (rows padded by one
-// float so column walks hit distinct banks).
-//  - K2: one block per (64-row query tile, batch * head). A loop over the
-//    64-key tiles the mask lets through (from the window band's first tile
-//    to the diagonal when causal) takes the place of the TPU grid's
-//    sequential axis; dq stays in registers and is written once.
-//  - K3: one block per (64-row key tile, batch * kv head). It loops over
-//    the `group` query heads that share the kv head and, for each, over the
-//    query tiles from the diagonal (or all, when not causal) to the end of
-//    the window band. Each head's dk and dv sum in f32 registers; with GQA
-//    (group > 1) each head's partial is then rounded to the input dtype and
-//    added into an f32 group total in shared memory, and the total is
-//    rounded once at the store. That is the GQA head sum _bwd does outside
-//    its kernel (:412-414), where each head's dk_full / dv_full is in the
-//    input dtype, done without a second pass and without atomics.
+// Two variants, chosen by the input dtype (never as a fallback: a failed
+// launch is an error and the caller raises):
+//  - float16 / bfloat16: the tensor-core kernels (flash_bwd_dq_kernel_wgmma,
+//    flash_bwd_dkv_kernel_wgmma) below;
+//  - float32: the FMA kernels (flash_bwd_dq_kernel, flash_bwd_dkv_kernel).
+//    On the tensor cores f32 would be TF32, about three decimal digits,
+//    where the f32 path is held to 1e-4 of each gradient.
+//
+// Tensor-core design. One warpgroup (128 threads) per block and 64-row
+// tiles. Every product is a wgmma.mma_async m64n64k16 with f32 accumulators:
+//  - K2, one block per (64-row query tile, batch * head), loops over the
+//    key tiles the mask lets through: S = Q K^T and dP = dO V^T (A and B from
+//    shared memory, both K-major), then dQ += dS K with dS in registers and
+//    K read MN-major (transposed) from the same copy that fed Q K^T.
+//  - K3, one block per (64-row key tile, batch * kv head), loops over the
+//    `group` query heads of its kv head and, for each, over the query tiles
+//    that see the key tile. Keys are the rows, so the transposes land in
+//    registers: S^T = K Q^T and dP^T = V dO^T (K-major), then dV += P^T dO
+//    and dK += dS^T Q with Q and dO read MN-major from the copies that fed
+//    the first two products.
+//  - The f32 accumulator of a 64-row wgmma has, per warp, the register
+//    layout of the 16-bit A fragment of the next product: P and dS are
+//    rounded and packed in registers and never pass through shared memory.
+//  - Tiles live in shared memory in the input dtype, in 64-column panels of
+//    128-byte rows with the 128-byte swizzle (16-byte chunk c of row r at
+//    chunk c ^ (r % 8)), 1024-byte aligned: the layout TMA's SWIZZLE_128B
+//    writes, read by the descriptors below without bank conflicts. Head dims
+//    16 and 32 use one panel, padded: their Q K^T-type products step only
+//    over the real columns; the accumulating products run 64 wide and the
+//    padded columns are never stored.
+//  - Loads are cp.async 16-byte copies, double-buffered over K2's key-tile
+//    loop and K3's query-tile loop: the next tile is in flight during the
+//    current tile's products. cp.async rather than TMA: q, k, v and do are
+//    strided views of the fused QKV projection, with the head as the middle
+//    axis, so each tile is 64 rows at a row stride of 3 * H * hd; cp.async
+//    takes those strides as they are, zero-fills the ragged edge per row,
+//    and needs no tensor map made on the host for every call. The copies
+//    need 16-byte aligned rows; the wrapper makes a tensor that is not so
+//    contiguous before the launch and refuses one that reaches a kernel.
+//  - Causal, window and the ragged edge are masked in registers, on the
+//    tiles that need it; fully masked tiles are skipped. Under causal
+//    masking the grid's slow axis runs the longest tiles first: K2's last
+//    query tiles, K3's first key tiles.
+//  - GQA: K3's per-head walk is the same for any group. With group > 1 each
+//    head's dk/dv partial is rounded to the input dtype and added, in head
+//    order, into f32 group totals in shared memory (each thread its own
+//    entries), rounded once at the store: the head sum _bwd does outside its
+//    kernel (:412-414).
+//
+// FMA design (float32). 4 warps per block; a thread owns a 4 x 8 register
+// tile of the 64 x 64 score block and a 4 x HD/8 tile of its f32
+// accumulator; tiles of q, k, v and do are staged in shared memory as f32
+// (rows padded by one float so column walks hit distinct banks). The same
+// blocks and loops as above; K3 keeps its GQA totals in shared memory too.
 // Ragged edges (S not a multiple of 64) are masked in the kernel; q, k, v
 // and do are read through strides, so views of a fused QKV projection need
 // no copy.
@@ -40,21 +78,24 @@
 // ds^T q). Both read q, k, v and do once (plus lse and delta) and write
 // their gradients once: at hd 64 and causal S = 1024 that is ~256 FLOPs per
 // byte, near the ~295 ridge of the bf16 tensor cores, so the bound is the
-// tensor-core rate. This version does its arithmetic with f32 FMAs from
-// shared memory (67 TFLOP/s ceiling, no tensor cores, no TMA): it is limited
-// by that, and by the shared-memory traffic of its operand loads, not by
-// memory. Moving the four products to wgmma is the next step.
+// tensor-core rate (989 TFLOP/s). A single warpgroup per block that waits
+// for each product before the next, and K2's and K3's recomputation of
+// q k^T and do v^T, keep these kernels well below it.
 //
 // Interface: plain C, loaded with ctypes. Strides are in elements, the last
-// dimension of q, k, v and do must be contiguous; lse and delta are
-// contiguous (B, H, Sq) f32; dq is a contiguous (B, Sq, H, hd) tensor, dk
-// and dv contiguous (B, Sk, Hkv, hd). Launches go on the caller's stream;
-// the return value is cudaGetLastError().
+// dimension of q, k, v and do must be contiguous (for 16-bit inputs also
+// 16-byte aligned rows: base addresses a multiple of 16 bytes, strides of 8
+// elements); lse and delta are contiguous (B, H, Sq) f32; dq is a contiguous
+// (B, Sq, H, hd) tensor, dk and dv contiguous (B, Sk, Hkv, hd). Launches go
+// on the caller's stream; the return value is cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -117,7 +158,8 @@ constexpr int dkv_smem_floats(bool group_totals) {
          + (group_totals ? 2 * kBlock * HD : 0);
 }
 
-// K2: dq for one 64-row query tile of one (batch, head)
+
+// K2 (FMA, float32): dq for one 64-row query tile of one (batch, head)
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -241,8 +283,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-// K3: dk and dv for one 64-row key tile of one (batch, kv head), summed over
-// the query heads of its group
+// K3 (FMA, float32): dk and dv for one 64-row key tile of one (batch, kv
+// head), summed over the query heads of its group
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -417,6 +459,527 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// tensor-core kernels (float16 / bfloat16)
+// ---------------------------------------------------------------------------
+
+constexpr int kPanel = 64;                 // 16-bit columns of one 128-byte swizzled row
+constexpr int kPanelBytes = kBlock * 128;  // one 64-row panel
+constexpr uint32_t kKMajorLbo = 16;        // unused by a swizzled K-major operand
+constexpr uint32_t kMnMajorLbo = 1024;     // one 64-wide atom: only the 8-row groups step
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Tile {
+  static constexpr int panels = HD > kPanel ? HD / kPanel : 1;  // hd 16 / 32: one padded panel
+  static constexpr int bytes = panels * kPanelBytes;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of the 16-byte chunk c (8 elements) of row r in a swizzled tile
+__device__ __forceinline__ uint32_t chunk_offset(int r, int c) {
+  return (c >> 3) * kPanelBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// cp.async of 16 (or 4) bytes; when !valid the destination is zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// this thread's shared-memory writes, made visible to wgmma's (async proxy) reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// rows r0 .. r0+63 of one head of a (B, S, H, hd) tensor into a swizzled
+// tile; rows at or past S are zero
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile_async(uint32_t dst, const T* base, long long row_stride,
+                                                int r0, int S) {
+  constexpr int kChunks = HD / 8;
+  for (int i = threadIdx.x; i < kBlock * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i - (i / kChunks) * kChunks;
+    const int s = r0 + r;
+    const T* src = s < S ? base + s * row_stride + c * 8 : base;
+    cp_async16(dst + chunk_offset(r, c), src, s < S);
+  }
+}
+
+// 64 consecutive f32 values of a (B, H, S) row (lse or delta) from s0; zero past S
+__device__ __forceinline__ void load_rows_async(uint32_t dst, const float* row, int s0, int S,
+                                                int t) {
+  const int s = s0 + t;
+  cp_async4(dst + 4 * t, s < S ? row + s : row, s < S);
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand at shared address addr;
+// 8-row groups are 1024 bytes apart
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of registers that a wgmma
+// owns across the fence / wait around it
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
+#define DSTORCH_D32                                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define DSTORCH_D32_OUT(d)                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),      \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),   \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),   \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),   \
+      "+f"(d[31])
+
+// d (64 x 64, f32) = A B (+ d when accumulate): A and B from shared memory
+// (descriptors da, db), both K-major
+#define DSTORCH_WGMMA_SS(TY)                                                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                             \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DSTORCH_D32 \
+               ", %32, %33, p, 1, 1, 0, 0;\n}\n"                                        \
+               : DSTORCH_D32_OUT(d)                                                     \
+               : "l"(da), "l"(db), "r"(accumulate))
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    DSTORCH_WGMMA_SS("bf16");
+  } else {
+    DSTORCH_WGMMA_SS("f16");
+  }
+}
+
+// d (64 x 64, f32) += A B: A from registers (a 16-bit A fragment), B from
+// shared memory, MN-major (transposed)
+#define DSTORCH_WGMMA_RS(TY)                                                            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                             \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " DSTORCH_D32 \
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                          \
+               : DSTORCH_D32_OUT(d)                                                     \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    DSTORCH_WGMMA_RS("bf16");
+  } else {
+    DSTORCH_WGMMA_RS("f16");
+  }
+}
+
+// S (or S^T) = A B^T over HD columns, both tiles K-major
+template <typename T, int HD>
+__device__ __forceinline__ void product_k_major(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * kPanelBytes + (kk & 3) * 32;
+    wgmma_ss<T>(d, desc(a + off, kKMajorLbo), desc(b + off, kKMajorLbo), kk > 0);
+  }
+}
+
+// acc += A B over the 64 rows of tile b (the contraction), A the packed
+// fragments of a 64 x 64 accumulator, B read MN-major, one 64-column panel
+// at a time
+template <typename T, int NP>
+__device__ __forceinline__ void product_mn_major(float (&acc)[NP][32], const uint32_t (&a)[4][4],
+                                                 uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      wgmma_rs<T>(acc[p], a[kk], desc(b + p * kPanelBytes + kk * 16 * 128, kMnMajorLbo));
+}
+
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator element 4j + 2e + t of thread (warp w, lane l) is row
+// 16w + l/4 + 8e, column 8j + 2(l%4) + t. Its pair (t = 0, 1) is the
+// A-fragment register (j % 2) * 2 + e of k-step j / 2.
+__device__ __forceinline__ bool tile_unmasked(int q0, int k0, int Sq, int Sk, int causal,
+                                              int window) {
+  return q0 + kBlock <= Sq && k0 + kBlock <= Sk && (!causal || k0 + kBlock - 1 <= q0) &&
+         (window <= 0 || q0 + kBlock - 1 - k0 < window);
+}
+
+template <int HD>
+constexpr int dq_wgmma_smem() {
+  return 1024 + 6 * Tile<HD>::bytes;  // alignment slack, Q, dO, 2 x (K, V)
+}
+
+// K2: dq for one 64-row query tile of one (batch, head)
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dq, int H, int group, int Sq, int Sk, Strides st,
+                          float sm_scale, int causal, int window) {
+  constexpr int NP = Tile<HD>::panels;
+  constexpr int TB = Tile<HD>::bytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + TB;
+  const uint32_t sKV = sdO + TB;  // buffer i: K at sKV + 2 i TB, V after it
+
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 5) * 16 + ((tid & 31) >> 2);  // rows r0, r0 + 8
+  const int c0 = (tid & 3) * 2;                         // columns 8j + c0 + t
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int hk = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;  // the longest (last) tiles first
+
+  const T* kb = k + b * st.k[0] + hk * st.k[2];
+  const T* vb = v + b * st.v[0] + hk * st.v[2];
+  load_tile_async<T, HD>(sQ, q + b * st.q[0] + h * st.q[2], st.q[1], q0, Sq);
+  load_tile_async<T, HD>(sdO, dout + b * st.o[0] + h * st.o[2], st.o[1], q0, Sq);
+
+  float lse2[2], dlt[2];  // rows r0, r0 + 8: lse in base 2, delta
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qs = q0 + r0 + 8 * e;
+    lse2[e] = qs < Sq ? lse[static_cast<long long>(bh) * Sq + qs] * kLog2e : 0.f;
+    dlt[e] = qs < Sq ? delta[static_cast<long long>(bh) * Sq + qs] : 0.f;
+  }
+  const float scale2 = sm_scale * kLog2e;
+
+  // key range this query tile can see: [k_lo, k_hi)
+  int k_hi = Sk;
+  if (causal) k_hi = min(Sk, q0 + kBlock);
+  int k_lo = 0;
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt_lo = k_lo / kBlock;
+  const int n = max(0, (k_hi + kBlock - 1) / kBlock - kt_lo);
+
+  if (n > 0) {
+    load_tile_async<T, HD>(sKV, kb, st.k[1], kt_lo * kBlock, Sk);
+    load_tile_async<T, HD>(sKV + TB, vb, st.v[1], kt_lo * kBlock, Sk);
+  }
+  cp_async_commit();
+
+  float acc[NP][32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) acc[p][i] = 0.f;
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (kt_lo + it) * kBlock;
+    const uint32_t sK = sKV + (it & 1) * 2 * TB;
+    __syncthreads();  // every thread is done with the buffer the prefetch overwrites
+    if (it + 1 < n) {
+      const uint32_t nK = sKV + ((it + 1) & 1) * 2 * TB;
+      load_tile_async<T, HD>(nK, kb, st.k[1], k0 + kBlock, Sk);
+      load_tile_async<T, HD>(nK + TB, vb, st.v[1], k0 + kBlock, Sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the prefetch: Q, dO and this tile are here
+    fence_async_smem();
+    __syncthreads();
+
+    wgmma_fence();
+    product_k_major<T, HD>(s, sQ, sK);
+    product_k_major<T, HD>(dp, sdO, sK + TB);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // ds = p (dp - delta) sm_scale, rounded to T, as the A fragments of ds k
+    const bool unmasked = tile_unmasked(q0, k0, Sq, Sk, causal, window);
+    uint32_t a[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float ds[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int i = 4 * j + 2 * e + t;
+          // a masked pair's exp(-1e30 - lse) is exactly 0 in the TPU kernel
+          const bool ok = unmasked || pair_ok(q0 + r0 + 8 * e, k0 + 8 * j + c0 + t, Sq, Sk,
+                                              causal, window);
+          const float p = ok ? exp2f(fmaf(s[i], scale2, -lse2[e])) : 0.f;
+          ds[t] = p * (dp[i] - dlt[e]) * sm_scale;
+        }
+        a[j >> 1][(j & 1) * 2 + e] = pack2<T>(ds[0], ds[1]);
+      }
+    fence_regs(a);
+    wgmma_fence();
+    product_mn_major<T, NP>(acc, a, sK);
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qpos = q0 + r0 + 8 * e;
+    if (qpos >= Sq) continue;
+    T* row = dq + ((static_cast<long long>(b) * Sq + qpos) * H + h) * HD;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = p * kPanel + 8 * j + c0;
+        if (col < HD)
+          *reinterpret_cast<uint32_t*>(row + col) =
+              pack2<T>(acc[p][4 * j + 2 * e], acc[p][4 * j + 2 * e + 1]);
+      }
+  }
+}
+
+template <int HD>
+__host__ __device__ constexpr int dkv_wgmma_step_bytes() {
+  // Q, dO, then lse and delta (512 bytes) padded so that every tile stays 1024-aligned
+  return 2 * Tile<HD>::bytes + 1024;
+}
+
+template <int HD>
+int dkv_wgmma_smem(bool group_totals) {
+  // alignment slack, K, V, 2 query-tile buffers, then the f32 group totals
+  return 1024 + 2 * Tile<HD>::bytes + 2 * dkv_wgmma_step_bytes<HD>() +
+         (group_totals ? 2 * kBlock * Tile<HD>::panels * kPanel * 4 : 0);
+}
+
+// K3: dk and dv for one 64-row key tile of one (batch, kv head), summed over
+// the query heads of its group
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_kernel_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int H, int Hkv, int group,
+                           int Sq, int Sk, Strides st, float sm_scale, int causal, int window) {
+  constexpr int NP = Tile<HD>::panels;
+  constexpr int TB = Tile<HD>::bytes;
+  constexpr int SB = dkv_wgmma_step_bytes<HD>();
+  constexpr int TW = NP * kPanel;  // row width of the group totals
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u;
+  const uint32_t sV = sK + TB;
+  const uint32_t sStep = sV + TB;  // buffer i: Q, dO, lse, delta at sStep + i SB
+  float* dk_tot = reinterpret_cast<float*>(smem_raw + (sStep + 2 * SB - raw));
+  float* dv_tot = dk_tot + kBlock * TW;
+
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 5) * 16 + ((tid & 31) >> 2);  // key rows r0, r0 + 8
+  const int c0 = (tid & 3) * 2;                         // query columns 8j + c0 + t
+  const int bhk = blockIdx.x;
+  const int b = bhk / Hkv;
+  const int hk = bhk - b * Hkv;
+  const int k0 = blockIdx.y * kBlock;  // the first key tiles, the longest when causal, first
+  const float scale2 = sm_scale * kLog2e;
+
+  // query range that can see this key tile: [q_lo, q_hi)
+  const int q_lo = causal ? k0 : 0;
+  int q_hi = Sq;
+  if (window > 0) q_hi = min(Sq, k0 + kBlock + window - 1);
+  const int qt_lo = q_lo / kBlock;
+  const int nq = max(0, (q_hi + kBlock - 1) / kBlock - qt_lo);
+  const int n = group * nq;  // steps: (head g, query tile) in head order
+
+  // the Q, dO, lse and delta of step i into buffer i % 2
+  auto load_step = [&](int i) {
+    const int g = i / nq;
+    const int q0 = (qt_lo + i - g * nq) * kBlock;
+    const int h = hk * group + g;
+    const long long bh = static_cast<long long>(b) * H + h;
+    const uint32_t buf = sStep + (i & 1) * SB;
+    load_tile_async<T, HD>(buf, q + b * st.q[0] + h * st.q[2], st.q[1], q0, Sq);
+    load_tile_async<T, HD>(buf + TB, dout + b * st.o[0] + h * st.o[2], st.o[1], q0, Sq);
+    if (tid < kBlock)
+      load_rows_async(buf + 2 * TB, lse + bh * Sq, q0, Sq, tid);
+    else
+      load_rows_async(buf + 2 * TB + kBlock * 4, delta + bh * Sq, q0, Sq, tid - kBlock);
+  };
+
+  load_tile_async<T, HD>(sK, k + b * st.k[0] + hk * st.k[2], st.k[1], k0, Sk);
+  load_tile_async<T, HD>(sV, v + b * st.v[0] + hk * st.v[2], st.v[1], k0, Sk);
+  if (n > 0) load_step(0);
+  cp_async_commit();
+
+  float dka[NP][32], dva[NP][32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) dka[p][i] = dva[p][i] = 0.f;
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    fence_regs(dka[p]);
+    fence_regs(dva[p]);
+  }
+  if (group > 1) {  // each thread reads and writes only its own total entries: no barrier
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int at = (r0 + 8 * e) * TW + p * kPanel + 8 * j + c0;
+          *reinterpret_cast<float2*>(dk_tot + at) = make_float2(0.f, 0.f);
+          *reinterpret_cast<float2*>(dv_tot + at) = make_float2(0.f, 0.f);
+        }
+  }
+
+  for (int it = 0; it < n; ++it) {
+    const int g = it / nq;
+    const int q0 = (qt_lo + it - g * nq) * kBlock;
+    const uint32_t buf = sStep + (it & 1) * SB;
+    const uint32_t sQ = buf, sdO = buf + TB;
+    const float* lse_s = reinterpret_cast<const float*>(smem_raw + (buf + 2 * TB - raw));
+    const float* delta_s = lse_s + kBlock;
+    __syncthreads();  // every thread is done with the buffer the prefetch overwrites
+    if (it + 1 < n) load_step(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the prefetch: K, V and this step are here
+    fence_async_smem();
+    __syncthreads();
+
+    wgmma_fence();
+    product_k_major<T, HD>(s, sK, sQ);    // S^T = K Q^T
+    product_k_major<T, HD>(dp, sV, sdO);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p^T rounded to do's dtype, and ds^T = p (dp - delta) sm_scale from the
+    // rounded p, rounded to q's dtype: the A fragments of p^T do and ds^T q
+    const bool unmasked = tile_unmasked(q0, k0, Sq, Sk, causal, window);
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float pr[2], ds[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int i = 4 * j + 2 * e + t;
+          const int qc = 8 * j + c0 + t;
+          const bool ok = unmasked || pair_ok(q0 + qc, k0 + r0 + 8 * e, Sq, Sk, causal, window);
+          const float p = ok ? exp2f(fmaf(s[i], scale2, -lse_s[qc] * kLog2e)) : 0.f;
+          pr[t] = round_to<T>(p);
+          ds[t] = pr[t] * (dp[i] - delta_s[qc]) * sm_scale;
+        }
+        pa[j >> 1][(j & 1) * 2 + e] = pack2<T>(pr[0], pr[1]);
+        da[j >> 1][(j & 1) * 2 + e] = pack2<T>(ds[0], ds[1]);
+      }
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+    product_mn_major<T, NP>(dva, pa, sdO);  // dV += P^T dO
+    product_mn_major<T, NP>(dka, da, sQ);   // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      fence_regs(dka[p]);
+      fence_regs(dva[p]);
+    }
+
+    if (group > 1 && (it + 1) % nq == 0) {  // head g done: its rounded partial into the totals
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * e;
+            const int at = (r0 + 8 * e) * TW + p * kPanel + 8 * j + c0;
+            float2* tk = reinterpret_cast<float2*>(dk_tot + at);
+            float2* tv = reinterpret_cast<float2*>(dv_tot + at);
+            const float2 ok = *tk, ov = *tv;
+            *tk = make_float2(ok.x + round_to<T>(dka[p][i]), ok.y + round_to<T>(dka[p][i + 1]));
+            *tv = make_float2(ov.x + round_to<T>(dva[p][i]), ov.y + round_to<T>(dva[p][i + 1]));
+            dka[p][i] = dka[p][i + 1] = dva[p][i] = dva[p][i + 1] = 0.f;
+          }
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        fence_regs(dka[p]);
+        fence_regs(dva[p]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int kpos = k0 + r0 + 8 * e;
+    if (kpos >= Sk) continue;
+    const long long at = ((static_cast<long long>(b) * Sk + kpos) * Hkv + hk) * HD;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = p * kPanel + 8 * j + c0;
+        if (col >= HD) continue;
+        const int i = 4 * j + 2 * e;
+        float2 kv = make_float2(dka[p][i], dka[p][i + 1]);
+        float2 vv = make_float2(dva[p][i], dva[p][i + 1]);
+        if (group > 1) {
+          kv = *reinterpret_cast<const float2*>(dk_tot + (r0 + 8 * e) * TW + col);
+          vv = *reinterpret_cast<const float2*>(dv_tot + (r0 + 8 * e) * TW + col);
+        }
+        *reinterpret_cast<uint32_t*>(dk + at + col) = pack2<T>(kv.x, kv.y);
+        *reinterpret_cast<uint32_t*>(dv + at + col) = pack2<T>(vv.x, vv.y);
+      }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
@@ -458,14 +1021,56 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int HD>
+int launch_dq_wgmma(const Args& a) {
+  constexpr int smem = dq_wgmma_smem<HD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel_wgmma<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the tile index on the slow axis, so that the longest tiles go out first
+  dim3 grid(a.B * a.H, (a.Sq + kBlock - 1) / kBlock);
+  flash_bwd_dq_kernel_wgmma<T, HD><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.H, a.H / a.Hkv, a.Sq, a.Sk,
+      a.st, a.sm_scale, a.causal, a.window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_dkv_wgmma(const Args& a) {
+  const int smem = dkv_wgmma_smem<HD>(a.H > a.Hkv);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_wgmma<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(a.B * a.Hkv, (a.Sk + kBlock - 1) / kBlock);
+  flash_bwd_dkv_kernel_wgmma<T, HD><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H,
+      a.Hkv, a.H / a.Hkv, a.Sq, a.Sk, a.st, a.sm_scale, a.causal, a.window);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// float32: the FMA kernels; float16 / bfloat16: the tensor-core kernels
 template <typename T, bool DQ>
 int dispatch_hd(int hd, const Args& a) {
-  switch (hd) {
-    case 16: return DQ ? launch_dq<T, 16>(a) : launch_dkv<T, 16>(a);
-    case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
-    default: return -1;
+  if constexpr (std::is_same<T, float>::value) {
+    switch (hd) {
+      case 16: return DQ ? launch_dq<T, 16>(a) : launch_dkv<T, 16>(a);
+      case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
+      case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+      case 128: return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+      default: return -1;
+    }
+  } else {
+    switch (hd) {
+      case 16: return DQ ? launch_dq_wgmma<T, 16>(a) : launch_dkv_wgmma<T, 16>(a);
+      case 32: return DQ ? launch_dq_wgmma<T, 32>(a) : launch_dkv_wgmma<T, 32>(a);
+      case 64: return DQ ? launch_dq_wgmma<T, 64>(a) : launch_dkv_wgmma<T, 64>(a);
+      case 128: return DQ ? launch_dq_wgmma<T, 128>(a) : launch_dkv_wgmma<T, 128>(a);
+      default: return -1;
+    }
   }
 }
 
@@ -500,8 +1105,8 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16. strides: 12 values, the
 // (batch, seq, head) strides of q, k, v and do in that order, in elements.
-// Return cudaGetLastError() after the launch, or -1 for an unsupported
-// dtype / head size.
+// Return cudaGetLastError() after the launch, or -1 for an unsupported dtype /
+// head size.
 extern "C" int dstorch_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dq, int B, int H, int Hkv, int Sq, int Sk, int hd,

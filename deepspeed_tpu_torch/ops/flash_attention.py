@@ -9,9 +9,15 @@ f32 and then dq and dk/dv.
 On a CUDA tensor each step launches a hand-written Hopper kernel or raises:
 the forward ``ops/csrc/flash_fwd.cu`` (K1), the backward's dq and dk/dv
 ``ops/csrc/flash_bwd.cu`` (K2, K3), each built on first use (see
-``op_builder``). On a CPU tensor each runs its plain PyTorch version beside
-it (:func:`_reference_fwd`, :func:`_reference_bwd`). There is no other path:
-no library attention call and no fallback from one to the other.
+``op_builder``). The backward has two variants, chosen by the dtype alone
+(:data:`TENSOR_CORE_DTYPES`): float16 and bfloat16 run the tensor-core (wgmma)
+kernels, float32 the f32 FMA kernels, since on the tensor cores f32 would be
+TF32. The tensor-core kernels copy 16-byte rows, so the wrapper makes a q, k,
+v or do whose rows are not 16-byte aligned contiguous first
+(:func:`_tensor_core_rows`). On a CPU tensor each step runs its plain
+PyTorch version beside it (:func:`_reference_fwd`, :func:`_reference_bwd`).
+There is no other path: no library attention call and no fallback from one
+kernel to another.
 """
 
 import ctypes
@@ -37,6 +43,9 @@ LAUNCHES["flash_bwd_dq"] = 0
 LAUNCHES["flash_bwd_dkv"] = 0
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = (16, 32, 64, 128)
+# the dtypes whose backward runs flash_bwd.cu's tensor-core kernels; float32
+# runs its f32 FMA kernels
+TENSOR_CORE_DTYPES = (torch.float16, torch.bfloat16)
 
 
 def _blk(size: int, cap: int) -> int:
@@ -88,6 +97,19 @@ def _bwd_kernels():
     dkv.argtypes = head + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + tail
     dq.restype = dkv.restype = ctypes.c_int
     return dq, dkv
+
+
+def _rows_16b_aligned(t) -> bool:
+    """True when the tensor-core kernels' 16-byte copies can read ``t``
+    (B, S, H, hd) as it is: a 16-byte aligned base and (batch, seq, head)
+    strides of 8 elements (16 bytes in a 16-bit dtype)."""
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) % 8 == 0 for i in range(3))
+
+
+def _tensor_core_rows(t):
+    """``t`` itself when its rows are 16-byte aligned, else a contiguous copy
+    (a fresh allocation, aligned even where ``t`` is already contiguous)."""
+    return t if _rows_16b_aligned(t) else t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_inputs(q, k, v):
@@ -211,10 +233,18 @@ def _cuda_fwd(q, k, v, causal: bool, sm_scale: float,
     return o, lse
 
 
+def _check_bwd_inputs(q, k, v, do):
+    _check_kernel_inputs(q, k, v, do)
+    if q.dtype in TENSOR_CORE_DTYPES and not all(
+            _rows_16b_aligned(t) for t in (q, k, v, do)):
+        raise ValueError("flash backward kernel: q/k/v/do rows must be 16-byte aligned "
+                         "(pass them through _tensor_core_rows)")
+
+
 def _cuda_bwd_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                  window: Optional[int]) -> torch.Tensor:
     """K2: dq (B, Sq, H, hd) in q's dtype."""
-    _check_kernel_inputs(q, k, v, do)
+    _check_bwd_inputs(q, k, v, do)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -235,7 +265,7 @@ def _cuda_bwd_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                   window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: dk, dv (B, Sk, Hkv, hd) in k's dtype, summed over each kv head's
     query heads inside the kernel."""
-    _check_kernel_inputs(q, k, v, do)
+    _check_bwd_inputs(q, k, v, do)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dk = torch.empty((B, Sk, Hkv, hd), dtype=k.dtype, device=k.device)
@@ -285,11 +315,14 @@ def _fwd(q, k, v, causal: bool, sm_scale: float, window: Optional[int]):
 
 def _bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float, window: Optional[int]):
     """The backward on checked inputs: on a CUDA tensor delta in f32, then
-    K2 and K3; on a CPU tensor the plain version."""
+    K2 and K3 (the tensor-core variant on rows made 16-byte aligned); on a
+    CPU tensor the plain version."""
     if _device_type(q) == "cpu":
         return _reference_bwd(q, k, v, o, lse, do, causal, sm_scale, window)
     if do.stride(-1) != 1:
         do = do.contiguous()
+    if q.dtype in TENSOR_CORE_DTYPES:
+        q, k, v, do = (_tensor_core_rows(t) for t in (q, k, v, do))
     delta = _delta(o, do)
     lse = lse.contiguous()
     dq = _cuda_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale, window)

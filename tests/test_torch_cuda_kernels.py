@@ -57,6 +57,12 @@ SHAPES = [
     (1, 300, 4, 1, 128, True, 37),
     (2, 70, 2, 2, 32, False, None),
 ]
+# the backward's cases: the forward's, then head dim 16, and head dim 128
+# with GQA (group 4), causal and a window, over several key and query tiles
+BWD_SHAPES = SHAPES + [
+    (2, 200, 4, 4, 16, True, None),
+    (1, 1024, 8, 2, 128, True, 256),
+]
 
 
 def _need_card():
@@ -110,7 +116,7 @@ def _grad_err(got, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", SHAPES)
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", BWD_SHAPES)
 def test_flash_backward_kernels_match_plain_version(dtype, B, S, H, Hkv, hd, causal, window):
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(S + 1)
@@ -146,6 +152,51 @@ def test_flash_backward_reads_strided_qkv():
         (fn(q, k, v).float() * w.float()).sum().backward()
         grads.append(qkv.grad)
     assert _grad_err(grads[0], grads[1]) <= 2 * GRAD_REL_TOL[torch.bfloat16]
+
+
+def test_flash_backward_gives_the_same_bits_twice():
+    """No atomics: K2 and K3 (tensor-core variant, bf16, GQA and causal)
+    give bit-equal gradients on the same inputs."""
+    _need_card()
+    assert torch.bfloat16 in tfa.TENSOR_CORE_DTYPES
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, do = (torch.randn(2, 1024, 8, 64, generator=g, device="cuda", dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(2, 1024, 2, 64, generator=g, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    o, lse = tfa._reference_fwd(q, k, v, True, 64 ** -0.5, None)
+    first = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_backward_copies_rows_that_are_not_16_byte_aligned(dtype):
+    """q, k, v and do as views whose rows start at odd element offsets: the
+    wrapper copies them to contiguous rows, the tensor-core kernels run on
+    the copies (one launch each) and match the plain version; the kernel
+    wrappers themselves refuse the unaligned views."""
+    _need_card()
+    B, S, H, hd = 2, 130, 4, 64
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q, k, v, do = (torch.randn(B, S, H, hd + 1, generator=g, device="cuda",
+                               dtype=dtype)[..., 1:] for _ in range(4))
+    assert not any(tfa._rows_16b_aligned(t) for t in (q, k, v, do))
+    o, lse = tfa._reference_fwd(q, k, v, True, hd ** -0.5, None)
+    before = dict(LAUNCHES)
+    grads = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    ref = tfa._reference_bwd(q, k, v, o, lse, do, True, hd ** -0.5, None)
+    for got, want in zip(grads, ref):
+        assert torch.isfinite(got).all() and _grad_err(got, want) <= GRAD_REL_TOL[dtype]
+    delta = tfa._delta(o, do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._cuda_bwd_dq(q, k, v, do, lse, delta, True, hd ** -0.5, None)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._cuda_bwd_dkv(q, k, v, do, lse, delta, True, hd ** -0.5, None)
 
 
 def test_model_backward_launches_each_kernel_once_per_layer():
