@@ -4,12 +4,12 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, started together), reports ptxas's registers and spills and
-counts the tensor-core (HGMMA) instructions of the flash backward's 16-bit
-kernels in their SASS, holds each kernel against its plain PyTorch version on
-the card (K1-K3 flash attention, K2/K3 in both of their variants: tensor core
-for bf16, f32 FMA for f32; K4-K6 block-sparse attention, K3's GQA head sum bit
-for bit, K7-K8 fused LayerNorm/RMSNorm), and drives the port's four paths
-with random weights from a seed:
+counts the tensor-core (HGMMA) instructions of the flash forward's and
+backward's 16-bit kernels in their SASS, holds each kernel against its plain
+PyTorch version on the card (K1-K3 flash attention, each in both of its
+variants: tensor core for bf16, f32 FMA for f32; K4-K6 block-sparse
+attention, K3's GQA head sum bit for bit, K7-K8 fused LayerNorm/RMSNorm), and
+drives the port's four paths with random weights from a seed:
   - the fused-op surface (``ops/transformer/fused_ops``: ``fused_layernorm``
     -> a 768 x 3072 matmul -> ``fused_bias_gelu`` -> a 3072 x 768 matmul ->
     ``fused_bias_dropout_residual``) at GPT-2 125M's training width, B8 S1024
@@ -57,11 +57,12 @@ import torch  # noqa: E402
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_HBM_BYTES = 3.35e12
 
-# K1 against mha_reference: the kernel rounds p to the input dtype before
+# K1 against _reference_fwd: the kernel rounds p to the input dtype before
 # PV (as the TPU kernel does) where the reference keeps f32, so o differs by
 # a few roundings of the input dtype; bf16 keeps 8 mantissa bits, so at
-# |o| <= 4 two roundings are up to 3e-2. lse is f32 on both sides.
-K1_O_TOL = 3e-2
+# |o| <= 4 two roundings are up to 3e-2; f32 (the FMA kernel) differs only in
+# summation order: 1e-5. lse is f32 on both sides: 1e-5.
+K1_O_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-5}
 K1_LSE_TOL = 1e-5
 # K2/K3 against _reference_bwd on the same (q, k, v, o, lse, do), as max |Δ|
 # over the largest |gradient| of the plain version. bf16: the kernels round
@@ -133,6 +134,16 @@ L2_BYTES = 50 * 2 ** 20
 LOGITS_TOL = 0.1
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# K1's kernels by (dtype, head dim), as substrings of their mangled names:
+# every instantiation of the tensor-core kernel (bf16, f16), and the FMA
+# kernel for f32
+FWD_TAGS = {
+    **{f"{name}_hd{hd}": f"flash_fwd_kernel_wgmmaI{mangled}Li{hd}E"
+       for name, mangled in (("bf16", "13__nv_bfloat16"), ("f16", "6__half"))
+       for hd in (16, 32, 64, 128)},
+    "f32_hd64": "flash_fwd_kernelIfLi64E",
+    "f32_hd128": "flash_fwd_kernelIfLi128E",
+}
 # K2/K3's kernels by (kernel, dtype, head dim), as substrings of their mangled
 # names: the tensor-core kernels for bf16, the FMA kernels for f32
 BWD_PTXAS_TAGS = {
@@ -145,6 +156,10 @@ BWD_PTXAS_TAGS = {
     "dq_f32_hd128": "flash_bwd_dq_kernelIfLi128E",
     "dkv_f32_hd128": "flash_bwd_dkv_kernelIfLi128E",
 }
+# the bf16 K2/K3 SASS's wgmma instructions, one per m64n64k16 product step
+# (K2: Q K^T, dO V^T, dS K; K3: K Q^T, V dO^T, P^T dO, dS^T Q)
+BWD_HGMMA = {"dq_bf16_hd64": 12, "dkv_bf16_hd64": 16, "dq_bf16_hd128": 24,
+             "dkv_bf16_hd128": 32}
 SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 NORM_KERNELS = ("fused_norm_fwd", "fused_norm_bwd")
 
@@ -683,7 +698,8 @@ def main():
                   bs_bwd_out, "dq_kernelI13__nv_bfloat16Li128ELi64"),
               "block_sparse_dkv_bf16_hd128_tile64": ptxas_summary(
                   bs_bwd_out, "dkv_kernelI13__nv_bfloat16Li128ELi64"),
-              "flash_fwd_bf16_hd64": ptxas_summary(fwd_out, "fwd_kernelI13__nv_bfloat16Li64"),
+              **{f"flash_fwd_{name}": ptxas_summary(fwd_out, tag)
+                 for name, tag in FWD_TAGS.items()},
               **{f"flash_bwd_{name}": ptxas_summary(bwd_out, tag)
                  for name, tag in BWD_PTXAS_TAGS.items()},
               "fused_norm_fwd_warp_bf16_vpt24": ptxas_summary(
@@ -700,61 +716,77 @@ def main():
                   norm_out, "fused_norm_bwd_block_kernelI13__nv_bfloat16E"),
               "fused_norm_bwd_block_f32": ptxas_summary(norm_out, "fused_norm_bwd_block_kernelIfE"),
           }})
-    # the flash backward's products in the SASS: HGMMA (wgmma) in the bf16
-    # kernels, f32 FMAs only in the f32 kernels (and the bf16 kernels' few
-    # elementwise ones)
-    bwd_sass = sass_counts(fa.BWD_KERNEL_LIB.lib_path(), list(BWD_PTXAS_TAGS.values()))
-    bwd_sass = {name: bwd_sass[tag] for name, tag in BWD_PTXAS_TAGS.items()}
-    emit({"phase": "build_sass", "library": os.path.basename(fa.BWD_KERNEL_LIB.lib_path()),
-          "flash_bwd": bwd_sass})
-    for name, counts in bwd_sass.items():
-        if "bf16" in name:
-            check(isinstance(counts, dict) and counts["HGMMA"] > 0,
-                  f"flash_bwd {name}: no HGMMA in its SASS ({counts})")
+    # the flash kernels' products in the SASS: HGMMA (wgmma) and no HMMA
+    # (mma.sync) in every 16-bit kernel, f32 FMAs only in the f32 kernels
+    # (and the 16-bit kernels' few elementwise ones)
+    sass = {}
+    for key, lib, tags in (("flash_fwd", fa.KERNEL_LIB, FWD_TAGS),
+                           ("flash_bwd", fa.BWD_KERNEL_LIB, BWD_PTXAS_TAGS)):
+        found = sass_counts(lib.lib_path(), list(tags.values()))
+        sass[key] = {name: found[tag] for name, tag in tags.items()}
+    emit({"phase": "build_sass",
+          "libraries": [os.path.basename(lib.lib_path()) for lib in (fa.KERNEL_LIB,
+                                                                     fa.BWD_KERNEL_LIB)],
+          **sass})
+    for name, counts in sass["flash_fwd"].items():
+        if not name.startswith("f32"):
+            check(isinstance(counts, dict) and counts["HGMMA"] > 0 and counts["HMMA"] == 0,
+                  f"flash_fwd {name}: not on wgmma alone in its SASS ({counts})")
+    for name, want in BWD_HGMMA.items():
+        counts = sass["flash_bwd"][name]
+        check(isinstance(counts, dict) and counts["HGMMA"] == want and counts["HMMA"] == 0,
+              f"flash_bwd {name}: SASS {counts}, expected {want} HGMMA and no HMMA")
 
-    # ---- K1 against its plain version at the paths' shapes
+    # ---- K1 against its plain version at the paths' shapes, in bf16 (the
+    # tensor-core kernel) and, at the training shape, in f32 (the FMA kernel)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
     shapes = {
-        "a_prefill_b8_s128": (8, 128, 16, 16, 64, True, None),
-        "b_prefill_b2_s896": (2, 896, 16, 16, 64, True, None),
-        "c_ragged_b4_s100": (4, 100, 16, 16, 64, True, None),
-        "d_gqa_window64": (2, 512, 8, 2, 64, True, 64),
-        "d_gqa_noncausal": (2, 512, 8, 2, 64, False, None),
-        "e_train_b8_s1024": (8, 1024, 12, 12, 64, True, None),
+        "a_prefill_b8_s128": (8, 128, 16, 16, 64, True, None, bf16),
+        "b_prefill_b2_s896": (2, 896, 16, 16, 64, True, None, bf16),
+        "c_ragged_b4_s100": (4, 100, 16, 16, 64, True, None, bf16),
+        "d_gqa_window64": (2, 512, 8, 2, 64, True, 64, bf16),
+        "d_gqa_noncausal": (2, 512, 8, 2, 64, False, None, bf16),
+        "e_train_b8_s1024": (8, 1024, 12, 12, 64, True, None, bf16),
+        "f_train_b8_s1024_f32": (8, 1024, 12, 12, 64, True, None, f32),
     }
     k1 = {}
-    for name, (B, S, H, Hkv, hd, causal, window) in shapes.items():
-        q = torch.randn(B, S, H, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
-        k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
-        v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
+    for name, (B, S, H, Hkv, hd, causal, window, dtype) in shapes.items():
+        q = torch.randn(B, S, H, hd, generator=gen, device="cuda", dtype=dtype)
+        k = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda", dtype=dtype)
+        v = torch.randn(B, S, Hkv, hd, generator=gen, device="cuda", dtype=dtype)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         ro, rl = fa._reference_fwd(q, k, v, causal, hd ** -0.5, window)
         d_o = (o.float() - ro.float()).abs().max().item()
         d_lse = (lse - rl).abs().max().item()
-        check(d_o <= K1_O_TOL and d_lse <= K1_LSE_TOL and bool(torch.isfinite(o).all()),
+        check(d_o <= K1_O_TOL[dtype] and d_lse <= K1_LSE_TOL and bool(torch.isfinite(o).all()),
               f"K1 {name}: |do| {d_o} |dlse| {d_lse}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = None
         if window is not None:
             ar = torch.arange(S, device="cuda")
             mask = (ar[None, :] <= ar[:, None]) & (ar[:, None] - ar[None, :] < window)
-        bound_ms, bound_by = flash_bound(B, S, H, Hkv, hd, causal, window, torch.bfloat16)
+        bound_ms, bound_by = flash_bound(B, S, H, Hkv, hd, causal, window, dtype)
+        kernel_ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal, window=window))
         row = {
             "phase": "k1", "shape": name, "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
-            "causal": causal, "window": window, "dtype": "bfloat16",
+            "causal": causal, "window": window, "dtype": str(dtype).split(".")[-1],
+            "variant": "tensor_core" if dtype in fa.TENSOR_CORE_DTYPES else "f32_fma",
             "max_abs_err_o": d_o, "max_abs_err_lse": d_lse,
-            "tol_o": K1_O_TOL, "tol_lse": K1_LSE_TOL,
-            "kernel_ms": cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
-                                                                window=window)),
+            "tol_o": K1_O_TOL[dtype], "tol_lse": K1_LSE_TOL,
+            "kernel_ms": kernel_ms,
+            "tflops": 4.0 * hd * attention_pairs(S, S, causal, window) * B * H / kernel_ms * 1e-9,
             "plain_ms": cuda_ms(lambda: fa._reference_fwd(q, k, v, causal, hd ** -0.5, window)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=H != Hkv)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms": bound_ms, "bound_by": bound_by, "card": card,
         }
         k1[name] = row
         emit(row)
+        del q, k, v, o, lse, ro, rl, qt, kt, vt
+    torch.cuda.empty_cache()
 
     # ---- K2 and K3 against their plain version (_reference_bwd) on the same inputs
     bwd_shapes = {
@@ -1386,6 +1418,7 @@ def main():
         {"name": "flash_fwd", "route": "cuda", "source": f"{src}/flash_fwd.cu",
          "replaces": f"{pallas}/flash_attention.py:85", **launches("flash_fwd"),
          "max_abs_err": max(row["max_abs_err_o"] for row in k1.values()),
+         "variant": e1["variant"],
          "shape": "B8 S1024 H12 hd64 causal bf16",
          "ms": e1["kernel_ms"], "plain_ms": e1["plain_ms"], "bound_ms": e1["bound_ms"],
          "bound_by": e1["bound_by"], "library_ms": e1["library_ms"]},

@@ -9,13 +9,15 @@ f32 and then dq and dk/dv.
 On a CUDA tensor each step launches a hand-written Hopper kernel or raises:
 the forward ``ops/csrc/flash_fwd.cu`` (K1), the backward's dq and dk/dv
 ``ops/csrc/flash_bwd.cu`` (K2, K3), each built on first use (see
-``op_builder``). The backward has two variants, chosen by the dtype alone
-(:data:`TENSOR_CORE_DTYPES`): float16 and bfloat16 run the tensor-core (wgmma)
-kernels, float32 the f32 FMA kernels, since on the tensor cores f32 would be
-TF32. The tensor-core kernels copy 16-byte rows, so the wrapper makes a q, k,
-v or do whose rows are not 16-byte aligned contiguous first
-(:func:`_tensor_core_rows`). On a CPU tensor each step runs its plain
-PyTorch version beside it (:func:`_reference_fwd`, :func:`_reference_bwd`).
+``op_builder``). Forward and backward each have two variants, chosen by the
+dtype alone (:data:`TENSOR_CORE_DTYPES`): float16 and bfloat16 run the
+tensor-core (wgmma) kernels, float32 the f32 FMA kernels, since on the
+tensor cores f32 would be TF32. The tensor-core kernels copy 16-byte rows, so
+the wrapper makes a q, k, v or do whose rows are not 16-byte aligned
+contiguous first (:func:`_tensor_core_rows`), and every kernel wrapper
+refuses such a row (:func:`_check_kernel_inputs`). On a CPU tensor each step
+runs its plain PyTorch version beside it (:func:`_reference_fwd`,
+:func:`_reference_bwd`).
 There is no other path: no library attention call and no fallback from one
 kernel to another.
 """
@@ -43,8 +45,8 @@ LAUNCHES["flash_bwd_dq"] = 0
 LAUNCHES["flash_bwd_dkv"] = 0
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = (16, 32, 64, 128)
-# the dtypes whose backward runs flash_bwd.cu's tensor-core kernels; float32
-# runs its f32 FMA kernels
+# the dtypes whose forward and backward run the tensor-core kernels of
+# flash_fwd.cu and flash_bwd.cu; float32 runs their f32 FMA kernels
 TENSOR_CORE_DTYPES = (torch.float16, torch.bfloat16)
 
 
@@ -108,8 +110,13 @@ def _rows_16b_aligned(t) -> bool:
 
 def _tensor_core_rows(t):
     """``t`` itself when its rows are 16-byte aligned, else a contiguous copy
-    (a fresh allocation, aligned even where ``t`` is already contiguous)."""
-    return t if _rows_16b_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+    (a fresh allocation, aligned even where ``t`` is already contiguous).
+    A ``t`` whose last dimension is not contiguous is left as it is: every
+    kernel wrapper refuses it, whatever the dtype, so the copy changes only
+    where rows start, never which layouts the entry points take."""
+    if t.stride(-1) != 1 or _rows_16b_aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_inputs(q, k, v):
@@ -197,6 +204,10 @@ def _reference_bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float,
 
 
 def _check_kernel_inputs(q, k, v, *more):
+    """What every kernel wrapper (K1, K2, K3) checks before its launch: dtype,
+    head dim, contiguous last dims, one dtype, extents, and for the
+    tensor-core dtypes 16-byte aligned rows (the entry points copy any that
+    are not first, :func:`_tensor_core_rows`). ``more``: the backward's do."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     if q.dtype not in _DTYPE_CODE:
@@ -209,6 +220,10 @@ def _check_kernel_inputs(q, k, v, *more):
         raise TypeError(f"flash kernel: do must be in q's dtype {q.dtype}")
     if Sq == 0 or Sk == 0 or B * H > 65535:
         raise ValueError(f"flash kernel: unsupported extent B*H={B * H}, Sq={Sq}, Sk={Sk}")
+    if q.dtype in TENSOR_CORE_DTYPES and not all(
+            _rows_16b_aligned(t) for t in (q, k, v, *more)):
+        raise ValueError("flash kernel: 16-bit q/k/v/do rows must be 16-byte aligned "
+                         "(pass them through _tensor_core_rows)")
 
 
 def _cuda_fwd(q, k, v, causal: bool, sm_scale: float,
@@ -233,18 +248,10 @@ def _cuda_fwd(q, k, v, causal: bool, sm_scale: float,
     return o, lse
 
 
-def _check_bwd_inputs(q, k, v, do):
-    _check_kernel_inputs(q, k, v, do)
-    if q.dtype in TENSOR_CORE_DTYPES and not all(
-            _rows_16b_aligned(t) for t in (q, k, v, do)):
-        raise ValueError("flash backward kernel: q/k/v/do rows must be 16-byte aligned "
-                         "(pass them through _tensor_core_rows)")
-
-
 def _cuda_bwd_dq(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                  window: Optional[int]) -> torch.Tensor:
     """K2: dq (B, Sq, H, hd) in q's dtype."""
-    _check_bwd_inputs(q, k, v, do)
+    _check_kernel_inputs(q, k, v, do)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -265,7 +272,7 @@ def _cuda_bwd_dkv(q, k, v, do, lse, delta, causal: bool, sm_scale: float,
                   window: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: dk, dv (B, Sk, Hkv, hd) in k's dtype, summed over each kv head's
     query heads inside the kernel."""
-    _check_bwd_inputs(q, k, v, do)
+    _check_kernel_inputs(q, k, v, do)
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     dk = torch.empty((B, Sk, Hkv, hd), dtype=k.dtype, device=k.device)
@@ -306,11 +313,14 @@ def _device_type(q) -> str:
 
 
 def _fwd(q, k, v, causal: bool, sm_scale: float, window: Optional[int]):
-    """The forward on checked inputs: K1 on a CUDA tensor, the plain version
-    on a CPU tensor."""
-    if _device_type(q) == "cuda":
-        return _cuda_fwd(q, k, v, causal, sm_scale, window)
-    return _reference_fwd(q, k, v, causal, sm_scale, window)
+    """The forward on checked inputs: on a CUDA tensor K1 (the tensor-core
+    variant on rows made 16-byte aligned), on a CPU tensor the plain
+    version."""
+    if _device_type(q) == "cpu":
+        return _reference_fwd(q, k, v, causal, sm_scale, window)
+    if q.dtype in TENSOR_CORE_DTYPES:
+        q, k, v = (_tensor_core_rows(t) for t in (q, k, v))
+    return _cuda_fwd(q, k, v, causal, sm_scale, window)
 
 
 def _bwd(q, k, v, o, lse, do, causal: bool, sm_scale: float, window: Optional[int]):

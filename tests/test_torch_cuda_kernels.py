@@ -8,7 +8,8 @@ the machine with the card it runs without the repository's JAX conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py -m cuda
 
-Tolerances for the flash forward (K1) against ``mha_reference``: the
+Tolerances for the flash forward (K1; the tensor-core kernel for bfloat16
+and float16, the FMA kernel for float32) against ``_reference_fwd``: the
 kernel rounds p to the input dtype before PV (as the TPU kernel does) while
 the reference keeps p in f32, so the output differs by a rounding of the
 input dtype: two roundings at |o| <= 4 are 3e-2 in bfloat16 (8-bit
@@ -57,8 +58,9 @@ SHAPES = [
     (1, 300, 4, 1, 128, True, 37),
     (2, 70, 2, 2, 32, False, None),
 ]
-# the backward's cases: the forward's, then head dim 16, and head dim 128
-# with GQA (group 4), causal and a window, over several key and query tiles
+# the forward's and the backward's cases: SHAPES, then head dim 16, and head
+# dim 128 with GQA (group 4), causal and a window, over several key and query
+# tiles
 BWD_SHAPES = SHAPES + [
     (2, 200, 4, 4, 16, True, None),
     (1, 1024, 8, 2, 128, True, 256),
@@ -71,7 +73,7 @@ def _need_card():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", SHAPES)
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", BWD_SHAPES)
 def test_flash_kernel_matches_plain_version(dtype, B, S, H, Hkv, hd, causal, window):
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(S)
@@ -84,8 +86,49 @@ def test_flash_kernel_matches_plain_version(dtype, B, S, H, Hkv, hd, causal, win
     assert LAUNCHES["flash_fwd"] == before + 1
     ro, rl = tfa._reference_fwd(q, k, v, causal, hd ** -0.5, window)
     assert o.dtype == dtype and torch.isfinite(o).all()
+    assert lse.shape == (B, H, S, 1) and lse.dtype == torch.float32
     assert (o.float() - ro.float()).abs().max().item() <= O_TOL[dtype]
     assert (lse - rl).abs().max().item() <= LSE_TOL
+
+
+def test_flash_forward_gives_the_same_bits_twice():
+    """No atomics: K1 (tensor-core variant, bf16, GQA and causal) gives
+    bit-equal o and lse on the same inputs."""
+    _need_card()
+    assert torch.bfloat16 in tfa.TENSOR_CORE_DTYPES
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = torch.randn(2, 1024, 8, 64, generator=g, device="cuda", dtype=torch.bfloat16)
+    k, v = (torch.randn(2, 1024, 2, 64, generator=g, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    first = tfa.flash_attention_fwd(q, k, v)
+    again = tfa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_forward_copies_rows_that_are_not_16_byte_aligned(dtype):
+    """q, k and v as views whose rows start at odd element offsets: the
+    wrapper copies them to contiguous rows, the tensor-core kernel runs on
+    the copies (one launch) and matches the plain version; the kernel
+    wrapper itself refuses the unaligned views."""
+    _need_card()
+    B, S, H, hd = 2, 130, 4, 64
+    g = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v = (torch.randn(B, S, H, hd + 1, generator=g, device="cuda",
+                           dtype=dtype)[..., 1:] for _ in range(3))
+    assert not any(tfa._rows_16b_aligned(t) for t in (q, k, v))
+    before = LAUNCHES["flash_fwd"]
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_fwd"] == before + 1
+    ro, rl = tfa._reference_fwd(q, k, v, True, hd ** -0.5, None)
+    assert torch.isfinite(o).all()
+    assert (o.float() - ro.float()).abs().max().item() <= O_TOL[dtype]
+    assert (lse - rl).abs().max().item() <= LSE_TOL
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa._cuda_fwd(q, k, v, True, hd ** -0.5, None)
+    assert LAUNCHES["flash_fwd"] == before + 1
 
 
 def test_flash_kernel_reads_strided_qkv():
