@@ -4,12 +4,14 @@
 
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, started together), reports ptxas's registers and spills and
-counts the tensor-core (HGMMA) instructions of the flash forward's and
-backward's 16-bit kernels in their SASS, holds each kernel against its plain
-PyTorch version on the card (K1-K3 flash attention, each in both of its
-variants: tensor core for bf16, f32 FMA for f32; K4-K6 block-sparse
-attention, K3's GQA head sum bit for bit, K7-K8 fused LayerNorm/RMSNorm), and
-drives the port's four paths with random weights from a seed:
+counts the tensor-core (HGMMA) instructions of the 16-bit kernels of the
+flash forward and backward and of the block-sparse backward in their SASS,
+holds each kernel against its plain PyTorch version on the card (K1-K3 flash
+attention, each in both of its variants: tensor core for bf16, f32 FMA for
+f32; K4-K6 block-sparse attention, K5/K6 in both of theirs: tensor core for
+16-bit inputs at tile 64, f32 FMA for f32 and tiles 16/32; K3's GQA head sum
+bit for bit, K7-K8 fused LayerNorm/RMSNorm), and drives the port's four
+paths with random weights from a seed:
   - the fused-op surface (``ops/transformer/fused_ops``: ``fused_layernorm``
     -> a 768 x 3072 matmul -> ``fused_bias_gelu`` -> a 3072 x 768 matmul ->
     ``fused_bias_dropout_residual``) at GPT-2 125M's training width, B8 S1024
@@ -54,7 +56,7 @@ import torch  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit):
 # the tensor cores in bf16, the CUDA cores in f32, and memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12}
 PEAK_HBM_BYTES = 3.35e12
 
 # K1 against _reference_fwd: the kernel rounds p to the input dtype before
@@ -91,11 +93,16 @@ F32_GRAD_REL_TOL = 1e-4
 F32_LOSS_TOL = 1e-4
 # K4-K6 against their plain versions (block_sparse_attention._reference_fwd /
 # _reference_bwd) on the same inputs, as max |Δ| over max |plain|: the kernels
-# keep f32 throughout, as the plain versions do, and round once at the store,
-# so bf16 is one rounding (2**-9) plus summation order: 2**-8; f32 1e-5. lse
-# is f32 on both sides: 1e-5 absolute. A layout row that is all zero gives
-# o = 0 exactly.
-BS_REL_TOL = {torch.bfloat16: 2.0 ** -8, torch.float32: 1e-5}
+# keep f32 throughout, as the plain versions do, and round once at the store
+# (the tensor-core K5/K6 split p and ds into 16-bit parts that keep them below
+# f32's own rounding, and sum each tile in f32), so bf16 is one rounding
+# (2**-9) plus summation order: 2**-8; fp16 2**-11; f32 1e-5. For the 16-bit
+# rows the gradients that kernel and plain version round off the exact
+# (float64) value are counted: all, and in the top binade, where one such
+# element misses the tolerance. lse is f32 on both
+# sides: 1e-5 absolute. A layout row that is all zero gives o = 0 and dq = 0
+# exactly.
+BS_REL_TOL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: 1e-5}
 BS_LSE_TOL = 1e-5
 # K7/K8 against their plain versions (fused_norm._reference_fwd/_reference_bwd)
 # on the same inputs, as max |Δ| over max |plain|: both compute in f32 and
@@ -161,6 +168,24 @@ BWD_PTXAS_TAGS = {
 BWD_HGMMA = {"dq_bf16_hd64": 12, "dkv_bf16_hd64": 16, "dq_bf16_hd128": 24,
              "dkv_bf16_hd128": 32}
 SPARSE_KERNELS = ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
+# the tensor-core K5/K6 (16-bit, tile 64) by (kernel, dtype, head dim), as
+# substrings of their mangled names, and the HGMMA instructions their SASS
+# must hold, one per m64n64k16 product step: Q K^T and dO V^T (K5) or K Q^T
+# and V dO^T (K6) step over hd / 16; the products of the split f32 operand
+# (ds K in K5; p^T dO and ds^T Q in K6), one for each of its 16-bit parts
+# (block_sparse_bwd.cu kParts: 3 in bf16, 2 in f16), over the tile's 64 rows
+# in 4 steps per 64-column panel of the gradient: both panels of dq at hd
+# 128, one panel of dk/dv (K6 runs a block per panel)
+SPARSE_BWD_PARTS = {"bf16": 3, "f16": 2}
+SPARSE_BWD_TAGS = {
+    f"{kern}_{name}_hd{hd}": f"block_sparse_bwd_{kern}_kernel_wgmmaI{mangled}Li{hd}E"
+    for kern in ("dq", "dkv") for name, mangled in (("bf16", "13__nv_bfloat16"), ("f16", "6__half"))
+    for hd in (16, 32, 64, 128)}
+SPARSE_BWD_HGMMA = {
+    f"{kern}_{name}_hd{hd}":
+        2 * hd // 16 + (parts * 4 * max(1, hd // 64) if kern == "dq" else 2 * parts * 4)
+    for kern in ("dq", "dkv") for name, parts in SPARSE_BWD_PARTS.items()
+    for hd in (16, 32, 64, 128)}
 NORM_KERNELS = ("fused_norm_fwd", "fused_norm_bwd")
 
 failures = []
@@ -346,6 +371,30 @@ def sparse_bounds(B, S, H, hd, pairs, dtype):
         flops = float(per_pair) * hd * pairs * B
         out.append((*bound(flops, nbytes, dtype), flops / PEAK_FLOPS[torch.float32] * 1e3))
     return out
+
+
+def exact_sparse_bwd(bs, q, k, v, o, lse, do, layout, b, causal, sm_scale):
+    """The plain block-sparse backward in float64 on the same inputs (o and
+    lse as given): the exact gradients that the kernels' and the plain
+    version's roundings are counted against."""
+    mask = bs._mask(layout, b, q.shape[1], k.shape[1], causal, q.device)[None]
+    qd, kd, vd, dod = (t.double() for t in (q, k, v, do))
+    p = torch.einsum("bqhd,bkhd->bhqk", qd, kd) * sm_scale
+    p = torch.exp(p - lse.double()).masked_fill(~mask, 0.0)
+    delta = (dod * o.double()).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dod, vd) - delta) * sm_scale
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kd), torch.einsum("bhqk,bqhd->bkhd", ds, qd),
+            torch.einsum("bhqk,bqhd->bkhd", p, dod))
+
+
+def rounded_off(got, exact):
+    """Elements of ``got`` (16-bit) other than ``exact`` rounded to nearest,
+    in all and in the top binade (|exact| within a factor 2 of its largest
+    power of two), where one such element misses BS_REL_TOL."""
+    off = got != exact.to(got.dtype)
+    top = exact.abs() >= 2.0 ** math.floor(math.log2(exact.abs().max().item()))
+    return {"all": int(off.sum()), "top_binade": int((off & top).sum()),
+            "top_binade_elements": int(top.sum())}
 
 
 def events_ms(fn, iters=3):
@@ -684,20 +733,16 @@ def main():
           "ptxas": {
               "block_sparse_fwd_bf16_hd64_tile64": ptxas_summary(
                   bs_fwd_out, "fwd_kernelI13__nv_bfloat16Li64ELi64"),
-              "block_sparse_dq_bf16_hd64_tile64": ptxas_summary(
-                  bs_bwd_out, "dq_kernelI13__nv_bfloat16Li64ELi64"),
-              "block_sparse_dkv_bf16_hd64_tile64": ptxas_summary(
-                  bs_bwd_out, "dkv_kernelI13__nv_bfloat16Li64ELi64"),
+              "block_sparse_dq_bf16_hd64_tile32": ptxas_summary(
+                  bs_bwd_out, "dq_kernelI13__nv_bfloat16Li64ELi32"),
+              "block_sparse_dkv_bf16_hd64_tile32": ptxas_summary(
+                  bs_bwd_out, "dkv_kernelI13__nv_bfloat16Li64ELi32"),
               "block_sparse_fwd_f32_hd64_tile64": ptxas_summary(
                   bs_fwd_out, "fwd_kernelIfLi64ELi64"),
               "block_sparse_dq_f32_hd64_tile64": ptxas_summary(
                   bs_bwd_out, "dq_kernelIfLi64ELi64"),
               "block_sparse_dkv_f32_hd64_tile64": ptxas_summary(
                   bs_bwd_out, "dkv_kernelIfLi64ELi64"),
-              "block_sparse_dq_bf16_hd128_tile64": ptxas_summary(
-                  bs_bwd_out, "dq_kernelI13__nv_bfloat16Li128ELi64"),
-              "block_sparse_dkv_bf16_hd128_tile64": ptxas_summary(
-                  bs_bwd_out, "dkv_kernelI13__nv_bfloat16Li128ELi64"),
               **{f"flash_fwd_{name}": ptxas_summary(fwd_out, tag)
                  for name, tag in FWD_TAGS.items()},
               **{f"flash_bwd_{name}": ptxas_summary(bwd_out, tag)
@@ -716,18 +761,23 @@ def main():
                   norm_out, "fused_norm_bwd_block_kernelI13__nv_bfloat16E"),
               "fused_norm_bwd_block_f32": ptxas_summary(norm_out, "fused_norm_bwd_block_kernelIfE"),
           }})
-    # the flash kernels' products in the SASS: HGMMA (wgmma) and no HMMA
+    # the attention kernels' products in the SASS: HGMMA (wgmma) and no HMMA
     # (mma.sync) in every 16-bit kernel, f32 FMAs only in the f32 kernels
     # (and the 16-bit kernels' few elementwise ones)
     sass = {}
     for key, lib, tags in (("flash_fwd", fa.KERNEL_LIB, FWD_TAGS),
-                           ("flash_bwd", fa.BWD_KERNEL_LIB, BWD_PTXAS_TAGS)):
+                           ("flash_bwd", fa.BWD_KERNEL_LIB, BWD_PTXAS_TAGS),
+                           ("block_sparse_bwd", bs.BWD_KERNEL_LIB, SPARSE_BWD_TAGS)):
         found = sass_counts(lib.lib_path(), list(tags.values()))
         sass[key] = {name: found[tag] for name, tag in tags.items()}
+    sparse_ptxas = {name: ptxas_summary(bs_bwd_out, tag) for name, tag in SPARSE_BWD_TAGS.items()}
+    for name, counts in sass["block_sparse_bwd"].items():
+        if isinstance(counts, dict):
+            counts["ptxas"] = sparse_ptxas[name]
     emit({"phase": "build_sass",
-          "libraries": [os.path.basename(lib.lib_path()) for lib in (fa.KERNEL_LIB,
-                                                                     fa.BWD_KERNEL_LIB)],
-          **sass})
+          "libraries": [os.path.basename(lib.lib_path())
+                        for lib in (fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, bs.BWD_KERNEL_LIB)],
+          "block_sparse_bwd_expected_hgmma": SPARSE_BWD_HGMMA, **sass})
     for name, counts in sass["flash_fwd"].items():
         if not name.startswith("f32"):
             check(isinstance(counts, dict) and counts["HGMMA"] > 0 and counts["HMMA"] == 0,
@@ -736,6 +786,12 @@ def main():
         counts = sass["flash_bwd"][name]
         check(isinstance(counts, dict) and counts["HGMMA"] == want and counts["HMMA"] == 0,
               f"flash_bwd {name}: SASS {counts}, expected {want} HGMMA and no HMMA")
+    for name, want in SPARSE_BWD_HGMMA.items():
+        counts, ptx = sass["block_sparse_bwd"][name], sparse_ptxas[name]
+        check(isinstance(counts, dict) and counts["HGMMA"] == want and counts["HMMA"] == 0,
+              f"block_sparse_bwd {name}: SASS {counts}, expected {want} HGMMA and no HMMA")
+        check(not ptx or "0 bytes spill stores" in ptx[0],
+              f"block_sparse_bwd {name}: ptxas reports spills ({ptx})")
 
     # ---- K1 against its plain version at the paths' shapes, in bf16 (the
     # tensor-core kernel) and, at the training shape, in f32 (the FMA kernel)
@@ -875,6 +931,13 @@ def main():
         "f_zero_row_b1_s512_h4_hd128": (
             1, 512, 4, 128, sc.FixedSparsityConfig(num_heads=4, block=128, num_local_blocks=2),
             True, torch.bfloat16),
+        "g_fixed_b2_s1024_f16": (2, 1024, 12, 64, sc.FixedSparsityConfig(num_heads=12), True,
+                                 torch.float16),
+        # hd 128 over the fixed layout's long global columns (61 tiles)
+        "h_fixed_b1_s4096_hd128": (1, 4096, 12, 128, sc.FixedSparsityConfig(num_heads=12), True,
+                                   torch.bfloat16),
+        "i_fixed_b1_s4096_hd128_f16": (1, 4096, 12, 128, sc.FixedSparsityConfig(num_heads=12),
+                                       True, torch.float16),
     }
     k456 = {}
     for name, (B, S, H, hd, conf, causal, dtype) in sparse_shapes.items():
@@ -890,9 +953,19 @@ def main():
         o, lse = bs.block_sparse_attention_fwd(q, k, v, layout, causal=causal, block=conf.block)
         torch.cuda.synchronize()
         ro, rl = bs._reference_fwd(q, k, v, layout, b, causal, scale)
+        variant = bs.bwd_variant(dtype, min(b, bs.MAX_TILE))
+        before = op_builder.launch_counts()
         dq, dk, dv = bs.block_sparse_attention_bwd(q, k, v, ro, rl, do, layout, causal=causal,
                                                    block=conf.block)
         torch.cuda.synchronize()
+        for kname in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv"):
+            check(op_builder.LAUNCHES[kname] == before[kname] + 1,
+                  f"K5/K6 {name}: {kname} did not launch once")
+        again = bs.block_sparse_attention_bwd(q, k, v, ro, rl, do, layout, causal=causal,
+                                              block=conf.block)
+        same_bits = all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again))
+        check(same_bits, f"K5/K6 {name}: two calls gave different bits")
+        del again
         rq, rk, rv = bs._reference_bwd(q, k, v, ro, rl, do, layout, b, causal, scale)
         errs = {}
         for gname, got, ref in (("o", o, ro), ("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
@@ -903,12 +976,20 @@ def main():
                   f"K4-K6 {name}: max |{gname} - plain| {d} ({rel} of max |{gname}|)")
         d_lse = (lse - rl).abs().max().item()
         check(d_lse <= BS_LSE_TOL, f"K4 {name}: max |lse - plain| {d_lse}")
+        off_exact = None
+        if dtype != torch.float32:  # how often each side rounds off the exact gradient
+            exact = exact_sparse_bwd(bs, q, k, v, ro, rl, do, layout, b, causal, scale)
+            off_exact = {side: {g: rounded_off(got, ex) for g, got, ex in zip(("dq", "dk", "dv"),
+                                                                              grads, exact)}
+                         for side, grads in (("kernel", (dq, dk, dv)), ("plain", (rq, rk, rv)))}
+            del exact
         zero = None
         if zero_rows is not None:
             zero = max(o[:, zero_rows, 1].abs().max().item(),
                        dq[:, zero_rows, 1].abs().max().item())
             check(zero == 0.0, f"K4/K5 {name}: the all-zero layout row gave |o|, |dq| up to {zero}")
         lists = bs.tile_lists(layout, b, causal)
+        row_len, col_len = (lists[ptr][1:] - lists[ptr][:-1] for ptr in ("row_ptr", "col_ptr"))
         pairs = attention_pairs(S, S, causal, None, layout=layout, block=b)
         (k4b, k4by, k4f), (k5b, k5by, k5f), (k6b, k6by, k6f) = sparse_bounds(B, S, H, hd, pairs,
                                                                              dtype)
@@ -936,12 +1017,18 @@ def main():
             "layout": type(conf).__name__, "block": b, "causal": causal,
             "dtype": str(dtype).split(".")[-1],
             "kernel_tile": lists["tile"], "listed_tiles_per_head": lists["cols"].size / H,
-            "pairs_per_batch_row": pairs,
+            "pairs_per_batch_row": pairs, "k5_k6_variant": variant,
+            "k5_list_longest": int(row_len.max()), "k5_list_mean": float(row_len.mean()),
+            "k6_list_longest": int(col_len.max()), "k6_list_mean": float(col_len.mean()),
+            "k5_k6_same_bits_twice": same_bits,
             "max_abs_err": {g: e[0] for g, e in errs.items()},
             "max_err_over_max_ref": {g: e[1] for g, e in errs.items()},
             "max_abs_err_lse": d_lse, "zero_row_max_abs": zero,
+            "elements_per_gradient": q.numel(), "rounded_off_exact": off_exact,
             "rel_tol": BS_REL_TOL[dtype], "lse_tol": BS_LSE_TOL,
             "k4_ms": k4_ms, "k5_ms": k5_ms, "k6_ms": k6_ms,
+            "k5_tflops": 6.0 * hd * pairs * B / k5_ms * 1e-9,
+            "k6_tflops": 8.0 * hd * pairs * B / k6_ms * 1e-9,
             "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
             "k4_bound_ms": k4b, "k4_bound_by": k4by, "k5_bound_ms": k5b, "k5_bound_by": k5by,
             "k6_bound_ms": k6b, "k6_bound_by": k6by,
@@ -1307,6 +1394,11 @@ def main():
         check(sparse_counts[kname] == L_T * steps,
               f"train_sparse: {kname} launched {sparse_counts[kname]} times in {steps} steps, "
               f"expected {L_T} per step")
+    slayout, sblock = tf._sparse_layout((("mode", "fixed"),), scfg.num_heads, S_S)
+    svariant = bs.bwd_variant(torch.bfloat16, min(sblock, bs.MAX_TILE))
+    check(svariant == "tensor_core",
+          f"train_sparse: K5/K6 at block {sblock} run the {svariant} kernels, not the tensor-core "
+          f"ones")
     for kname in KERNELS:
         check(sparse_counts[kname] == 0,
               f"train_sparse: {kname} launched {sparse_counts[kname]} times, expected none")
@@ -1316,7 +1408,6 @@ def main():
     slate = statistics.mean(slosses[-3:])
     check(slate <= slosses[0] - LOSS_DROP,
           f"train_sparse: loss fell from {slosses[0]} to {slate} (last 3), less than {LOSS_DROP}")
-    slayout, sblock = tf._sparse_layout((("mode", "fixed"),), scfg.num_heads, S_S)
     live_pairs = attention_pairs(S_S, S_S, True, None, layout=slayout, block=sblock)
     dense_fpt = scfg.flops_per_token(S_S)
     attn_dense = 12 * scfg.num_layers * scfg.hidden_size * S_S
@@ -1337,6 +1428,7 @@ def main():
           "mfu_live_pairs_count": sparse_fpt * stokens_per_s / PEAK_FLOPS[torch.bfloat16],
           "flops_per_token_live_pairs": sparse_fpt,
           "peak_memory_bytes": speak_bytes,
+          "k5_k6_variant": svariant,
           "launches": {k: sparse_counts[k] for k in SPARSE_KERNELS + KERNELS},
           "launches_per_step": {k: sparse_counts[k] / steps for k in SPARSE_KERNELS + KERNELS},
           "card": card})
@@ -1443,13 +1535,13 @@ def main():
         {"name": "block_sparse_bwd_dq", "route": "cuda", "source": f"{src}/block_sparse_bwd.cu",
          "replaces": f"{pallas}/block_sparse_attention.py:69",
          **launches("block_sparse_bwd_dq"), "max_abs_err": sparse_err(["dq"]),
-         "shape": sparse_shape,
+         "variant": a456["k5_k6_variant"], "shape": sparse_shape,
          "ms": a456["k5_ms"], "plain_ms": a456["plain_bwd_ms"], "bound_ms": a456["k5_bound_ms"],
          "bound_by": a456["k5_bound_by"], "library_ms": a456["sdpa_bwd_ms"]},
         {"name": "block_sparse_bwd_dkv", "route": "cuda", "source": f"{src}/block_sparse_bwd.cu",
          "replaces": f"{pallas}/block_sparse_attention.py:99",
          **launches("block_sparse_bwd_dkv"), "max_abs_err": sparse_err(["dk", "dv"]),
-         "shape": sparse_shape,
+         "variant": a456["k5_k6_variant"], "shape": sparse_shape,
          "ms": a456["k6_ms"], "plain_ms": a456["plain_bwd_ms"], "bound_ms": a456["k6_bound_ms"],
          "bound_by": a456["k6_bound_by"], "library_ms": a456["sdpa_bwd_ms"]},
         {"name": "fused_norm_fwd", "route": "cuda", "source": f"{src}/fused_norm.cu",

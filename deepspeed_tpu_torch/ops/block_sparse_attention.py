@@ -15,10 +15,15 @@ dk/dv ``ops/csrc/block_sparse_bwd.cu`` (K5, K6), each built on first use
 (see ``op_builder``). The kernels walk lists of the live tiles built from
 the layout on the host once per (layout, causal) and kept on the card
 (:func:`tile_lists`); under causal the lists leave out the tiles wholly
-above the diagonal, which add nothing. On a CPU tensor each step runs its
-plain PyTorch version (:func:`_reference_fwd`, :func:`_reference_bwd`).
-There is no other path: no library attention call and no fallback from one
-to the other.
+above the diagonal, which add nothing. K5 and K6 have two variants, chosen
+from the dtype and the tile alone (:func:`bwd_variant` names it): float16 and
+bfloat16 at tile 64 run the tensor-core (wgmma) kernels, which take their
+blocks longest list first from the lists' launch orders and need 16-byte
+aligned rows (the backward copies any that are not, as the flash kernels
+do); float32 and tiles 16 and 32 run the f32 FMA kernels. On a CPU tensor
+each step runs its plain PyTorch version (:func:`_reference_fwd`,
+:func:`_reference_bwd`). There is no other path: no library attention call
+and no fallback from one kernel to another.
 """
 
 import ctypes
@@ -29,7 +34,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from deepspeed_tpu_torch.ops.flash_attention import _DTYPE_CODE, HEAD_DIMS, NEG_INF, _delta
+from deepspeed_tpu_torch.ops.flash_attention import (_DTYPE_CODE, HEAD_DIMS, NEG_INF,
+                                                     TENSOR_CORE_DTYPES, _delta,
+                                                     _rows_16b_aligned, _tensor_core_rows)
 from deepspeed_tpu_torch.ops.op_builder import LAUNCHES, CudaKernelLib
 
 FWD_KERNEL_LIB = CudaKernelLib("block_sparse_fwd.cu")  # built and loaded at the first launch
@@ -39,6 +46,18 @@ LAUNCHES["block_sparse_bwd_dq"] = 0
 LAUNCHES["block_sparse_bwd_dkv"] = 0
 BLOCKS = (16, 32, 64, 128)  # the layout blocks the kernels take
 MAX_TILE = 64  # the kernels' tile: a 128 block is split into 2 x 2 tiles of 64
+
+
+def bwd_variant(dtype: torch.dtype, tile: int) -> str:
+    """Which K5/K6 kernels run for inputs of ``dtype`` at ``tile`` rows:
+    ``"tensor_core"`` (wgmma m64n64k16, 64-row tiles) for float16 and
+    bfloat16 at tile 64, ``"f32_fma"`` otherwise (float32, which the tensor
+    cores would take only as TF32, and tiles 16 and 32, under a wgmma's 64
+    rows). Both do the TPU kernels' f32 arithmetic. The kernels' C entry
+    points make the same choice from the same two facts; this function
+    decides which rows the backward copies, and names the variant in
+    reports."""
+    return "tensor_core" if dtype in TENSOR_CORE_DTYPES and tile == MAX_TILE else "f32_fma"
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,8 +74,8 @@ def _bwd_kernels():
     lib = BWD_KERNEL_LIB.load()
     tail = [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     dq, dkv = lib.dstorch_block_sparse_bwd_dq, lib.dstorch_block_sparse_bwd_dkv
-    dq.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + tail
-    dkv.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + tail
+    dq.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + tail
+    dkv.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + tail
     dq.restype = dkv.restype = ctypes.c_int
     return dq, dkv
 
@@ -107,6 +126,13 @@ def _check_inputs(q, k, v, layout: np.ndarray, block: int) -> int:
     return b
 
 
+def _longest_first(ptr: np.ndarray) -> np.ndarray:
+    """Every (head, tile) list of the CSR lists ``ptr`` (H * n + 1 offsets)
+    as h * n + tile, longest list first; lists of equal length in ascending
+    order of that number (a stable sort)."""
+    return np.argsort(-np.diff(ptr), kind="stable").astype(np.int32)
+
+
 def tile_lists(layout, block: int, causal: bool) -> Dict[str, np.ndarray]:
     """The live tiles of a layout as the kernels walk them, in numpy.
 
@@ -115,7 +141,12 @@ def tile_lists(layout, block: int, causal: bool) -> Dict[str, np.ndarray]:
     (ki > qi) are dropped. Per head, CSR-style int32 lists:
     ``row_ptr`` (H * nq + 1 offsets) into ``cols``, the live k-tiles of each
     q-tile in ascending order (K4, K5); ``col_ptr`` (H * nk + 1) into
-    ``rows``, the live q-tiles of each k-tile in ascending order (K6)."""
+    ``rows``, the live q-tiles of each k-tile in ascending order (K6).
+    ``row_order`` and ``col_order``: the tensor-core K5's and K6's launch
+    orders, every (h, tile) list as h * n + tile, the longest first
+    (:func:`_longest_first`); the kernels run the batch rows of each entry
+    one after another. A block still walks its list in ascending order, so
+    the order decides when a block runs and never the order of a sum."""
     tile = min(block, MAX_TILE)
     live = _as_layout(layout) > 0
     if block > tile:
@@ -130,7 +161,8 @@ def tile_lists(layout, block: int, causal: bool) -> Dict[str, np.ndarray]:
 
     row_ptr, cols = csr(live)
     col_ptr, rows = csr(live.transpose(0, 2, 1))
-    return {"tile": tile, "row_ptr": row_ptr, "cols": cols, "col_ptr": col_ptr, "rows": rows}
+    return {"tile": tile, "row_ptr": row_ptr, "cols": cols, "col_ptr": col_ptr, "rows": rows,
+            "row_order": _longest_first(row_ptr), "col_order": _longest_first(col_ptr)}
 
 
 @functools.lru_cache(maxsize=32)
@@ -142,9 +174,10 @@ def _device_tile_lists(shape, packed: bytes, block: int, causal: bool, device: t
 
 
 def _lists_on(layout: np.ndarray, block: int, causal: bool, device):
-    """(tile, tile lists on ``device``), built once per (layout, block,
-    causal, device): the cache is keyed by the layout's live bits, so a
-    caller may pass a new array with the same entries and hit it."""
+    """(tile, tile lists and launch orders on ``device``), built once per
+    (layout, block, causal, device): the cache is keyed by the layout's live
+    bits, so a caller may pass a new array with the same entries and hit
+    it."""
     live = layout > 0
     return _device_tile_lists(live.shape, np.packbits(live).tobytes(), block, bool(causal),
                               torch.device(device))
@@ -198,7 +231,12 @@ def _reference_bwd(q, k, v, o, lse, do, layout: np.ndarray, b: int, causal: bool
 # the kernels
 # ---------------------------------------------------------------------------
 
-def _check_kernel_inputs(q, k, v, b: int, *more):
+def _check_kernel_inputs(q, k, v, b: int, *more, aligned_rows: bool = False):
+    """What every kernel wrapper (K4, K5, K6) checks before its launch:
+    dtype, head dim, block, contiguous last dims, one dtype, extents, and,
+    with ``aligned_rows`` (the tensor-core K5/K6), 16-byte aligned rows (the
+    backward copies any that are not first, ``_tensor_core_rows``).
+    ``more``: the backward's do."""
     B, _, H, hd = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"block-sparse kernel takes float32/float16/bfloat16, got {q.dtype}")
@@ -212,6 +250,9 @@ def _check_kernel_inputs(q, k, v, b: int, *more):
         raise TypeError(f"block-sparse kernel: do must be in q's dtype {q.dtype}")
     if B * H > 65535:
         raise ValueError(f"block-sparse kernel: unsupported extent B*H={B * H}")
+    if aligned_rows and not all(_rows_16b_aligned(t) for t in (q, k, v, *more)):
+        raise ValueError("block-sparse kernel: 16-bit q/k/v/do rows must be 16-byte aligned "
+                         "for the tensor-core variant (pass them through _tensor_core_rows)")
 
 
 def _strides(*tensors):
@@ -238,21 +279,30 @@ def _cuda_fwd(q, k, v, layout, b, causal, sm_scale) -> Tuple[torch.Tensor, torch
     return o, lse
 
 
+def _bwd_setup(q, k, v, do, layout, b, causal):
+    """The checks and lists both backward kernels need: (variant, tile,
+    lists on q's device)."""
+    tile = min(b, MAX_TILE)
+    variant = bwd_variant(q.dtype, tile)
+    _check_kernel_inputs(q, k, v, b, do, aligned_rows=variant == "tensor_core")
+    return variant, *_lists_on(layout, b, causal, q.device)
+
+
 def _cuda_bwd_dq(q, k, v, do, lse, delta, layout, b, causal, sm_scale) -> torch.Tensor:
     """K5: dq (B, Sq, H, hd) in q's dtype."""
-    _check_kernel_inputs(q, k, v, b, do)
+    variant, tile, lists = _bwd_setup(q, k, v, do, layout, b, causal)
     B, Sq, H, hd = q.shape
-    tile, lists = _lists_on(layout, b, causal, q.device)
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         rc = _bwd_kernels()[0](
             _DTYPE_CODE[q.dtype], hd, tile, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            lists["row_ptr"].data_ptr(), lists["cols"].data_ptr(), B, H, Sq, k.shape[1],
-            Sq // tile, _strides(q, k, v, do), float(sm_scale), int(causal),
+            lists["row_ptr"].data_ptr(), lists["cols"].data_ptr(), lists["row_order"].data_ptr(),
+            B, H, Sq, k.shape[1], Sq // tile,
+            _strides(q, k, v, do), float(sm_scale), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"block_sparse_bwd_dq kernel launch failed (cudaError {rc})")
+        raise RuntimeError(f"block_sparse_bwd_dq kernel ({variant}) launch failed (cudaError {rc})")
     LAUNCHES["block_sparse_bwd_dq"] += 1
     return dq
 
@@ -260,40 +310,48 @@ def _cuda_bwd_dq(q, k, v, do, lse, delta, layout, b, causal, sm_scale) -> torch.
 def _cuda_bwd_dkv(q, k, v, do, lse, delta, layout, b, causal,
                   sm_scale) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: dk, dv (B, Sk, H, hd) in k's dtype."""
-    _check_kernel_inputs(q, k, v, b, do)
+    variant, tile, lists = _bwd_setup(q, k, v, do, layout, b, causal)
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
-    tile, lists = _lists_on(layout, b, causal, q.device)
     dk = torch.empty((B, Sk, H, hd), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, Sk, H, hd), dtype=v.dtype, device=v.device)
     with torch.cuda.device(q.device):
         rc = _bwd_kernels()[1](
             _DTYPE_CODE[q.dtype], hd, tile, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lists["col_ptr"].data_ptr(), lists["rows"].data_ptr(), B, H, Sq, Sk, Sk // tile,
+            lists["col_ptr"].data_ptr(), lists["rows"].data_ptr(), lists["col_order"].data_ptr(),
+            B, H, Sq, Sk, Sk // tile,
             _strides(q, k, v, do), float(sm_scale), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"block_sparse_bwd_dkv kernel launch failed (cudaError {rc})")
+        raise RuntimeError(f"block_sparse_bwd_dkv kernel ({variant}) launch failed "
+                           f"(cudaError {rc})")
     LAUNCHES["block_sparse_bwd_dkv"] += 1
     return dk, dv
+
+
+def _device_type(q) -> str:
+    return q.device.type
 
 
 def _fwd(q, k, v, layout, b, causal, sm_scale):
     """The forward on checked inputs: K4 on a CUDA tensor, the plain version
     on a CPU tensor."""
-    if q.device.type == "cuda":
+    if _device_type(q) == "cuda":
         return _cuda_fwd(q, k, v, layout, b, causal, sm_scale)
     return _reference_fwd(q, k, v, layout, b, causal, sm_scale)
 
 
 def _bwd(q, k, v, o, lse, do, layout, b, causal, sm_scale):
     """The backward on checked inputs: on a CUDA tensor delta in f32, then
-    K5 and K6; on a CPU tensor the plain version."""
-    if q.device.type == "cpu":
+    K5 and K6 (for the tensor-core variant on rows made 16-byte aligned); on
+    a CPU tensor the plain version."""
+    if _device_type(q) == "cpu":
         return _reference_bwd(q, k, v, o, lse, do, layout, b, causal, sm_scale)
     if do.stride(-1) != 1:
         do = do.contiguous()
+    if bwd_variant(q.dtype, min(b, MAX_TILE)) == "tensor_core":
+        q, k, v, do = (_tensor_core_rows(t) for t in (q, k, v, do))
     delta = _delta(o, do)
     lse = lse.contiguous()
     dq = _cuda_bwd_dq(q, k, v, do, lse, delta, layout, b, causal, sm_scale)

@@ -17,7 +17,14 @@
 // and p = 0 to the gradients, so the result is the same. The diagonal tile
 // (ki == qi) is the only one left that needs the causal mask.
 //
-// Threads. 128 threads own a TILE x TILE score tile as 16 row groups x 8
+// Launch order. Beside the lists the host keeps an order of the (head, tile)
+// lists for each list kind, longest list first (row_order for the row lists,
+// col_order for the column lists; entry h * n + tile). The tensor-core K5 and
+// K6 take their list from it through blockIdx.x, the batch rows of one entry
+// in consecutive blocks; every block still walks its own list in ascending
+// order, so the order decides when a block runs and never the order of a sum.
+//
+// Threads (the FMA kernels). 128 threads own a TILE x TILE score tile as 16 row groups x 8
 // column groups: thread (rg, cg) holds rows rg * R + i (i < R) and columns
 // cg + 8 * c (c < C), R = TILE / 16, C = TILE / 8, and output dimensions
 // cg + 8 * j (j < HD / 8). The 8 lanes of a row group are neighbours in one
@@ -30,9 +37,13 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+// kThreads (128), to_f32 and from_f32 come from here, as do the tensor-core
+// pieces (swizzled cp.async tiles, wgmma descriptors and wrappers, pack2)
+// of K5's and K6's tensor-core variants
+#include "flash_sm90.cuh"
+
 namespace bsa {
 
-constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
 template <int TILE>
@@ -42,20 +53,6 @@ struct Geom {
   static constexpr int C = TILE / 8;   // score columns per thread
   static constexpr int SP = TILE + 1;  // padded row of a score tile in shared memory
 };
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 struct Strides {
   long long q[3], k[3], v[3], o[3];  // (batch, seq, head) in elements; o is do's

@@ -10,41 +10,86 @@
 //     ds = p (do v^T - delta) sm_scale
 //     dq = sum_k ds k,     dk = sum_q ds^T q,     dv = sum_q p^T do
 // All arithmetic is f32, as in the TPU kernels, which upcast q, k, v and do
-// before every dot (:78-81, :109-112): p and ds are never rounded (unlike
-// the flash backward K2/K3, whose TPU kernels round them), and dq, dk and dv
-// are rounded to the input dtype once, at the store. There is no GQA in the
-// kernels: the model repeats the kv heads before the call, as the JAX
-// package does (models/transformer.py:541-543), and autograd sums the group.
+// before every dot (:78-81, :109-112): p and ds are never rounded to the
+// input dtype (unlike the flash backward K2/K3, whose TPU kernels round
+// them), and dq, dk and dv are rounded to the input dtype once, at the
+// store. There is no GQA in the kernels: the model repeats the kv heads
+// before the call, as the JAX package does (models/transformer.py:541-543),
+// and autograd sums the group.
 //
-// Design. 128 threads per block; tiles, tile lists and the thread layout as
-// in block_sparse.cuh. The TPU grids walk every tile of a row (K5) or a
-// column (K6) and test the layout at each (:76, :107); here a block walks
-// only its list, in ascending order:
+// Two variants, chosen from (dtype, tile) alone, as
+// block_sparse_attention.bwd_variant reports them; never a fallback: a
+// launch that fails is an error and the caller raises.
+//  - float16 / bfloat16 at tile 64 (layout blocks 64 and 128): the
+//    tensor-core kernels block_sparse_bwd_{dq,dkv}_kernel_wgmma below;
+//  - float32, and tiles 16 and 32 (a wgmma needs 64 rows): the FMA kernels
+//    block_sparse_bwd_{dq,dkv}_kernel.
+//
+// Tensor-core design (the pieces are flash_sm90.cuh's, shared with K1-K3).
+// One warpgroup (128 threads) per (64-row tile, batch, head), the tile and
+// head taken from the host's launch order (longest list first,
+// block_sparse.cuh), walking its row's (K5) or column's (K6) list in
+// ascending order; at head dim 128 K6 runs one such block for each
+// 64-column panel of dK and dV. Tiles of q, k, v and do are
+// 128-byte-swizzled 16-bit copies made by cp.async, double buffered over
+// the list: the next tile is in flight during this one's products. Every
+// product is a wgmma m64n64k16 with f32 accumulators:
+//  - K5: S = Q K^T and dP = dO V^T (K-major), p = exp(S sm_scale - lse) and
+//    ds = p (dP - delta) sm_scale in f32 on the accumulator layout, then
+//    dQ += ds K with K read MN-major from the copy that fed Q K^T.
+//  - K6: S^T = K Q^T and dP^T = V dO^T, p^T and ds^T likewise, then
+//    dV += p^T dO and dK += ds^T Q with dO and Q read MN-major.
+// The TPU kernels' dots are f32. q k^T and do v^T multiply two 16-bit
+// inputs, whose products are exact in f32, so the tensor cores take them as
+// they are. p and ds are f32 values: each is split into 16-bit parts (three
+// in bfloat16, two in float16: split_pack) that go through the same product
+// into one f32 accumulator, which keeps it below f32's own rounding, at 5
+// products a pair in K5 (3 in f32) and 8 in K6 (4 in f32). The parts are
+// packed from the accumulators straight into the next product's A
+// fragments (pack2) and never pass through shared memory. The tensor cores
+// do not round their sums to nearest, so no sum of theirs runs longer than
+// one 64-wide panel: S and dP add their panels in f32 (scores), each tile's
+// ds K, p^T dO and ds^T Q is summed from zero and added to the running
+// gradient in f32 (add_product), and p = exp(s sm_scale - lse) is rounded
+// step by step as the plain version computes it. In float16, rows of ds are
+// scaled by powers of two and p by 2^14 so that the parts stay in its
+// normal range (scale_rows). dq, dk and dv are rounded once, at the store.
+//
+// FMA design (float32, tiles 16 and 32). 128 threads per block; tiles, tile
+// lists and the thread layout as in block_sparse.cuh. The TPU grids walk
+// every tile of a row (K5) or a column (K6) and test the layout at each
+// (:76, :107); here a block walks only its list, in ascending order:
 //  - K5: one block per (query tile, batch * head), over the live k-tiles of
 //    its row; dq stays in registers and is written once.
 //  - K6: one block per (key tile, batch * head), over the live q-tiles of its
 //    column (the transposed lists); dk and dv stay in registers and are
 //    written once.
-// Nothing is carried between blocks: no atomics and no second pass. Under
-// causal the lists hold no tile above the diagonal (those add p = 0).
+// Nothing is carried between blocks in either variant: no atomics and no
+// second pass, so two calls give the same bits. Under causal the lists hold
+// no tile above the diagonal (those add p = 0).
 //
 // What bounds it on an H100. K5 does 6 * hd FLOPs per pair the layout and
 // the mask let through (q k^T, do v^T, ds k), K6 8 * hd (q k^T, do v^T,
 // p^T do, ds^T q); each reads q, k, v and do once, plus lse and delta, and
 // writes its gradients once. At the training shape (B2 S4096 H12 hd64 bf16,
 // fixed layout, causal) that is 23 and 31 GFLOP over 64 and 76 MB: just
-// above the bf16 ridge, so the bound is the tensor-core rate, 23 and 31 us.
-// At the f32 CUDA-core rate (the TPU kernels' f32 math) it is 0.34 and
-// 0.46 ms. This version does f32 FMAs from shared memory: that ceiling and
-// the shared-memory traffic limit it. K6's columns differ in length (a
-// global column of the fixed layout is live in every row below it), so its
-// blocks are uneven; wgmma products and splitting long columns come next.
+// above the bf16 ridge, so the bound is the tensor-core rate, 23 and 31 us;
+// with the split parts the tensor cores do 5/3 and 2x that. The f32 CUDA-core
+// rate, the FMA kernels' ceiling, puts the same work at 0.34 and 0.46 ms.
+// K6's columns differ in length (a global column of the fixed layout is live
+// in every row below it); the launch order starts the long ones first.
 //
 // Interface: plain C, loaded with ctypes. Strides are in elements, the last
-// dimension of q, k, v and do must be contiguous; lse and delta are
-// contiguous (B, H, Sq) f32; dq is a contiguous (B, Sq, H, hd) tensor, dk
-// and dv contiguous (B, Sk, H, hd). Launches go on the caller's stream; the
-// return value is cudaGetLastError().
+// dimension of q, k, v and do must be contiguous (for the tensor-core
+// variant also 16-byte aligned rows: base addresses a multiple of 16 bytes,
+// strides of 8 elements); lse and delta are contiguous (B, H, Sq) f32; dq is
+// a contiguous (B, Sq, H, hd) tensor, dk and dv contiguous (B, Sk, H, hd).
+// Launches go on the caller's stream; the return value is
+// cudaGetLastError().
+
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "block_sparse.cuh"
 
@@ -321,10 +366,430 @@ block_sparse_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// tensor-core kernels (float16 / bfloat16, tile 64)
+// ---------------------------------------------------------------------------
+
+// The f32 operands p and ds reach the tensor cores as kParts 16-bit parts:
+// part 0 = round16(x), each next part round16 of what the parts so far leave
+// (exact in f32: the bits of x they drop), all multiplied by the same 16-bit
+// partner into one f32 accumulator. Three bfloat16 parts keep x to about
+// 2^-26 relative, below f32's own rounding (two parts, 2^-17, left several
+// times more output roundings off the exact ones than the f32 plain version
+// leaves); two float16 parts keep it to about 2^-23.
+template <typename T>
+constexpr int kParts = std::is_same<T, __half>::value ? 2 : 3;
+// float16 has 5 exponent bits: ds's rows are scaled by powers of two
+// (scale_rows), starting from 2^60, and p (at most 1) by 2^14 (p_scale), so
+// that the parts stay in its normal range
+constexpr float kMulStart = 1152921504606846976.f;
+
+template <typename T>
+__device__ __forceinline__ constexpr float p_scale() {
+  return std::is_same<T, __half>::value ? 16384.f : 1.f;
+}
+
+template <typename T>
+__device__ __forceinline__ void split_pack(float x0, float x1,
+                                           uint32_t (&out)[kParts<T>][4][4], int r, int c) {
+#pragma unroll
+  for (int part = 0; part < kParts<T>; ++part) {
+    const float h0 = to_f32(from_f32<T>(x0)), h1 = to_f32(from_f32<T>(x1));
+    out[part][r][c] = pack2<T>(h0, h1);
+    x0 -= h0;
+    x1 -= h1;
+  }
+}
+
+// the parts of a 64 x 64 f32 operand on the accumulator layout, as the A
+// fragments of the products that take it (element pair 4j + 2e of a thread
+// is register (j % 2) * 2 + e of k-step j / 2)
+template <typename T>
+__device__ __forceinline__ void split_rows(const float (&x)[32],
+                                           uint32_t (&out)[kParts<T>][4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      split_pack<T>(x[4 * j + 2 * e], x[4 * j + 2 * e + 1], out, j >> 1, (j & 1) * 2 + e);
+#pragma unroll
+  for (int part = 0; part < kParts<T>; ++part) fence_regs(out[part]);
+}
+
+// acc += (sum of A's parts) B. The tensor cores do not round their f32 sums
+// to nearest: over a long list, products added straight into acc drift
+// towards zero, further than the plain version's f32 sum strays. So each
+// 64-column panel's tile product (kParts x 4 wgmma steps) is summed from
+// zero in its own accumulator t and added to acc in f32, rounding to
+// nearest; the sum over the list is then an f32 sum as the plain version's.
+template <typename T, int NP>
+__device__ __forceinline__ void add_product(float (&acc)[NP][32],
+                                            const uint32_t (&a)[kParts<T>][4][4], uint32_t b) {
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    float t[1][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) t[0][i] = 0.f;
+    fence_regs(t[0]);
+    wgmma_fence();
+#pragma unroll
+    for (int part = 0; part < kParts<T>; ++part)
+      product_mn_major<T, 1>(t, a[part], b + p * kPanelBytes);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(t[0]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[p][i] += t[0][i];
+  }
+}
+
+// s = A B^T and dp = C D^T over HD columns, all four tiles K-major. At head
+// dim 128 each 64-column panel is summed by the tensor cores from zero and
+// the two are added in f32, so that no truncating sum runs over more than
+// the 4 steps of one panel, as at head dim 64.
+template <typename T, int HD>
+__device__ __forceinline__ void scores(float (&s)[32], float (&dp)[32], uint32_t a, uint32_t b,
+                                       uint32_t c, uint32_t d) {
+  if constexpr (Tile<HD>::panels == 1) {
+    wgmma_fence();
+    product_k_major<T, HD>(s, a, b);
+    product_k_major<T, HD>(dp, c, d);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+  } else {
+    static_assert(Tile<HD>::panels == 2, "head dims up to 128");
+    float s1[32], dp1[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s1[i] = dp1[i] = 0.f;
+    fence_regs(s1);
+    fence_regs(dp1);
+    wgmma_fence();
+    product_k_major<T, kPanel>(s, a, b);
+    product_k_major<T, kPanel>(dp, c, d);
+    product_k_major<T, kPanel>(s1, a + kPanelBytes, b + kPanelBytes);
+    product_k_major<T, kPanel>(dp1, c + kPanelBytes, d + kPanelBytes);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+    fence_regs(s1);
+    fence_regs(dp1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] += s1[i];
+      dp[i] += dp1[i];
+    }
+  }
+}
+
+// float16 only (bfloat16 has f32's exponent range): scale each of this
+// thread's two rows (r0 and r0 + 8) of the f32 operand x by mul[e], a power
+// of two that puts the row's largest |x| at or under 2^15 (within 2^-60 ..
+// 2^60), so that the parts stay in float16's normal range where they can and
+// never overflow. mul only falls, when a tile brings a larger row maximum;
+// the row's accumulator, which holds mul times its sum, is scaled by the same
+// power of two then, and divided by mul at the store. Every step is exact.
+template <typename T, int NP>
+__device__ __forceinline__ void scale_rows(float (&x)[32], float (&acc)[NP][32],
+                                           float (&mul)[2]) {
+  if constexpr (std::is_same<T, __half>::value) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float m = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        m = fmaxf(m, fmaxf(fabsf(x[4 * j + 2 * e]), fabsf(x[4 * j + 2 * e + 1])));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));  // the row's quad
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      // 2^(14 - floor(log2 m)) from m's biased exponent; m = 0 gives 2^60
+      const int k = min(60, max(-60, 141 - ((__float_as_int(m) >> 23) & 0xff)));
+      const float need = __int_as_float((k + 127) << 23);
+      if (need < mul[e]) {
+        const float r = need / mul[e];
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[p][4 * j + 2 * e] *= r;
+            acc[p][4 * j + 2 * e + 1] *= r;
+          }
+        mul[e] = need;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        x[4 * j + 2 * e] *= mul[e];
+        x[4 * j + 2 * e + 1] *= mul[e];
+      }
+    }
+  }
+}
+
+// accumulator element pair (i, i + 1) of row e, rounded to T as a packed pair
+template <typename T>
+__device__ __forceinline__ uint32_t store_pair(float x0, float x1, float mul) {
+  if constexpr (std::is_same<T, __half>::value) {
+    x0 /= mul;
+    x1 /= mul;
+  }
+  return pack2<T>(x0, x1);
+}
+
+// p = exp(s sm_scale - lse) for a score s of the accumulator, rounded step
+// by step as the plain version computes it
+__device__ __forceinline__ float softmax_p(float s, float sm_scale, float lse) {
+  return expf(__fsub_rn(__fmul_rn(s, sm_scale), lse));
+}
+
+template <int HD>
+constexpr int dq_wgmma_smem() {
+  return 1024 + 6 * Tile<HD>::bytes;  // alignment slack, Q, dO, 2 x (K, V)
+}
+
+// K5: dq for one 64-row query tile of one (batch, head): batch row
+// blockIdx.x % B of the (head, tile) that order[blockIdx.x / B] names
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+block_sparse_bwd_dq_kernel_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                                 const T* __restrict__ v, const T* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 T* __restrict__ dq, const int* __restrict__ row_ptr,
+                                 const int* __restrict__ cols, const int* __restrict__ order,
+                                 int B, int H, int Sq, int Sk, int nq, Strides st,
+                                 float sm_scale, int causal) {
+  constexpr int NP = Tile<HD>::panels;
+  constexpr int TB = Tile<HD>::bytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sdO = sQ + TB;
+  const uint32_t sKV = sdO + TB;  // buffer i: K at sKV + 2 i TB, V after it
+
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 5) * 16 + ((tid & 31) >> 2);  // rows r0, r0 + 8
+  const int c0 = (tid & 3) * 2;                         // columns 8j + c0 + t
+  const int code = order[blockIdx.x / B];               // h * nq + qt
+  const int b = blockIdx.x % B;
+  const int h = code / nq;
+  const int qt = code - h * nq;
+  const int bh = b * H + h;
+  const int q0 = qt * kBlock;
+
+  const T* kb = k + b * st.k[0] + h * st.k[2];
+  const T* vb = v + b * st.v[0] + h * st.v[2];
+  load_tile_async<T, HD>(sQ, q + b * st.q[0] + h * st.q[2], st.q[1], q0, Sq);
+  load_tile_async<T, HD>(sdO, dout + b * st.o[0] + h * st.o[2], st.o[1], q0, Sq);
+  const int e0 = row_ptr[h * nq + qt];
+  const int n = row_ptr[h * nq + qt + 1] - e0;
+  if (n > 0) {
+    load_tile_async<T, HD>(sKV, kb, st.k[1], cols[e0] * kBlock, Sk);
+    load_tile_async<T, HD>(sKV + TB, vb, st.v[1], cols[e0] * kBlock, Sk);
+  }
+  cp_async_commit();
+
+  float lse_r[2], dlt[2];  // rows r0, r0 + 8
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long long at = static_cast<long long>(bh) * Sq + q0 + r0 + 8 * e;
+    lse_r[e] = lse[at];
+    dlt[e] = delta[at];
+  }
+
+  float acc[NP][32], s[32], dp[32];
+  float mul[2] = {kMulStart, kMulStart};  // float16: the rows' scales (scale_rows)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) acc[p][i] = 0.f;
+  }
+
+  for (int it = 0; it < n; ++it) {
+    const int k0 = cols[e0 + it] * kBlock;
+    const uint32_t sK = sKV + (it & 1) * 2 * TB;
+    __syncthreads();  // every thread is done with the buffer the prefetch overwrites
+    if (it + 1 < n) {
+      const uint32_t nK = sKV + ((it + 1) & 1) * 2 * TB;
+      const int nk0 = cols[e0 + it + 1] * kBlock;
+      load_tile_async<T, HD>(nK, kb, st.k[1], nk0, Sk);
+      load_tile_async<T, HD>(nK + TB, vb, st.v[1], nk0, Sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the prefetch: Q, dO and this tile are here
+    fence_async_smem();
+    __syncthreads();
+
+    scores<T, HD>(s, dp, sQ, sK, sdO, sK + TB);
+
+    // ds = p (dp - delta) sm_scale in f32, in place of dp; its parts are the
+    // A fragments of ds k
+    const bool diag = causal && k0 == q0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int e = (i >> 1) & 1;
+      // a masked pair's exp(-1e30 - lse) is exactly 0 in the TPU kernel
+      const float p = (diag && 8 * (i >> 2) + c0 + (i & 1) > r0 + 8 * e)
+                          ? 0.f : softmax_p(s[i], sm_scale, lse_r[e]);
+      dp[i] = p * (dp[i] - dlt[e]) * sm_scale;
+    }
+    scale_rows<T, NP>(dp, acc, mul);
+    uint32_t a[kParts<T>][4][4];
+    split_rows<T>(dp, a);
+    add_product<T, NP>(acc, a, sK);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qpos = q0 + r0 + 8 * e;
+    T* row = dq + ((static_cast<long long>(b) * Sq + qpos) * H + h) * HD;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = p * kPanel + 8 * j + c0;
+        if (col < HD)
+          *reinterpret_cast<uint32_t*>(row + col) =
+              store_pair<T>(acc[p][4 * j + 2 * e], acc[p][4 * j + 2 * e + 1], mul[e]);
+      }
+  }
+}
+
+template <int HD>
+__host__ __device__ constexpr int dkv_wgmma_step_bytes() {
+  // Q, dO, then lse and delta (512 bytes) padded so that every tile stays 1024-aligned
+  return 2 * Tile<HD>::bytes + 1024;
+}
+
+template <int HD>
+constexpr int dkv_wgmma_smem() {
+  return 1024 + 2 * Tile<HD>::bytes + 2 * dkv_wgmma_step_bytes<HD>();  // slack, K, V, 2 steps
+}
+
+// K6: dk and dv for one 64-row key tile of one (batch, head), one
+// 64-column panel of them a block (NP = 2 at head dim 128, else 1): panel
+// blockIdx.x % NP of batch row (blockIdx.x / NP) % B of the (head, tile)
+// that order[blockIdx.x / (NP B)] names. Each panel's block computes S^T and
+// dP^T over the whole head dim, so that dK and dV take 64 registers a
+// thread at every head dim, and each tile's product is summed in f32.
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+block_sparse_bwd_dkv_kernel_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                                  const T* __restrict__ v, const T* __restrict__ dout,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  T* __restrict__ dk, T* __restrict__ dv,
+                                  const int* __restrict__ col_ptr, const int* __restrict__ rows,
+                                  const int* __restrict__ order, int B, int H, int Sq, int Sk,
+                                  int nk, Strides st, float sm_scale, int causal) {
+  constexpr int NP = Tile<HD>::panels;
+  constexpr int TB = Tile<HD>::bytes;
+  constexpr int SB = dkv_wgmma_step_bytes<HD>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023) & ~1023u;
+  const uint32_t sV = sK + TB;
+  const uint32_t sStep = sV + TB;  // buffer i: Q, dO, lse, delta at sStep + i SB
+
+  const int tid = threadIdx.x;
+  const int r0 = (tid >> 5) * 16 + ((tid & 31) >> 2);  // key rows r0, r0 + 8
+  const int c0 = (tid & 3) * 2;                         // query columns 8j + c0 + t
+  const int panel = blockIdx.x % NP;
+  const int code = order[blockIdx.x / (NP * B)];        // h * nk + kt
+  const int b = (blockIdx.x / NP) % B;
+  const int h = code / nk;
+  const int kt = code - h * nk;
+  const int bh = b * H + h;
+  const int k0 = kt * kBlock;
+  const int e0 = col_ptr[h * nk + kt];
+  const int n = col_ptr[h * nk + kt + 1] - e0;
+  const T* qb = q + b * st.q[0] + h * st.q[2];
+  const T* ob = dout + b * st.o[0] + h * st.o[2];
+  const float* lse_row = lse + static_cast<long long>(bh) * Sq;
+  const float* delta_row = delta + static_cast<long long>(bh) * Sq;
+
+  // the Q, dO, lse and delta of list entry i into buffer i % 2
+  auto load_step = [&](int i) {
+    const int q0 = rows[e0 + i] * kBlock;
+    const uint32_t buf = sStep + (i & 1) * SB;
+    load_tile_async<T, HD>(buf, qb, st.q[1], q0, Sq);
+    load_tile_async<T, HD>(buf + TB, ob, st.o[1], q0, Sq);
+    if (tid < kBlock)
+      load_rows_async(buf + 2 * TB, lse_row, q0, Sq, tid);
+    else
+      load_rows_async(buf + 2 * TB + kBlock * 4, delta_row, q0, Sq, tid - kBlock);
+  };
+
+  load_tile_async<T, HD>(sK, k + b * st.k[0] + h * st.k[2], st.k[1], k0, Sk);
+  load_tile_async<T, HD>(sV, v + b * st.v[0] + h * st.v[2], st.v[1], k0, Sk);
+  if (n > 0) load_step(0);
+  cp_async_commit();
+
+  float dka[1][32], dva[1][32], s[32], dp[32];  // dK and dV: this block's panel
+  float mul_k[2] = {kMulStart, kMulStart};       // float16: ds^T's row scales (scale_rows)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = dka[0][i] = dva[0][i] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    const int q0 = rows[e0 + it] * kBlock;
+    const uint32_t buf = sStep + (it & 1) * SB;
+    const uint32_t sQ = buf, sdO = buf + TB;
+    const float* lse_s = reinterpret_cast<const float*>(smem_raw + (buf + 2 * TB - raw));
+    const float* delta_s = lse_s + kBlock;
+    __syncthreads();  // every thread is done with the buffer the prefetch overwrites
+    if (it + 1 < n) load_step(it + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the prefetch: K, V and this step are here
+    fence_async_smem();
+    __syncthreads();
+
+    scores<T, HD>(s, dp, sK, sQ, sV, sdO);  // S^T = K Q^T, dP^T = V dO^T
+
+    // p^T in place of s and ds^T = p^T (dp^T - delta) sm_scale in place of
+    // dp, in f32; their parts are the A fragments of p^T dO and ds^T Q
+    const bool diag = causal && q0 == k0;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qc = 8 * (i >> 2) + c0 + (i & 1);
+      const float p = (diag && r0 + 8 * ((i >> 1) & 1) > qc)
+                          ? 0.f : softmax_p(s[i], sm_scale, lse_s[qc]);
+      dp[i] = p * (dp[i] - delta_s[qc]) * sm_scale;
+      s[i] = p * p_scale<T>();
+    }
+    uint32_t pa[kParts<T>][4][4];
+    split_rows<T>(s, pa);
+    add_product<T, 1>(dva, pa, sdO + panel * kPanelBytes);  // dV += p^T dO
+    // ds^T's parts only now, when pa's registers are free: the fence keeps
+    // the compiler from splitting dp ahead of dV's products
+    fence_regs(dp);
+    scale_rows<T, 1>(dp, dka, mul_k);
+    uint32_t da[kParts<T>][4][4];
+    split_rows<T>(dp, da);
+    add_product<T, 1>(dka, da, sQ + panel * kPanelBytes);  // dK += ds^T Q
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int kpos = k0 + r0 + 8 * e;
+    const long long at = ((static_cast<long long>(b) * Sk + kpos) * H + h) * HD;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = panel * kPanel + 8 * j + c0;
+      if (col >= HD) continue;
+      const int i = 4 * j + 2 * e;
+      *reinterpret_cast<uint32_t*>(dk + at + col) =
+          store_pair<T>(dka[0][i], dka[0][i + 1], mul_k[e]);
+      *reinterpret_cast<uint32_t*>(dv + at + col) =
+          store_pair<T>(dva[0][i], dva[0][i + 1], p_scale<T>());
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
   const int *ptr, *idx;  // the row lists (K5) or the column lists (K6)
+  const int* order;      // the tensor-core kernels' launch order of (head, tile)
   int B, H, Sq, Sk, n;   // n: query tiles (K5) or key tiles (K6)
   Strides st;
   float sm_scale;
@@ -363,12 +828,48 @@ int launch_dkv(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int HD>
+int launch_dq_wgmma(const Args& a) {
+  constexpr int smem = dq_wgmma_smem<HD>();
+  cudaError_t err = cudaFuncSetAttribute(block_sparse_bwd_dq_kernel_wgmma<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  block_sparse_bwd_dq_kernel_wgmma<T, HD><<<a.B * a.H * a.n, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.ptr, a.idx, a.order, a.B,
+      a.H, a.Sq, a.Sk, a.n, a.st, a.sm_scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_dkv_wgmma(const Args& a) {
+  constexpr int smem = dkv_wgmma_smem<HD>();
+  cudaError_t err = cudaFuncSetAttribute(block_sparse_bwd_dkv_kernel_wgmma<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = a.B * a.H * a.n * Tile<HD>::panels;  // a block per dK/dV panel
+  block_sparse_bwd_dkv_kernel_wgmma<T, HD><<<blocks, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.ptr,
+      a.idx, a.order, a.B, a.H, a.Sq, a.Sk, a.n, a.st, a.sm_scale, a.causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the variant by (dtype, tile), as block_sparse_attention.bwd_variant:
+// the tensor-core kernels for 16-bit inputs at tile 64, the FMA kernels for
+// float32 and for tiles 16 and 32
 template <typename T, int HD, bool DQ>
 int dispatch_tile(int tile, const Args& a) {
   switch (tile) {
     case 16: return DQ ? launch_dq<T, HD, 16>(a) : launch_dkv<T, HD, 16>(a);
     case 32: return DQ ? launch_dq<T, HD, 32>(a) : launch_dkv<T, HD, 32>(a);
-    case 64: return DQ ? launch_dq<T, HD, 64>(a) : launch_dkv<T, HD, 64>(a);
+    case 64:
+      if constexpr (std::is_same<T, float>::value)
+        return DQ ? launch_dq<T, HD, 64>(a) : launch_dkv<T, HD, 64>(a);
+      else
+        return DQ ? launch_dq_wgmma<T, HD>(a) : launch_dkv_wgmma<T, HD>(a);
     default: return -1;
   }
 }
@@ -395,13 +896,14 @@ int dispatch(int dtype, int hd, int tile, const Args& a) {
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, const void* ptr, const void* idx, int B, int H, int Sq,
-               int Sk, int n, const long long* strides, float sm_scale, int causal,
-               void* stream) {
+               const void* delta, const void* ptr, const void* idx, const void* order, int B,
+               int H, int Sq, int Sk, int n, const long long* strides, float sm_scale,
+               int causal, void* stream) {
   Args a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse; a.delta = delta;
   a.ptr = static_cast<const int*>(ptr);
   a.idx = static_cast<const int*>(idx);
+  a.order = static_cast<const int*>(order);
   a.B = B; a.H = H; a.Sq = Sq; a.Sk = Sk; a.n = n;
   for (int i = 0; i < 3; ++i) {
     a.st.q[i] = strides[i];
@@ -419,17 +921,20 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 // dtype: 0 = float32, 1 = float16, 2 = bfloat16; tile: 16, 32 or 64 rows.
 // strides: 12 values, the (batch, seq, head) strides of q, k, v and do in
 // that order, in elements. row_ptr/cols are the row lists (H * nq + 1
-// offsets), col_ptr/rows the column lists (H * nk + 1 offsets). Return
-// cudaGetLastError() after the launch, or -1 for an unsupported dtype, head
-// size or tile.
+// offsets), col_ptr/rows the column lists (H * nk + 1 offsets);
+// row_order/col_order the launch orders of their (head, tile) lists (H * nq
+// or H * nk entries h * n + tile), read by the tensor-core kernels alone.
+// Return cudaGetLastError() after the launch, or -1 for a dtype, head size
+// or tile the kernels do not take.
 extern "C" int dstorch_block_sparse_bwd_dq(int dtype, int hd, int tile, const void* q,
                                            const void* k, const void* v, const void* dout,
                                            const void* lse, const void* delta, void* dq,
-                                           const void* row_ptr, const void* cols, int B, int H,
-                                           int Sq, int Sk, int nq, const long long* strides,
-                                           float sm_scale, int causal, void* stream) {
-  Args a = make_args(q, k, v, dout, lse, delta, row_ptr, cols, B, H, Sq, Sk, nq, strides,
-                     sm_scale, causal, stream);
+                                           const void* row_ptr, const void* cols,
+                                           const void* row_order, int B, int H, int Sq, int Sk,
+                                           int nq, const long long* strides, float sm_scale,
+                                           int causal, void* stream) {
+  Args a = make_args(q, k, v, dout, lse, delta, row_ptr, cols, row_order, B, H, Sq, Sk, nq,
+                     strides, sm_scale, causal, stream);
   a.dq = dq;
   return dispatch<true>(dtype, hd, tile, a);
 }
@@ -438,11 +943,11 @@ extern "C" int dstorch_block_sparse_bwd_dkv(int dtype, int hd, int tile, const v
                                             const void* k, const void* v, const void* dout,
                                             const void* lse, const void* delta, void* dk,
                                             void* dv, const void* col_ptr, const void* rows,
-                                            int B, int H, int Sq, int Sk, int nk,
-                                            const long long* strides, float sm_scale,
+                                            const void* col_order, int B, int H, int Sq, int Sk,
+                                            int nk, const long long* strides, float sm_scale,
                                             int causal, void* stream) {
-  Args a = make_args(q, k, v, dout, lse, delta, col_ptr, rows, B, H, Sq, Sk, nk, strides,
-                     sm_scale, causal, stream);
+  Args a = make_args(q, k, v, dout, lse, delta, col_ptr, rows, col_order, B, H, Sq, Sk, nk,
+                     strides, sm_scale, causal, stream);
   a.dk = dk;
   a.dv = dv;
   return dispatch<false>(dtype, hd, tile, a);

@@ -276,11 +276,13 @@ def test_flash_backward_rejects_a_do_of_another_dtype():
 # Against the plain versions (_reference_fwd / _reference_bwd of
 # ops/block_sparse_attention.py) on the same inputs, as max |Δ| over max
 # |plain|. The kernels keep f32 throughout, as the plain versions do, and
-# round once at the store: in bfloat16 one rounding is 2**-9 relative, so
-# 2**-8 of max |plain| leaves room for the summation order; float16 2**-11;
-# float32 1e-5 (summation order only). lse is f32 on both sides: 1e-5
-# absolute over values of magnitude ~10 (a few ulps). A row that nothing may
-# attend is held exactly: o = 0.
+# round once at the store (the tensor-core K5/K6, for 16-bit inputs at tile
+# 64, split p and ds into 16-bit parts whose sum keeps them below f32's own
+# rounding, and sum each tile in f32): in bfloat16 one rounding is 2**-9
+# relative, so 2**-8 of max |plain| leaves room for the summation order;
+# float16 2**-11; float32 1e-5 (summation order only). lse is f32 on both
+# sides: 1e-5 absolute over values of magnitude ~10 (a few ulps). A row that
+# nothing may attend is held exactly: o = 0 and dq = 0.
 
 BS_TOL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: 1e-5}
 BS_LSE_TOL = 1e-5
@@ -300,6 +302,14 @@ BS_SHAPES = {
     "h_block128_hd32_noncausal_f32": (1, 512, 2, 32, "BigBirdSparsityConfig",
                                       dict(block=128, different_layout_per_head=True), False,
                                       torch.float32),
+    "i_fixed_s1024_f16": (2, 1024, 12, 64, "FixedSparsityConfig", {}, True, torch.float16),
+    "j_bigbird_hd128_noncausal": (1, 1024, 4, 128, "BigBirdSparsityConfig", {}, False,
+                                  torch.bfloat16),
+    # hd 128 over the fixed layout's long global columns (61 tiles), as
+    # chip_smoke.py's k4_k6 (h) and (i)
+    "k_fixed_s4096_hd128": (1, 4096, 12, 128, "FixedSparsityConfig", {}, True, torch.bfloat16),
+    "l_fixed_s4096_hd128_f16": (1, 4096, 12, 128, "FixedSparsityConfig", {}, True,
+                                torch.float16),
 }
 
 
@@ -334,8 +344,8 @@ def test_block_sparse_kernels_match_plain_version(name):
     dq, dk, dv = tbs.block_sparse_attention_bwd(q, k, v, ro, rl, do, layout, causal=causal,
                                                 block=block)
     torch.cuda.synchronize()
-    assert LAUNCHES["block_sparse_bwd_dq"] == before["block_sparse_bwd_dq"] + 1
-    assert LAUNCHES["block_sparse_bwd_dkv"] == before["block_sparse_bwd_dkv"] + 1
+    for kname in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv"):
+        assert LAUNCHES[kname] == before[kname] + 1
     rq, rk, rv = tbs._reference_bwd(q, k, v, ro, rl, do, layout, b, causal, scale)
     for got, ref in ((dq, rq), (dk, rk), (dv, rv)):
         assert got.shape == ref.shape and got.dtype == dtype and torch.isfinite(got).all()
@@ -344,6 +354,87 @@ def test_block_sparse_kernels_match_plain_version(name):
         rows = slice(2 * block, 3 * block)
         assert o[:, rows, 1].abs().max().item() == 0.0
         assert dq[:, rows, 1].abs().max().item() == 0.0
+
+
+def _bs_backward_inputs(B, S, H, hd, dtype, seed, config="FixedSparsityConfig", causal=True):
+    layout = getattr(tsc, config)(num_heads=H).make_layout(S)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=g, device="cuda", dtype=dtype)
+                   for _ in range(4))
+    o, lse = tbs._reference_fwd(q, k, v, layout, 64, causal, hd ** -0.5)
+    return layout, q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_block_sparse_backward_gives_the_same_bits_twice(dtype):
+    """No atomics: the tensor-core K5 and K6 (fixed layout, causal, 64 blocks)
+    give bit-equal gradients on the same inputs."""
+    _need_card()
+    assert tbs.bwd_variant(dtype, 64) == "tensor_core"
+    layout, q, k, v, o, lse, do = _bs_backward_inputs(2, 2048, 12, 64, dtype, seed=9)
+    first = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=True, block=64)
+    again = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=True, block=64)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("config,causal,hd", [("FixedSparsityConfig", True, 64),
+                                              ("BigBirdSparsityConfig", True, 64),
+                                              ("BSLongformerSparsityConfig", False, 64),
+                                              ("FixedSparsityConfig", True, 128)])
+def test_block_sparse_launch_order_changes_no_bit(monkeypatch, config, causal, hd):
+    """The tensor-core K5 and K6 take their blocks longest list first; with
+    the blocks launched in ascending order instead, dq, dk and dv are the
+    same bits: the order decides when a block runs, never a sum's order
+    (at hd 128 also with K6's two panel blocks a list)."""
+    _need_card()
+    B, S, H = 2, 2048, 12
+    layout, q, k, v, o, lse, do = _bs_backward_inputs(B, S, H, hd, torch.bfloat16, seed=10,
+                                                      config=config, causal=causal)
+    longest_first = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=causal,
+                                                   block=64)
+    tile, lists = tbs._lists_on(layout, 64, causal, q.device)
+    for name in ("row_order", "col_order"):
+        assert not torch.equal(lists[name], torch.sort(lists[name]).values)
+    ascending = dict(lists, **{name: torch.arange(lists[name].numel(), dtype=torch.int32,
+                                                  device="cuda")
+                               for name in ("row_order", "col_order")})
+    monkeypatch.setattr(tbs, "_lists_on", lambda *args: (tile, ascending))
+    before = dict(LAUNCHES)
+    in_order = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=causal,
+                                              block=64)
+    torch.cuda.synchronize()
+    for kname in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv"):
+        assert LAUNCHES[kname] == before[kname] + 1
+    assert all(torch.equal(a, b) for a, b in zip(longest_first, in_order))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_block_sparse_backward_copies_rows_that_are_not_16_byte_aligned(dtype):
+    """q, k, v and do as views whose rows start at odd element offsets: the
+    backward copies them to aligned rows, the tensor-core K5/K6 run on the
+    copies and match the plain version; their wrappers refuse the views."""
+    _need_card()
+    B, S, H, hd = 2, 512, 4, 64
+    layout = tsc.FixedSparsityConfig(num_heads=H).make_layout(S)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn(B, S, H, hd + 1, generator=g, device="cuda",
+                               dtype=dtype)[..., 1:] for _ in range(4))
+    assert not any(tfa._rows_16b_aligned(t) for t in (q, k, v, do))
+    o, lse = tbs._reference_fwd(q, k, v, layout, 64, True, hd ** -0.5)
+    before = dict(LAUNCHES)
+    grads = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=True, block=64)
+    torch.cuda.synchronize()
+    assert tbs.bwd_variant(dtype, 64) == "tensor_core"
+    for kname in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv"):
+        assert LAUNCHES[kname] == before[kname] + 1
+    ref = tbs._reference_bwd(q, k, v, o, lse, do, layout, 64, True, hd ** -0.5)
+    for got, want in zip(grads, ref):
+        assert torch.isfinite(got).all() and _rel_err(got, want) <= BS_TOL[dtype]
+    delta = tfa._delta(o, do)
+    for fn in (tbs._cuda_bwd_dq, tbs._cuda_bwd_dkv):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(q, k, v, do, lse, delta, layout, 64, True, hd ** -0.5)
 
 
 def test_block_sparse_kernels_read_strided_qkv():
@@ -371,7 +462,7 @@ def test_block_sparse_model_launches_each_kernel_once_per_layer():
     cfg = ttf.TransformerConfig(vocab_size=128, hidden_size=128, num_layers=3, num_heads=2,
                                 num_kv_heads=1, max_seq_len=256, dtype="bfloat16",
                                 attn_impl="block_sparse",
-                                sparse_attention={"mode": "fixed", "block": 32})
+                                sparse_attention={"mode": "fixed", "block": 64})
     params = ttf.map_params(lambda p: p.to(torch.bfloat16).requires_grad_(True),
                             ttf.init(torch.Generator(device="cuda").manual_seed(0), cfg))
     toks = torch.randint(0, 128, (2, 256), device="cuda")
@@ -381,6 +472,8 @@ def test_block_sparse_model_launches_each_kernel_once_per_layer():
     torch.cuda.synchronize()
     assert (LAUNCHES["block_sparse_fwd"] == LAUNCHES["block_sparse_bwd_dq"]
             == LAUNCHES["block_sparse_bwd_dkv"] == 3)
+    # bf16 at block 64: each of those launches is the tensor-core K5 and K6
+    assert tbs.bwd_variant(torch.bfloat16, 64) == "tensor_core"
     assert LAUNCHES["flash_fwd"] == LAUNCHES["flash_bwd_dq"] == LAUNCHES["flash_bwd_dkv"] == 0
     assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all()
                                         for p in params["layers"][0]["attn"].values())
