@@ -5,13 +5,13 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 nvcc per source, started together), reports ptxas's registers and spills and
 counts the tensor-core (HGMMA) instructions of the 16-bit kernels of the
-flash forward and backward and of the block-sparse backward in their SASS,
-holds each kernel against its plain PyTorch version on the card (K1-K3 flash
-attention, each in both of its variants: tensor core for bf16, f32 FMA for
-f32; K4-K6 block-sparse attention, K5/K6 in both of theirs: tensor core for
-16-bit inputs at tile 64, f32 FMA for f32 and tiles 16/32; K3's GQA head sum
-bit for bit, K7-K8 fused LayerNorm/RMSNorm), and drives the port's four
-paths with random weights from a seed:
+flash forward and backward and of the block-sparse forward and backward in
+their SASS, holds each kernel against its plain PyTorch version on the card
+(K1-K3 flash attention, each in both of its variants: tensor core for bf16,
+f32 FMA for f32; K4-K6 block-sparse attention, each in both of theirs:
+tensor core for 16-bit inputs at tile 64, f32 FMA for f32 and tiles 16/32;
+K3's GQA head sum bit for bit, K7-K8 fused LayerNorm/RMSNorm), and drives
+the port's four paths with random weights from a seed:
   - the fused-op surface (``ops/transformer/fused_ops``: ``fused_layernorm``
     -> a 768 x 3072 matmul -> ``fused_bias_gelu`` -> a 3072 x 768 matmul ->
     ``fused_bias_dropout_residual``) at GPT-2 125M's training width, B8 S1024
@@ -186,6 +186,16 @@ SPARSE_BWD_HGMMA = {
         2 * hd // 16 + (parts * 4 * max(1, hd // 64) if kern == "dq" else 2 * parts * 4)
     for kern in ("dq", "dkv") for name, parts in SPARSE_BWD_PARTS.items()
     for hd in (16, 32, 64, 128)}
+# the tensor-core K4 (16-bit, tile 64) likewise: Q K^T steps over hd / 16,
+# and P V, one product for each 16-bit part of p (as K5's ds K), over the
+# tile's 64 rows in 4 steps per 64-column panel of o
+SPARSE_FWD_TAGS = {
+    f"{name}_hd{hd}": f"block_sparse_fwd_kernel_wgmmaI{mangled}Li{hd}E"
+    for name, mangled in (("bf16", "13__nv_bfloat16"), ("f16", "6__half"))
+    for hd in (16, 32, 64, 128)}
+SPARSE_FWD_HGMMA = {
+    f"{name}_hd{hd}": hd // 16 + parts * 4 * max(1, hd // 64)
+    for name, parts in SPARSE_BWD_PARTS.items() for hd in (16, 32, 64, 128)}
 NORM_KERNELS = ("fused_norm_fwd", "fused_norm_bwd")
 
 failures = []
@@ -395,6 +405,22 @@ def rounded_off(got, exact):
     top = exact.abs() >= 2.0 ** math.floor(math.log2(exact.abs().max().item()))
     return {"all": int(off.sum()), "top_binade": int((off & top).sum()),
             "top_binade_elements": int(top.sum())}
+
+
+def fwd_in_ascending_order(bs, q, k, v, layout, b, causal, sm_scale):
+    """K4 (``_cuda_fwd``) with its blocks launched in ascending (head, tile)
+    order in place of the lists' row_order (longest list first), by handing
+    it lists whose row_order is 0, 1, 2, ...; the FMA kernel reads no order,
+    so there the two launches are the same."""
+    tile, lists = bs._lists_on(layout, b, causal, q.device)
+    ascending = dict(lists, row_order=torch.arange(lists["row_order"].numel(), dtype=torch.int32,
+                                                   device=q.device))
+    lists_on = bs._lists_on
+    bs._lists_on = lambda *args: (tile, ascending)
+    try:
+        return bs._cuda_fwd(q, k, v, layout, b, causal, sm_scale)
+    finally:
+        bs._lists_on = lists_on
 
 
 def events_ms(fn, iters=3):
@@ -732,7 +758,7 @@ def main():
           "nvcc_seconds": {os.path.basename(lib.source): lib.build_seconds for lib in libs},
           "ptxas": {
               "block_sparse_fwd_bf16_hd64_tile64": ptxas_summary(
-                  bs_fwd_out, "fwd_kernelI13__nv_bfloat16Li64ELi64"),
+                  bs_fwd_out, "fwd_kernel_wgmmaI13__nv_bfloat16Li64E"),
               "block_sparse_dq_bf16_hd64_tile32": ptxas_summary(
                   bs_bwd_out, "dq_kernelI13__nv_bfloat16Li64ELi32"),
               "block_sparse_dkv_bf16_hd64_tile32": ptxas_summary(
@@ -767,16 +793,24 @@ def main():
     sass = {}
     for key, lib, tags in (("flash_fwd", fa.KERNEL_LIB, FWD_TAGS),
                            ("flash_bwd", fa.BWD_KERNEL_LIB, BWD_PTXAS_TAGS),
+                           ("block_sparse_fwd", bs.FWD_KERNEL_LIB, SPARSE_FWD_TAGS),
                            ("block_sparse_bwd", bs.BWD_KERNEL_LIB, SPARSE_BWD_TAGS)):
         found = sass_counts(lib.lib_path(), list(tags.values()))
         sass[key] = {name: found[tag] for name, tag in tags.items()}
-    sparse_ptxas = {name: ptxas_summary(bs_bwd_out, tag) for name, tag in SPARSE_BWD_TAGS.items()}
-    for name, counts in sass["block_sparse_bwd"].items():
-        if isinstance(counts, dict):
-            counts["ptxas"] = sparse_ptxas[name]
+    sparse_ptxas = {
+        "block_sparse_fwd": {name: ptxas_summary(bs_fwd_out, tag)
+                             for name, tag in SPARSE_FWD_TAGS.items()},
+        "block_sparse_bwd": {name: ptxas_summary(bs_bwd_out, tag)
+                             for name, tag in SPARSE_BWD_TAGS.items()}}
+    for key, ptxas in sparse_ptxas.items():
+        for name, counts in sass[key].items():
+            if isinstance(counts, dict):
+                counts["ptxas"] = ptxas[name]
     emit({"phase": "build_sass",
           "libraries": [os.path.basename(lib.lib_path())
-                        for lib in (fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, bs.BWD_KERNEL_LIB)],
+                        for lib in (fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, bs.FWD_KERNEL_LIB,
+                                    bs.BWD_KERNEL_LIB)],
+          "block_sparse_fwd_expected_hgmma": SPARSE_FWD_HGMMA,
           "block_sparse_bwd_expected_hgmma": SPARSE_BWD_HGMMA, **sass})
     for name, counts in sass["flash_fwd"].items():
         if not name.startswith("f32"):
@@ -786,12 +820,14 @@ def main():
         counts = sass["flash_bwd"][name]
         check(isinstance(counts, dict) and counts["HGMMA"] == want and counts["HMMA"] == 0,
               f"flash_bwd {name}: SASS {counts}, expected {want} HGMMA and no HMMA")
-    for name, want in SPARSE_BWD_HGMMA.items():
-        counts, ptx = sass["block_sparse_bwd"][name], sparse_ptxas[name]
-        check(isinstance(counts, dict) and counts["HGMMA"] == want and counts["HMMA"] == 0,
-              f"block_sparse_bwd {name}: SASS {counts}, expected {want} HGMMA and no HMMA")
-        check(not ptx or "0 bytes spill stores" in ptx[0],
-              f"block_sparse_bwd {name}: ptxas reports spills ({ptx})")
+    for key, expected in (("block_sparse_fwd", SPARSE_FWD_HGMMA),
+                          ("block_sparse_bwd", SPARSE_BWD_HGMMA)):
+        for name, want in expected.items():
+            counts, ptx = sass[key][name], sparse_ptxas[key][name]
+            check(isinstance(counts, dict) and counts["HGMMA"] == want and counts["HMMA"] == 0,
+                  f"{key} {name}: SASS {counts}, expected {want} HGMMA and no HMMA")
+            check(not ptx or "0 bytes spill stores" in ptx[0],
+                  f"{key} {name}: ptxas reports spills ({ptx})")
 
     # ---- K1 against its plain version at the paths' shapes, in bf16 (the
     # tensor-core kernel) and, at the training shape, in f32 (the FMA kernel)
@@ -953,7 +989,14 @@ def main():
         o, lse = bs.block_sparse_attention_fwd(q, k, v, layout, causal=causal, block=conf.block)
         torch.cuda.synchronize()
         ro, rl = bs._reference_fwd(q, k, v, layout, b, causal, scale)
-        variant = bs.bwd_variant(dtype, min(b, bs.MAX_TILE))
+        variant = bs.kernel_variant(dtype, min(b, bs.MAX_TILE))
+        again = bs.block_sparse_attention_fwd(q, k, v, layout, causal=causal, block=conf.block)
+        fwd_same_bits = all(torch.equal(x, y) for x, y in zip((o, lse), again))
+        check(fwd_same_bits, f"K4 {name}: two calls gave different bits")
+        again = fwd_in_ascending_order(bs, q, k, v, layout, b, causal, scale)
+        fwd_order_same_bits = all(torch.equal(x, y) for x, y in zip((o, lse), again))
+        check(fwd_order_same_bits, f"K4 {name}: the launch order changed the bits")
+        del again
         before = op_builder.launch_counts()
         dq, dk, dv = bs.block_sparse_attention_bwd(q, k, v, ro, rl, do, layout, causal=causal,
                                                    block=conf.block)
@@ -976,6 +1019,18 @@ def main():
                   f"K4-K6 {name}: max |{gname} - plain| {d} ({rel} of max |{gname}|)")
         d_lse = (lse - rl).abs().max().item()
         check(d_lse <= BS_LSE_TOL, f"K4 {name}: max |lse - plain| {d_lse}")
+        # K5/K6 on K4's own o and lse, as the model runs them, against the
+        # plain backward on the same o and lse
+        on_k4 = {}
+        got = bs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=causal,
+                                            block=conf.block)
+        want = bs._reference_bwd(q, k, v, o, lse, do, layout, b, causal, scale)
+        for gname, g, ref in zip(("dq", "dk", "dv"), got, want):
+            on_k4[gname] = ((g.float() - ref.float()).abs().max()
+                            / ref.float().abs().max()).item()
+            check(on_k4[gname] <= BS_REL_TOL[dtype] and bool(torch.isfinite(g).all()),
+                  f"K5/K6 {name} on K4's o and lse: {gname} {on_k4[gname]} of max |{gname}|")
+        del got, want
         off_exact = None
         if dtype != torch.float32:  # how often each side rounds off the exact gradient
             exact = exact_sparse_bwd(bs, q, k, v, ro, rl, do, layout, b, causal, scale)
@@ -1017,16 +1072,20 @@ def main():
             "layout": type(conf).__name__, "block": b, "causal": causal,
             "dtype": str(dtype).split(".")[-1],
             "kernel_tile": lists["tile"], "listed_tiles_per_head": lists["cols"].size / H,
-            "pairs_per_batch_row": pairs, "k5_k6_variant": variant,
+            "pairs_per_batch_row": pairs, "variant": variant,
+            "k4_same_bits_twice": fwd_same_bits,
+            "k4_ascending_order_same_bits": fwd_order_same_bits,
             "k5_list_longest": int(row_len.max()), "k5_list_mean": float(row_len.mean()),
             "k6_list_longest": int(col_len.max()), "k6_list_mean": float(col_len.mean()),
             "k5_k6_same_bits_twice": same_bits,
             "max_abs_err": {g: e[0] for g, e in errs.items()},
             "max_err_over_max_ref": {g: e[1] for g, e in errs.items()},
             "max_abs_err_lse": d_lse, "zero_row_max_abs": zero,
+            "k5_k6_on_k4_o_lse_err_over_max": on_k4,
             "elements_per_gradient": q.numel(), "rounded_off_exact": off_exact,
             "rel_tol": BS_REL_TOL[dtype], "lse_tol": BS_LSE_TOL,
             "k4_ms": k4_ms, "k5_ms": k5_ms, "k6_ms": k6_ms,
+            "k4_tflops": 4.0 * hd * pairs * B / k4_ms * 1e-9,
             "k5_tflops": 6.0 * hd * pairs * B / k5_ms * 1e-9,
             "k6_tflops": 8.0 * hd * pairs * B / k6_ms * 1e-9,
             "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
@@ -1395,10 +1454,10 @@ def main():
               f"train_sparse: {kname} launched {sparse_counts[kname]} times in {steps} steps, "
               f"expected {L_T} per step")
     slayout, sblock = tf._sparse_layout((("mode", "fixed"),), scfg.num_heads, S_S)
-    svariant = bs.bwd_variant(torch.bfloat16, min(sblock, bs.MAX_TILE))
+    svariant = bs.kernel_variant(torch.bfloat16, min(sblock, bs.MAX_TILE))
     check(svariant == "tensor_core",
-          f"train_sparse: K5/K6 at block {sblock} run the {svariant} kernels, not the tensor-core "
-          f"ones")
+          f"train_sparse: K4-K6 at block {sblock} run the {svariant} kernels, not the "
+          f"tensor-core ones")
     for kname in KERNELS:
         check(sparse_counts[kname] == 0,
               f"train_sparse: {kname} launched {sparse_counts[kname]} times, expected none")
@@ -1428,7 +1487,7 @@ def main():
           "mfu_live_pairs_count": sparse_fpt * stokens_per_s / PEAK_FLOPS[torch.bfloat16],
           "flops_per_token_live_pairs": sparse_fpt,
           "peak_memory_bytes": speak_bytes,
-          "k5_k6_variant": svariant,
+          "variant": svariant,
           "launches": {k: sparse_counts[k] for k in SPARSE_KERNELS + KERNELS},
           "launches_per_step": {k: sparse_counts[k] / steps for k in SPARSE_KERNELS + KERNELS},
           "card": card})
@@ -1529,19 +1588,19 @@ def main():
          "bound_by": a23["k3_bound_by"], "library_ms": a23["sdpa_bwd_ms"]},
         {"name": "block_sparse_fwd", "route": "cuda", "source": f"{src}/block_sparse_fwd.cu",
          "replaces": f"{pallas}/block_sparse_attention.py:31", **launches("block_sparse_fwd"),
-         "max_abs_err": sparse_err(["o"]), "shape": sparse_shape,
+         "max_abs_err": sparse_err(["o"]), "variant": a456["variant"], "shape": sparse_shape,
          "ms": a456["k4_ms"], "plain_ms": a456["plain_fwd_ms"], "bound_ms": a456["k4_bound_ms"],
          "bound_by": a456["k4_bound_by"], "library_ms": a456["sdpa_fwd_ms"]},
         {"name": "block_sparse_bwd_dq", "route": "cuda", "source": f"{src}/block_sparse_bwd.cu",
          "replaces": f"{pallas}/block_sparse_attention.py:69",
          **launches("block_sparse_bwd_dq"), "max_abs_err": sparse_err(["dq"]),
-         "variant": a456["k5_k6_variant"], "shape": sparse_shape,
+         "variant": a456["variant"], "shape": sparse_shape,
          "ms": a456["k5_ms"], "plain_ms": a456["plain_bwd_ms"], "bound_ms": a456["k5_bound_ms"],
          "bound_by": a456["k5_bound_by"], "library_ms": a456["sdpa_bwd_ms"]},
         {"name": "block_sparse_bwd_dkv", "route": "cuda", "source": f"{src}/block_sparse_bwd.cu",
          "replaces": f"{pallas}/block_sparse_attention.py:99",
          **launches("block_sparse_bwd_dkv"), "max_abs_err": sparse_err(["dk", "dv"]),
-         "variant": a456["k5_k6_variant"], "shape": sparse_shape,
+         "variant": a456["variant"], "shape": sparse_shape,
          "ms": a456["k6_ms"], "plain_ms": a456["plain_bwd_ms"], "bound_ms": a456["k6_bound_ms"],
          "bound_by": a456["k6_bound_by"], "library_ms": a456["sdpa_bwd_ms"]},
         {"name": "fused_norm_fwd", "route": "cuda", "source": f"{src}/fused_norm.cu",

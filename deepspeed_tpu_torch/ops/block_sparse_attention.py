@@ -10,20 +10,27 @@ forward saves (q, k, v, o, lse) and whose backward computes
 f32, as in the reference's kernels; outputs are in the input dtype.
 
 On a CUDA tensor each step launches a hand-written Hopper kernel or raises:
-the forward ``ops/csrc/block_sparse_fwd.cu`` (K4), the backward's dq and
-dk/dv ``ops/csrc/block_sparse_bwd.cu`` (K5, K6), each built on first use
-(see ``op_builder``). The kernels walk lists of the live tiles built from
-the layout on the host once per (layout, causal) and kept on the card
+the forward ``ops/csrc/block_sparse_fwd.cu`` (K4, the counterpart of the
+reference's ``_sparse_fwd_kernel``), the backward's dq and dk/dv
+``ops/csrc/block_sparse_bwd.cu`` (K5, K6), each built on first use (see
+``op_builder``). The kernels walk lists of the live tiles built from the
+layout on the host once per (layout, causal) and kept on the card
 (:func:`tile_lists`); under causal the lists leave out the tiles wholly
-above the diagonal, which add nothing. K5 and K6 have two variants, chosen
-from the dtype and the tile alone (:func:`bwd_variant` names it): float16 and
-bfloat16 at tile 64 run the tensor-core (wgmma) kernels, which take their
-blocks longest list first from the lists' launch orders and need 16-byte
-aligned rows (the backward copies any that are not, as the flash kernels
-do); float32 and tiles 16 and 32 run the f32 FMA kernels. On a CPU tensor
-each step runs its plain PyTorch version (:func:`_reference_fwd`,
-:func:`_reference_bwd`). There is no other path: no library attention call
-and no fallback from one kernel to another.
+above the diagonal, which add nothing. Each of the three has two variants,
+chosen from the dtype and the tile alone (:func:`kernel_variant` names it):
+float16 and bfloat16 at tile 64 run the tensor-core (wgmma) kernels, which
+take their blocks longest list first from the lists' launch orders and need
+16-byte aligned rows (the forward and the backward copy any that are not,
+as the flash kernels do); float32 and tiles 16 and 32 run the f32 FMA
+kernels. The tensor-core kernels keep the reference's f32 arithmetic: q kᵀ
+and do vᵀ multiply 16-bit inputs exactly, and the f32 operands p and ds go
+through their products as three bfloat16 (two float16) parts, each tile's
+product summed in f32. K4's work at the block-sparse training shape is
+15.3 GFLOP over 51 MB, at the bf16 tensor cores' ridge; its parts make the
+tensor cores do twice that. On a CPU tensor each step runs its plain
+PyTorch version (:func:`_reference_fwd`, :func:`_reference_bwd`). There is
+no other path: no library attention call and no fallback from one kernel to
+another.
 """
 
 import ctypes
@@ -48,22 +55,22 @@ BLOCKS = (16, 32, 64, 128)  # the layout blocks the kernels take
 MAX_TILE = 64  # the kernels' tile: a 128 block is split into 2 x 2 tiles of 64
 
 
-def bwd_variant(dtype: torch.dtype, tile: int) -> str:
-    """Which K5/K6 kernels run for inputs of ``dtype`` at ``tile`` rows:
-    ``"tensor_core"`` (wgmma m64n64k16, 64-row tiles) for float16 and
-    bfloat16 at tile 64, ``"f32_fma"`` otherwise (float32, which the tensor
-    cores would take only as TF32, and tiles 16 and 32, under a wgmma's 64
-    rows). Both do the TPU kernels' f32 arithmetic. The kernels' C entry
-    points make the same choice from the same two facts; this function
-    decides which rows the backward copies, and names the variant in
-    reports."""
+def kernel_variant(dtype: torch.dtype, tile: int) -> str:
+    """Which kernels (K4, K5 and K6 alike) run for inputs of ``dtype`` at
+    ``tile`` rows: ``"tensor_core"`` (wgmma m64n64k16, 64-row tiles) for
+    float16 and bfloat16 at tile 64, ``"f32_fma"`` otherwise (float32, which
+    the tensor cores would take only as TF32, and tiles 16 and 32, under a
+    wgmma's 64 rows). Both do the TPU kernels' f32 arithmetic. The kernels'
+    C entry points make the same choice from the same two facts; this
+    function decides which rows the forward and the backward copy, and names
+    the variant in reports."""
     return "tensor_core" if dtype in TENSOR_CORE_DTYPES and tile == MAX_TILE else "f32_fma"
 
 
 @functools.lru_cache(maxsize=None)
 def _fwd_kernel():
     fn = FWD_KERNEL_LIB.load().dstorch_block_sparse_fwd
-    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -142,7 +149,7 @@ def tile_lists(layout, block: int, causal: bool) -> Dict[str, np.ndarray]:
     ``row_ptr`` (H * nq + 1 offsets) into ``cols``, the live k-tiles of each
     q-tile in ascending order (K4, K5); ``col_ptr`` (H * nk + 1) into
     ``rows``, the live q-tiles of each k-tile in ascending order (K6).
-    ``row_order`` and ``col_order``: the tensor-core K5's and K6's launch
+    ``row_order`` (the tensor-core K4 and K5) and ``col_order`` (K6): launch
     orders, every (h, tile) list as h * n + tile, the longest first
     (:func:`_longest_first`); the kernels run the batch rows of each entry
     one after another. A block still walks its list in ascending order, so
@@ -234,9 +241,9 @@ def _reference_bwd(q, k, v, o, lse, do, layout: np.ndarray, b: int, causal: bool
 def _check_kernel_inputs(q, k, v, b: int, *more, aligned_rows: bool = False):
     """What every kernel wrapper (K4, K5, K6) checks before its launch:
     dtype, head dim, block, contiguous last dims, one dtype, extents, and,
-    with ``aligned_rows`` (the tensor-core K5/K6), 16-byte aligned rows (the
-    backward copies any that are not first, ``_tensor_core_rows``).
-    ``more``: the backward's do."""
+    with ``aligned_rows`` (the tensor-core variant), 16-byte aligned rows
+    (the forward and the backward copy any that are not first,
+    ``_tensor_core_rows``). ``more``: the backward's do."""
     B, _, H, hd = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"block-sparse kernel takes float32/float16/bfloat16, got {q.dtype}")
@@ -260,37 +267,37 @@ def _strides(*tensors):
         *(t.stride(i) for t in tensors for i in range(3)))
 
 
+def _setup(q, k, v, layout, b, causal, *more):
+    """The checks and lists every kernel wrapper needs: (variant, tile,
+    lists on q's device). ``more``: the backward's do."""
+    tile = min(b, MAX_TILE)
+    variant = kernel_variant(q.dtype, tile)
+    _check_kernel_inputs(q, k, v, b, *more, aligned_rows=variant == "tensor_core")
+    return variant, *_lists_on(layout, b, causal, q.device)
+
+
 def _cuda_fwd(q, k, v, layout, b, causal, sm_scale) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4: (o (B, Sq, H, hd) in q's dtype, lse f32 (B, H, Sq, 1))."""
-    _check_kernel_inputs(q, k, v, b)
+    variant, tile, lists = _setup(q, k, v, layout, b, causal)
     B, Sq, H, hd = q.shape
-    tile, lists = _lists_on(layout, b, causal, q.device)
     o = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq, 1), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = _fwd_kernel()(
             _DTYPE_CODE[q.dtype], hd, tile, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), lists["row_ptr"].data_ptr(), lists["cols"].data_ptr(),
-            B, H, Sq, Sq // tile, _strides(q, k, v), float(sm_scale), int(causal),
+            lists["row_order"].data_ptr(), B, H, Sq, k.shape[1], Sq // tile,
+            _strides(q, k, v), float(sm_scale), int(causal),
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"block_sparse_fwd kernel launch failed (cudaError {rc})")
+        raise RuntimeError(f"block_sparse_fwd kernel ({variant}) launch failed (cudaError {rc})")
     LAUNCHES["block_sparse_fwd"] += 1
     return o, lse
 
 
-def _bwd_setup(q, k, v, do, layout, b, causal):
-    """The checks and lists both backward kernels need: (variant, tile,
-    lists on q's device)."""
-    tile = min(b, MAX_TILE)
-    variant = bwd_variant(q.dtype, tile)
-    _check_kernel_inputs(q, k, v, b, do, aligned_rows=variant == "tensor_core")
-    return variant, *_lists_on(layout, b, causal, q.device)
-
-
 def _cuda_bwd_dq(q, k, v, do, lse, delta, layout, b, causal, sm_scale) -> torch.Tensor:
     """K5: dq (B, Sq, H, hd) in q's dtype."""
-    variant, tile, lists = _bwd_setup(q, k, v, do, layout, b, causal)
+    variant, tile, lists = _setup(q, k, v, layout, b, causal, do)
     B, Sq, H, hd = q.shape
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -310,7 +317,7 @@ def _cuda_bwd_dq(q, k, v, do, lse, delta, layout, b, causal, sm_scale) -> torch.
 def _cuda_bwd_dkv(q, k, v, do, lse, delta, layout, b, causal,
                   sm_scale) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: dk, dv (B, Sk, H, hd) in k's dtype."""
-    variant, tile, lists = _bwd_setup(q, k, v, do, layout, b, causal)
+    variant, tile, lists = _setup(q, k, v, layout, b, causal, do)
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     dk = torch.empty((B, Sk, H, hd), dtype=k.dtype, device=k.device)
@@ -335,11 +342,14 @@ def _device_type(q) -> str:
 
 
 def _fwd(q, k, v, layout, b, causal, sm_scale):
-    """The forward on checked inputs: K4 on a CUDA tensor, the plain version
-    on a CPU tensor."""
-    if _device_type(q) == "cuda":
-        return _cuda_fwd(q, k, v, layout, b, causal, sm_scale)
-    return _reference_fwd(q, k, v, layout, b, causal, sm_scale)
+    """The forward on checked inputs: K4 on a CUDA tensor (for the
+    tensor-core variant on rows made 16-byte aligned), the plain version on
+    a CPU tensor."""
+    if _device_type(q) == "cpu":
+        return _reference_fwd(q, k, v, layout, b, causal, sm_scale)
+    if kernel_variant(q.dtype, min(b, MAX_TILE)) == "tensor_core":
+        q, k, v = (_tensor_core_rows(t) for t in (q, k, v))
+    return _cuda_fwd(q, k, v, layout, b, causal, sm_scale)
 
 
 def _bwd(q, k, v, o, lse, do, layout, b, causal, sm_scale):
@@ -350,7 +360,7 @@ def _bwd(q, k, v, o, lse, do, layout, b, causal, sm_scale):
         return _reference_bwd(q, k, v, o, lse, do, layout, b, causal, sm_scale)
     if do.stride(-1) != 1:
         do = do.contiguous()
-    if bwd_variant(q.dtype, min(b, MAX_TILE)) == "tensor_core":
+    if kernel_variant(q.dtype, min(b, MAX_TILE)) == "tensor_core":
         q, k, v, do = (_tensor_core_rows(t) for t in (q, k, v, do))
     delta = _delta(o, do)
     lse = lse.contiguous()

@@ -18,14 +18,15 @@
 // and autograd sums the group.
 //
 // Two variants, chosen from (dtype, tile) alone, as
-// block_sparse_attention.bwd_variant reports them; never a fallback: a
+// block_sparse_attention.kernel_variant reports them; never a fallback: a
 // launch that fails is an error and the caller raises.
 //  - float16 / bfloat16 at tile 64 (layout blocks 64 and 128): the
 //    tensor-core kernels block_sparse_bwd_{dq,dkv}_kernel_wgmma below;
 //  - float32, and tiles 16 and 32 (a wgmma needs 64 rows): the FMA kernels
 //    block_sparse_bwd_{dq,dkv}_kernel.
 //
-// Tensor-core design (the pieces are flash_sm90.cuh's, shared with K1-K3).
+// Tensor-core design (the pieces are flash_sm90.cuh's, shared with K1-K3,
+// and block_sparse.cuh's, shared with K4).
 // One warpgroup (128 threads) per (64-row tile, batch, head), the tile and
 // head taken from the host's launch order (longest list first,
 // block_sparse.cuh), walking its row's (K5) or column's (K6) list in
@@ -370,119 +371,10 @@ block_sparse_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // tensor-core kernels (float16 / bfloat16, tile 64)
 // ---------------------------------------------------------------------------
 
-// The f32 operands p and ds reach the tensor cores as kParts 16-bit parts:
-// part 0 = round16(x), each next part round16 of what the parts so far leave
-// (exact in f32: the bits of x they drop), all multiplied by the same 16-bit
-// partner into one f32 accumulator. Three bfloat16 parts keep x to about
-// 2^-26 relative, below f32's own rounding (two parts, 2^-17, left several
-// times more output roundings off the exact ones than the f32 plain version
-// leaves); two float16 parts keep it to about 2^-23.
-template <typename T>
-constexpr int kParts = std::is_same<T, __half>::value ? 2 : 3;
 // float16 has 5 exponent bits: ds's rows are scaled by powers of two
-// (scale_rows), starting from 2^60, and p (at most 1) by 2^14 (p_scale), so
-// that the parts stay in its normal range
+// (scale_rows), starting from 2^60, so that its parts stay in float16's
+// normal range (p is scaled by 2^14, p_scale in block_sparse.cuh)
 constexpr float kMulStart = 1152921504606846976.f;
-
-template <typename T>
-__device__ __forceinline__ constexpr float p_scale() {
-  return std::is_same<T, __half>::value ? 16384.f : 1.f;
-}
-
-template <typename T>
-__device__ __forceinline__ void split_pack(float x0, float x1,
-                                           uint32_t (&out)[kParts<T>][4][4], int r, int c) {
-#pragma unroll
-  for (int part = 0; part < kParts<T>; ++part) {
-    const float h0 = to_f32(from_f32<T>(x0)), h1 = to_f32(from_f32<T>(x1));
-    out[part][r][c] = pack2<T>(h0, h1);
-    x0 -= h0;
-    x1 -= h1;
-  }
-}
-
-// the parts of a 64 x 64 f32 operand on the accumulator layout, as the A
-// fragments of the products that take it (element pair 4j + 2e of a thread
-// is register (j % 2) * 2 + e of k-step j / 2)
-template <typename T>
-__device__ __forceinline__ void split_rows(const float (&x)[32],
-                                           uint32_t (&out)[kParts<T>][4][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      split_pack<T>(x[4 * j + 2 * e], x[4 * j + 2 * e + 1], out, j >> 1, (j & 1) * 2 + e);
-#pragma unroll
-  for (int part = 0; part < kParts<T>; ++part) fence_regs(out[part]);
-}
-
-// acc += (sum of A's parts) B. The tensor cores do not round their f32 sums
-// to nearest: over a long list, products added straight into acc drift
-// towards zero, further than the plain version's f32 sum strays. So each
-// 64-column panel's tile product (kParts x 4 wgmma steps) is summed from
-// zero in its own accumulator t and added to acc in f32, rounding to
-// nearest; the sum over the list is then an f32 sum as the plain version's.
-template <typename T, int NP>
-__device__ __forceinline__ void add_product(float (&acc)[NP][32],
-                                            const uint32_t (&a)[kParts<T>][4][4], uint32_t b) {
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    float t[1][32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) t[0][i] = 0.f;
-    fence_regs(t[0]);
-    wgmma_fence();
-#pragma unroll
-    for (int part = 0; part < kParts<T>; ++part)
-      product_mn_major<T, 1>(t, a[part], b + p * kPanelBytes);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(t[0]);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[p][i] += t[0][i];
-  }
-}
-
-// s = A B^T and dp = C D^T over HD columns, all four tiles K-major. At head
-// dim 128 each 64-column panel is summed by the tensor cores from zero and
-// the two are added in f32, so that no truncating sum runs over more than
-// the 4 steps of one panel, as at head dim 64.
-template <typename T, int HD>
-__device__ __forceinline__ void scores(float (&s)[32], float (&dp)[32], uint32_t a, uint32_t b,
-                                       uint32_t c, uint32_t d) {
-  if constexpr (Tile<HD>::panels == 1) {
-    wgmma_fence();
-    product_k_major<T, HD>(s, a, b);
-    product_k_major<T, HD>(dp, c, d);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-    fence_regs(dp);
-  } else {
-    static_assert(Tile<HD>::panels == 2, "head dims up to 128");
-    float s1[32], dp1[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s1[i] = dp1[i] = 0.f;
-    fence_regs(s1);
-    fence_regs(dp1);
-    wgmma_fence();
-    product_k_major<T, kPanel>(s, a, b);
-    product_k_major<T, kPanel>(dp, c, d);
-    product_k_major<T, kPanel>(s1, a + kPanelBytes, b + kPanelBytes);
-    product_k_major<T, kPanel>(dp1, c + kPanelBytes, d + kPanelBytes);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-    fence_regs(dp);
-    fence_regs(s1);
-    fence_regs(dp1);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      s[i] += s1[i];
-      dp[i] += dp1[i];
-    }
-  }
-}
 
 // float16 only (bfloat16 has f32's exponent range): scale each of this
 // thread's two rows (r0 and r0 + 8) of the f32 operand x by mul[e], a power
@@ -857,7 +749,7 @@ int launch_dkv_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the variant by (dtype, tile), as block_sparse_attention.bwd_variant:
+// the variant by (dtype, tile), as block_sparse_attention.kernel_variant:
 // the tensor-core kernels for 16-bit inputs at tile 64, the FMA kernels for
 // float32 and for tiles 16 and 32
 template <typename T, int HD, bool DQ>

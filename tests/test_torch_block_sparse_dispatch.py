@@ -1,9 +1,9 @@
-"""The block-sparse backward's choices, held on the CPU with plain tensors:
-which K5/K6 kernels each (dtype, tile) runs, the tensor-core kernels' launch
-order (longest list first, the batch rows of a list in consecutive blocks)
-and the 16-byte row rule of their operands. The
-routing to the kernels is held with the kernel wrappers replaced by
-recorders; on the CPU the backward itself is the plain version.
+"""The block-sparse kernels' choices, held on the CPU with plain tensors:
+which K4/K5/K6 kernels each (dtype, tile) runs, the tensor-core kernels'
+launch order (longest list first, the batch rows of a list in consecutive
+blocks) and the 16-byte row rule of their operands. The routing to the
+kernels is held with the kernel wrappers replaced by recorders; on the CPU
+the forward and the backward themselves are the plain versions.
 
 Last, the arithmetic that lets the tensor-core kernels keep the TPU kernels'
 f32 dots: an f32 operand (p or ds) split into 16-bit parts (part 0 =
@@ -13,12 +13,22 @@ round16(x), each next part round16 of what is left), each multiplied by a
 the kernels' three bfloat16 parts, and two float16 parts of rows scaled by
 powers of two, stay within twice the error of x's own f32 product (a few
 1e-7); one rounding of x to 16 bits costs about 1e-3 in bfloat16.
+
+Last of all, the tensor-core K4's arithmetic, emulated in plain PyTorch
+(tile by tile, an online softmax, p split into 16-bit parts whose products
+are summed per tile in f32, acc = acc * corr + t), against the reference's
+Pallas forward run in interpret mode on the CPU, as the reference's own tests
+run it. Tolerance: o within one rounding of the input dtype plus summation
+order of max |o| (2**-8 in bfloat16, 2**-11 in float16), the kernels' card
+tolerance; lse (f32 on both sides) within 1e-5.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from deepspeed_tpu.ops.pallas import block_sparse_attention as jbs
 from deepspeed_tpu_torch.ops import block_sparse_attention as tbs
 from deepspeed_tpu_torch.ops import flash_attention as tfa
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as tsc
@@ -29,11 +39,11 @@ DTYPES = (torch.float32, torch.float16, torch.bfloat16)
 @pytest.mark.parametrize("tile", [16, 32, 64])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_variant_is_chosen_by_dtype_and_tile(dtype, tile):
-    """The tensor-core kernels for the 16-bit dtypes at the 64-row tile (a
-    wgmma takes 64 rows), the f32 FMA kernels for float32 (TF32 on the
-    tensor cores) and for tiles 16 and 32."""
+    """K4, K5 and K6 alike: the tensor-core kernels for the 16-bit dtypes at
+    the 64-row tile (a wgmma takes 64 rows), the f32 FMA kernels for float32
+    (TF32 on the tensor cores) and for tiles 16 and 32."""
     want = "tensor_core" if dtype != torch.float32 and tile == 64 else "f32_fma"
-    assert tbs.bwd_variant(dtype, tile) == want
+    assert tbs.kernel_variant(dtype, tile) == want
     assert (dtype in tfa.TENSOR_CORE_DTYPES) == (dtype != torch.float32)
 
 
@@ -69,7 +79,7 @@ def _launch_blocks(order: np.ndarray, batch: int, panels: int) -> np.ndarray:
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("name", sorted(LAYOUTS))
 def test_launch_order_is_every_block_longest_list_first(name, causal, block):
-    """row_order (K5) and col_order (K6): each (head, tile) list once, as
+    """row_order (K4, K5) and col_order (K6): each (head, tile) list once, as
     h * n + tile, in non-increasing list length, lists of equal length in
     ascending order; the blocks the kernels launch from it (batch rows, and
     K6's panels at hd 128, of one list one after another) are each (batch,
@@ -108,6 +118,24 @@ def test_launch_order_of_the_slices_layout():
     assert lists["col_order"].size == lists["row_order"].size == 12 * 64
 
 
+def test_forward_blocks_of_the_slices_layout_start_with_its_longest_rows():
+    """K4 at the training slice's shape (B2, 12 heads, S 4096, fixed layout,
+    causal): the blocks it decodes from row_order (batch row i % 2 of list
+    i / 2) are every (b, h, tile) once, longest row list first; the first
+    24 are the 12 heads' 19-tile rows (the last query tile, which sees every
+    global column), both batch rows of each one after another."""
+    B, H = 2, 12
+    layout = tsc.FixedSparsityConfig(num_heads=H).make_layout(4096)
+    lists = tbs.tile_lists(layout, 64, True)
+    row_len = np.diff(lists["row_ptr"])
+    blocks = _launch_blocks(lists["row_order"], B, 1)
+    assert np.array_equal(np.sort(blocks), np.arange(B * H * 64))
+    lengths = row_len[blocks % (H * 64)]
+    assert (np.diff(lengths) <= 0).all()
+    assert row_len.max() == 19 and (lengths[:2 * H] == 19).all() and lengths[2 * H] < 19
+    assert np.array_equal(blocks[:2], [63, H * 64 + 63])  # head 0's tile 63, batch rows 0, 1
+
+
 def test_launch_orders_are_cached_with_the_lists():
     """One copy of the lists and orders a (layout, block, causal): an equal
     layout hits it, causal or not gives its own, and the orders do not
@@ -127,18 +155,25 @@ def test_launch_orders_are_cached_with_the_lists():
 
 @pytest.fixture
 def kernel_calls(monkeypatch):
-    """The backward's CUDA branch with K5 and K6 replaced by recorders that
-    run the kernel wrappers' own checks on what they are handed."""
+    """The forward's and the backward's CUDA branches with K4, K5 and K6
+    replaced by recorders that run the kernel wrappers' own checks on what
+    they are handed."""
     calls = []
+
+    def record_fwd(q, k, v, layout, b, causal, sm_scale):
+        tbs._setup(q, k, v, layout, b, causal)
+        calls.append(("fwd", q, k, v))
+        return q, torch.zeros(q.shape[0], q.shape[2], q.shape[1], 1)
 
     def recorder(kind):
         def record(q, k, v, do, lse, delta, layout, b, causal, sm_scale):
-            tbs._bwd_setup(q, k, v, do, layout, b, causal)
+            tbs._setup(q, k, v, layout, b, causal, do)
             calls.append((kind, q, k, v, do))
             return q if kind == "dq" else (k, v)
         return record
 
     monkeypatch.setattr(tbs, "_device_type", lambda q: "cuda")
+    monkeypatch.setattr(tbs, "_cuda_fwd", record_fwd)
     monkeypatch.setattr(tbs, "_cuda_bwd_dq", recorder("dq"))
     monkeypatch.setattr(tbs, "_cuda_bwd_dkv", recorder("dkv"))
     return calls
@@ -164,7 +199,7 @@ def test_backward_copies_only_the_tensor_core_variants_unaligned_rows(kernel_cal
     do = torch.randn(2, 256, 2, 65).to(dtype)[..., 1:]
     _backward(q, k, v, do, block)
     assert [c[0] for c in kernel_calls] == ["dq", "dkv"]
-    tensor_core = tbs.bwd_variant(dtype, min(block, 64)) == "tensor_core"
+    tensor_core = tbs.kernel_variant(dtype, min(block, 64)) == "tensor_core"
     for call in kernel_calls:
         sent_q, sent_k, sent_v, sent_do = call[1:]
         assert sent_k is k
@@ -176,14 +211,41 @@ def test_backward_copies_only_the_tensor_core_variants_unaligned_rows(kernel_cal
                 assert sent is given
 
 
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_forward_copies_only_the_tensor_core_variants_unaligned_rows(kernel_calls, dtype,
+                                                                     block):
+    """An unaligned 16-bit q, k or v reaches the tensor-core K4 as an aligned
+    contiguous copy of the same values, an aligned one as it is; the FMA
+    kernel (f32, tile 32) takes every row as it is."""
+    q = torch.randn(2, 256, 2, 65).to(dtype)[..., 1:]
+    k = torch.randn(2, 256, 2, 64).to(dtype)
+    v = torch.randn(2, 256, 2, 65).to(dtype)[..., :64]
+    layout = tsc.FixedSparsityConfig(num_heads=2, block=block).make_layout(256)
+    tbs.block_sparse_attention_fwd(q, k, v, layout, causal=True, block=block)
+    assert [c[0] for c in kernel_calls] == ["fwd"]
+    _, sent_q, sent_k, sent_v = kernel_calls[0]
+    assert sent_k is k
+    for sent, given in ((sent_q, q), (sent_v, v)):
+        if tbs.kernel_variant(dtype, min(block, 64)) == "tensor_core":
+            assert sent is not given and sent.is_contiguous() and tfa._rows_16b_aligned(sent)
+            assert torch.equal(sent, given)
+        else:
+            assert sent is given
+
+
 def test_model_views_of_a_fused_qkv_reach_the_kernels_uncopied(kernel_calls):
     """The model's q, k and v, views of one (B, S, 3 H hd) projection, and a
-    contiguous do reach the tensor-core K5/K6 as they are."""
+    contiguous do reach the tensor-core K4, K5 and K6 as they are, through
+    the model's entry (autograd) and the backward's."""
     H, hd = 4, 64
-    qkv = torch.zeros(2, 256, 3 * H * hd, dtype=torch.bfloat16)
+    qkv = torch.zeros(2, 256, 3 * H * hd, dtype=torch.bfloat16, requires_grad=True)
     q, k, v = (t.unflatten(-1, (H, hd)) for t in qkv.split(H * hd, dim=-1))
+    layout = tsc.FixedSparsityConfig(num_heads=H, block=64).make_layout(256)
+    tbs.block_sparse_attention(q, k, v, layout, causal=True, block=64)
     do = torch.zeros(2, 256, H, hd, dtype=torch.bfloat16)
     _backward(q, k, v, do, 64)
+    assert [c[0] for c in kernel_calls] == ["fwd", "dq", "dkv"]
     for call in kernel_calls:
         assert all(sent is given for sent, given in zip(call[1:], (q, k, v, do)))
 
@@ -202,9 +264,10 @@ def test_backward_refuses_a_last_dimension_that_is_not_contiguous(kernel_calls, 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_kernel_wrappers_refuse_unaligned_16_bit_rows_at_tile_64(dtype):
-    """K5's and K6's wrappers check the rows before they build or launch
-    anything: an unaligned 16-bit operand is refused at tile 64 (the
-    tensor-core variant) and taken at tile 32 (the FMA kernels)."""
+    """K4's, K5's and K6's wrappers check the rows before they build or
+    launch anything: an unaligned 16-bit operand is refused at tile 64 (the
+    tensor-core variant) and taken at tile 32 (the FMA kernels). K4's own
+    wrapper, ``_cuda_fwd``, refuses it before it touches the card."""
     bad = torch.randn(1, 128, 2, 65, dtype=dtype)[..., 1:]
     good = torch.randn(1, 128, 2, 64, dtype=dtype)
     for q, k, v, do in ((bad, good, good, good), (good, bad, good, good),
@@ -213,9 +276,13 @@ def test_kernel_wrappers_refuse_unaligned_16_bit_rows_at_tile_64(dtype):
             tbs._check_kernel_inputs(q, k, v, 64, do, aligned_rows=True)
         layout = tsc.FixedSparsityConfig(num_heads=2, block=64).make_layout(128)
         with pytest.raises(ValueError, match="16-byte aligned"):
-            tbs._bwd_setup(q, k, v, do, layout, 64, True)
+            tbs._setup(q, k, v, layout, 64, True, do)
+        if do is good:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                tbs._cuda_fwd(q, k, v, layout, 64, True, 0.125)
         layout = tsc.FixedSparsityConfig(num_heads=2, block=32).make_layout(128)
-        assert tbs._bwd_setup(q, k, v, do, layout, 32, True)[0] == "f32_fma"
+        assert tbs._setup(q, k, v, layout, 32, True, do)[0] == "f32_fma"
+        assert tbs._setup(q, k, v, layout, 32, True)[0] == "f32_fma"
 
 
 def test_cpu_backward_of_unaligned_views_is_the_plain_version():
@@ -313,3 +380,98 @@ def test_split_products_keep_the_f32_operand(dtype, parts, row_scale, operand):
     else:
         assert split_err <= 2 * f32_err
     assert split_err < single_err
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core K4's arithmetic against the reference's Pallas forward
+# ---------------------------------------------------------------------------
+
+
+def _tensor_core_fwd(q, k, v, layout, block, causal, sm_scale):
+    """What the tensor-core K4 computes, step by step in plain PyTorch, on
+    16-bit (B, S, H, hd) inputs at tile 64: per block decoded from
+    row_order, its row list in ascending order; per tile S = Q K^T in f32
+    (exact products), scaled, the diagonal tile masked under causal; the
+    online softmax in f32 (m, corr = exp(m - m_new), p = exp(s - m_new),
+    l = l corr + sum p); p times 2**14 in float16, split into 16-bit parts
+    (three in bfloat16, two in float16), each part's product with V exact
+    and summed in f32 into the tile's t; acc = acc corr + t; at the end
+    o = acc / (max(l, 1e-20) p_scale) rounded once, lse = m + log(max(l,
+    1e-20))."""
+    dtype = q.dtype
+    parts, p_scale = (2, 2.0 ** 14) if dtype == torch.float16 else (3, 1.0)
+    B, S, H, hd = q.shape
+    lists = tbs.tile_lists(layout, block, causal)
+    nq, tile = S // 64, lists["tile"]
+    assert tile == 64
+    o = torch.zeros(B, S, H, hd, dtype=dtype)
+    lse = torch.zeros(B, H, S, 1)
+    for blk in _launch_blocks(lists["row_order"], B, 1):
+        b, code = divmod(int(blk), H * nq)
+        h, qt = divmod(code, nq)
+        rows = slice(qt * 64, qt * 64 + 64)
+        qf = q[b, rows, h].float()
+        m = torch.full((64,), tbs.NEG_INF)
+        l, acc = torch.zeros(64), torch.zeros(64, hd)
+        for kt in lists["cols"][lists["row_ptr"][code]:lists["row_ptr"][code + 1]]:
+            keys = slice(int(kt) * 64, int(kt) * 64 + 64)
+            s = (qf @ k[b, keys, h].float().T) * sm_scale
+            if causal and kt == qt:
+                s = s.masked_fill(torch.ones(64, 64, dtype=torch.bool).triu(1), tbs.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.where(s == tbs.NEG_INF, torch.zeros(()), torch.exp(s - m_new[:, None]))
+            l = l * corr + p.sum(-1)
+            rest, t = p * p_scale, torch.zeros(64, hd)
+            for _ in range(parts):
+                part = rest.to(dtype).float()
+                t = t + part @ v[b, keys, h].float()
+                rest = rest - part
+            acc = acc * corr[:, None] + t
+            m = m_new
+        lc = l.clamp_min(1e-20)
+        o[b, rows, h] = (acc / (lc * p_scale)[:, None]).to(dtype)
+        lse[b, h, rows, 0] = m + torch.log(lc)
+    return o, lse
+
+
+# name: (config class, kwargs, causal, all-zero layout row); B1 S256 H2 hd64,
+# layout block 64: 4 x 4 tiles a head
+TC_LAYOUTS = {
+    "fixed_causal": ("FixedSparsityConfig", dict(num_local_blocks=2), True, True),
+    "bslongformer": ("BSLongformerSparsityConfig", {}, False, False),
+}
+TC_TOL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("name", sorted(TC_LAYOUTS))
+def test_tensor_core_forward_arithmetic_matches_the_reference_kernel(name, dtype):
+    """The tensor-core K4's arithmetic (``_tensor_core_fwd``) against the
+    reference's ``_fwd`` (Pallas, interpret mode) on the same 16-bit
+    inputs: o within 2**-8 (bfloat16) / 2**-11 (float16) of max |o|, lse
+    within 1e-5; a row whose layout row is all zero gives o = 0 and
+    lse = -1e30 + log(1e-20) on both sides."""
+    cls, kw, causal, zero_row = TC_LAYOUTS[name]
+    B, S, H, hd, block = 1, 256, 2, 64, 64
+    layout = getattr(tsc, cls)(num_heads=H, block=block, **kw).make_layout(S)
+    if zero_row:
+        layout[1, 2, :] = 0  # head 1, rows 128..191
+    rs = np.random.RandomState(20 + len(name))
+    q, k, v = (torch.from_numpy(rs.randn(B, S, H, hd).astype(np.float32)).to(dtype)
+               for _ in range(3))
+    scale = hd ** -0.5
+    o, lse = _tensor_core_fwd(q, k, v, layout, block, causal, scale)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float16
+    qt, kt, vt = (jnp.asarray(t.float().numpy().transpose(0, 2, 1, 3)).astype(jdt)
+                  for t in (q, k, v))
+    o_ref, lse_ref = jbs._fwd(qt, kt, vt, jnp.asarray(layout), causal, scale, block, True)
+    o_ref = torch.from_numpy(np.array(o_ref.astype(jnp.float32)).transpose(0, 2, 1, 3))
+    lse_ref = torch.from_numpy(np.array(lse_ref))
+    err = (o.float() - o_ref).abs().max() / o_ref.abs().max()
+    assert o.dtype == dtype and float(err) <= TC_TOL[dtype]
+    assert float((lse - lse_ref).abs().max()) <= 1e-5
+    if zero_row:
+        assert float(o[:, 128:192, 1].float().abs().max()) == 0.0
+        assert float(o_ref[:, 128:192, 1].abs().max()) == 0.0
+        assert torch.equal(lse[:, 1, 128:192], lse_ref[:, 1, 128:192])

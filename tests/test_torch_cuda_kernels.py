@@ -276,9 +276,9 @@ def test_flash_backward_rejects_a_do_of_another_dtype():
 # Against the plain versions (_reference_fwd / _reference_bwd of
 # ops/block_sparse_attention.py) on the same inputs, as max |Δ| over max
 # |plain|. The kernels keep f32 throughout, as the plain versions do, and
-# round once at the store (the tensor-core K5/K6, for 16-bit inputs at tile
-# 64, split p and ds into 16-bit parts whose sum keeps them below f32's own
-# rounding, and sum each tile in f32): in bfloat16 one rounding is 2**-9
+# round once at the store (the tensor-core K4/K5/K6, for 16-bit inputs at
+# tile 64, split p and ds into 16-bit parts whose sum keeps them below f32's
+# own rounding, and sum each tile in f32): in bfloat16 one rounding is 2**-9
 # relative, so 2**-8 of max |plain| leaves room for the summation order;
 # float16 2**-11; float32 1e-5 (summation order only). lse is f32 on both
 # sides: 1e-5 absolute over values of magnitude ~10 (a few ulps). A row that
@@ -370,10 +370,24 @@ def test_block_sparse_backward_gives_the_same_bits_twice(dtype):
     """No atomics: the tensor-core K5 and K6 (fixed layout, causal, 64 blocks)
     give bit-equal gradients on the same inputs."""
     _need_card()
-    assert tbs.bwd_variant(dtype, 64) == "tensor_core"
+    assert tbs.kernel_variant(dtype, 64) == "tensor_core"
     layout, q, k, v, o, lse, do = _bs_backward_inputs(2, 2048, 12, 64, dtype, seed=9)
     first = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=True, block=64)
     again = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=True, block=64)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_block_sparse_forward_gives_the_same_bits_twice(dtype, hd):
+    """No atomics: the tensor-core K4 (fixed layout, causal, 64 blocks)
+    gives bit-equal o and lse on the same inputs."""
+    _need_card()
+    assert tbs.kernel_variant(dtype, 64) == "tensor_core"
+    layout, q, k, v, _, _, _ = _bs_backward_inputs(2, 2048, 12, hd, dtype, seed=12)
+    first = tbs.block_sparse_attention_fwd(q, k, v, layout, causal=True, block=64)
+    again = tbs.block_sparse_attention_fwd(q, k, v, layout, causal=True, block=64)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
@@ -383,14 +397,15 @@ def test_block_sparse_backward_gives_the_same_bits_twice(dtype):
                                               ("BSLongformerSparsityConfig", False, 64),
                                               ("FixedSparsityConfig", True, 128)])
 def test_block_sparse_launch_order_changes_no_bit(monkeypatch, config, causal, hd):
-    """The tensor-core K5 and K6 take their blocks longest list first; with
-    the blocks launched in ascending order instead, dq, dk and dv are the
-    same bits: the order decides when a block runs, never a sum's order
-    (at hd 128 also with K6's two panel blocks a list)."""
+    """The tensor-core K4, K5 and K6 take their blocks longest list first;
+    with the blocks launched in ascending order instead, o, lse, dq, dk and
+    dv are the same bits: the order decides when a block runs, never a sum's
+    order (at hd 128 also with K6's two panel blocks a list)."""
     _need_card()
     B, S, H = 2, 2048, 12
     layout, q, k, v, o, lse, do = _bs_backward_inputs(B, S, H, hd, torch.bfloat16, seed=10,
                                                       config=config, causal=causal)
+    fwd_longest_first = tbs.block_sparse_attention_fwd(q, k, v, layout, causal=causal, block=64)
     longest_first = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=causal,
                                                    block=64)
     tile, lists = tbs._lists_on(layout, 64, causal, q.device)
@@ -401,12 +416,40 @@ def test_block_sparse_launch_order_changes_no_bit(monkeypatch, config, causal, h
                                for name in ("row_order", "col_order")})
     monkeypatch.setattr(tbs, "_lists_on", lambda *args: (tile, ascending))
     before = dict(LAUNCHES)
+    fwd_in_order = tbs.block_sparse_attention_fwd(q, k, v, layout, causal=causal, block=64)
     in_order = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=causal,
                                               block=64)
     torch.cuda.synchronize()
-    for kname in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv"):
+    for kname in ("block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv"):
         assert LAUNCHES[kname] == before[kname] + 1
+    assert all(torch.equal(a, b) for a, b in zip(fwd_longest_first, fwd_in_order))
     assert all(torch.equal(a, b) for a, b in zip(longest_first, in_order))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_block_sparse_forward_copies_rows_that_are_not_16_byte_aligned(dtype):
+    """q, k and v as views whose rows start at odd element offsets: the
+    forward copies them to aligned rows, the tensor-core K4 runs on the
+    copies (one launch) and matches the plain version; its wrapper refuses
+    the views."""
+    _need_card()
+    B, S, H, hd = 2, 512, 4, 64
+    layout = tsc.FixedSparsityConfig(num_heads=H).make_layout(S)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(B, S, H, hd + 1, generator=g, device="cuda",
+                           dtype=dtype)[..., 1:] for _ in range(3))
+    assert not any(tfa._rows_16b_aligned(t) for t in (q, k, v))
+    assert tbs.kernel_variant(dtype, 64) == "tensor_core"
+    before = LAUNCHES["block_sparse_fwd"]
+    o, lse = tbs.block_sparse_attention_fwd(q, k, v, layout, causal=True, block=64)
+    torch.cuda.synchronize()
+    assert LAUNCHES["block_sparse_fwd"] == before + 1
+    ro, rl = tbs._reference_fwd(q, k, v, layout, 64, True, hd ** -0.5)
+    assert torch.isfinite(o).all() and _rel_err(o, ro) <= BS_TOL[dtype]
+    assert (lse - rl).abs().max().item() <= BS_LSE_TOL
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tbs._cuda_fwd(q, k, v, layout, 64, True, hd ** -0.5)
+    assert LAUNCHES["block_sparse_fwd"] == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -425,7 +468,7 @@ def test_block_sparse_backward_copies_rows_that_are_not_16_byte_aligned(dtype):
     before = dict(LAUNCHES)
     grads = tbs.block_sparse_attention_bwd(q, k, v, o, lse, do, layout, causal=True, block=64)
     torch.cuda.synchronize()
-    assert tbs.bwd_variant(dtype, 64) == "tensor_core"
+    assert tbs.kernel_variant(dtype, 64) == "tensor_core"
     for kname in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv"):
         assert LAUNCHES[kname] == before[kname] + 1
     ref = tbs._reference_bwd(q, k, v, o, lse, do, layout, 64, True, hd ** -0.5)
@@ -472,8 +515,8 @@ def test_block_sparse_model_launches_each_kernel_once_per_layer():
     torch.cuda.synchronize()
     assert (LAUNCHES["block_sparse_fwd"] == LAUNCHES["block_sparse_bwd_dq"]
             == LAUNCHES["block_sparse_bwd_dkv"] == 3)
-    # bf16 at block 64: each of those launches is the tensor-core K5 and K6
-    assert tbs.bwd_variant(torch.bfloat16, 64) == "tensor_core"
+    # bf16 at block 64: each of those launches is the tensor-core K4, K5 and K6
+    assert tbs.kernel_variant(torch.bfloat16, 64) == "tensor_core"
     assert LAUNCHES["flash_fwd"] == LAUNCHES["flash_bwd_dq"] == LAUNCHES["flash_bwd_dkv"] == 0
     assert torch.isfinite(loss) and all(torch.isfinite(p.grad).all()
                                         for p in params["layers"][0]["attn"].values())
