@@ -10,8 +10,10 @@ their SASS, holds each kernel against its plain PyTorch version on the card
 (K1-K3 flash attention, each in both of its variants: tensor core for bf16,
 f32 FMA for f32; K4-K6 block-sparse attention, each in both of theirs:
 tensor core for 16-bit inputs at tile 64, f32 FMA for f32 and tiles 16/32;
-K3's GQA head sum bit for bit, K7-K8 fused LayerNorm/RMSNorm), and drives
-the port's four paths with random weights from a seed:
+K3's GQA head sum bit for bit, K7-K8 fused LayerNorm/RMSNorm on their
+vector and scalar load paths), and drives the port's four paths with random
+weights from a seed (the model's every LayerNorm is K7 forward and K8
+backward):
   - the fused-op surface (``ops/transformer/fused_ops``: ``fused_layernorm``
     -> a 768 x 3072 matmul -> ``fused_bias_gelu`` -> a 3072 x 768 matmul ->
     ``fused_bias_dropout_residual``) at GPT-2 125M's training width, B8 S1024
@@ -25,8 +27,9 @@ the port's four paths with random weights from a seed:
     1024, micro-batch 8, bf16, flash attention, AdamW: 2 warm-up and 10
     timed steps on one fixed batch, a first-step comparison with the
     xla-attention engine on the same weights, a gradient check of the flash
-    engine against the xla engine in f32 at 2 layers, then a profiled
-    breakdown;
+    engine against the xla engine in f32 at 2 layers, one f32 step at 2
+    layers on the card against the same step on the CPU (the model's norms
+    through K7/K8 against their plain versions), then a profiled breakdown;
   - block-sparse training, the same entry points on GPT-2 125M at full
     width and depth, seq 4096, micro-batch 2, bf16, the fixed sparsity
     layout: 2 warm-up and 10 timed steps, a model-level check of the
@@ -109,11 +112,17 @@ BS_LSE_TOL = 1e-5
 # round once at the output, so out and dx are one rounding plus summation
 # order apart: 2**-8 in bf16/f16, 1e-5 in f32; mu and rstd (f32) 1e-5;
 # dscale and dbias are f32 sums over all rows in another order (K8's
-# per-block partials, then torch.sum): 1e-4, and 2**-8 after a cast to bf16.
+# per-block partials, then their fixed-order sum): 1e-4, and 2**-8 after a cast
+# to bf16.
 NORM_TOL = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -8, torch.float32: 1e-5}
 NORM_STAT_TOL = 1e-5
 NORM_SUM_TOL = 1e-4
 NORM_SUM_BF16_TOL = 2.0 ** -8
+# the model's norms through K7/K8 on the card against the plain versions on
+# the CPU, one f32 step of a 2-layer engine, the same weights and batch: the
+# loss (~11) within 1e-5 (1e-6 relative) and every gradient leaf within
+# F32_GRAD_REL_TOL of its max |grad| (summation order only)
+NORM_MODEL_LOSS_TOL = 1e-5
 # the fused-op chain in bf16, K7/K8 against the plain LayerNorm under
 # autograd, the rest of the chain the same: loss within 1e-3 relative, every
 # gradient within 2**-6 of its largest |plain| value (a few bf16 roundings
@@ -197,6 +206,21 @@ SPARSE_FWD_HGMMA = {
     f"{name}_hd{hd}": hd // 16 + parts * 4 * max(1, hd // 64)
     for name, parts in SPARSE_BWD_PARTS.items() for hd in (16, 32, 64, 128)}
 NORM_KERNELS = ("fused_norm_fwd", "fused_norm_bwd")
+# K7/K8's instantiations at the k7_k8 shapes (fused_norm.cu's template
+# arguments: x's type, the weights' type, 16-byte chunks a thread, vector path)
+NORM_TAGS = {
+    "fused_norm_fwd_bf16_vector_chunks3": "fused_norm_fwd_kernelI13__nv_bfloat16S1_Li3ELb1E",
+    "fused_norm_bwd_bf16_vector_chunks3": "fused_norm_bwd_kernelI13__nv_bfloat16S1_Li3ELb1E",
+    "fused_norm_fwd_bf16_vector_chunks4": "fused_norm_fwd_kernelI13__nv_bfloat16S1_Li4ELb1E",
+    "fused_norm_bwd_bf16_vector_chunks4": "fused_norm_bwd_kernelI13__nv_bfloat16S1_Li4ELb1E",
+    "fused_norm_fwd_f32_vector_chunks4": "fused_norm_fwd_kernelIffLi4ELb1E",
+    "fused_norm_bwd_f32_vector_chunks4": "fused_norm_bwd_kernelIffLi4ELb1E",
+    "fused_norm_fwd_f16_f32w_scalar_chunks1": "fused_norm_fwd_kernelI6__halffLi1ELb0E",
+    "fused_norm_bwd_f16_f32w_scalar_chunks1": "fused_norm_bwd_kernelI6__halffLi1ELb0E",
+    "fused_norm_fwd_wide_bf16": "fused_norm_fwd_wide_kernelI13__nv_bfloat16S1_E",
+    "fused_norm_bwd_wide_bf16": "fused_norm_bwd_wide_kernelI13__nv_bfloat16S1_E",
+    "fused_norm_colsum": "fused_norm_colsum_kernel",
+}
 
 failures = []
 
@@ -267,18 +291,24 @@ def reference_partial_rows(N, cap=256):
     return N // block
 
 
-def norm_bounds(N, D, dtype, wdtype, has_bias, partial_rows):
-    """K7 and K8 on (N, D): (bound ms, bound_by) each. K7 reads x, scale (and
-    bias) and writes out, mu and rstd; K8 reads x, do, scale, mu and rstd and
-    writes dx and (partial_rows, D) f32 partials of dscale and dbias; each
-    once. The partials are counted at the function's own row blocks
+def norm_bytes(N, D, dtype, wdtype, has_bias, partial_rows):
+    """The bytes K7 and K8 must move on (N, D), each once. K7 reads x, scale
+    (and bias) and writes out, mu and rstd; K8 reads x, do, scale, mu and
+    rstd and writes dx and (partial_rows, D) f32 partials of dscale and
+    dbias. The partials are counted at the function's own row blocks
     (``reference_partial_rows``), not at the port's block count, so that the
-    bound does not grow with a choice of the kernel. FLOPs (8 per element
-    for K7, 16 for K8) at the f32 CUDA-core peak."""
+    count does not grow with a choice of the kernel."""
     isz, wsz = torch.finfo(dtype).bits // 8, torch.finfo(wdtype).bits // 8
     rows = 2 * N * 4
-    k7 = 2 * N * D * isz + D * wsz * (2 if has_bias else 1) + rows
-    k8 = 3 * N * D * isz + D * wsz + rows + 2 * partial_rows * D * 4
+    return (2 * N * D * isz + D * wsz * (2 if has_bias else 1) + rows,
+            3 * N * D * isz + D * wsz + rows + 2 * partial_rows * D * 4)
+
+
+def norm_bounds(N, D, dtype, wdtype, has_bias, partial_rows):
+    """K7 and K8 on (N, D): (bound ms, bound_by) each, from ``norm_bytes``
+    and the FLOPs (8 per element for K7, 16 for K8) at the f32 CUDA-core
+    peak."""
+    k7, k8 = norm_bytes(N, D, dtype, wdtype, has_bias, partial_rows)
     return (bound(8.0 * N * D, k7, torch.float32), bound(16.0 * N * D, k8, torch.float32))
 
 
@@ -438,6 +468,51 @@ def events_ms(fn, iters=3):
     return start.elapsed_time(end) / iters
 
 
+def profiled_ms(fn, sets):
+    """Device milliseconds of one call of ``fn``: the profiler's kernel time
+    over one pass of ``fn(*inputs)`` through the input sets, after a warm-up
+    call, over the number of sets."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*sets[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for inputs in sets:
+            fn(*inputs)
+        torch.cuda.synchronize()
+    return sum(t for _, t, _ in device_kernels(prof)) * 1e3 / len(sets)
+
+
+def host_us(fn, calls=2000):
+    """Host microseconds one call of ``fn`` takes to issue its work: a loop
+    of calls between host clocks, the device left to drain after it (its
+    kernels are shorter than the host's issue, so the queue never fills)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s / calls * 1e6
+
+
+def plain_chain_norm(x, scale, bias, eps, rms):
+    """The model's norm as an f32 chain of PyTorch ops, as the reference's
+    plain-jnp ``_norm`` spells it out and as the port's ``_norm`` ran before
+    it went through the fused-norm op: a yardstick of host cost only."""
+    x32 = x.float()
+    if rms:
+        x32 = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    else:
+        var, mu = torch.var_mean(x32, dim=-1, keepdim=True, unbiased=False)
+        x32 = (x32 - mu) * torch.rsqrt(var + eps)
+    out = x32 * scale
+    if bias is not None:
+        out = out + bias
+    return out.to(x.dtype)
+
+
 def build_all(libs):
     """nvcc for every kernel source at once, one thread each; a failed build
     raises."""
@@ -467,6 +542,7 @@ KERNEL_CATEGORIES = (  # first match wins, on the kernel's name
     ("flash (K1-K3)", ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
     ("block-sparse (K4-K6)", ("block_sparse_fwd_kernel", "block_sparse_bwd_dq_kernel",
                               "block_sparse_bwd_dkv_kernel")),
+    ("fused norm (K7-K8)", ("fused_norm_",)),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reduction", ("reduce_kernel", "softmax", "norm")),
@@ -490,6 +566,100 @@ def device_kernels(prof):
 
     return [(e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def generate_wall(eng, toks, n_new):
+    """Wall seconds and this thread's CPU seconds of one greedy ``generate``
+    of toks + n_new tokens."""
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), time.thread_time()
+    eng.generate(toks, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, time.thread_time() - c0
+
+
+def serve_breakdown(eng, toks, gen, card, request, short=8, long=40, reps=7):
+    """The ``breakdown`` line: the decode step of ``generate`` at toks' shape
+    as the median wall of ``reps`` calls of ``long`` new tokens less the
+    median of ``reps`` of ``short``, over the steps between (the prefill and
+    each call's set-up cancel), each pair's own step beside it; the device's
+    kernel time and launches a step from one profiled call of each length,
+    and the share of the step the device sits idle; the same step in the
+    issuing thread's CPU time (below the wall step when the host's other
+    work takes the thread's core) and the host's load; the prefill; and the
+    host's cost of one of the step's norms against the f32 chain it
+    replaced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    cfg = eng.cfg
+    generate_wall(eng, toks, short)  # warm-up at both cache lengths
+    generate_wall(eng, toks, long)
+    load = os.getloadavg()
+    walls, cpus = {short: [], long: []}, {short: [], long: []}
+    for _ in range(reps):  # interleaved, so a slow stretch of the host hits both
+        for n in (short, long):
+            wall, cpu = generate_wall(eng, toks, n)
+            walls[n].append(wall)
+            cpus[n].append(cpu)
+
+    def per_step(t):
+        return ((statistics.median(t[long]) - statistics.median(t[short]))
+                / (long - short) * 1e3,
+                [(tl - ts) / (long - short) * 1e3 for ts, tl in zip(t[short], t[long])])
+
+    step_ms, pairs_ms = per_step(walls)
+    cpu_step_ms, cpu_pairs_ms = per_step(cpus)
+    profiled = {}
+    for n in (short, long):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.generate(toks, max_new_tokens=n)
+            torch.cuda.synchronize()
+        profiled[n] = device_kernels(prof)
+    device_s = {n: sum(t for _, t, _ in k) for n, k in profiled.items()}
+    launches = {n: sum(c for _, _, c in k) for n, k in profiled.items()}
+    measured = bool(profiled[short] and profiled[long])
+    device_step_ms = (device_s[long] - device_s[short]) / (long - short) * 1e3
+    with torch.inference_mode():
+        cache = tf.init_cache(cfg, toks.shape[0], cfg.max_seq_len, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tf.forward_with_cache(eng.params, cfg, toks, cache, 0, last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    # the host's cost of one of a decode step's 49 norms: the model's routed
+    # norm against the f32 chain it replaced, at the decode step's 8 rows
+    ln1 = eng.params["layers"][0]["ln1"]
+    x_dec = torch.randn(toks.shape[0], 1, cfg.hidden_size, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+    with torch.inference_mode():
+        norm_host = {
+            "routed_norm": host_us(lambda: tf._norm(x_dec, ln1["scale"], ln1.get("bias"), cfg)),
+            "plain_chain": host_us(lambda: plain_chain_norm(x_dec, ln1["scale"], ln1.get("bias"),
+                                                            cfg.norm_eps, False))}
+    kernels = profiled[long]
+    emit({"phase": "breakdown", "request": request, "prompt": list(toks.shape),
+          "new_tokens": [short, long], "reps": reps,
+          "generate_s": {str(n): w for n, w in walls.items()},
+          "decode_step_ms": step_ms,
+          "decode_step_ms_per_pair": pairs_ms,
+          "decode_step_thread_cpu_ms": cpu_step_ms,
+          "decode_step_thread_cpu_ms_per_pair": cpu_pairs_ms,
+          "host_load_avg_1_5_15_min": load, "host_cpus": os.cpu_count(),
+          "device_ms_per_step": device_step_ms if measured else "not measured",
+          "device_idle_share_per_step": 1 - device_step_ms / step_ms if measured
+          else "not measured",
+          "launches_per_step": (launches[long] - launches[short]) / (long - short),
+          "device_kernel_s": {str(n): device_s[n] for n in profiled} if measured
+          else "not measured",
+          "k1_device_s": sum(t for k, t, _ in kernels if "flash_fwd_kernel" in k),
+          "k7_device_s": sum(t for k, t, _ in kernels if "fused_norm_" in k),
+          "prefill_s": prefill_s, "norm_host_us_per_call": norm_host,
+          "norm_rows": x_dec.shape[0],
+          "top_kernels": [{"name": k[:90], "s": t}
+                          for k, t, _ in sorted(kernels, key=lambda x: -x[1])[:8]],
+          "card": card})
 
 
 def k7_k8_phase(gen, card):
@@ -522,8 +692,17 @@ def k7_k8_phase(gen, card):
         sets = [(xs[i], dos[i], mus[i * N:(i + 1) * N], rstds[i * N:(i + 1) * N])
                 for i in range(n_sets)]
         x, do, mu, rstd = sets[0]
+        variant = fnorm.kernel_variant(D, dtype, x, do)
+        check(all(fnorm.kernel_variant(D, dtype, xi, doi) == variant for xi, doi, _, _ in sets),
+              f"K7/K8 {name}: the rotated inputs run different variants")
         out, kmu, krstd = fnorm._cuda_fwd(x, scale, bias, 1e-5, rms)
         dx, dscale, dbias = fnorm._cuda_bwd(x, scale, mu, rstd, do, rms)
+        again = (fnorm._cuda_fwd(x, scale, bias, 1e-5, rms)
+                 + fnorm._cuda_bwd(x, scale, mu, rstd, do, rms))
+        same_bits = all(torch.equal(a, b) for a, b in
+                        zip((out, kmu, krstd, dx, dscale, dbias), again))
+        check(same_bits, f"K7/K8 {name}: two calls gave different bits")
+        del again
         torch.cuda.synchronize()
         ro, rmu, rrstd = fnorm._reference_fwd(x, scale, bias, 1e-5, rms)
         rdx, rdscale, rdbias = fnorm._reference_bwd(x, scale, mu, rstd, do, rms)
@@ -544,6 +723,7 @@ def k7_k8_phase(gen, card):
         partial_rows = reference_partial_rows(N)
         (k7b, k7by), (k8b, k8by) = norm_bounds(N, D, dtype, wdtype, bias is not None,
                                                partial_rows)
+        k7_bytes, k8_bytes = norm_bytes(N, D, dtype, wdtype, bias is not None, partial_rows)
         (lib_k7b, _), (lib_k8b, _) = norm_bounds(N, D, dtype, dtype, bias is not None, 0)
         k7_ms = rotating_ms(lambda x, do, mu, rstd: fnorm._cuda_fwd(x, scale, bias, 1e-5, rms),
                             sets)
@@ -575,6 +755,18 @@ def k7_k8_phase(gen, card):
         lib_fwd_bwd_ms = rotating_ms(
             lambda xl, dol: torch.autograd.grad(library(xl, lw, lb), [xl] + lparams, dol),
             leaf_sets)
+        # what the model's norm cost before it went through K7/K8: the f32 chain
+        # under autograd, forward and forward + backward, the weights as leaves
+        cw = scale.clone().requires_grad_(True)
+        cb = bias.clone().requires_grad_(True) if bias is not None else None
+        cparams = [cw] + ([cb] if cb is not None else [])
+        # (device time from the profiler: a CUDA graph does not capture its
+        # backward, and an eager loop of its small kernels waits on the host)
+        chain_fwd_ms = profiled_ms(lambda xl, dol: plain_chain_norm(
+            xl.detach(), scale, bias, 1e-5, rms), leaf_sets)
+        chain_fwd_bwd_ms = profiled_ms(
+            lambda xl, dol: torch.autograd.grad(plain_chain_norm(xl, cw, cb, 1e-5, rms),
+                                                [xl] + cparams, dol), leaf_sets)
         for what, ms, least in (("K7", k7_ms, k7b), ("K8", k8_ms, k8b),
                                 ("library forward", lib_fwd_ms, lib_k7b),
                                 ("library forward + backward", lib_fwd_bwd_ms,
@@ -591,20 +783,25 @@ def k7_k8_phase(gen, card):
             "rotation_bytes_per_pass": {"x": n_sets * N * D * torch.finfo(dtype).bits // 8,
                                         "x_and_do": 2 * n_sets * N * D * torch.finfo(dtype).bits
                                         // 8},
-            "k8_bound_partial_rows": partial_rows,
+            "k8_bound_partial_rows": partial_rows, "variant": variant,
+            "same_bits_twice": same_bits,
             "k7_ms": k7_ms, "k8_ms": k8_ms, "k7_warm_l2_ms": k7_warm_ms,
+            "k7_gb_per_s": k7_bytes / k7_ms * 1e-6, "k8_gb_per_s": k8_bytes / k8_ms * 1e-6,
+            "k7_bound_share": k7b / k7_ms, "k8_bound_share": k8b / k8_ms,
             "k8_warm_l2_ms": k8_warm_ms, "plain_fwd_ms": plain_fwd_ms,
             "plain_bwd_ms": plain_bwd_ms, "k7_bound_ms": k7b, "k7_bound_by": k7by,
             "k8_bound_ms": k8b, "k8_bound_by": k8by,
             "library": "F.rms_norm" if rms else "F.layer_norm",
             "library_param_dtype": str(dtype).split(".")[-1],
             "library_fwd_ms": lib_fwd_ms, "library_fwd_bwd_ms": lib_fwd_bwd_ms,
-            "library_bwd_ms": lib_fwd_bwd_ms - lib_fwd_ms, "card": card,
+            "library_bwd_ms": lib_fwd_bwd_ms - lib_fwd_ms,
+            "plain_chain_fwd_ms": chain_fwd_ms, "plain_chain_fwd_bwd_ms": chain_fwd_bwd_ms,
+            "card": card,
         }
         k78[name] = row
         emit(row)
         del xs, dos, mus, rstds, sets, leaf_sets, x, do, mu, rstd, out, kmu, krstd, dx, dscale
-        del dbias, ro, rmu, rrstd, rdx, rdscale, rdbias
+        del dbias, ro, rmu, rrstd, rdx, rdscale, rdbias, cw, cb, cparams
         torch.cuda.empty_cache()
     return k78
 
@@ -720,14 +917,45 @@ def fused_ops_phase(gen, card):
     return fused_counts
 
 
+def smi_card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else "nvidia-smi gave nothing"
+
+
+def decode_step_main():
+    """``python3 chip_smoke.py --decode-step``: the serving path's
+    ``breakdown`` line alone (GPT-2 350M, B 8 x 128, greedy), so that the
+    decode step of another checkout of the port can be set beside this
+    one's in one call: a copy of this file in that checkout's root drives
+    that checkout's package."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
+    model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16")
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bfloat16", "attn_impl": "pallas"}, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, eng.cfg.vocab_size, (8, 128), generator=gen, device="cuda")
+    serve_breakdown(eng, toks, gen, card, "greedy_b8_p128")
+    return 1 if failures else 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi gave nothing"
+    card = smi_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "env", "python": sys.version.split()[0], "torch": torch.__version__,
@@ -754,6 +982,10 @@ def main():
     fwd_out, bwd_out = fa.KERNEL_LIB.compiler_output, fa.BWD_KERNEL_LIB.compiler_output
     bs_fwd_out, bs_bwd_out = bs.FWD_KERNEL_LIB.compiler_output, bs.BWD_KERNEL_LIB.compiler_output
     norm_out = fnorm.KERNEL_LIB.compiler_output
+    norm_spills = [line for line in norm_out.splitlines() if "spill" in line
+                   and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    norm_kernels = sum(1 for line in norm_out.splitlines()
+                       if "Function properties for" in line and "fused_norm" in line)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": {os.path.basename(lib.source): lib.build_seconds for lib in libs},
           "ptxas": {
@@ -773,20 +1005,15 @@ def main():
                  for name, tag in FWD_TAGS.items()},
               **{f"flash_bwd_{name}": ptxas_summary(bwd_out, tag)
                  for name, tag in BWD_PTXAS_TAGS.items()},
-              "fused_norm_fwd_warp_bf16_vpt24": ptxas_summary(
-                  norm_out, "fused_norm_fwd_warp_kernelI13__nv_bfloat16Li24E"),
-              "fused_norm_bwd_warp_bf16_vpt24": ptxas_summary(
-                  norm_out, "fused_norm_bwd_warp_kernelI13__nv_bfloat16Li24E"),
-              "fused_norm_bwd_warp_bf16_vpt32": ptxas_summary(
-                  norm_out, "fused_norm_bwd_warp_kernelI13__nv_bfloat16Li32E"),
-              "fused_norm_bwd_warp_f32_vpt32": ptxas_summary(
-                  norm_out, "fused_norm_bwd_warp_kernelIfLi32E"),
-              "fused_norm_fwd_block_bf16": ptxas_summary(
-                  norm_out, "fused_norm_fwd_block_kernelI13__nv_bfloat16E"),
-              "fused_norm_bwd_block_bf16": ptxas_summary(
-                  norm_out, "fused_norm_bwd_block_kernelI13__nv_bfloat16E"),
-              "fused_norm_bwd_block_f32": ptxas_summary(norm_out, "fused_norm_bwd_block_kernelIfE"),
-          }})
+              **{name: ptxas_summary(norm_out, tag) for name, tag in NORM_TAGS.items()},
+          },
+          "fused_norm_kernels_built": norm_kernels,
+          "fused_norm_kernels_spilling": len(norm_spills)})
+    # every instantiation of K7/K8 without a spill (not only the tagged ones),
+    # from ptxas's output, kept beside the library when it was built
+    check(norm_kernels > 0 and not norm_spills,
+          f"fused_norm.cu: ptxas reports spills in {len(norm_spills)} of {norm_kernels} "
+          f"kernels ({norm_spills[:3]})")
     # the attention kernels' products in the SASS: HGMMA (wgmma) and no HMMA
     # (mma.sync) in every 16-bit kernel, f32 FMAs only in the f32 kernels
     # (and the 16-bit kernels' few elementwise ones)
@@ -806,6 +1033,15 @@ def main():
         for name, counts in sass[key].items():
             if isinstance(counts, dict):
                 counts["ptxas"] = ptxas[name]
+    # K7/K8: the vector path's 16-byte loads and stores, none on the scalar path
+    norm_sass = sass_counts(fnorm.KERNEL_LIB.lib_path(), list(NORM_TAGS.values()),
+                            ops=("LDG.E.128", "STG.E.128"))
+    sass["fused_norm"] = {name: norm_sass[tag] for name, tag in NORM_TAGS.items()}
+    for name, counts in sass["fused_norm"].items():
+        vector = "_vector_" in name
+        check(isinstance(counts, dict) and (counts["LDG.E.128"] > 0 and counts["STG.E.128"] > 0)
+              == vector, f"fused_norm {name}: 16-byte loads/stores {counts} on the "
+                         f"{'vector' if vector else 'scalar or wide'} path")
     emit({"phase": "build_sass",
           "libraries": [os.path.basename(lib.lib_path())
                         for lib in (fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, bs.FWD_KERNEL_LIB,
@@ -1151,7 +1387,7 @@ def main():
     op_builder.reset_launch_counts()
     per_request = []
     for r in requests:
-        before = op_builder.launch_counts()["flash_fwd"]
+        before = op_builder.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eng.generate(prompts[r["name"]], max_new_tokens=r["new"],
@@ -1159,7 +1395,8 @@ def main():
                            generator=torch.Generator(device="cuda").manual_seed(1))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launched = op_builder.launch_counts()["flash_fwd"] - before
+        after = op_builder.launch_counts()
+        launched = {k: after[k] - before[k] for k in ("flash_fwd",) + NORM_KERNELS}
         per_request.append((r, out, wall, launched))
     serve_counts = op_builder.launch_counts()
 
@@ -1168,7 +1405,14 @@ def main():
         shape_ok = tuple(out.shape) == (B, P + new)
         range_ok = bool(((out >= 0) & (out < V)).all())
         check(shape_ok and range_ok, f"{r['name']}: output shape {tuple(out.shape)} / range")
-        check(launched == L, f"{r['name']}: K1 launched {launched} times, expected {L}")
+        check(launched["flash_fwd"] == L,
+              f"{r['name']}: K1 launched {launched['flash_fwd']} times, expected {L}")
+        # one forward for the prompt and one for each new token but the last:
+        # 2 L + 1 norms each (two a layer and the final norm), no backward
+        norms = (2 * L + 1) * new
+        check(launched["fused_norm_fwd"] == norms and launched["fused_norm_bwd"] == 0,
+              f"{r['name']}: K7/K8 launched {launched['fused_norm_fwd']}/"
+              f"{launched['fused_norm_bwd']} times, expected {norms}/0")
         # prefill logits: pallas engine against the xla-attention engine
         toks = prompts[r["name"]]
         cache_len = bounded_cache_len(P + new, cfg.max_seq_len, eng.config.max_out_tokens)
@@ -1188,47 +1432,19 @@ def main():
         check(bool(agree[decided].all()), f"{r['name']}: top-1 disagrees on decided rows")
         emit({"phase": "generate", "request": r["name"], "batch": B, "prompt": P,
               "new_tokens": new, "temperature": r["temperature"], "top_k": r["top_k"],
-              "k1_launches": launched, "layers": L, "generate_s": wall,
+              "k1_launches": launched["flash_fwd"], "k7_launches": launched["fused_norm_fwd"],
+              "k7_launches_per_forward": launched["fused_norm_fwd"] / new,
+              "k8_launches": launched["fused_norm_bwd"], "layers": L, "generate_s": wall,
               "new_tokens_per_s": B * new / wall, "tokens_per_s": B * (P + new) / wall,
               "prefill_logits_max_abs_diff_vs_xla": d, "logits_tol": LOGITS_TOL,
               "top1_agree_rows": int(agree.sum()), "top1_decided_rows": int(decided.sum()),
               "rows": B, "card": card})
     check(serve_counts["flash_fwd"] > 0, "K1 never launched on the serving path")
 
-    # ---- where the time goes: a short generate at the first request's shape,
-    # timed, then again under the profiler for the device's kernel time
-    from torch.profiler import ProfilerActivity, profile
+    # ---- where the time goes: the decode step at the first request's shape
+    serve_breakdown(eng, prompts[requests[0]["name"]], gen, card, requests[0]["name"])
 
-    toks, n_new = prompts[requests[0]["name"]], 16
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    eng.generate(toks, max_new_tokens=n_new)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    with torch.inference_mode():
-        cache = tf.init_cache(cfg, toks.shape[0], cfg.max_seq_len, "cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tf.forward_with_cache(eng.params, cfg, toks, cache, 0, last_only=True)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.generate(toks, max_new_tokens=n_new)
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    device_s = sum(t for _, t, _ in kernels)
-    emit({"phase": "breakdown", "request": requests[0]["name"], "new_tokens": n_new,
-          "generate_s": wall, "prefill_s": prefill_s,
-          "decode_step_ms": (wall - prefill_s) / (n_new - 1) * 1e3,
-          "device_kernel_s": device_s if kernels else "not measured",
-          "device_busy_share": device_s / wall if kernels else "not measured",
-          "k1_device_s": sum(t for k, t, _ in kernels if "flash_fwd_kernel" in k),
-          "device_kernel_launches": sum(n for _, _, n in kernels),
-          "top_kernels": [{"name": k[:90], "s": t}
-                          for k, t, _ in sorted(kernels, key=lambda x: -x[1])[:8]],
-          "card": card})
-
-    del eng, ref, prompts, per_request, cache
+    del eng, ref, prompts, per_request
     torch.cuda.empty_cache()
 
     # ---- the training path: GPT-2 125M, seq 1024, micro-batch 8, bf16, flash
@@ -1282,6 +1498,11 @@ def main():
         check(train_counts[kname] == L_T * steps,
               f"train: {kname} launched {train_counts[kname]} times in {steps} steps, "
               f"expected {L_T} per step")
+    norms_per_step = 2 * L_T + 1  # two a layer and the final norm, each forward and backward
+    for kname in NORM_KERNELS:
+        check(train_counts[kname] == norms_per_step * steps,
+              f"train: {kname} launched {train_counts[kname]} times in {steps} steps, "
+              f"expected {norms_per_step} per step")
     ln_v = math.log(V_T)
     check(all(math.isfinite(x) for x in losses) and abs(losses[0] - ln_v) <= FIRST_LOSS_TOL,
           f"train: first loss {losses[0]} not finite or not within {FIRST_LOSS_TOL} of ln V {ln_v}")
@@ -1317,8 +1538,8 @@ def main():
           "mfu": tcfg.flops_per_token(S_T) * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
           "flops_per_token": tcfg.flops_per_token(S_T),
           "peak_memory_bytes": peak_bytes,
-          "launches": {k: train_counts[k] for k in KERNELS},
-          "launches_per_step": {k: train_counts[k] / steps for k in KERNELS},
+          "launches": {k: train_counts[k] for k in KERNELS + NORM_KERNELS},
+          "launches_per_step": {k: train_counts[k] / steps for k in KERNELS + NORM_KERNELS},
           "first_step_vs_xla": {"loss": losses[0], "xla_loss": xla_loss,
                                 "grad_norm": gnorm0, "xla_grad_norm": xla_gnorm,
                                 "grad_norm_rel_diff": gnorm_rel, "loss_tol": TRAIN_LOSS_TOL,
@@ -1366,6 +1587,50 @@ def main():
           "rel_per_leaf": {k: f32_rel[k] for k in sorted(f32_rel)}, "card": card})
     del grads
     torch.cuda.empty_cache()
+
+    # ---- the model's norms on the card (K7/K8) against the CPU (their plain
+    # versions, as every kernel's): one f32 step (TF32 off) of a 2-layer
+    # engine at GPT-2 125M's width, the same weights and batch on both
+    def norm_step(device, params, data):
+        m = tf.TransformerModel.from_preset("gpt2-125m", dtype="float32", attn_impl="pallas",
+                                            num_layers=2)
+        e = deepspeed_tpu_torch.initialize(model=m, config=f32_config, params=params,
+                                           device=device)[0]
+        step_loss = e.forward({"input_ids": data.to(device)})
+        e.backward(step_loss)
+        return e.params, float(step_loss), {name: g.detach().cpu() for (name, _), g in
+                                            zip(named_leaves(e.params), e.grad_acc)}
+
+    norm_batch = batch["input_ids"][:2]
+    op_builder.reset_launch_counts()
+    card_params, card_loss, card_grads = norm_step("cuda", None, norm_batch)
+    torch.cuda.synchronize()
+    norm_counts = op_builder.launch_counts()
+    cpu_params = tf.map_params(lambda p: p.detach().cpu(), card_params)
+    _, cpu_loss, cpu_grads = norm_step("cpu", cpu_params, norm_batch.cpu())
+    del card_params, cpu_params
+    norm_rel = rel_per_leaf(card_grads, cpu_grads)
+    norm_worst = max(norm_rel, key=norm_rel.get)
+    norm_leaves = {k: v for k, v in norm_rel.items() if "ln" in k or "final_norm" in k}
+    check(all(norm_counts[k] == 5 for k in NORM_KERNELS),
+          f"train_norm_card_vs_cpu: K7/K8 launched {[norm_counts[k] for k in NORM_KERNELS]} "
+          f"times in one 2-layer step, expected 5 each")
+    check(abs(card_loss - cpu_loss) <= NORM_MODEL_LOSS_TOL
+          and norm_rel[norm_worst] <= F32_GRAD_REL_TOL,
+          f"train_norm_card_vs_cpu: loss {card_loss} vs CPU {cpu_loss}, worst leaf "
+          f"{norm_worst} at {norm_rel[norm_worst]} of its max |grad|")
+    emit({"phase": "train_norm_card_vs_cpu", "model": "gpt2-125m width, 2 layers",
+          "batch": list(norm_batch.shape), "dtype": "float32",
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "loss_card": card_loss, "loss_cpu": cpu_loss, "loss_abs_diff": abs(card_loss - cpu_loss),
+          "loss_tol": NORM_MODEL_LOSS_TOL, "leaves": len(norm_rel), "worst_leaf": norm_worst,
+          "worst_rel": norm_rel[norm_worst], "rel_tol": F32_GRAD_REL_TOL,
+          "norm_leaves_rel": norm_leaves,
+          "launches": {k: norm_counts[k] for k in NORM_KERNELS}, "card": card})
+    del card_grads, cpu_grads
+    torch.cuda.empty_cache()
+
+    from torch.profiler import ProfilerActivity, profile
 
     def step_breakdown(e, data, kernel_names, med_ms):
         """One training step under the profiler: device time by kernel and
@@ -1461,6 +1726,10 @@ def main():
     for kname in KERNELS:
         check(sparse_counts[kname] == 0,
               f"train_sparse: {kname} launched {sparse_counts[kname]} times, expected none")
+    for kname in NORM_KERNELS:
+        check(sparse_counts[kname] == norms_per_step * steps,
+              f"train_sparse: {kname} launched {sparse_counts[kname]} times in {steps} steps, "
+              f"expected {norms_per_step} per step")
     check(all(math.isfinite(x) for x in slosses) and abs(slosses[0] - ln_v) <= FIRST_LOSS_TOL,
           f"train_sparse: first loss {slosses[0]} not finite or not within {FIRST_LOSS_TOL} "
           f"of ln V {ln_v}")
@@ -1488,8 +1757,9 @@ def main():
           "flops_per_token_live_pairs": sparse_fpt,
           "peak_memory_bytes": speak_bytes,
           "variant": svariant,
-          "launches": {k: sparse_counts[k] for k in SPARSE_KERNELS + KERNELS},
-          "launches_per_step": {k: sparse_counts[k] / steps for k in SPARSE_KERNELS + KERNELS},
+          "launches": {k: sparse_counts[k] for k in SPARSE_KERNELS + KERNELS + NORM_KERNELS},
+          "launches_per_step": {k: sparse_counts[k] / steps
+                                for k in SPARSE_KERNELS + KERNELS + NORM_KERNELS},
           "card": card})
 
     # ---- the block-sparse kernels in the model with the dense layout (full
@@ -1606,13 +1876,15 @@ def main():
         {"name": "fused_norm_fwd", "route": "cuda", "source": f"{src}/fused_norm.cu",
          "replaces": f"{pallas}/fused_norm.py:37", **launches("fused_norm_fwd"),
          "max_abs_err": max(row["max_abs_err"]["out"] for row in k78.values()),
-         "shape": norm_shape, "ms": a78["k7_ms"], "plain_ms": a78["plain_fwd_ms"],
+         "variant": a78["variant"], "shape": norm_shape, "ms": a78["k7_ms"],
+         "plain_ms": a78["plain_fwd_ms"],
          "bound_ms": a78["k7_bound_ms"], "bound_by": a78["k7_bound_by"],
          "library_ms": a78["library_fwd_ms"]},
         {"name": "fused_norm_bwd", "route": "cuda", "source": f"{src}/fused_norm.cu",
          "replaces": f"{pallas}/fused_norm.py:55", **launches("fused_norm_bwd"),
          "max_abs_err": max(row["max_abs_err"]["dx"] for row in k78.values()),
-         "shape": norm_shape, "ms": a78["k8_ms"], "plain_ms": a78["plain_bwd_ms"],
+         "variant": a78["variant"], "shape": norm_shape, "ms": a78["k8_ms"],
+         "plain_ms": a78["plain_bwd_ms"],
          "bound_ms": a78["k8_bound_ms"], "bound_by": a78["k8_bound_by"],
          "library_ms": a78["library_bwd_ms"]},
     ]})
@@ -1626,4 +1898,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(decode_step_main() if sys.argv[1:] == ["--decode-step"] else main())

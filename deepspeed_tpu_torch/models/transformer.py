@@ -6,9 +6,10 @@ Counterpart of ``deepspeed_tpu/models/transformer.py``, keeping its names:
 ``_qkv``, ``_linear``, ``_mlp_block``, ``_sparse_layout``, ``_attention``,
 ``_layer_body``, ``forward``/``apply``, ``_ce_from_logits``, ``loss_fn``,
 ``init_cache``, ``_layer_body_cached``, ``forward_with_cache`` and
-``_vocab_head``. Gradients flow through plain autograd and, for
-``attn_impl="pallas"`` and ``"block_sparse"``, through the attention
-kernels' own backward. As in the reference, block-sparse attention serves
+``_vocab_head``. Gradients flow through plain autograd and through the
+kernels' own backward: the norms' (K8, ``_norm`` being the fused-norm op)
+always, the attention kernels' for ``attn_impl="pallas"`` and
+``"block_sparse"``. As in the reference, block-sparse attention serves
 the full-sequence ``forward`` (training, eval, ``InferenceEngine.forward``);
 the cached path of ``generate`` attends densely.
 
@@ -39,6 +40,7 @@ import torch.nn.functional as F
 from deepspeed_tpu_torch.ops.block_sparse_attention import block_sparse_attention
 from deepspeed_tpu_torch.ops.cross_entropy import softmax_cross_entropy
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention, supports_seq_len
+from deepspeed_tpu_torch.ops.fused_norm import _fused_norm
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 from deepspeed_tpu_torch.ops.transformer.fused_ops import fused_softmax
 from deepspeed_tpu_torch.ops.transformer.inference_ops import softmax_context, update_kv_cache
@@ -456,18 +458,12 @@ def params_to_numpy(tree, cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 def _norm(x, scale, bias, cfg: TransformerConfig):
-    """LayerNorm/RMSNorm with f32 math (population variance, as jnp.var),
-    cast back to x's dtype."""
-    x32 = x.float()
-    if cfg.norm_type == "rmsnorm":
-        x32 = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + cfg.norm_eps)
-    else:
-        var, mu = torch.var_mean(x32, dim=-1, keepdim=True, unbiased=False)
-        x32 = (x32 - mu) * torch.rsqrt(var + cfg.norm_eps)
-    out = x32 * scale
-    if bias is not None:
-        out = out + bias
-    return out.to(x.dtype)
+    """LayerNorm/RMSNorm with f32 math (two-pass mean, population variance,
+    as jnp.mean/jnp.var), cast back to x's dtype, through the fused-norm op:
+    K7 forward and K8 backward on a CUDA tensor, their plain versions on a
+    CPU tensor. RMSNorm keeps its bias when the params have one, as the
+    reference's ``_norm`` does."""
+    return _fused_norm(x, scale, bias, cfg.norm_eps, cfg.norm_type == "rmsnorm")
 
 
 def _linear(x, w, b=None):

@@ -7,6 +7,9 @@ includes PyTorch's headers, so a build takes seconds. Libraries land in
 ``ops/build/`` (listed in ``.gitignore``) under a name keyed by a hash of the
 source, the shared ``.cuh`` headers and the flags: an unchanged source is
 never rebuilt, and a changed source or header never loads a stale library.
+``nvcc``'s output (ptxas's registers and spills for every kernel) is kept
+beside each library, so a library loaded from the build directory reports it
+as one just built does.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), so a caller can show that a run went through the
@@ -73,19 +76,26 @@ class CudaKernelLib:
         return os.path.join(BUILD_DIR, f"{self.name}-{digest.hexdigest()[:16]}.so")
 
     def load(self) -> ctypes.CDLL:
-        """Build the library unless it exists, then load it (once)."""
+        """Build the library unless it and its compiler output exist, then
+        load it (once); :attr:`compiler_output` is nvcc's output either way."""
         if self._lib is None:
             path = self.lib_path()
-            if not os.path.exists(path):
+            log = f"{os.path.splitext(path)[0]}.log"
+            if not (os.path.exists(path) and os.path.exists(log)):
                 os.makedirs(BUILD_DIR, exist_ok=True)
                 tmp = f"{path}.tmp{os.getpid()}"
                 t0 = time.perf_counter()
                 proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, self.source],
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                self.compiler_output = proc.stdout
                 self.build_seconds = time.perf_counter() - t0
                 if proc.returncode != 0:
                     raise RuntimeError(f"nvcc failed for {self.source}:\n{proc.stdout}")
-                os.replace(tmp, path)  # atomic: readers never see a partial file
+                with open(f"{log}.tmp{os.getpid()}", "w") as fh:
+                    fh.write(proc.stdout)
+                # atomic, the log first: a library on disk always has its log
+                os.replace(f"{log}.tmp{os.getpid()}", log)
+                os.replace(tmp, path)
+            with open(log) as fh:
+                self.compiler_output = fh.read()
             self._lib = ctypes.CDLL(path)
         return self._lib

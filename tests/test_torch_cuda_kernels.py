@@ -30,8 +30,8 @@ Tolerances for the fused norm kernels (K7 forward, K8 backward) against
 and round once at the output, so out and dx are one rounding plus summation
 order apart, 2**-8 of the largest |plain| value in bfloat16 and float16, 1e-5
 in float32; mu and rstd (f32) 1e-5. dscale and dbias are f32 sums over all
-rows in another order (per-block partials, then torch.sum): 1e-4 of the
-largest |plain| value, and 2**-8 after the cast to bfloat16.
+rows in another order (per-block partials, then their fixed-order sum): 1e-4
+of the largest |plain| value, and 2**-8 after the cast to bfloat16.
 """
 
 import numpy as np
@@ -593,24 +593,37 @@ def _norm_err(got, ref):
     return d / m if m > 0 else d
 
 
-def _norm_inputs(N, D, kind, dtype, seed):
+def _norm_inputs(N, D, kind, dtype, seed, offset=0):
+    """x and do start ``offset`` elements past an allocation (16-byte aligned
+    at offset 0, not at offset 1: the scalar path)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     wdtype = torch.float32 if kind == "ln_f32_params" else dtype
-    x = torch.randn(N, D, generator=g, device="cuda", dtype=dtype)
-    do = torch.randn(N, D, generator=g, device="cuda", dtype=dtype)
+    x, do = (torch.randn(N * D + offset, generator=g, device="cuda", dtype=dtype)[offset:]
+             .view(N, D) for _ in range(2))
     scale = (1 + 0.1 * torch.randn(D, generator=g, device="cuda")).to(wdtype)
     bias = (0.1 * torch.randn(D, generator=g, device="cuda")).to(wdtype)
     return x, do, scale, None if kind in ("ln_nobias", "rms") else bias
 
 
+def _expected_variant(D, dtype, offset):
+    if tfn._geometry(D, dtype) is None:
+        return "wide"
+    return "vector" if offset == 0 and D % (16 // dtype.itemsize) == 0 else "scalar"
+
+
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("kind", NORM_KINDS)
 @pytest.mark.parametrize("name", sorted(NORM_SHAPES))
-def test_fused_norm_kernels_match_plain_version(name, kind, dtype):
+def test_fused_norm_kernels_match_plain_version(name, kind, dtype, offset):
+    """Every shape on the path its rows take: offset 0 runs the vector path
+    where D allows it, offset 1 (rows off 16 bytes) the scalar path; the
+    widest rows run the wide kernels."""
     _need_card()
     N, D = NORM_SHAPES[name]
     rms = kind == "rms"
-    x, do, scale, bias = _norm_inputs(N, D, kind, dtype, seed=N + D)
+    x, do, scale, bias = _norm_inputs(N, D, kind, dtype, seed=N + D, offset=offset)
+    assert tfn.kernel_variant(D, dtype, x, do) == _expected_variant(D, dtype, offset)
     before = dict(LAUNCHES)
     out, mu, rstd = tfn._fwd(x, scale, bias, 1e-5, rms)
     torch.cuda.synchronize()
@@ -634,19 +647,24 @@ def test_fused_norm_kernels_match_plain_version(name, kind, dtype):
         assert _norm_err(got.to(torch.bfloat16), ref.to(torch.bfloat16)) <= 2.0 ** -8
 
 
-@pytest.mark.parametrize("name", ["a_8192x768", "c_4096x4096", "d8192_256x8192"])
-def test_fused_norm_kernels_give_the_same_bits_twice(name):
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("name", ["a_8192x768", "c_4096x4096", "d8192_256x8192",
+                                  "d30000_16x30000"])
+def test_fused_norm_kernels_give_the_same_bits_twice(name, offset):
     """No float atomics: K7 and K8 (with the sum of its partials) give
-    bit-equal results on the same inputs."""
+    bit-equal results on the same inputs, on the vector, scalar and wide
+    paths; K7 without mu and rstd (no autograd) gives the same out."""
     _need_card()
     N, D = NORM_SHAPES[name]
-    x, do, scale, bias = _norm_inputs(N, D, "ln", torch.bfloat16, seed=3)
+    x, do, scale, bias = _norm_inputs(N, D, "ln", torch.bfloat16, seed=3, offset=offset)
     first = tfn._fwd(x, scale, bias, 1e-5, False)
     again = tfn._fwd(x, scale, bias, 1e-5, False)
+    out_only, no_mu, no_rstd = tfn._fwd(x, scale, bias, 1e-5, False, with_stats=False)
     _, mu, rstd = first
     grads = [tfn._bwd(x, scale, mu, rstd, do, False) for _ in range(2)]
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert no_mu is None and no_rstd is None and torch.equal(out_only, first[0])
     assert all(torch.equal(a, b) for a, b in zip(*grads))
 
 
@@ -677,6 +695,52 @@ def test_fused_layernorm_launches_each_kernel_once_and_reads_a_strided_x():
         grads.append((out, x.grad, s.grad, b.grad))
     for got, ref in zip(*grads):
         assert got.dtype == ref.dtype
+        assert _norm_err(got, ref) <= 2.0 ** -7
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_fused_norm_sums_in_the_weights_dtype_are_the_f32_sums_rounded_once(dtype):
+    """K8 writes dscale and dbias in the dtype asked for (the weights' own
+    under autograd): the f32 sums of the same launch, rounded once."""
+    _need_card()
+    x, do, scale, bias = _norm_inputs(8192, 768, "ln", torch.bfloat16, seed=11)
+    _, mu, rstd = tfn._fwd(x, scale, bias, 1e-5, False)
+    _, s32, b32 = tfn._bwd(x, scale, mu, rstd, do, False)
+    _, s16, b16 = tfn._bwd(x, scale, mu, rstd, do, False, dtype, dtype)
+    _, s_only, none = tfn._bwd(x, scale, mu, rstd, do, False, dtype, None)
+    assert s16.dtype == b16.dtype == dtype and none is None
+    assert torch.equal(s16, s32.to(dtype)) and torch.equal(b16, b32.to(dtype))
+    assert torch.equal(s_only, s16)
+
+
+@pytest.mark.parametrize("norm_type", ["layernorm", "rmsnorm"])
+def test_model_norm_launches_k7_once_forward_and_k8_once_backward(norm_type):
+    """The model's _norm on the card, bf16 leaves as the engine keeps them
+    (RMSNorm with a bias too): one K7 launch forward and one K8 launch
+    backward, and the plain versions' values, dscale and dbias in bf16."""
+    _need_card()
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    cfg = ttf.TransformerConfig(hidden_size=768, norm_type=norm_type, dtype="bfloat16")
+    x, do, scale, bias = _norm_inputs(8192, 768, "ln", torch.bfloat16, seed=13)
+    x, do = x.view(8, 1024, 768), do.view(8, 1024, 768)
+    grads = []
+    for routed in (True, False):
+        xl, s, b = (t.clone().requires_grad_(True) for t in (x, scale, bias))
+        before = dict(LAUNCHES)
+        if routed:
+            out = ttf._norm(xl, s, b, cfg)
+        else:
+            out = tfn._reference_fwd(xl.reshape(-1, 768), s, b, cfg.norm_eps,
+                                     norm_type == "rmsnorm")[0].reshape(x.shape)
+        out.backward(do)
+        torch.cuda.synchronize()
+        launched = 1 if routed else 0
+        assert LAUNCHES["fused_norm_fwd"] == before["fused_norm_fwd"] + launched
+        assert LAUNCHES["fused_norm_bwd"] == before["fused_norm_bwd"] + launched
+        grads.append((out, xl.grad, s.grad, b.grad))
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype == torch.bfloat16
         assert _norm_err(got, ref) <= 2.0 ** -7
 
 
