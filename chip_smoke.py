@@ -22,6 +22,13 @@ backward):
   - serving (``deepspeed_tpu_torch.init_inference`` -> ``generate``) on
     GPT-2 350M at full width and depth: three requests, then a profiled
     breakdown;
+  - the decode path's other request shapes on the same model: int8 weights
+    (W8A8) and the int8 KV cache in ``bench_decode``'s geometry (B 8 x 128
+    + 128, greedy), four engines {bf16, int8} weights x {model, int8} KV on
+    the same weights, each int8 engine's logits against the same engine on
+    the CPU (``decode_int8``); then ragged prompts (left and right padded)
+    prefilled whole and in chunks of 64 and 48, with either KV type, each
+    row against its own single-row ``generate`` (``ragged_chunked``);
   - training (``deepspeed_tpu_torch.initialize`` -> ``forward`` /
     ``backward`` / ``step``) on GPT-2 125M at full width and depth, seq
     1024, micro-batch 8, bf16, flash attention, AdamW: 2 warm-up and 10
@@ -43,6 +50,8 @@ non-zero without that line. Needs one CUDA card; exits non-zero without one.
 Imports nothing of JAX or of the reference package.
 """
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -568,12 +577,12 @@ def device_kernels(prof):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def generate_wall(eng, toks, n_new):
+def generate_wall(eng, toks, n_new, **kwargs):
     """Wall seconds and this thread's CPU seconds of one greedy ``generate``
     of toks + n_new tokens."""
     torch.cuda.synchronize()
     t0, c0 = time.perf_counter(), time.thread_time()
-    eng.generate(toks, max_new_tokens=n_new)
+    eng.generate(toks, max_new_tokens=n_new, **kwargs)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, time.thread_time() - c0
 
@@ -915,6 +924,357 @@ def fused_ops_phase(gen, card):
                         "other_seed_differs": other_seed_differs, "loss": loss_d},
           "card": card})
     return fused_counts
+
+
+# the int8 path's plain-PyTorch steps, wrapped in profiler ranges while a
+# profiled call runs (int8_spans), so that their device time a decode step
+# can be read; "aten::_int_mm" is the int8 product alone
+INT8_SPANS = ("int8_linear", "quantize_kv", "dequantize_kv")
+
+
+@contextlib.contextmanager
+def int8_spans():
+    """Wrap ``int8_linear`` (as the model calls it) and the int8 cache's
+    ``quantize_kv``/``dequantize_kv`` (as ``inference_ops`` calls them) in
+    ``record_function`` ranges of their names, and restore them after."""
+    from torch.profiler import record_function
+
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops.transformer import inference_ops
+
+    saved = [(tf, "int8_linear"), (inference_ops, "quantize_kv"),
+             (inference_ops, "dequantize_kv")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+
+    def wrap(name, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, wrap(name, fn))
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def profiled_generate(eng, toks, n, **kwargs):
+    """One ``generate`` of n new tokens under the profiler, with the int8
+    ranges: (device kernel seconds, launches, kernel categories, device
+    seconds of each range and of ``aten::_int_mm``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with int8_spans(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.generate(toks, max_new_tokens=n, **kwargs)
+        torch.cuda.synchronize()
+    kernels = [k for k in device_kernels(prof) if k[0] not in INT8_SPANS]
+    spans = {name: 0.0 for name in INT8_SPANS + ("aten::_int_mm",)}
+    for e in prof.key_averages():
+        if e.key in spans and e.device_type == DeviceType.CPU:
+            spans[e.key] += e.device_time_total / 1e6
+    return (sum(t for _, t, _ in kernels), sum(c for _, _, c in kernels),
+            by_category(kernels), spans)
+
+
+def step_profile(eng, toks, short=4, long=12, **kwargs):
+    """A decode step of ``generate`` at toks' shape: wall ms from one
+    unprofiled call of each length, device ms and launches from one profiled
+    call of each, as (long - short) / (long - short tokens); the idle share;
+    the int8 ranges' and the GEMM kernels' device ms a step."""
+    wall = {n: generate_wall(eng, toks, n, **kwargs)[0] for n in (short, long)}
+    prof = {n: profiled_generate(eng, toks, n, **kwargs) for n in (short, long)}
+    steps = long - short
+
+    def per_step(a, b):
+        return (b - a) / steps * 1e3
+
+    wall_ms = per_step(wall[short], wall[long])
+    measured = prof[short][0] > 0 and prof[long][0] > 0
+    device_ms = per_step(prof[short][0], prof[long][0])
+    gemm = {n: prof[n][2].get("gemm", {"device_s": 0.0})["device_s"] for n in (short, long)}
+    row = {"wall_ms_per_step": wall_ms,
+           "device_ms_per_step": device_ms if measured else "not measured",
+           "device_idle_share_per_step": 1 - device_ms / wall_ms if measured else "not measured",
+           "launches_per_step": (prof[long][1] - prof[short][1]) / steps,
+           "gemm_kernels_ms_per_step": per_step(gemm[short], gemm[long])}
+    for name in INT8_SPANS + ("aten::_int_mm",):
+        row[f"{name.replace('aten::', '')}_ms_per_step"] = per_step(prof[short][3][name],
+                                                                   prof[long][3][name])
+    return row
+
+
+def leaf_bytes(tree):
+    return sum(t.numel() * t.element_size() for _, t in named_leaves(tree))
+
+
+def alloc_slack(tensors):
+    """How far the caching allocator may round ``tensors`` up: each block to
+    512 bytes, and a block over 1 MiB may keep the rest of its 2 MiB-rounded
+    segment unsplit."""
+    return sum(2 ** 21 if t.numel() * t.element_size() > 2 ** 20 else 512 for t in tensors)
+
+
+def top1_check(lp, lx, what):
+    """Max |lp - lx| within LOGITS_TOL, and top-1 equal wherever lx's top-2
+    margin exceeds twice it (float32 logits of the same rows)."""
+    d = (lp - lx).abs().max().item()
+    top2 = lx.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * LOGITS_TOL
+    agree = lp.argmax(-1) == lx.argmax(-1)
+    check(bool(torch.isfinite(lp).all()) and d <= LOGITS_TOL,
+          f"{what}: logits |card - cpu| {d} > {LOGITS_TOL}")
+    check(bool(agree[decided].all()), f"{what}: top-1 disagrees on decided rows")
+    return {"max_abs_diff": d, "top1_agree": int(agree[decided].sum()),
+            "decided": int(decided.sum()), "rows": int(decided.numel())}
+
+
+def decode_int8_phase(gen, card):
+    """The decode slice's int8 request shapes on GPT-2 350M at full width and
+    depth, in ``bench_decode``'s geometry (B 8 x prompt 128 + 128 new,
+    greedy, ``max_out_tokens`` 256, tight reads): four engines on the same
+    weights, {bf16, int8} weights x {model, int8} KV, one at a time. Each
+    ``decode_int8`` line: the request's wall time and tokens/s with K1/K7/K8
+    launches (counted from 0 over the four requests, returned), the decode
+    step's wall and device ms, launches, idle share and the int8 steps'
+    device ms (``step_profile``), KV bytes a token (``decode_kv_bytes``),
+    the cache's and the weights' allocated bytes against their leaves, and
+    for each engine with an int8 part its logits against the same engine on
+    the CPU (the same port code, ``device="cpu"``): the whole prefill of two
+    rows and one decode step that reads the cache back."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.decoding import decode_kv_bytes
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import op_builder
+
+    B, P, NEW, CACHE, CPU_ROWS = 8, 128, 128, 256, 2
+    model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16")
+    cfg0 = model.cfg
+    L, V, hd = cfg0.num_layers, cfg0.vocab_size, cfg0.head_dim
+    base = tf.map_params(lambda p: p.to("cpu", torch.bfloat16), model.init(gen))
+    torch.cuda.empty_cache()
+    toks = torch.randint(0, V, (B, P), generator=gen, device="cuda")
+    counts, cache_bytes, cache_alloc = {}, {}, {}
+    for wdt, kv in (("bf16", "model"), ("bf16", "int8"), ("int8", "model"), ("int8", "int8")):
+        name = f"w_{wdt}_kv_{kv}"
+        config = {"dtype": "bfloat16" if wdt == "bf16" else "int8", "kv_cache_dtype": kv,
+                  "attn_impl": "pallas", "max_out_tokens": CACHE, "kv_tight_read": True}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        eng = deepspeed_tpu_torch.init_inference(model, config=config, params=base)
+        torch.cuda.synchronize()
+        weights_alloc = torch.cuda.memory_allocated() - before
+        leaves = named_leaves(eng.params)
+        wbytes = leaf_bytes(eng.params)
+        q8 = {n for n, t in leaves if t.dtype == torch.int8}
+        check(all(t.is_cuda for _, t in leaves), f"{name}: a weight is off the card")
+        # every leaf is allocated, and nothing else the size of a weight copy
+        check(wbytes <= weights_alloc <= wbytes + alloc_slack([t for _, t in leaves]),
+              f"{name}: {weights_alloc} bytes allocated for {wbytes} bytes of weights")
+        if wdt == "int8":
+            want = {f"layers.{i}.{g}.q8" for i in range(L)
+                    for g in ("attn.wqkv", "attn.wo", "mlp.wi", "mlp.wo")}
+            check(q8 == want, f"{name}: int8 leaves {len(q8)}, expected {len(want)}")
+            scales = [t for n, t in leaves if n.endswith(".s")]
+            check(len(scales) == len(want) and all(t.dtype == torch.float32 and t.dim() == 1
+                                                   for t in scales),
+                  f"{name}: scales not f32 (out,)")
+        else:
+            check(not q8, f"{name}: int8 leaves in a bf16 engine")
+        check(eng.cfg.kv_cache_dtype == kv and eng.cfg.dtype == "bfloat16",
+              f"{name}: cfg {eng.cfg.dtype}/{eng.cfg.kv_cache_dtype}")
+        before = torch.cuda.memory_allocated()
+        cache = tf.init_cache(eng.cfg, B, CACHE, "cuda")
+        cache_alloc[kv] = torch.cuda.memory_allocated() - before
+        cache_leaves = [t for _, t in named_leaves(cache)]
+        cache_bytes[kv] = leaf_bytes(cache)
+        check(all(t.is_cuda for t in cache_leaves)
+              and cache_bytes[kv] <= cache_alloc[kv]
+              <= cache_bytes[kv] + alloc_slack(cache_leaves),
+              f"{name}: cache {cache_alloc[kv]} bytes allocated for {cache_bytes[kv]}")
+        del cache
+
+        eng.generate(toks[:, :16], max_new_tokens=4)  # warm-up: cuBLAS, kernel load
+        torch.cuda.synchronize()
+        op_builder.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.generate(toks, max_new_tokens=NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = op_builder.launch_counts()
+        for k, c in launched.items():
+            counts[k] = counts.get(k, 0) + c
+        check(tuple(out.shape) == (B, P + NEW) and bool(((out >= 0) & (out < V)).all()),
+              f"{name}: output shape {tuple(out.shape)} / range")
+        norms = (2 * L + 1) * NEW
+        check(launched["flash_fwd"] == L and launched["fused_norm_fwd"] == norms
+              and launched["fused_norm_bwd"] == 0,
+              f"{name}: K1/K7/K8 launched {launched['flash_fwd']}/{launched['fused_norm_fwd']}/"
+              f"{launched['fused_norm_bwd']} times, expected {L}/{norms}/0")
+        row = {"phase": "decode_int8", "engine": name, "batch": B, "prompt": P,
+               "new_tokens": NEW, "cache_len": CACHE, "generate_s": wall,
+               "new_tokens_per_s": B * NEW / wall,
+               "k1_launches": launched["flash_fwd"], "k7_launches": launched["fused_norm_fwd"],
+               "k8_launches": launched["fused_norm_bwd"],
+               "kv_bytes_per_token": decode_kv_bytes(eng.cfg, P, NEW, CACHE,
+                                                     eng.config.kv_read_floor) / (NEW - 1),
+               "cache_bytes": cache_bytes[kv], "cache_allocated_bytes": cache_alloc[kv],
+               "weights_allocated_bytes": weights_alloc, "weights_leaf_bytes": wbytes,
+               "int8_leaves": len(q8), **step_profile(eng, toks)}
+
+        if wdt == "int8" or kv == "int8":
+            cpu = deepspeed_tpu_torch.init_inference(model, config=config, params=base,
+                                                     device="cpu")
+            if wdt == "int8":
+                same = all(torch.equal(a.cpu(), b) for (_, a), (_, b)
+                           in zip(leaves, named_leaves(cpu.params)))
+                check(same, f"{name}: the card's int8 weights differ from the CPU's")
+                row["weights_equal_cpu"] = same
+            rows = toks[:CPU_ROWS]
+            with torch.inference_mode():
+                res = {}
+                for dev, e in (("cuda", eng), ("cpu", cpu)):
+                    c = tf.init_cache(e.cfg, CPU_ROWS, CACHE, dev)
+                    lg, c = tf.forward_with_cache(e.params, e.cfg, rows.to(dev), c, 0)
+                    nxt = out[:CPU_ROWS, P:P + 1].to(dev)  # the card's first new token
+                    st, _ = tf.forward_with_cache(e.params, e.cfg, nxt, c, P)
+                    res[dev] = (lg.float().cpu(), st.float().cpu())
+            row["cpu_prefill"] = top1_check(res["cuda"][0], res["cpu"][0],
+                                            f"{name}: prefill logits, card vs CPU")
+            row["cpu_decode_step"] = top1_check(res["cuda"][1], res["cpu"][1],
+                                                f"{name}: decode-step logits, card vs CPU")
+            row["logits_tol"] = LOGITS_TOL
+            del cpu
+        emit({**row, "card": card})
+        del eng, out
+        torch.cuda.empty_cache()
+    want = (hd + 4) / (2 * hd)
+    ratio = cache_bytes["int8"] / cache_bytes["model"]  # the tensors' bytes
+    bytes_ratio = (tf.kv_read_bytes_per_row(dataclasses.replace(cfg0, kv_cache_dtype="int8"), 1)
+                   / tf.kv_read_bytes_per_row(cfg0, 1))
+    check(ratio == want == bytes_ratio,
+          f"int8 cache takes {ratio} of the bf16 cache's bytes, expected {want}")
+    emit({"phase": "decode_int8_cache", "int8_over_bf16_bytes": ratio,
+          "expected": want, "kv_read_bytes_ratio": bytes_ratio, "bytes": cache_bytes,
+          "allocated_bytes": cache_alloc,
+          "int8_over_bf16_allocated": cache_alloc["int8"] / cache_alloc["model"], "card": card})
+    return counts
+
+
+def ragged_chunked_phase(gen, card):
+    """Ragged prompts and chunked prefill on GPT-2 350M at full width and
+    depth: B 4, real lengths 128/96/64/17 in a width of 128, left and right
+    padded, prefilled whole (``attention_mask``) and in chunks of 64 and of
+    48 (which does not divide the width), 32 greedy new tokens, with the
+    model KV and the int8 KV. Each ``ragged_chunked`` line: the request's
+    wall time and K1/K7/K8 launches (counted from 0 over these requests,
+    returned: vector positions keep K1 off), and each row against the same
+    engine's single-row unpadded ``generate`` of that row (its mask all
+    ones, so that it takes the same path): equal tokens, or a first
+    difference where the single-row path's own top-2 margin is under twice
+    LOGITS_TOL (bf16 at another batch shape). One line a KV type adds the
+    decode step's device ms (``step_profile``)."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import op_builder
+
+    B, W, NEW, CACHE = 4, 128, 32, 256
+    lens = (128, 96, 64, 17)
+    model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16")
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    params = tf.map_params(lambda p: p.to(torch.bfloat16), model.init(gen))
+    torch.cuda.empty_cache()
+    rows = [torch.randint(0, V, (n,), generator=gen, device="cuda") for n in lens]
+    batches = {}
+    for side in ("left", "right"):
+        toks = torch.zeros((B, W), dtype=torch.long, device="cuda")
+        mask = np.zeros((B, W), np.int64)
+        for b, r in enumerate(rows):
+            sl = slice(W - len(r), W) if side == "left" else slice(0, len(r))
+            toks[b, sl] = r
+            mask[b, sl] = 1
+        batches[side] = (toks, mask)
+
+    def path_logits(eng, row, gen_toks):
+        """The single-row path's own logits for each generated token:
+        its prefill, then one segment a token (teacher-forced)."""
+        prefill, segment = eng._ragged_fns_for(1, CACHE)
+        c = tf.init_cache(eng.cfg, 1, CACHE, "cuda")
+        S = row.numel()
+        with torch.inference_mode():
+            lg, c = prefill(eng.params, row[None], torch.arange(S, device="cuda")[None], c)
+            out = [lg[0, -1]]
+            for j in range(len(gen_toks) - 1):
+                st, c = segment(eng.params, gen_toks[None, j:j + 1].long(), c,
+                                torch.tensor([S + j], device="cuda"))
+                out.append(st[0, -1])
+        return torch.stack(out).float()
+
+    counts = {}
+    for kv in ("model", "int8"):
+        for chunk in (None, 64, 48):
+            config = {"dtype": "bfloat16", "attn_impl": "pallas", "kv_cache_dtype": kv,
+                      "max_out_tokens": CACHE, "prefill_chunk_size": chunk}
+            eng = deepspeed_tpu_torch.init_inference(model, config=config, params=params)
+            eng.generate(batches["left"][0][:, -16:], max_new_tokens=2,
+                         attention_mask=batches["left"][1][:, -16:])  # warm-up
+            solo = [eng.generate(r[None], max_new_tokens=NEW,
+                                 attention_mask=np.ones((1, len(r))))[0, len(r):]
+                    for r in rows]
+            for side in ("left", "right"):
+                toks, mask = batches[side]
+                torch.cuda.synchronize()
+                op_builder.reset_launch_counts()
+                t0 = time.perf_counter()
+                out = eng.generate(toks, max_new_tokens=NEW, attention_mask=mask)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = op_builder.launch_counts()
+                for k, c in launched.items():
+                    counts[k] = counts.get(k, 0) + c
+                step = chunk or W
+                chunks = sum(1 for lo in range(0, W, step) if mask[:, lo:lo + step].any())
+                norms = (2 * L + 1) * (chunks + NEW - 1)
+                check(launched["flash_fwd"] == 0 and launched["fused_norm_fwd"] == norms
+                      and launched["fused_norm_bwd"] == 0,
+                      f"ragged {kv} {chunk} {side}: K1/K7/K8 launched {launched['flash_fwd']}/"
+                      f"{launched['fused_norm_fwd']}/{launched['fused_norm_bwd']} times, "
+                      f"expected 0/{norms}/0")
+                check(tuple(out.shape) == (B, W + NEW) and torch.equal(out[:, :W], toks.int()),
+                      f"ragged {kv} {chunk} {side}: shape {tuple(out.shape)} / prompt region")
+                per_row = []
+                for b, r in enumerate(rows):
+                    got, want = out[b, W:], solo[b]
+                    diff = torch.nonzero(got != want).flatten().tolist()
+                    entry = {"len": len(r), "equal": not diff}
+                    if diff:
+                        j = diff[0]
+                        top2 = path_logits(eng, r, want)[j].topk(2).values
+                        margin = float(top2[0] - top2[1])
+                        entry.update(first_diff_step=j, solo_margin=margin)
+                        check(margin < 2 * LOGITS_TOL,
+                              f"ragged {kv} {chunk} {side}: row {b} differs at step {j}, "
+                              f"margin {margin} >= {2 * LOGITS_TOL}")
+                    per_row.append(entry)
+                emit({"phase": "ragged_chunked", "kv_cache_dtype": kv, "chunk": chunk,
+                      "padding": side, "batch": B, "lens": list(lens), "width": W,
+                      "new_tokens": NEW, "prefill_chunks": chunks, "generate_s": wall,
+                      "new_tokens_per_s": B * NEW / wall, "k1_launches": launched["flash_fwd"],
+                      "k7_launches": launched["fused_norm_fwd"],
+                      "k8_launches": launched["fused_norm_bwd"], "rows": per_row,
+                      "tie_margin": 2 * LOGITS_TOL, "card": card})
+            if chunk is None:
+                toks, mask = batches["left"]
+                emit({"phase": "ragged_chunked_step", "kv_cache_dtype": kv, "padding": "left",
+                      **step_profile(eng, toks, attention_mask=mask), "card": card})
+            del eng
+            torch.cuda.empty_cache()
+    return counts
 
 
 def smi_card():
@@ -1447,6 +1807,11 @@ def main():
     del eng, ref, prompts, per_request
     torch.cuda.empty_cache()
 
+    # ---- the decode slice's other request shapes: int8 weights and KV, then
+    # ragged prompts and chunked prefill, each path counted from 0
+    int8_counts = decode_int8_phase(gen, card)
+    ragged_counts = ragged_chunked_phase(gen, card)
+
     # ---- the training path: GPT-2 125M, seq 1024, micro-batch 8, bf16, flash
     # attention, no remat, with the JAX package's bench config
     # (_bench_impl.py:1017-1036 _gpt2_model / _gpt2_config(8))
@@ -1826,7 +2191,10 @@ def main():
         return max(row["max_abs_err"][g] for row in k456.values() for g in grad_names)
 
     def launches(kname):
-        by_path = {"serve": serve_counts.get(kname, 0), "train": train_counts.get(kname, 0),
+        by_path = {"serve": serve_counts.get(kname, 0),
+                   "serve_int8": int8_counts.get(kname, 0),
+                   "serve_ragged": ragged_counts.get(kname, 0),
+                   "train": train_counts.get(kname, 0),
                    "train_sparse": sparse_counts.get(kname, 0),
                    "fused_ops": fused_counts.get(kname, 0)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}

@@ -1,14 +1,18 @@
 """KV-cached decode machinery (counterpart of ``deepspeed_tpu/inference/decoding.py``),
-cut to the serving slice: the tight-read geometry, sampling, and the
-whole-generation path that ``InferenceEngine.generate`` runs.
+cut to the serving slice: the tight-read geometry, sampling, the
+whole-generation path that ``InferenceEngine.generate`` runs, and the
+per-row-position paths of ragged (padded) prompts and chunked prefill.
 
 The reference compiles a generation into one XLA program; the port runs the
 same steps eagerly (CUDA graphs are later work), with the same read
-geometry: prefill, then one Python loop per :func:`read_stages` stage.
+geometry: prefill, then one Python loop per :func:`read_stages` stage. The
+``compile_*`` functions keep the reference's names and build plain
+functions, so that a CUDA-graph capture can take their place.
 """
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models import transformer as tf
@@ -122,3 +126,141 @@ def compile_generate_fn(cfg, batch_size: int, cache_len: int, max_new_tokens: in
         return torch.cat([tokens.to(torch.int32), torch.stack(out, dim=1)], dim=1)
 
     return fn
+
+
+def compile_ragged_prefill_fn(cfg, batch_size: int, cache_len: int):
+    """Prefill over LEFT- or RIGHT-padded prompts with explicit (B, S)
+    positions: pads carry position ``cache_len``, so their KV writes drop,
+    and real tokens pack densely at 0..len-1 per row. Returns
+    ``fn(params, tokens, positions, cache) -> (logits (B, S, V), cache)``."""
+
+    def prefill(params, tokens, positions, cache):
+        assert tokens.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
+        zero = torch.zeros(tokens.shape[0], dtype=torch.long, device=tokens.device)
+        return tf.forward_with_cache(params, cfg, tokens, cache, zero, positions=positions)
+
+    return prefill
+
+
+def compile_segment_fn(cfg, batch_size: int, cache_len: int, read_len: Optional[int] = None):
+    """Cached segment forward with PER-ROW positions (``pos``: (B,) tensor);
+    ``read_len`` builds the tight-read variant, which attends only the first
+    ``read_len`` cache slots (the caller guarantees every live row's extent
+    fits). Returns ``fn(params, toks, cache, pos) -> (logits, cache)``."""
+
+    def segment(params, toks, cache, pos):
+        assert toks.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
+        return tf.forward_with_cache(params, cfg, toks, cache, pos, read_len=read_len)
+
+    return segment
+
+
+def _segment_decode_tail(segment_fn, params, first_tok, cache, prompt_lens, n_more: int,
+                         temperature: float, top_k: int, generator, top_p: float,
+                         active0: Optional[int] = None):
+    """Per-row-position decode loop of the ragged and chunked-prefill paths:
+    ``first_tok`` (B,) was sampled from the prefill logits; emits ``n_more``
+    further tokens. ``active0`` (the longest row's cached extent before the
+    first step) opts into tight reads: each step passes its active extent to
+    the engine's read-geometry-aware ``segment_fn`` dispatcher."""
+    out = [first_tok]
+    pos = torch.as_tensor(prompt_lens, dtype=torch.long, device=first_tok.device)
+    for i in range(n_more):
+        if active0 is None:
+            step_logits, cache = segment_fn(params, out[-1][:, None], cache, pos)
+        else:
+            step_logits, cache = segment_fn(params, out[-1][:, None], cache, pos,
+                                            active=active0 + i + 1)
+        out.append(select_token(step_logits[:, 0], temperature, top_k, generator, top_p))
+        pos = pos + 1
+    return torch.stack(out, dim=1)
+
+
+def _mask_positions(mask, cache_len: int):
+    """Per-row real lengths, dense per-row positions (pads parked at
+    ``cache_len``) and each row's last real column, from a (B, S) 0/1
+    mask."""
+    if not (mask.sum(axis=1) > 0).all():
+        raise ValueError("every row needs at least one real token")
+    prompt_lens = mask.sum(axis=1).astype(np.int64)
+    positions = np.where(mask > 0, np.cumsum(mask, axis=1) - 1, cache_len).astype(np.int64)
+    last_col = np.array([np.nonzero(row)[0][-1] for row in mask])
+    return prompt_lens, positions, last_col
+
+
+def _check_mask(attention_mask, shape):
+    mask = np.asarray(attention_mask.cpu() if torch.is_tensor(attention_mask) else attention_mask)
+    if mask.shape != tuple(shape):
+        raise ValueError(f"attention_mask shape {mask.shape} != tokens shape {tuple(shape)}")
+    return mask
+
+
+def ragged_decode_loop(ragged_prefill_fn, segment_fn, params, tokens, attention_mask,
+                       cache, cache_len: int, max_new_tokens: int, temperature: float,
+                       top_k: int, generator=None, top_p: float = 1.0,
+                       tight_read: bool = False):
+    """Generate over a PADDED prompt batch (HF attention_mask semantics, left
+    or right padding): prefill once with per-row dense positions, then
+    per-row-position decode. Returns (B, S + max_new_tokens) int32: the
+    prompt region as given (pads included), then the generated tokens."""
+    B, S = tokens.shape
+    if max_new_tokens <= 0:
+        return tokens.to(torch.int32)
+    mask = _check_mask(attention_mask, (B, S))
+    prompt_lens, positions, last_col = _mask_positions(mask, cache_len)
+    dev = tokens.device
+    logits, cache = ragged_prefill_fn(params, tokens, torch.as_tensor(positions, device=dev),
+                                      cache)
+    last_logits = logits[torch.arange(B, device=dev), torch.as_tensor(last_col, device=dev)]
+    nxt = select_token(last_logits, temperature, top_k, generator, top_p)
+    gen = _segment_decode_tail(segment_fn, params, nxt, cache, prompt_lens,
+                               max_new_tokens - 1, temperature, top_k, generator, top_p,
+                               active0=int(prompt_lens.max()) if tight_read else None)
+    return torch.cat([tokens.to(torch.int32), gen], dim=1)
+
+
+def chunked_generate(ragged_prefill_fn, segment_fn, params, tokens, cache, cache_len: int,
+                     chunk: int, max_new_tokens: int, temperature: float, top_k: int,
+                     generator=None, top_p: float = 1.0, attention_mask=None,
+                     tight_read: bool = False):
+    """Generate with CHUNKED prefill: the prompt streams through (B, chunk)
+    prefill segments, so prefill's peak memory is bounded by the chunk and
+    one segment shape serves every prompt length. The last chunk's pads
+    (and every pad of ``attention_mask``, left or right) carry position
+    ``cache_len``, so their writes drop; a chunk of pads only is skipped.
+    Decode then shares the ragged per-row tail. Token streams equal the
+    unchunked path's (same cache contents, same sampling order)."""
+    B, S = tokens.shape
+    if max_new_tokens <= 0:
+        return tokens.to(torch.int32)
+    if chunk < 1:
+        raise ValueError(f"prefill_chunk_size must be >= 1, got {chunk}")
+    mask = (np.ones((B, S), np.int64) if attention_mask is None
+            else _check_mask(attention_mask, (B, S)))
+    prompt_lens, positions_all, last_col_all = _mask_positions(mask, cache_len)
+    dev = tokens.device
+    n_chunks = -(-S // chunk)
+    padded_toks = torch.zeros((B, n_chunks * chunk), dtype=tokens.dtype, device=dev)
+    padded_toks[:, :S] = tokens
+    padded_pos = np.full((B, n_chunks * chunk), cache_len, np.int64)
+    padded_pos[:, :S] = positions_all
+    rows = torch.arange(B, device=dev)
+    last_logits = None
+    for i in range(n_chunks):
+        lo, hi = i * chunk, (i + 1) * chunk
+        if (padded_pos[:, lo:hi] >= cache_len).all():
+            continue  # all-pad chunk (left padding / width padding)
+        logits, cache = ragged_prefill_fn(params, padded_toks[:, lo:hi],
+                                          torch.as_tensor(padded_pos[:, lo:hi], device=dev),
+                                          cache)
+        # rows whose LAST real token lands in this chunk take their logits
+        in_chunk = (last_col_all >= lo) & (last_col_all < hi)
+        col = torch.as_tensor(np.where(in_chunk, last_col_all - lo, 0), device=dev)
+        picked = logits[rows, col]
+        sel = torch.as_tensor(in_chunk, device=dev)[:, None]
+        last_logits = picked if last_logits is None else torch.where(sel, picked, last_logits)
+    nxt = select_token(last_logits, temperature, top_k, generator, top_p)
+    gen = _segment_decode_tail(segment_fn, params, nxt, cache, prompt_lens,
+                               max_new_tokens - 1, temperature, top_k, generator, top_p,
+                               active0=int(prompt_lens.max()) if tight_read else None)
+    return torch.cat([tokens.to(torch.int32), gen], dim=1)

@@ -1,16 +1,18 @@
 """Inference engine (counterpart of ``deepspeed_tpu/inference/engine.py``),
-cut to the serving slice: one device, the whole-generation ``generate``
-path, ``forward`` and EOS truncation.
+cut to one device: the whole-generation ``generate`` path, ragged prompts
+(``attention_mask``), chunked prefill (``prefill_chunk_size``), int8 weights
+(``dtype="int8"`` / ``quant``) and the int8 KV cache
+(``kv_cache_dtype="int8"``), ``forward`` and EOS truncation.
 
 Weights come from a seeded ``torch.Generator``, from the reference's param
 tree as numpy arrays (bridged by ``models.transformer.params_from_numpy``)
 or as this package's own tree; every float tensor is cast to the model
-dtype at load. The engine runs on CUDA unless ``device="cpu"`` is passed;
-without CUDA and without that argument it raises.
+dtype at load, then, for int8 weights, each matmul weight is quantized
+(scales stay f32). The engine runs on CUDA unless ``device="cpu"`` is
+passed; without CUDA and without that argument it raises.
 
 Features outside the slice raise ``NotImplementedError`` (ROADMAP.md):
-tensor-parallel meshes, int8 weights and KV, speculative decoding, ragged
-prompts (``attention_mask``), chunked prefill, the per-token decode loop
+tensor-parallel meshes, speculative decoding, the per-token decode loop
 (``fused_generate: false``) and telemetry.
 """
 
@@ -22,20 +24,31 @@ import torch
 
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.inference.config import InferenceConfig
-from deepspeed_tpu_torch.inference.decoding import bounded_cache_len, compile_generate_fn
+from deepspeed_tpu_torch.inference.decoding import (
+    bounded_cache_len,
+    chunked_generate,
+    compile_generate_fn,
+    compile_ragged_prefill_fn,
+    compile_segment_fn,
+    ragged_decode_loop,
+    read_bucket,
+)
 from deepspeed_tpu_torch.models import transformer as tf
+from deepspeed_tpu_torch.ops.quantizer import fake_quantize, quantize_weight
 from deepspeed_tpu_torch.utils import not_ported
 from deepspeed_tpu_torch.utils.logging import log_dist
+
+# matmul weight leaves that switch to int8 storage ("w" = the untied lm
+# head; biases, norms and embeddings stay float)
+_QUANT_KEYS = ("wqkv", "wo", "wi", "wg", "w")
+_QUANT_GROUPS = ("attn", "mlp", "lm_head")
 
 
 def _check_config(config: InferenceConfig) -> None:
     checks = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1"),
         (config.mesh.shape is not None or config.mesh.rules, "a serving mesh (config.mesh)"),
-        (config.dtype == "int8" or config.quant.enabled, "int8 weights (dtype 'int8' / quant)"),
-        (config.kv_cache_dtype != "model", f"kv_cache_dtype={config.kv_cache_dtype!r}"),
         (config.speculative.enabled, "speculative decoding"),
-        (config.prefill_chunk_size is not None, "chunked prefill (prefill_chunk_size)"),
         (not config.fused_generate,
          "the per-token decode loop with bucket migration (fused_generate=false)"),
         (config.telemetry.enabled, "telemetry"),
@@ -45,6 +58,8 @@ def _check_config(config: InferenceConfig) -> None:
     for bad, feature in checks:
         if bad:
             raise not_ported(feature)
+    if config.kv_cache_dtype not in ("model", "int8"):
+        raise ValueError(f"kv_cache_dtype must be 'model' or 'int8', got {config.kv_cache_dtype!r}")
     floor = config.kv_read_floor
     if not (isinstance(floor, int) and floor >= 1 and (floor & (floor - 1)) == 0):
         raise ValueError(f"kv_read_floor must be a positive power of 2, got {floor!r}")
@@ -53,6 +68,51 @@ def _check_config(config: InferenceConfig) -> None:
 def _is_numpy_tree(tree) -> bool:
     leaf = tree["embed"]["tok"]
     return not torch.is_tensor(leaf)
+
+
+def _map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a nested dict/list tree; ``path`` holds the
+    keys (and list indices) from the root."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def _is_quant_target(path, ndim: int) -> bool:
+    return (ndim >= 2 and path[-1] in _QUANT_KEYS
+            and any(n in _QUANT_GROUPS for n in path))
+
+
+def quantize_weights(params):
+    """REAL int8 storage (``quant.num_bits`` 8): each matmul weight becomes
+    ``{"q8": int8 (out, in), "s": f32 (out,)}`` (``ops/quantizer.
+    quantize_weight``), which the model's ``_linear`` runs as the W8A8
+    product. The fused ``wqkv`` is quantized per output row, so each of q, k
+    and v gets the scales the reference gives its own matrix."""
+    return _map_with_path(
+        lambda path, p: quantize_weight(p) if _is_quant_target(path, p.dim()) else p, params)
+
+
+def fake_quantize_weights(params, cfg, num_bits: int):
+    """``quant.num_bits != 8``: fake-quant storage in the model dtype, with
+    the reference's group rule over its own layout (layers stacked, weights
+    ``x @ w``, q/k/v and their biases apart): every attn/mlp/lm_head leaf of
+    two or more dims, in ``max(1, last dim // 128)`` groups when they divide
+    its size, else one group."""
+    ref_tree = tf.params_to_numpy(params, cfg)
+
+    def fq(path, a):
+        if a.ndim < 2 or not any(n in _QUANT_GROUPS for n in path):
+            return a
+        groups = max(1, a.shape[-1] // 128)
+        groups = groups if a.size % groups == 0 else 1
+        return fake_quantize(torch.from_numpy(a), num_bits=num_bits, num_groups=groups).numpy()
+
+    dev, dt = params["embed"]["tok"].device, cfg.torch_dtype
+    return tf.map_params(lambda p: p.to(dt) if p.is_floating_point() else p,
+                         tf.params_from_numpy(_map_with_path(fq, ref_tree), cfg, dev))
 
 
 class InferenceEngine:
@@ -64,9 +124,14 @@ class InferenceEngine:
         if not isinstance(model, tf.TransformerModel):
             raise not_ported(f"models of type {type(model).__name__} (HF loading)")
         cfg = model.cfg
+        self._weight_quant = self.config.dtype == "int8" or self.config.quant.enabled
         overrides = {}
         if self.config.dtype in ("float32", "float16", "bfloat16") and self.config.dtype != cfg.dtype:
             overrides["dtype"] = self.config.dtype
+        elif self._weight_quant and cfg.dtype == "float32":
+            overrides["dtype"] = "bfloat16"
+        if self.config.kv_cache_dtype != cfg.kv_cache_dtype:
+            overrides["kv_cache_dtype"] = self.config.kv_cache_dtype
         if self.config.attn_impl is not None and self.config.attn_impl != cfg.attn_impl:
             overrides["attn_impl"] = self.config.attn_impl
         if overrides:
@@ -81,11 +146,18 @@ class InferenceEngine:
             params = self.model.init(gen)
         elif _is_numpy_tree(params):
             params = tf.params_from_numpy(params, cfg, self.device)
+        # cast to the model dtype, THEN quantize: the scales stay f32
         dt = cfg.torch_dtype
-        self.params = tf.map_params(
+        params = tf.map_params(
             lambda p: p.to(self.device, dt) if p.is_floating_point() else p.to(self.device),
             params)
-        log_dist(f"InferenceEngine ready: dtype={cfg.dtype} attn_impl={cfg.attn_impl} "
+        if self._weight_quant:
+            nbits = self.config.quant.num_bits
+            params = (quantize_weights(params) if nbits == 8
+                      else fake_quantize_weights(params, cfg, nbits))
+        self.params = params
+        log_dist(f"InferenceEngine ready: dtype={cfg.dtype} quant={self._weight_quant} "
+                 f"kv_cache_dtype={cfg.kv_cache_dtype} attn_impl={cfg.attn_impl} "
                  f"device={self.device}", ranks=[0])
 
     def _tokens(self, input_ids) -> torch.Tensor:
@@ -106,28 +178,81 @@ class InferenceEngine:
         """Greedy or temperature/top-k/top-p sampling over a KV cache sized
         once for the request. Returns (B, S + max_new_tokens) int32 tokens on
         the engine's device. Sampling draws from ``generator`` (default: one
-        seeded with 0 on the engine's device)."""
-        if attention_mask is not None:
-            raise not_ported("ragged prompts (attention_mask)")
+        seeded with 0 on the engine's device).
+
+        ``attention_mask`` ((B, S) of 0/1, HF semantics) takes ragged
+        prompts, left or right padded: pads never enter the KV cache, each
+        row decodes from its own length, and the prompt region is returned
+        as given. With ``prefill_chunk_size`` set, every prompt (masked or
+        not) prefills in chunks of that many columns."""
         tokens = self._tokens(input_ids)
         B, S = tokens.shape
         if max_new_tokens <= 0:
             return tokens.to(torch.int32)
-        total = S + max_new_tokens
+        # with a mask, capacity is governed by the longest REAL prompt, not
+        # the padded width
+        longest = S
+        if attention_mask is not None:
+            attention_mask = np.asarray(attention_mask.cpu() if torch.is_tensor(attention_mask)
+                                        else attention_mask)
+            longest = int(attention_mask.sum(axis=1).max())
+        total = longest + max_new_tokens
         if total > self.cfg.max_seq_len:
             raise ValueError(
-                f"prompt {S} + {max_new_tokens} new > max_seq_len {self.cfg.max_seq_len}")
+                f"prompt {longest} + {max_new_tokens} new > max_seq_len {self.cfg.max_seq_len}")
         max_len = bounded_cache_len(total, self.cfg.max_seq_len, self.config.max_out_tokens)
         if generator is None and temperature > 0.0:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        floor = self.config.kv_read_floor if self.config.kv_tight_read else None
-        fn = compile_generate_fn(self.cfg, B, max_len, max_new_tokens, temperature,
-                                 top_k, top_p, read_floor=floor)
         cache = tf.init_cache(self.cfg, B, max_len, device=self.device)
-        result = fn(self.params, tokens, cache, generator)
+        if self.config.prefill_chunk_size or attention_mask is not None:
+            prefill_fn, segment_fn = self._ragged_fns_for(B, max_len)
+            if self.config.prefill_chunk_size:
+                result = chunked_generate(
+                    prefill_fn, segment_fn, self.params, tokens, cache, max_len,
+                    self.config.prefill_chunk_size, max_new_tokens, temperature, top_k,
+                    generator, top_p, attention_mask=attention_mask,
+                    tight_read=self.config.kv_tight_read)
+            else:
+                result = ragged_decode_loop(
+                    prefill_fn, segment_fn, self.params, tokens, attention_mask, cache,
+                    max_len, max_new_tokens, temperature, top_k, generator, top_p,
+                    tight_read=self.config.kv_tight_read)
+        else:
+            fn = compile_generate_fn(self.cfg, B, max_len, max_new_tokens, temperature,
+                                     top_k, top_p, read_floor=self._tight_floor())
+            result = fn(self.params, tokens, cache, generator)
         if eos_token_id is not None:
             result = self._truncate_eos(result, S, eos_token_id)
         return result
+
+    def _tight_floor(self) -> Optional[int]:
+        """The tight-read bucket floor, or None when the knob is off."""
+        return self.config.kv_read_floor if self.config.kv_tight_read else None
+
+    def _segment_fn(self, batch_size: int, max_len: int):
+        """Per-row-position segment forward of the ragged and chunked paths,
+        as a dispatcher ``fn(params, toks, cache, pos, active=None)``: a
+        caller that passes the live rows' longest cached extent ``active``
+        gets the tight-read variant of that extent's bucket."""
+        floor = self._tight_floor()
+        fns = {}
+
+        def dispatch(params, toks, cache, pos, active=None):
+            read_len = None
+            if floor is not None and active is not None:
+                r = read_bucket(active, max_len, floor)
+                read_len = None if r >= max_len else r
+            if read_len not in fns:
+                fns[read_len] = compile_segment_fn(self.cfg, batch_size, max_len, read_len)
+            return fns[read_len](params, toks, cache, pos)
+
+        return dispatch
+
+    def _ragged_fns_for(self, batch_size: int, max_len: int):
+        """(ragged_prefill_fn, segment_fn) of the attention_mask and
+        chunked-prefill paths."""
+        return (compile_ragged_prefill_fn(self.cfg, batch_size, max_len),
+                self._segment_fn(batch_size, max_len))
 
     @staticmethod
     def _truncate_eos(tokens, prompt_len, eos_id):

@@ -21,11 +21,16 @@ reference's param tree (numpy arrays, layers stacked ``(L, ...)``, weights
 laid out ``x @ w``) so that both packages compute the same function, and
 :func:`params_to_numpy` maps a tree (parameters or their gradients) back.
 
+The serving paths also take the inference engine's int8 trees: a matmul
+weight may be ``{"q8": int8 (out, in), "s": f32 (out,)}``, which
+:func:`_linear` runs as the W8A8 product (``ops/quantizer.int8_linear``),
+and ``kv_cache_dtype="int8"`` stores the KV cache as int8 components.
+
 Features outside the slices (rope/alibi, MoE, windows and the rolling cache,
-int8 KV, post-LN and parallel residual, encoders and bidirectional
-attention, sequence parallelism, and for training dropout, remat,
-random-LTD and progressive layer drop) raise ``NotImplementedError``, with
-block-sparse attention as without it; see ROADMAP.md.
+post-LN and parallel residual, encoders and bidirectional attention,
+sequence parallelism, and for training dropout, remat, random-LTD and
+progressive layer drop) raise ``NotImplementedError``, with block-sparse
+attention as without it; see ROADMAP.md.
 """
 
 import functools
@@ -41,6 +46,7 @@ from deepspeed_tpu_torch.ops.block_sparse_attention import block_sparse_attentio
 from deepspeed_tpu_torch.ops.cross_entropy import softmax_cross_entropy
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention, supports_seq_len
 from deepspeed_tpu_torch.ops.fused_norm import _fused_norm
+from deepspeed_tpu_torch.ops.quantizer import int8_linear
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 from deepspeed_tpu_torch.ops.transformer.fused_ops import fused_softmax
 from deepspeed_tpu_torch.ops.transformer.inference_ops import softmax_context, update_kv_cache
@@ -285,7 +291,7 @@ def check_supported(cfg: TransformerConfig) -> None:
         (cfg.type_vocab_size > 0 or cfg.embed_norm, "encoder embeddings (type_vocab_size/embed_norm)"),
         (cfg.local_attn_windows is not None, "local_attn_windows"),
         (cfg.rolling_kv_cache, "the rolling KV cache"),
-        (cfg.kv_cache_dtype != "model", f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
+        (cfg.kv_cache_dtype not in ("model", "int8"), f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
         (cfg.moe_num_experts > 0, "MoE layers"),
         (cfg.seq_parallel != "none", f"seq_parallel={cfg.seq_parallel!r}"),
         (cfg.act_quant_bits > 0, "activation fake-quant"),
@@ -467,7 +473,13 @@ def _norm(x, scale, bias, cfg: TransformerConfig):
 
 
 def _linear(x, w, b=None):
-    """Last-dim contraction with a (out, in) weight and an optional bias."""
+    """Last-dim contraction with a (out, in) weight and an optional bias.
+    An int8 weight ``{"q8", "s"}`` runs the W8A8 product, whose output is
+    rounded to x's dtype before the bias is added, as the reference adds
+    it."""
+    if isinstance(w, dict):
+        out = int8_linear(x, w["q8"], w["s"])
+        return out if b is None else out + b
     return F.linear(x, w, b)
 
 
@@ -581,8 +593,9 @@ def _vocab_head(x, params, cfg: TransformerConfig):
     if cfg.tie_embeddings:
         return _linear(x, params["embed"]["tok"].to(dtype))
     head = params["lm_head"]
-    b = head.get("b")
-    return _linear(x, head["w"].to(dtype), None if b is None else b.to(dtype))
+    w, b = head["w"], head.get("b")
+    return _linear(x, w if isinstance(w, dict) else w.to(dtype),
+                   None if b is None else b.to(dtype))
 
 
 def apply(params, cfg: TransformerConfig, tokens):
@@ -646,23 +659,42 @@ def loss_fn(params, cfg: TransformerConfig, batch, rng=None):
 def init_cache(cfg: TransformerConfig, batch_size: int, max_len: Optional[int] = None,
                device=None):
     """Per-layer KV cache: {"k", "v"} of (L, B, T, kv_heads, head_dim) in the
-    model dtype."""
+    model dtype, or with ``kv_cache_dtype="int8"`` each component
+    {"q8": int8 of that shape, "s": f32 (L, B, T, kv_heads, 1)}."""
     T = max_len or cfg.max_seq_len
     shape = (cfg.num_layers, batch_size, T, cfg.kv_heads, cfg.head_dim)
+    if cfg.kv_cache_dtype == "int8":
+        def component():
+            return {"q8": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "s": torch.zeros(shape[:-1] + (1,), dtype=torch.float32, device=device)}
+
+        return {"k": component(), "v": component()}
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
+def _layer_cache(component, i: int):
+    """Layer ``i``'s view of a cache component (dense or int8)."""
+    if isinstance(component, dict):
+        return {k: v[i] for k, v in component.items()}
+    return component[i]
+
+
 def cache_alloc_len(cache) -> int:
-    """Allocated time-axis length of a cache."""
-    return cache["k"].shape[2]
+    """Allocated time-axis length of a cache (dense or int8)."""
+    k = cache["k"]
+    return (k["q8"] if isinstance(k, dict) else k).shape[2]
 
 
 def kv_read_bytes_per_row(cfg: TransformerConfig, read_len: int) -> int:
     """Device-memory bytes ONE sequence row's attention streams from the KV
     cache when a decode step attends ``read_len`` slots: K and V across all
-    layers."""
-    per_slot = cfg.kv_heads * cfg.head_dim * torch.finfo(cfg.torch_dtype).bits // 8
+    layers, int8 payload and f32 per-token-per-head scales when
+    ``kv_cache_dtype == "int8"``."""
+    if cfg.kv_cache_dtype == "int8":
+        per_slot = cfg.kv_heads * (cfg.head_dim * 1 + 4)  # q8 payload + s
+    else:
+        per_slot = cfg.kv_heads * cfg.head_dim * torch.finfo(cfg.torch_dtype).bits // 8
     return 2 * cfg.num_layers * read_len * per_slot
 
 
@@ -670,10 +702,10 @@ def _layer_body_cached(x, layer_p, k_cache, v_cache, cfg: TransformerConfig, pos
                        read_len=None):
     """One decoder layer over a segment of S new tokens with KV cache.
 
-    x: (B, S, D); k_cache/v_cache: (B, T, nkv, hd) of THIS layer, written in
-    place; pos: count of tokens already cached, a Python int (all rows
-    aligned) or a (B,) tensor. ``read_len`` tight-reads the cache. Returns
-    (x, k_cache, v_cache).
+    x: (B, S, D); k_cache/v_cache: (B, T, nkv, hd) of THIS layer (or its
+    int8 components), written in place; pos: count of tokens already
+    cached, a Python int (all rows aligned) or a (B,) tensor. ``read_len``
+    tight-reads the cache. Returns (x, k_cache, v_cache).
     """
     B, S, _ = x.shape
     attn_p, ln1 = layer_p["attn"], layer_p["ln1"]
@@ -738,8 +770,9 @@ def forward_with_cache(params, cfg: TransformerConfig, tokens, cache, pos, posit
         # aligned rows share row 0's positions, as in the reference
         x = x + (pos_table[clamped] if vector_pos else pos_table[clamped[0]])
     for i, layer_p in enumerate(params["layers"]):
-        x, _, _ = _layer_body_cached(x, layer_p, cache["k"][i], cache["v"][i], cfg,
-                                     positions, pos, read_len=read_len)
+        x, _, _ = _layer_body_cached(x, layer_p, _layer_cache(cache["k"], i),
+                                     _layer_cache(cache["v"], i), cfg, positions, pos,
+                                     read_len=read_len)
     if last_only:
         x = x[:, -1:]
     x = _norm(x, params["final_norm"]["scale"], params["final_norm"].get("bias"), cfg)

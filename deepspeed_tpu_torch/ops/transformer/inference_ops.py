@@ -1,11 +1,15 @@
 """Inference ops of the decode path (counterpart of
 ``deepspeed_tpu/ops/transformer/inference_ops.py``): the KV-cache write and
-the cached masked attention that ``models/transformer.py`` calls.
+the cached masked attention that ``models/transformer.py`` calls, for dense
+caches in the model dtype and for int8 caches (``{"q8", "s"}`` components:
+int8 payload and f32 per-token-per-head scales).
 
-Cut to the serving slice: dense caches in the model dtype, no rolling (ring)
-cache, no ALiBi, no local window, no int8 KV (ROADMAP.md). Decode attention
-is plain PyTorch here, as it is plain einsum code that XLA fuses in the
-reference; a hand-written decode-attention kernel is later work.
+Cut to the serving slice: no rolling (ring) cache, no ALiBi, no local window
+(ROADMAP.md). Decode attention is plain PyTorch here, as it is plain einsum
+code that XLA fuses in the reference; a hand-written decode-attention kernel
+is later work. The int8 cache's dequantize is plain PyTorch too, so on the
+card it writes a model-dtype copy of the slice it reads (the reference's
+fuses into its attention read).
 
 Unlike the reference's pure functions, the cache write updates the cache
 tensors in place (no second copy of a cache that can hold gigabytes) and
@@ -17,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from deepspeed_tpu_torch.ops.quantizer import div_exact
 from deepspeed_tpu_torch.ops.transformer.fused_ops import fused_softmax
 
 
@@ -24,48 +29,87 @@ def _is_scalar(pos) -> bool:
     return not torch.is_tensor(pos) or pos.dim() == 0
 
 
+def quantize_kv(x):
+    """Per-token-per-head symmetric int8 quantization of (B, S, H, hd)
+    keys/values (the int8 cache write; the scales keep the trailing dim)."""
+    a = x.float()
+    s = torch.clamp(div_exact(a.abs().amax(dim=-1, keepdim=True), 127.0), min=1e-8)
+    q = torch.clamp(torch.round(a / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def dequantize_kv(cache_component, dtype):
+    """{"q8","s"} int8 cache component -> dense (B, T, H, hd) in dtype."""
+    return (cache_component["q8"].float() * cache_component["s"]).to(dtype)
+
+
 def slice_kv_time(cache_component, read_len: Optional[int]):
-    """First ``read_len`` time slots of a (B, T, H, hd) cache component, as a
-    view: the attention downstream reads only those slots (the tight-read
-    geometry)."""
+    """First ``read_len`` time slots of a cache component (dense (B, T, H,
+    hd) tensor or int8 {"q8","s"} pair), as views: the attention downstream
+    reads only those slots (the tight-read geometry)."""
     if read_len is None:
         return cache_component
+    if isinstance(cache_component, dict):
+        return {"q8": cache_component["q8"][:, :read_len],
+                "s": cache_component["s"][:, :read_len]}
     return cache_component[:, :read_len]
 
 
-def _write_component(cache, new, pos, positions):
-    T, S = cache.shape[1], new.shape[1]
-    if _is_scalar(pos):
+def _scatter_index(positions, T: int):
+    """(rows, columns, cache slots) of the new tokens whose positions lie in
+    [0, T); the others drop. Built once for every component a layer writes:
+    one host sync, where boolean indexing would take one per index."""
+    rows, cols = ((positions >= 0) & (positions < T)).nonzero(as_tuple=True)
+    return rows, cols, positions[rows, cols]
+
+
+def _write_component(cache, new, pos, scatter):
+    if scatter is None:
         # contiguous write; like lax.dynamic_update_slice, the start is
         # clamped so that the segment fits
+        T, S = cache.shape[1], new.shape[1]
         start = min(max(int(pos), 0), T - S)
         cache[:, start:start + S] = new.to(cache.dtype)
         return cache
-    if positions is None:
-        raise ValueError("a vector pos needs the (B, S) positions of the new tokens")
-    rows = torch.arange(new.shape[0], device=cache.device)[:, None].expand_as(positions)
-    keep = (positions >= 0) & (positions < T)  # out-of-range columns drop
-    cache[rows[keep], positions[keep]] = new[keep].to(cache.dtype)
+    rows, cols, slots = scatter
+    cache[rows, slots] = new[rows, cols].to(cache.dtype)
     return cache
+
+
+def _write(cache, new, pos, scatter):
+    if isinstance(cache, dict):
+        q, s = quantize_kv(new)
+        return {"q8": _write_component(cache["q8"], q, pos, scatter),
+                "s": _write_component(cache["s"], s, pos, scatter)}
+    return _write_component(cache, new, pos, scatter)
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos,
                     positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write S new keys/values into (B, T, H, hd) caches, in place.
+    """Write S new keys/values into (B, T, H, hd) caches (or int8
+    {"q8","s"} cache components: the write quantizes per token and head),
+    in place.
 
     ``pos`` scalar: contiguous write at offset pos (plain prefill/decode).
     ``pos`` (B,) vector with ``positions`` (B, S): per-row scatter, each
-    row's segment at its own depth; columns >= T are dropped, matching the
-    clamped read mask in :func:`softmax_context`.
+    row's segment at its own depth; columns outside [0, T) are dropped,
+    matching the clamped read mask in :func:`softmax_context`.
     """
-    return (_write_component(k_cache, k_new, pos, positions),
-            _write_component(v_cache, v_new, pos, positions))
+    scatter = None
+    if not _is_scalar(pos):
+        if positions is None:
+            raise ValueError("a vector pos needs the (B, S) positions of the new tokens")
+        T = (k_cache["q8"] if isinstance(k_cache, dict) else k_cache).shape[1]
+        scatter = _scatter_index(positions, T)
+    return (_write(k_cache, k_new, pos, scatter),
+            _write(v_cache, v_new, pos, scatter))
 
 
 def softmax_context(q, k_cache, v_cache, pos, scale: Optional[float] = None,
                     positions=None, read_len: Optional[int] = None) -> torch.Tensor:
     """Cached masked attention: q (B, S, nh, hd) against (B, T, nkv, hd)
-    caches (GQA repeat applied here).
+    caches (GQA repeat applied here); int8 caches are dequantized to q's
+    dtype at the read.
 
     Masking modes:
       - ``positions is None``: every query row attends keys [0..pos].
@@ -81,6 +125,9 @@ def softmax_context(q, k_cache, v_cache, pos, scale: Optional[float] = None,
     if read_len is not None:
         k_cache = slice_kv_time(k_cache, read_len)
         v_cache = slice_kv_time(v_cache, read_len)
+    if isinstance(k_cache, dict):
+        k_cache = dequantize_kv(k_cache, q.dtype)
+        v_cache = dequantize_kv(v_cache, q.dtype)
     nkv = k_cache.shape[2]
     kk, vv = k_cache, v_cache
     if nkv != nh:

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the flash kernels K1-K3, the block-sparse kernels K4-K6 and the fused norm
-kernels K7-K8.
+kernels K7-K8; and the int8 decode path's W8A8 product (``int8_linear``,
+cuBLASLt's int8 product through ``torch._int_mm``) and int8 engine.
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -32,6 +33,12 @@ order apart, 2**-8 of the largest |plain| value in bfloat16 and float16, 1e-5
 in float32; mu and rstd (f32) 1e-5. dscale and dbias are f32 sums over all
 rows in another order (per-block partials, then their fixed-order sum): 1e-4
 of the largest |plain| value, and 2**-8 after the cast to bfloat16.
+
+``int8_linear`` and the int8 quantizations on the card against the same
+calls on the CPU: the quantization is f32 arithmetic in the same order
+(IEEE division, ``quantizer.div_exact``, and rounding on both), the int8
+product sums exactly in int32 on both, and the rescale is two f32 products
+and one cast: bit for bit.
 """
 
 import numpy as np
@@ -756,3 +763,80 @@ def test_fused_norm_rejects_what_it_does_not_take():
         tfn.fused_rmsnorm(x, torch.ones(32, device="cuda"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfn.fused_layernorm(torch.empty(8, 64, device="meta"), torch.empty(64, device="meta"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,N", [(1024, 3072), (1024, 4096), (4096, 1024)])
+@pytest.mark.parametrize("lead", [(8, 1), (1, 1), (16,), (17,), (8, 128)])
+def test_int8_linear_on_the_card_equals_the_cpu(lead, K, N, dtype):
+    """GPT-2 350M's int8 products at decode rows (B 8, padded to the 17 rows
+    the card's product takes), at 1, 16 and 17 rows, and at prefill rows (B 8
+    x 128): the same bits as the CPU."""
+    from deepspeed_tpu_torch.ops import quantizer as tq
+
+    _need_card()
+    g = torch.Generator().manual_seed(K + N)
+    x = torch.randn(*lead, K, generator=g).to(dtype)
+    w = tq.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
+    ref = tq.int8_linear(x, w["q8"], w["s"])
+    out = tq.int8_linear(x.cuda(), w["q8"].cuda(), w["s"].cuda())
+    torch.cuda.synchronize()
+    assert out.is_cuda and out.dtype == dtype and out.shape == (*lead, N)
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_int8_quantization_on_the_card_equals_the_cpu():
+    """The engine's weight quantization and the int8 cache's quantize/
+    dequantize: the same bits on the card as on the CPU (the divisions by
+    127 are IEEE divisions on both, ``quantizer.div_exact``)."""
+    from deepspeed_tpu_torch.ops import quantizer as tq
+    from deepspeed_tpu_torch.ops.transformer import inference_ops as tio
+
+    _need_card()
+    g = torch.Generator().manual_seed(7)
+    w = torch.randn(3072, 1024, generator=g) * 0.02
+    ref, out = tq.quantize_weight(w), tq.quantize_weight(w.cuda())
+    assert torch.equal(out["q8"].cpu(), ref["q8"]) and torch.equal(out["s"].cpu(), ref["s"])
+    for dtype in (torch.bfloat16, torch.float32):
+        kv = torch.randn(8, 128, 16, 64, generator=g).to(dtype)
+        (rq, rs), (q, s) = tio.quantize_kv(kv), tio.quantize_kv(kv.cuda())
+        assert torch.equal(q.cpu(), rq) and torch.equal(s.cpu(), rs)
+        back = tio.dequantize_kv({"q8": q, "s": s}, dtype)
+        assert torch.equal(back.cpu(), tio.dequantize_kv({"q8": rq, "s": rs}, dtype))
+
+
+def test_int8_linear_raises_for_widths_the_card_does_not_take():
+    from deepspeed_tpu_torch.ops import quantizer as tq
+
+    _need_card()
+    w = tq.quantize_weight(torch.randn(16, 12))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tq.int8_linear(torch.randn(8, 12, device="cuda"), w["q8"].cuda(), w["s"].cuda())
+
+
+def test_int8_engine_stays_on_the_card():
+    """dtype="int8" with the int8 KV cache on the card: weights, scales and
+    the cache live on the card, and generate runs through K1 and K7."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.ops.op_builder import launch_counts, reset_launch_counts
+
+    _need_card()
+    cfg = ttf.TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+                                max_seq_len=128, dtype="float32", attn_impl="pallas")
+    eng = deepspeed_tpu_torch.init_inference(
+        ttf.TransformerModel(cfg), config={"dtype": "int8", "kv_cache_dtype": "int8"})
+    leaves = []
+    ttf.map_params(leaves.append, eng.params)
+    assert all(t.is_cuda for t in leaves)
+    wqkv = eng.params["layers"][0]["attn"]["wqkv"]
+    assert wqkv["q8"].dtype == torch.int8 and wqkv["s"].dtype == torch.float32
+    cache = ttf.init_cache(eng.cfg, 2, 64, device=eng.device)
+    assert cache["k"]["q8"].is_cuda and cache["k"]["q8"].dtype == torch.int8
+    toks = torch.randint(0, 256, (2, 64), device="cuda")
+    reset_launch_counts()
+    out = eng.generate(toks, max_new_tokens=4)
+    torch.cuda.synchronize()
+    assert out.is_cuda and out.shape == (2, 68)
+    counts = launch_counts()
+    assert counts["flash_fwd"] == 2 and counts["fused_norm_fwd"] == 5 * 4

@@ -165,10 +165,9 @@ def test_decode_kv_bytes_matches_reference():
 
 
 @pytest.mark.parametrize("config", [
-    {"tensor_parallel": {"tp_size": 2}}, {"dtype": "int8"}, {"kv_cache_dtype": "int8"},
-    {"speculative": {"enabled": True}}, {"prefill_chunk_size": 8}, {"fused_generate": False},
-    {"telemetry": {"enabled": True}}, {"mesh": {"shape": {"data": 1, "tensor": 2}}},
-    {"profile_model_time": True},
+    {"tensor_parallel": {"tp_size": 2}}, {"speculative": {"enabled": True}},
+    {"fused_generate": False}, {"telemetry": {"enabled": True}},
+    {"mesh": {"shape": {"data": 1, "tensor": 2}}}, {"profile_model_time": True},
 ])
 def test_features_outside_the_slice_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -176,9 +175,34 @@ def test_features_outside_the_slice_raise(config):
                                            config=config, device="cpu")
 
 
-def test_ragged_prompts_raise(setup):
-    with pytest.raises(NotImplementedError, match="attention_mask"):
-        _engine(setup["params"]).generate(setup["toks"], attention_mask=np.ones((2, PROMPT)))
+@pytest.mark.parametrize("config,cfg_dtype,kv", [
+    ({"dtype": "int8"}, "bfloat16", "model"),
+    ({"quant": {"enabled": True}}, "bfloat16", "model"),
+    ({"kv_cache_dtype": "int8"}, "float32", "int8"),
+    ({"prefill_chunk_size": 8}, "float32", "model"),
+])
+def test_slice_features_reach_the_model(setup, config, cfg_dtype, kv):
+    """int8 weights (an f32 model runs in bf16, as in the reference), the
+    int8 KV cache and chunked prefill build and generate; the full streams
+    against the reference are in tests/test_torch_{int8,ragged}_decode.py."""
+    eng = _engine(setup["params"], **config)
+    assert eng.cfg.dtype == cfg_dtype and eng.cfg.kv_cache_dtype == kv
+    wqkv = eng.params["layers"][0]["attn"]["wqkv"]
+    assert isinstance(wqkv, dict) == (cfg_dtype == "bfloat16")
+    cache = ttf.init_cache(eng.cfg, 2, 16)
+    assert isinstance(cache["k"], dict) == (kv == "int8")
+    out = eng.generate(setup["toks"], max_new_tokens=NEW)
+    assert out.shape == (2, PROMPT + NEW) and bool(((out >= 0) & (out < 128)).all())
+    if "prefill_chunk_size" in config:
+        _assert_same_stream(setup["ref"][True], out.numpy(), setup["ref_logits"])
+
+
+def test_ragged_prompts_generate(setup):
+    """An all-ones attention_mask takes the ragged path and gives the plain
+    stream (left/right padding: tests/test_torch_ragged_decode.py)."""
+    out = _engine(setup["params"]).generate(setup["toks"], max_new_tokens=NEW,
+                                            attention_mask=np.ones((2, PROMPT)))
+    _assert_same_stream(setup["ref"][True], out.numpy(), setup["ref_logits"])
 
 
 def test_config_parses_like_reference():

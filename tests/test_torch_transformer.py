@@ -91,6 +91,39 @@ def test_prefill_and_decode_step_match_reference(variant, attn_impl):
         assert _diff(ref_step, out_step) <= TOL
 
 
+@pytest.mark.parametrize("attn_impl", ["xla", "pallas"])
+def test_int8_kv_cache_prefill_and_decode_match_reference(attn_impl):
+    """kv_cache_dtype="int8": a prefill at pos 0 writes the quantized cache
+    (bit for bit but for the last ulp of the keys the norms and matmuls
+    round, so q8 within 1 and s within 1e-6), then a decode step reads it
+    back dequantized, full and tight reads; logits within TOL."""
+    over = dict(TINY, attn_impl=attn_impl, kv_cache_dtype="int8",
+                **VARIANTS["gqa-untied-bias-head"])
+    jcfg, tcfg = jtf.TransformerConfig(**over), ttf.TransformerConfig(**over)
+    np_params = _perturbed_params(jcfg)
+    params = ttf.params_from_numpy(np_params, tcfg, "cpu")
+    B, S, T = 2, 20, 48
+    toks = _tokens(B, S, seed=1)
+    jcache = jtf.init_cache(jcfg, B, T)
+    tcache = ttf.init_cache(tcfg, B, T)
+    ref, jcache = jtf.forward_with_cache(np_params, jcfg, jnp.asarray(toks), jcache, 0)
+    out, tcache = ttf.forward_with_cache(params, tcfg, torch.from_numpy(toks).long(), tcache, 0)
+    assert _diff(ref, out) <= TOL
+    for name in ("k", "v"):
+        assert tcache[name]["q8"].dtype == torch.int8
+        assert _diff(jcache[name]["q8"].astype(jnp.int32), tcache[name]["q8"].int()) <= 1
+        assert _diff(jcache[name]["s"], tcache[name]["s"]) <= 1e-6
+    nxt = np.asarray(jnp.argmax(ref[:, -1], axis=-1)).astype(np.int32)[:, None]
+    for read_len in (None, 32):
+        ref_step, _ = jtf.forward_with_cache(np_params, jcfg, jnp.asarray(nxt), jcache,
+                                             jnp.int32(S), read_len=read_len)
+        out_step, _ = ttf.forward_with_cache(
+            params, tcfg, torch.from_numpy(nxt).long(),
+            {k: {n: t.clone() for n, t in c.items()} for k, c in tcache.items()}, S,
+            read_len=read_len)
+        assert _diff(ref_step, out_step) <= TOL
+
+
 def test_last_only_head_keeps_the_last_row():
     _, tcfg, _, params = _pair()
     toks = torch.from_numpy(_tokens(2, 12, seed=2)).long()
@@ -174,7 +207,7 @@ def test_kv_read_bytes_match_reference():
 
 @pytest.mark.parametrize("over", [
     dict(pos_embedding="rope"), dict(pos_embedding="alibi"), dict(moe_num_experts=4),
-    dict(local_attn_windows=(8, 8)), dict(rolling_kv_cache=True), dict(kv_cache_dtype="int8"),
+    dict(local_attn_windows=(8, 8)), dict(rolling_kv_cache=True),
     dict(norm_position="post"), dict(parallel_residual=True),
     dict(attn_impl="block_sparse", causal=False),
     dict(attn_impl="block_sparse", local_attn_windows=(8, 8)),
