@@ -11,7 +11,7 @@ their SASS, holds each kernel against its plain PyTorch version on the card
 f32 FMA for f32; K4-K6 block-sparse attention, each in both of theirs:
 tensor core for 16-bit inputs at tile 64, f32 FMA for f32 and tiles 16/32;
 K3's GQA head sum bit for bit, K7-K8 fused LayerNorm/RMSNorm on their
-vector and scalar load paths), and drives the port's four paths with random
+vector and scalar load paths), and drives the port's paths with random
 weights from a seed (the model's every LayerNorm is K7 forward and K8
 backward):
   - the fused-op surface (``ops/transformer/fused_ops``: ``fused_layernorm``
@@ -29,6 +29,12 @@ backward):
     the CPU (``decode_int8``); then ragged prompts (left and right padded)
     prefilled whole and in chunks of 64 and 48, with either KV type, each
     row against its own single-row ``generate`` (``ragged_chunked``);
+  - the continuous-batching serving tick (``ContinuousBatchingEngine``) on
+    GPT-2 125M at full width and depth in ``bench_serving``'s geometry (8
+    slots, cache 256, burst ticks of 4, 32 requests of 64 new tokens), at
+    ``pipeline_depth`` 0 and 1, each request against its own single-row
+    ``generate``, ticks dispatched where a host sync raises
+    (``serve_pool``; ``--serve-pool`` runs this phase alone);
   - training (``deepspeed_tpu_torch.initialize`` -> ``forward`` /
     ``backward`` / ``step``) on GPT-2 125M at full width and depth, seq
     1024, micro-batch 8, bf16, flash attention, AdamW: 2 warm-up and 10
@@ -1277,6 +1283,274 @@ def ragged_chunked_phase(gen, card):
     return counts
 
 
+def serve_pool_phase(gen, card):
+    """The continuous-batching serving tick (``ContinuousBatchingEngine``) in
+    ``bench_serving``'s geometry (the JAX package's ``_bench_impl.py:608-
+    700``): GPT-2 125M at full width and depth, bf16, random weights, 8 slots
+    of cache 256, burst ticks of 4 tokens, 32 requests of 64 new tokens with
+    prompts of 32-128 tokens (``RandomState(7)``; tokens from
+    ``RandomState(0)``) arriving two a step. Attention is asked for flash
+    (``attn_impl="pallas"``), so K1's 0 launches show that vector positions
+    keep it off. Warm-up as the bench's ``build_engine``: the whole tick
+    family, then one request a prompt bucket. Then the schedule at
+    ``pipeline_depth`` 0 and then 1 (``serve_pool``: tokens/s, completed,
+    steps and ticks, wall, dispatch and blocked ms, their shares, K1/K7/K8
+    launches, and from one profiled replay the device ms and launches a tick
+    and the idle share against the unprofiled wall). Checks: every request
+    completes at both depths with the same streams, each equal to its own
+    single-row ``generate`` or first differing where that path's top-2
+    margin is under 2 LOGITS_TOL; K7 launches (2L + 1) a forward (4 a burst
+    tick, 1 an admission prefill), K1 and K8 never; a burst tick and a
+    fused-prefill tick, admissions included, dispatch under
+    ``torch.cuda.set_sync_debug_mode("error")``; a sampled serve
+    (temperature 0.8, top-k 40) gives the same tokens at both depths; the
+    sampler's keyed uniforms equal the CPU's bit for bit. Also K7 at the
+    tick's shape (8 x 768 bf16) against its bound, its plain version and
+    ``F.layer_norm`` (``serve_pool_k7``). Returns the launch counts of the
+    two measured serves."""
+    import numpy as np
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+    from deepspeed_tpu_torch.inference import decoding as dec
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+    from deepspeed_tpu_torch.ops import op_builder
+
+    SLOTS, CACHE, BURST, NEW, N_REQ = 8, 256, 4, 64, 32
+    model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", max_seq_len=1024)
+    L, V, D = model.cfg.num_layers, model.cfg.vocab_size, model.cfg.hidden_size
+    params = tf.map_params(lambda p: p.to(torch.bfloat16), model.init(gen))
+    config = {"dtype": "bfloat16", "attn_impl": "pallas"}
+    rs = np.random.RandomState(7)
+    arrivals = [(t // 2, int(rs.randint(32, 129)), NEW) for t in range(N_REQ)]
+    rs = np.random.RandomState(0)
+    queue = [(t, rs.randint(0, V, (n,)).astype(np.int32), new) for t, n, new in arrivals]
+
+    def build(**kwargs):
+        """An engine warmed as the bench's build_engine: the tick family,
+        then one request a prompt bucket (the admission prefills)."""
+        kwargs.setdefault("tokens_per_tick", BURST)
+        eng = ContinuousBatchingEngine(model, config=config, params=params, max_slots=SLOTS,
+                                       cache_len=CACHE, **kwargs)
+        t0 = time.perf_counter()
+        programs = eng.precompile_tick_programs()
+        for b in sorted({dec.read_bucket(int(p.size), CACHE) for _, p, _ in queue}):
+            eng.submit(np.zeros(b, np.int32), max_new_tokens=4)
+        while eng.has_work():
+            eng.step()
+        eng.finished()
+        torch.cuda.synchronize()
+        return eng, programs, time.perf_counter() - t0
+
+    def run_serve(eng, depth):
+        """One replay of the arrival schedule at a pipeline depth, as the
+        bench's run_serve; also returns each request's result. Request i
+        takes rid i in every replay: the rid is part of a sampled token's
+        key."""
+        eng.pipeline_depth = depth
+        stats0 = dict(eng._tick_stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, done_tokens, completed = 0, 0, 0
+        pending, rid_of, results = list(range(len(queue))), {}, {}
+        while pending or eng.has_work():
+            for i in [i for i in pending if queue[i][0] <= step]:
+                rid_of[i] = eng.submit(queue[i][1], max_new_tokens=queue[i][2], rid=i)
+            pending = [i for i in pending if queue[i][0] > step]
+            done_tokens += sum(len(v) for v in eng.step().values())
+            finished = eng.finished()
+            completed += len(finished)
+            results.update(finished)
+            step += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats1 = eng._tick_stats
+        block = stats1["block_ms"] - stats0["block_ms"]
+        dispatch = stats1["dispatch_ms"] - stats0["dispatch_ms"]
+        row = {"tokens_per_s": done_tokens / wall, "tokens": done_tokens,
+               "completed": completed, "steps": step,
+               "ticks": stats1["ticks"] - stats0["ticks"], "wall_s": wall,
+               "tick_dispatch_ms": dispatch, "tick_block_ms": block,
+               "block_ms_per_token": block / done_tokens if done_tokens else None,
+               "overlap_frac": 1.0 - block / (dispatch + block) if dispatch + block else None,
+               "wasted_tokens": stats1["wasted_tokens"] - stats0["wasted_tokens"]}
+        return row, [results.get(rid_of.get(i)) for i in range(len(queue))]
+
+    def solo_logits(eng, row, gen_toks):
+        """The single-row ``generate``'s own logits for each of its tokens:
+        its prefill, then its decode steps teacher-forced, at its read
+        geometry."""
+        S, T = row.size, eng.cfg.max_seq_len
+        with torch.inference_mode():
+            c = tf.init_cache(eng.cfg, 1, T, "cuda")
+            lg, c = tf.forward_with_cache(eng._eng.params, eng.cfg,
+                                          torch.from_numpy(row[None]).long().cuda(), c, 0,
+                                          last_only=True)
+            out, pos, j = [lg[0, -1]], S, 0
+            for read_len, n in dec.read_stages(S, len(gen_toks) - 1, T, eng._eng._tight_floor()):
+                for _ in range(n):
+                    st, c = tf.forward_with_cache(eng._eng.params, eng.cfg,
+                                                  gen_toks[None, j:j + 1].long(), c, pos,
+                                                  read_len=read_len)
+                    out.append(st[0, -1])
+                    pos, j = pos + 1, j + 1
+        return torch.stack(out).float()
+
+    eng, programs, warm_s = build()
+    counts, rows, streams = {}, {}, {}
+    for depth in (0, 1):
+        op_builder.reset_launch_counts()
+        rows[depth], streams[depth] = run_serve(eng, depth)
+        launched = op_builder.launch_counts()
+        for k, c in launched.items():
+            counts[k] = counts.get(k, 0) + c
+        r = rows[depth]
+        norms = (2 * L + 1) * (BURST * r["ticks"] + N_REQ)
+        check(launched["flash_fwd"] == 0 and launched["fused_norm_fwd"] == norms
+              and launched["fused_norm_bwd"] == 0,
+              f"serve_pool depth {depth}: K1/K7/K8 launched {launched['flash_fwd']}/"
+              f"{launched['fused_norm_fwd']}/{launched['fused_norm_bwd']} times, "
+              f"expected 0/{norms}/0")
+        r.update(k1_launches=launched["flash_fwd"], k7_launches=launched["fused_norm_fwd"],
+                 k8_launches=launched["fused_norm_bwd"])
+        complete = r["completed"] == N_REQ and all(
+            s is not None and s.size == q[1].size + NEW for s, q in zip(streams[depth], queue))
+        check(complete, f"serve_pool depth {depth}: {r['completed']} of {N_REQ} requests "
+                        f"completed with {NEW} new tokens each")
+    # one profiled replay a depth: the device's kernel time and launches a
+    # tick, and its idle share of the unprofiled serve's wall
+    for depth in (0, 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prow, _ = run_serve(eng, depth)
+        kernels = device_kernels(prof)
+        device_s, launches = sum(t for _, t, _ in kernels), sum(c for _, _, c in kernels)
+        measured = device_s > 0
+        rows[depth].update(
+            device_ms_per_tick=device_s * 1e3 / prow["ticks"] if measured else "not measured",
+            launches_per_tick=launches / prow["ticks"],
+            device_idle_share=(1 - device_s / rows[depth]["wall_s"]) if measured
+            else "not measured",
+            profiled_replay_wall_s=prow["wall_s"],
+            device_ms_by_category={c: v["device_s"] * 1e3
+                                   for c, v in by_category(kernels).items()})
+        check(measured, f"serve_pool depth {depth}: the profiler saw no device kernel")
+        emit({"phase": "serve_pool", "model": "gpt2-125m", "dtype": "bfloat16", "slots": SLOTS,
+              "cache_len": CACHE, "tokens_per_tick": BURST, "requests": N_REQ,
+              "new_tokens": NEW, "pipeline_depth": depth, "tick_programs": programs,
+              "warmup_s": warm_s, **rows[depth], "card": card})
+
+    same = all(a is not None and b is not None and np.array_equal(a, b)
+               for a, b in zip(streams[0], streams[1]))
+    check(same, "serve_pool: the streams at depth 0 and depth 1 differ")
+    agree = []
+    for (_, p, _), got in zip(queue, streams[0]):
+        want = eng._eng.generate(torch.from_numpy(p[None]).long().cuda(),
+                                 max_new_tokens=NEW)[0, p.size:].cpu().numpy()
+        got = got[p.size:]
+        diff = np.nonzero(got != want)[0]
+        entry = {"len": int(p.size), "equal": not diff.size}
+        if diff.size:
+            j = int(diff[0])
+            top2 = solo_logits(eng, p, torch.from_numpy(want).cuda())[j].topk(2).values
+            margin = float(top2[0] - top2[1])
+            entry.update(first_diff_step=j, solo_margin=margin)
+            check(margin < 2 * LOGITS_TOL,
+                  f"serve_pool: request of {p.size} tokens differs from its single-row "
+                  f"generate at step {j}, margin {margin} >= {2 * LOGITS_TOL}")
+        agree.append(entry)
+    emit({"phase": "serve_pool_streams", "depths_equal": same,
+          "equal_to_single_row": sum(e["equal"] for e in agree), "requests": agree,
+          "tie_margin": 2 * LOGITS_TOL, "card": card})
+    del eng
+    torch.cuda.empty_cache()
+
+    # a burst tick and a fused-prefill tick, with their admissions, dispatched
+    # where any host sync raises: a depth of 8 retires nothing in two steps
+    sync_rows = []
+    for tpt in (BURST, 1):
+        seng = ContinuousBatchingEngine(model, config=config, params=params, max_slots=SLOTS,
+                                        cache_len=CACHE, tokens_per_tick=tpt, pipeline_depth=8)
+        prompts = [q[1] for q in queue[:3]]
+        for p in prompts:  # warm the same shapes first
+            seng.submit(p, max_new_tokens=8)
+        while seng.has_work():
+            seng.step()
+        want = seng.finished()
+        rids = [seng.submit(p, max_new_tokens=8) for p in prompts]
+        torch.cuda.synchronize()
+        error = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(2):
+                seng.step()
+        except RuntimeError as e:
+            error = str(e)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        inflight = len(seng._inflight)
+        check(error is None and inflight == 2,
+              f"serve_pool_sync tokens_per_tick={tpt}: {inflight} ticks in flight, "
+              f"sync error {error}")
+        if error is None:
+            while seng.has_work():
+                seng.step()
+            got = seng.finished()
+            check(all(np.array_equal(got[r], want[w]) for r, w in zip(rids, sorted(want))),
+                  f"serve_pool_sync tokens_per_tick={tpt}: the results differ from the "
+                  f"same requests served before")
+        sync_rows.append({"tokens_per_tick": tpt, "fused_prefill": seng.fused_prefill,
+                          "steps_dispatched": 2, "ticks_in_flight": inflight,
+                          "fused_prefill_ticks": seng.tick_stats()["fused_prefill_ticks"],
+                          "sync_error": error})
+        del seng
+    emit({"phase": "serve_pool_sync", "runs": sync_rows, "card": card})
+
+    # sampled: the same tokens at both depths (per-request keys)
+    seng, _, _ = build(temperature=0.8, top_k=40, seed=3)
+    sampled = {depth: run_serve(seng, depth)[1] for depth in (0, 1)}
+    same_sampled = all(a is not None and b is not None and np.array_equal(a, b)
+                       for a, b in zip(sampled[0], sampled[1]))
+    check(same_sampled, "serve_pool_sampled: the sampled streams at depth 0 and 1 differ")
+    del seng
+    torch.cuda.empty_cache()
+    rids = torch.arange(8).repeat_interleave(6)
+    gens = torch.tensor([0, 1, 2, 63, 64, 10 ** 6]).repeat(8)
+    u_cpu = dec.request_uniforms(3, rids, gens, V)
+    u_card = dec.request_uniforms(3, rids.cuda(), gens.cuda(), V).cpu()
+    keys_equal = torch.equal(u_cpu, u_card)
+    check(keys_equal, "serve_pool_sampled: the keyed uniforms differ between card and CPU")
+    emit({"phase": "serve_pool_sampled", "temperature": 0.8, "top_k": 40,
+          "depths_equal": same_sampled, "keyed_uniforms_equal_cpu": keys_equal,
+          "uniforms_checked": int(u_cpu.numel()),
+          "sampled_differs_from_greedy": any(not np.array_equal(a, b)
+                                             for a, b in zip(sampled[0], streams[0])),
+          "card": card})
+
+    # K7 at the tick's shape: 8 decode rows of D 768, bf16 weights and bias
+    x = torch.randn(SLOTS, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+    scale = torch.randn(D, generator=gen, device="cuda", dtype=torch.bfloat16)
+    bias = torch.randn(D, generator=gen, device="cuda", dtype=torch.bfloat16)
+    out = fnorm._cuda_fwd(x, scale, bias, 1e-5, False, with_stats=False)[0]
+    ref = fnorm._reference_fwd(x, scale, bias, 1e-5, False)[0]
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= NORM_TOL[torch.bfloat16] * max(ref.float().abs().max().item(), 1.0),
+          f"serve_pool_k7: K7 at 8 x 768 differs from its plain version by {err}")
+    (bound_ms, bound_by), _ = norm_bounds(SLOTS, D, torch.bfloat16, torch.bfloat16, True,
+                                          reference_partial_rows(SLOTS))
+    k7 = {"phase": "serve_pool_k7", "rows": SLOTS, "D": D, "dtype": "bfloat16",
+          "variant": fnorm.kernel_variant(D, x.dtype, x), "max_abs_err": err,
+          "ms": cuda_ms(lambda: fnorm._cuda_fwd(x, scale, bias, 1e-5, False, with_stats=False)),
+          "plain_ms": cuda_ms(lambda: fnorm._reference_fwd(x, scale, bias, 1e-5, False)),
+          "library_ms": cuda_ms(lambda: F.layer_norm(x, (D,), scale, bias, 1e-5)),
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes": norm_bytes(SLOTS, D, torch.bfloat16, torch.bfloat16, True,
+                              reference_partial_rows(SLOTS))[0], "card": card}
+    emit(k7)
+    return counts, k7
+
+
 def smi_card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1307,6 +1581,24 @@ def decode_step_main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     toks = torch.randint(0, eng.cfg.vocab_size, (8, 128), generator=gen, device="cuda")
     serve_breakdown(eng, toks, gen, card, "greedy_b8_p128")
+    return 1 if failures else 0
+
+
+def serve_pool_main():
+    """``python3 chip_smoke.py --serve-pool``: the ``serve_pool`` phase alone
+    (its lines, no ``kernels`` line), for work on the serving tick."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
+    serve_pool_phase(torch.Generator(device="cuda").manual_seed(0), card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
     return 1 if failures else 0
 
 
@@ -1811,6 +2103,10 @@ def main():
     # ragged prompts and chunked prefill, each path counted from 0
     int8_counts = decode_int8_phase(gen, card)
     ragged_counts = ragged_chunked_phase(gen, card)
+    # ---- the continuous-batching serving tick: GPT-2 125M, bench_serving's
+    # geometry, pipeline depths 0 and 1, counted from 0 over both serves
+    pool_counts, pool_k7 = serve_pool_phase(gen, card)
+    torch.cuda.empty_cache()
 
     # ---- the training path: GPT-2 125M, seq 1024, micro-batch 8, bf16, flash
     # attention, no remat, with the JAX package's bench config
@@ -2194,6 +2490,7 @@ def main():
         by_path = {"serve": serve_counts.get(kname, 0),
                    "serve_int8": int8_counts.get(kname, 0),
                    "serve_ragged": ragged_counts.get(kname, 0),
+                   "serve_pool": pool_counts.get(kname, 0),
                    "train": train_counts.get(kname, 0),
                    "train_sparse": sparse_counts.get(kname, 0),
                    "fused_ops": fused_counts.get(kname, 0)}
@@ -2247,7 +2544,10 @@ def main():
          "variant": a78["variant"], "shape": norm_shape, "ms": a78["k7_ms"],
          "plain_ms": a78["plain_fwd_ms"],
          "bound_ms": a78["k7_bound_ms"], "bound_by": a78["k7_bound_by"],
-         "library_ms": a78["library_fwd_ms"]},
+         "library_ms": a78["library_fwd_ms"],
+         "serve_pool_shape": {key: pool_k7[key] for key in (
+             "rows", "D", "dtype", "variant", "max_abs_err", "ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by")}},
         {"name": "fused_norm_bwd", "route": "cuda", "source": f"{src}/fused_norm.cu",
          "replaces": f"{pallas}/fused_norm.py:55", **launches("fused_norm_bwd"),
          "max_abs_err": max(row["max_abs_err"]["dx"] for row in k78.values()),
@@ -2266,4 +2566,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(decode_step_main() if sys.argv[1:] == ["--decode-step"] else main())
+    ENTRIES = {("--decode-step",): decode_step_main, ("--serve-pool",): serve_pool_main}
+    sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

@@ -1,7 +1,9 @@
 """KV-cached decode machinery (counterpart of ``deepspeed_tpu/inference/decoding.py``),
 cut to the serving slice: the tight-read geometry, sampling, the
-whole-generation path that ``InferenceEngine.generate`` runs, and the
-per-row-position paths of ragged (padded) prompts and chunked prefill.
+whole-generation path that ``InferenceEngine.generate`` runs, the
+per-row-position paths of ragged (padded) prompts and chunked prefill, and
+the continuous-batching tick programs (``compile_pool_tick_fn``,
+``compile_row_update_fn``) with their per-request keyed sampler.
 
 The reference compiles a generation into one XLA program; the port runs the
 same steps eagerly (CUDA graphs are later work), with the same read
@@ -94,6 +96,57 @@ def select_token(logits, temperature: float, top_k: int,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(_filter_logits(logits, temperature, top_k, top_p), dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+# A lowbias32-style integer finalizer on int64 tensors that hold 32-bit
+# values: every product stays below 2**63 (multipliers below 2**31), so the
+# same bits come out on every device.
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def request_keys(base_key: int, rids, gens):
+    """Per-row sampling keys of the serving tick programs, the counterpart
+    of the reference's ``fold_in(fold_in(base, rid), gen)``: a 32-bit key
+    from the engine seed, the request id and the token index alone, so a
+    request's stream never depends on its slot, its tick, the pipeline
+    depth or fused against separate prefill. ``rids``/``gens`` are (B,)
+    integer tensors; returns (B,) int64 in [0, 2**32)."""
+    seed = _mix32(torch.full_like(rids, int(base_key) & _M32, dtype=torch.int64)
+                  ^ ((int(base_key) >> 32) & _M32))
+    k = _mix32(seed ^ (rids.long() & _M32))
+    return _mix32(k ^ (gens.long() & _M32))
+
+
+def request_uniforms(base_key: int, rids, gens, vocab_size: int):
+    """(B, V) f32 uniforms in (0, 1) keyed by (seed, rid, gen, vocab index):
+    a counter-based hash in int64 tensor ops, so the bits are the same on
+    the CPU and the card and nothing waits on the host. 23 bits a value,
+    (h + 1/2) / 2**23, exact in f32."""
+    keys = request_keys(base_key, rids, gens)
+    v = torch.arange(vocab_size, device=keys.device, dtype=torch.int64)
+    h = _mix32(_mix32(keys[:, None] ^ ((v * 0x9E3779B1) & _M32)[None, :]))
+    return ((h >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
+
+
+def select_token_rows(logits, temperature: float, top_k: int, base_key: int, rids, gens,
+                      top_p: float = 1.0):
+    """Row-wise sampling with one key a row (:func:`request_keys`), the same
+    temperature/top-k/top-p filter as :func:`select_token`: Gumbel-max over
+    the filtered logits, noise from :func:`request_uniforms`. Greedy
+    (``temperature <= 0``) is the argmax."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    filtered = _filter_logits(logits, temperature, top_k, top_p)
+    u = request_uniforms(base_key, rids, gens, logits.shape[-1])
+    return torch.argmax(filtered - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
 
 
 def compile_generate_fn(cfg, batch_size: int, cache_len: int, max_new_tokens: int,
@@ -264,3 +317,142 @@ def chunked_generate(ragged_prefill_fn, segment_fn, params, tokens, cache, cache
                                max_new_tokens - 1, temperature, top_k, generator, top_p,
                                active0=int(prompt_lens.max()) if tight_read else None)
     return torch.cat([tokens.to(torch.int32), gen], dim=1)
+
+
+def _clone_cache(cache):
+    return {name: ({k: v.clone() for k, v in c.items()} if isinstance(c, dict) else c.clone())
+            for name, c in cache.items()}
+
+
+def compile_pool_tick_fn(cfg, batch_size: int, cache_len: int, n_tokens: int,
+                         temperature: float, top_k: int, top_p: float,
+                         eos_token_id: Optional[int] = None, read_len: Optional[int] = None,
+                         chunk: Optional[int] = None, donate: bool = True):
+    """One continuous-batching scheduler tick with ON-DEVICE ACCEPTANCE (the
+    reference's signature less ``mesh``/``param_shardings``): the forward,
+    per-row sampling (:func:`select_token_rows`), EOS/quota done detection,
+    position advance and emission masking all run on the device, and the
+    tick returns one small packed int32 buffer, ``(B, n_tokens + 2)``:
+    ``[:, :k]`` the sampled tokens, ``[:, k]`` the number emitted, ``[:,
+    k+1]`` the done flag. Nothing in it waits on the host, so the engine can
+    dispatch tick N+1 before it reads tick N's result.
+
+    Plain / burst (``chunk=None``)::
+
+        tick_fn(params, cache, last_tok, done, pos, gen, quota, rids, key)
+          -> (packed, cache, last_tok, done)
+
+    ``pos``/``gen``/``quota``/``rids`` are (B,) integer tensors the host
+    uploads each tick; parked rows carry ``pos = cache_len`` so their KV
+    writes drop. A row whose token hits EOS or exhausts its quota flips its
+    done flag and freezes (emission masked, last_tok and pos held) for the
+    rest of the burst. ``key`` is the engine's integer seed.
+
+    Fused prefill (``chunk=W``, ``n_tokens == 1``): the same tick also
+    prefills ONE admitting row's next W-wide prompt chunk: decode rows ride
+    column 0, the admitting row carries ``chunk_toks``/``chunk_pos`` (pads
+    parked at ``cache_len``), and ``emit_col``/``emit_mask`` route sampling
+    to its last real prompt column on its final chunk::
+
+        tick_fn(params, cache, last_tok, done, pos, gen, quota, rids, key,
+                chunk_toks, chunk_pos, admit_slot, emit_col, emit_mask)
+          -> (packed, cache, last_tok, done)
+
+    The counterpart of the reference's donation: the cache and the threaded
+    ``last_tok``/``done`` are updated in place and returned. ``donate=False``
+    works on copies and leaves the inputs as they were. Returns
+    ``(tick_fn, None, None)``, the reference's triple without shardings.
+    """
+    k = n_tokens
+    assert k >= 1, k
+
+    def accept(tok, last_tok, done, gen, quota, emit_mask):
+        """Shared acceptance: which rows emit this step, updated state."""
+        live = (done == 0) & (emit_mask == 1)
+        gen2 = torch.where(live, gen + 1, gen)
+        stop = gen2 >= quota
+        if eos_token_id is not None:
+            stop = stop | (tok == eos_token_id)
+        done2 = torch.where(live & stop, 1, done)
+        last2 = torch.where(live, tok, last_tok)
+        return last2, done2, gen2, live.to(torch.int32)
+
+    def sample(logits, rids, gen, base_key):
+        return select_token_rows(logits, temperature, top_k, base_key, rids, gen, top_p)
+
+    def threaded(cache, last_tok, done):
+        if donate:
+            return cache, last_tok, done
+        return _clone_cache(cache), last_tok.clone(), done.clone()
+
+    if chunk is None:
+        def run(params, cache, last_tok, done, pos, gen, quota, rids, base_key):
+            assert last_tok.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
+            cache, last_tok, done = threaded(cache, last_tok, done)
+            ones = torch.ones_like(done)
+            lt, dn, p, g = last_tok, done, pos.long(), gen
+            toks, emitted = [], []
+            for _ in range(k):
+                logits, cache = tf.forward_with_cache(params, cfg, lt[:, None].long(), cache, p,
+                                                      read_len=read_len)
+                tok = sample(logits[:, 0], rids, g, base_key)
+                lt2, dn2, g, em = accept(tok, lt, dn, g, quota, ones)
+                p = torch.where(dn == 0, p + 1, p)
+                lt, dn = lt2, dn2
+                toks.append(tok)
+                emitted.append(em)
+            packed = torch.cat([torch.stack(toks, dim=1),
+                                torch.stack(emitted, dim=1).sum(dim=1, keepdim=True),
+                                dn[:, None]], dim=1).to(torch.int32)
+            last_tok.copy_(lt)
+            done.copy_(dn)
+            return packed, cache, last_tok, done
+
+        return run, None, None
+
+    assert k == 1, "fused-prefill ticks are single-token (burst admits between bursts " \
+                   "via the separate-prefill path)"
+    W = chunk
+
+    def run(params, cache, last_tok, done, pos, gen, quota, rids, base_key,
+            chunk_toks, chunk_pos, admit_slot, emit_col, emit_mask):
+        assert last_tok.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
+        cache, last_tok, done = threaded(cache, last_tok, done)
+        dev = last_tok.device
+        toks = torch.zeros((batch_size, W), dtype=torch.long, device=dev)
+        toks[:, 0] = last_tok
+        toks[admit_slot] = chunk_toks
+        positions = torch.full((batch_size, W), cache_len, dtype=torch.long, device=dev)
+        positions[:, 0] = pos
+        positions[admit_slot] = chunk_pos
+        logits, cache = tf.forward_with_cache(params, cfg, toks, cache, pos.long(),
+                                              positions=positions, read_len=read_len)
+        col = emit_col.long().view(batch_size, 1, 1).expand(batch_size, 1, logits.shape[-1])
+        tok = sample(logits.gather(1, col)[:, 0], rids, gen, base_key)
+        last2, done2, _, emitted = accept(tok, last_tok, done, gen, quota, emit_mask)
+        packed = torch.stack([tok, emitted, done2], dim=1).to(torch.int32)
+        last_tok.copy_(last2)
+        done.copy_(done2)
+        return packed, cache, last_tok, done
+
+    return run, None, None
+
+
+def compile_row_update_fn(cfg, batch_size: int, donate: bool = True):
+    """Row update of the threaded tick state: admission sets one slot's
+    ``last_tok``/``done`` without reading or rebuilding the (possibly still
+    in flight) tensors: two fills queued behind any tick already on the
+    stream (``fill_`` passes the value to the kernel; an item assignment
+    would copy it up from the host and wait). ``donate`` as
+    :func:`compile_pool_tick_fn`'s. Returns
+    ``set_row(last_tok, done, slot, tok, flag) -> (last_tok, done)``."""
+
+    def set_row(last_tok, done, slot, tok, flag):
+        assert last_tok.shape[0] == batch_size
+        if not donate:
+            last_tok, done = last_tok.clone(), done.clone()
+        last_tok[slot].fill_(tok)
+        done[slot].fill_(flag)
+        return last_tok, done
+
+    return set_row

@@ -160,6 +160,12 @@ class InferenceEngine:
                  f"kv_cache_dtype={cfg.kv_cache_dtype} attn_impl={cfg.attn_impl} "
                  f"device={self.device}", ranks=[0])
 
+    @property
+    def _ring_off_cfg(self):
+        """The model config with the rolling cache off, as the batching
+        engine's slot pools need it: the port has no ring, so its ``cfg``."""
+        return self.cfg
+
     def _tokens(self, input_ids) -> torch.Tensor:
         if torch.is_tensor(input_ids):
             return input_ids.to(self.device, torch.long)

@@ -56,11 +56,28 @@ def slice_kv_time(cache_component, read_len: Optional[int]):
 
 
 def _scatter_index(positions, T: int):
-    """(rows, columns, cache slots) of the new tokens whose positions lie in
-    [0, T); the others drop. Built once for every component a layer writes:
-    one host sync, where boolean indexing would take one per index."""
-    rows, cols = ((positions >= 0) & (positions < T)).nonzero(as_tuple=True)
-    return rows, cols, positions[rows, cols]
+    """(rows, slots, source columns, row has a real column) of the vector-
+    position write, computed on the device with no host sync, so that a
+    CUDA graph can hold it and a pipelined tick never waits.
+
+    Columns whose position lies in [0, T) are real: column (b, s) writes
+    slot ``positions[b, s]``. Every other (parked) column must drop, but a
+    fixed-shape scatter writes every column somewhere. So a parked column
+    writes again what another write of its row writes: the row's first real
+    column, slot and value both; in a row without a real column it writes
+    slot 0's old value back. Two writes to one slot then carry the same
+    bits, whichever lands last, and the cache equals the one that writes
+    the real columns alone. (Real columns of one row never share a slot.)"""
+    B, S = positions.shape
+    positions = positions.long()
+    real = (positions >= 0) & (positions < T)
+    has_real = real.any(dim=1)
+    first = torch.argmax(real.to(torch.int32), dim=1)  # the first real column (argmax: first max)
+    cols = torch.arange(S, device=positions.device)
+    src = torch.where(real, cols[None, :], first[:, None])
+    slots = torch.where(has_real[:, None], positions.gather(1, src), 0)
+    rows = torch.arange(B, device=positions.device)[:, None].expand(B, S)
+    return rows, slots, src, has_real
 
 
 def _write_component(cache, new, pos, scatter):
@@ -71,8 +88,12 @@ def _write_component(cache, new, pos, scatter):
         start = min(max(int(pos), 0), T - S)
         cache[:, start:start + S] = new.to(cache.dtype)
         return cache
-    rows, cols, slots = scatter
-    cache[rows, slots] = new[rows, cols].to(cache.dtype)
+    rows, slots, src, has_real = scatter
+    B, S = src.shape
+    index = src.view(B, S, *([1] * (new.dim() - 2))).expand(B, S, *new.shape[2:])
+    values = torch.where(has_real.view(B, *([1] * (new.dim() - 1))),
+                         new.gather(1, index).to(cache.dtype), cache[:, :1])
+    cache.index_put_((rows, slots), values)
     return cache
 
 

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the flash kernels K1-K3, the block-sparse kernels K4-K6 and the fused norm
-kernels K7-K8; and the int8 decode path's W8A8 product (``int8_linear``,
-cuBLASLt's int8 product through ``torch._int_mm``) and int8 engine.
+kernels K7-K8; the int8 decode path's W8A8 product (``int8_linear``,
+cuBLASLt's int8 product through ``torch._int_mm``) and int8 engine; and the
+continuous-batching engine's ticks, dispatched where a host sync raises.
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -840,3 +841,58 @@ def test_int8_engine_stays_on_the_card():
     assert out.is_cuda and out.shape == (2, 68)
     counts = launch_counts()
     assert counts["flash_fwd"] == 2 and counts["fused_norm_fwd"] == 5 * 4
+
+
+@pytest.mark.parametrize("kv", ["model", "int8"])
+@pytest.mark.parametrize("tokens_per_tick", [4, 1])
+def test_pool_ticks_dispatch_without_a_host_sync(tokens_per_tick, kv):
+    """The continuous-batching engine's ticks never wait on the card: three
+    admissions and two ticks (a burst of 4 after separate-prefill
+    admission, or single-token ticks carrying fused prefill chunks),
+    dispatched under ``torch.cuda.set_sync_debug_mode("error")``, where any
+    synchronizing call raises. A depth of 8 retires nothing in two steps.
+    The results then equal the same requests served before."""
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    _need_card()
+    cfg = ttf.TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+                                max_seq_len=128, dtype="bfloat16", attn_impl="pallas")
+    eng = ContinuousBatchingEngine(ttf.TransformerModel(cfg), config={"kv_cache_dtype": kv},
+                                   max_slots=4, cache_len=96, tokens_per_tick=tokens_per_tick,
+                                   pipeline_depth=8, prefill_chunk=32)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 256, n).astype(np.int32) for n in (20, 45, 7)]
+    for p in prompts:  # the same shapes once, outside the check
+        eng.submit(p, max_new_tokens=9)
+    while eng.has_work():
+        eng.step()
+    want = eng.finished()
+    rids = [eng.submit(p, max_new_tokens=9) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(eng._inflight) == 2 and not eng.poisoned
+    assert (eng.tick_stats()["fused_prefill_ticks"] > 0) == (tokens_per_tick == 1)
+    while eng.has_work():
+        eng.step()
+    got = eng.finished()
+    for r, w in zip(rids, sorted(want)):
+        np.testing.assert_array_equal(got[r], want[w])
+
+
+def test_keyed_uniforms_on_the_card_equal_the_cpu():
+    """The serving sampler's noise is integer hashing in int64 tensor ops:
+    the same bits on both devices."""
+    from deepspeed_tpu_torch.inference import decoding as tdec
+
+    _need_card()
+    rids = torch.arange(16).repeat_interleave(4)
+    gens = torch.tensor([0, 1, 64, 2 ** 31 - 1]).repeat(16)
+    cpu = tdec.request_uniforms(2 ** 40 + 5, rids, gens, 50257)
+    card = tdec.request_uniforms(2 ** 40 + 5, rids.cuda(), gens.cuda(), 50257)
+    assert torch.equal(card.cpu(), cpu)
