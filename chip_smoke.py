@@ -35,6 +35,15 @@ backward):
     ``pipeline_depth`` 0 and 1, each request against its own single-row
     ``generate``, ticks dispatched where a host sync raises
     (``serve_pool``; ``--serve-pool`` runs this phase alone);
+  - speculative decoding (``--spec`` runs these phases alone): the draft
+    probe of ``bench_decode`` (GPT-2 350M target, a 4-layer draft of the
+    same preset, B 8 x 128 + 128 greedy, gamma 2/4/8, plain ``generate`` as
+    the yardstick; ``spec_generate``) and the speculative pool of
+    ``bench_serving`` (GPT-2 125M, ngram at gamma 2/4/8, then a 3-layer
+    draft at the best gamma, the plain single-token pool as the yardstick,
+    a self-draft pool's acceptance, spec ticks dispatched where a host sync
+    raises; ``serve_pool_spec``), each stream held to plain greedy under
+    the bf16 tie rule;
   - training (``deepspeed_tpu_torch.initialize`` -> ``forward`` /
     ``backward`` / ``step``) on GPT-2 125M at full width and depth, seq
     1024, micro-batch 8, bf16, flash attention, AdamW: 2 warm-up and 10
@@ -1283,6 +1292,161 @@ def ragged_chunked_phase(gen, card):
     return counts
 
 
+SERVE_REQUESTS, SERVE_NEW = 32, 64
+# the speculative phases profile a window (the first requests of a
+# schedule, a few rounds of a generate): the profiler's cost grows with the
+# launches it records
+PROFILED_REQUESTS, PROFILED_NEW = 4, (6, 18)
+# the draft mode's depth-0 replay and the self-draft pool take the first
+# requests of the schedule
+DEPTH0_DRAFT_REQUESTS, SELF_DRAFT_REQUESTS = 8, 16
+
+
+def serving_schedule(vocab_size):
+    """``bench_serving``'s arrival schedule: 32 requests of 64 new tokens,
+    prompts of 32-128 tokens (``RandomState(7)``; tokens from
+    ``RandomState(0)``), two arriving a step: [(step, prompt, new)]."""
+    import numpy as np
+
+    rs = np.random.RandomState(7)
+    arrivals = [(t // 2, int(rs.randint(32, 129)), SERVE_NEW) for t in range(SERVE_REQUESTS)]
+    rs = np.random.RandomState(0)
+    return [(t, rs.randint(0, vocab_size, (n,)).astype(np.int32), new) for t, n, new in arrivals]
+
+
+def warm_pool(eng, queue, cache_len):
+    """Warm a batching engine as the bench's build_engine and run_spec do:
+    the tick family, then one request a prompt bucket (the admission
+    prefills). Returns (tick functions warmed, seconds)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference import decoding as dec
+
+    t0 = time.perf_counter()
+    programs = eng.precompile_tick_programs()
+    for b in sorted({dec.read_bucket(int(p.size), cache_len) for _, p, _ in queue}):
+        eng.submit(np.zeros(b, np.int32), max_new_tokens=4)
+    while eng.has_work():
+        eng.step()
+    eng.finished()
+    torch.cuda.synchronize()
+    return programs, time.perf_counter() - t0
+
+
+def replay_schedule(eng, queue, depth):
+    """One replay of an arrival schedule [(step, prompt, new)] through a
+    batching engine at a pipeline depth, as ``bench_serving``'s run_serve;
+    returns the row of host and token counts and each request's result.
+    Request i takes rid i in every replay: the rid is part of a sampled
+    token's key."""
+    import numpy as np
+
+    eng.pipeline_depth = depth
+    stats0 = dict(eng._tick_stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, done_tokens, completed = 0, 0, 0
+    pending, rid_of, results = list(range(len(queue))), {}, {}
+    while pending or eng.has_work():
+        for i in [i for i in pending if queue[i][0] <= step]:
+            rid_of[i] = eng.submit(queue[i][1], max_new_tokens=queue[i][2], rid=i)
+        pending = [i for i in pending if queue[i][0] > step]
+        done_tokens += sum(len(v) for v in eng.step().values())
+        finished = eng.finished()
+        completed += len(finished)
+        results.update(finished)
+        step += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats1 = eng._tick_stats
+    delta = {k: stats1[k] - stats0[k] for k in ("block_ms", "dispatch_ms", "ticks",
+                                                 "wasted_tokens", "spec_drafted",
+                                                 "spec_accepted")}
+    block, dispatch = delta["block_ms"], delta["dispatch_ms"]
+    row = {"tokens_per_s": done_tokens / wall, "tokens": done_tokens,
+           "completed": completed, "steps": step, "ticks": delta["ticks"], "wall_s": wall,
+           "tick_dispatch_ms": dispatch, "tick_block_ms": block,
+           "block_ms_per_token": block / done_tokens if done_tokens else None,
+           "overlap_frac": 1.0 - block / (dispatch + block) if dispatch + block else None,
+           "wasted_tokens": delta["wasted_tokens"]}
+    if eng.spec_gamma:
+        row.update(spec_drafted=delta["spec_drafted"], spec_accepted=delta["spec_accepted"],
+                   spec_acceptance=(delta["spec_accepted"] / delta["spec_drafted"]
+                                    if delta["spec_drafted"] else None))
+    return row, [results.get(rid_of.get(i)) for i in range(len(queue))]
+
+
+def profiled_replay(eng, queue, depth, row, what, window=None):
+    """The device's kernel time and launches a tick from one profiled replay
+    of the schedule (or of its first ``window`` requests, which keeps the
+    profile short), and the idle share of the unprofiled replay ``row``:
+    1 - device ms a tick x its ticks / its wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prow, _ = replay_schedule(eng, queue[:window], depth)
+    kernels = device_kernels(prof)
+    device_s, launches = sum(t for _, t, _ in kernels), sum(c for _, _, c in kernels)
+    measured = device_s > 0
+    check(measured, f"{what}: the profiler saw no device kernel")
+    per_tick = device_s / prow["ticks"]
+    return dict(
+        device_ms_per_tick=per_tick * 1e3 if measured else "not measured",
+        launches_per_tick=launches / prow["ticks"],
+        device_idle_share=(1 - per_tick * row["ticks"] / row["wall_s"]) if measured
+        else "not measured",
+        profiled_requests=len(queue[:window]), profiled_replay_wall_s=prow["wall_s"],
+        device_ms_by_category={c: v["device_s"] * 1e3 for c, v in by_category(kernels).items()})
+
+
+def teacher_forced_logits(params, cfg, floor, row, gen_toks):
+    """A single row's own logits for each of its tokens as ``generate``
+    computes them: its prefill, then its decode steps teacher-forced, at its
+    read geometry. (row: the prompt, numpy; gen_toks: the generated tokens,
+    a CUDA tensor.)"""
+    from deepspeed_tpu_torch.inference import decoding as dec
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    S, T = row.size, cfg.max_seq_len
+    with torch.inference_mode():
+        c = tf.init_cache(cfg, 1, T, "cuda")
+        lg, c = tf.forward_with_cache(params, cfg, torch.from_numpy(row[None]).long().cuda(), c,
+                                      0, last_only=True)
+        out, pos, j = [lg[0, -1]], S, 0
+        for read_len, n in dec.read_stages(S, len(gen_toks) - 1, T, floor):
+            for _ in range(n):
+                st, c = tf.forward_with_cache(params, cfg, gen_toks[None, j:j + 1].long(), c, pos,
+                                              read_len=read_len)
+                out.append(st[0, -1])
+                pos, j = pos + 1, j + 1
+    return torch.stack(out).float()
+
+
+def stream_agreement(got, want, prompt, margins_of, what):
+    """Compare a generated stream with the one it must equal: equal, or the
+    first difference at a step whose ``want`` top-2 margin (from
+    ``margins_of()``, a (new,) tensor) is under 2 LOGITS_TOL, the bf16 tie
+    rule."""
+    import numpy as np
+
+    got, want = np.asarray(got)[prompt.size:], np.asarray(want)[prompt.size:]
+    diff = np.nonzero(got != want)[0]
+    entry = {"len": int(prompt.size), "equal": not diff.size}
+    if diff.size:
+        j = int(diff[0])
+        margin = float(margins_of()[j])
+        entry.update(first_diff_step=j, margin=margin)
+        check(margin < 2 * LOGITS_TOL,
+              f"{what}: a stream of a {prompt.size}-token prompt differs at step {j}, "
+              f"margin {margin} >= {2 * LOGITS_TOL}")
+    return entry
+
+
+def top2_margins(logits):
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).cpu()
+
+
 def serve_pool_phase(gen, card):
     """The continuous-batching serving tick (``ContinuousBatchingEngine``) in
     ``bench_serving``'s geometry (the JAX package's ``_bench_impl.py:608-
@@ -1310,7 +1474,6 @@ def serve_pool_phase(gen, card):
     two measured serves."""
     import numpy as np
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
     from deepspeed_tpu_torch.inference import decoding as dec
@@ -1318,85 +1481,22 @@ def serve_pool_phase(gen, card):
     from deepspeed_tpu_torch.ops import fused_norm as fnorm
     from deepspeed_tpu_torch.ops import op_builder
 
-    SLOTS, CACHE, BURST, NEW, N_REQ = 8, 256, 4, 64, 32
+    SLOTS, CACHE, BURST, NEW, N_REQ = 8, 256, 4, SERVE_NEW, SERVE_REQUESTS
     model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", max_seq_len=1024)
     L, V, D = model.cfg.num_layers, model.cfg.vocab_size, model.cfg.hidden_size
     params = tf.map_params(lambda p: p.to(torch.bfloat16), model.init(gen))
     config = {"dtype": "bfloat16", "attn_impl": "pallas"}
-    rs = np.random.RandomState(7)
-    arrivals = [(t // 2, int(rs.randint(32, 129)), NEW) for t in range(N_REQ)]
-    rs = np.random.RandomState(0)
-    queue = [(t, rs.randint(0, V, (n,)).astype(np.int32), new) for t, n, new in arrivals]
+    queue = serving_schedule(V)
 
     def build(**kwargs):
-        """An engine warmed as the bench's build_engine: the tick family,
-        then one request a prompt bucket (the admission prefills)."""
+        """An engine warmed as the bench's build_engine."""
         kwargs.setdefault("tokens_per_tick", BURST)
         eng = ContinuousBatchingEngine(model, config=config, params=params, max_slots=SLOTS,
                                        cache_len=CACHE, **kwargs)
-        t0 = time.perf_counter()
-        programs = eng.precompile_tick_programs()
-        for b in sorted({dec.read_bucket(int(p.size), CACHE) for _, p, _ in queue}):
-            eng.submit(np.zeros(b, np.int32), max_new_tokens=4)
-        while eng.has_work():
-            eng.step()
-        eng.finished()
-        torch.cuda.synchronize()
-        return eng, programs, time.perf_counter() - t0
+        return (eng, *warm_pool(eng, queue, CACHE))
 
     def run_serve(eng, depth):
-        """One replay of the arrival schedule at a pipeline depth, as the
-        bench's run_serve; also returns each request's result. Request i
-        takes rid i in every replay: the rid is part of a sampled token's
-        key."""
-        eng.pipeline_depth = depth
-        stats0 = dict(eng._tick_stats)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step, done_tokens, completed = 0, 0, 0
-        pending, rid_of, results = list(range(len(queue))), {}, {}
-        while pending or eng.has_work():
-            for i in [i for i in pending if queue[i][0] <= step]:
-                rid_of[i] = eng.submit(queue[i][1], max_new_tokens=queue[i][2], rid=i)
-            pending = [i for i in pending if queue[i][0] > step]
-            done_tokens += sum(len(v) for v in eng.step().values())
-            finished = eng.finished()
-            completed += len(finished)
-            results.update(finished)
-            step += 1
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        stats1 = eng._tick_stats
-        block = stats1["block_ms"] - stats0["block_ms"]
-        dispatch = stats1["dispatch_ms"] - stats0["dispatch_ms"]
-        row = {"tokens_per_s": done_tokens / wall, "tokens": done_tokens,
-               "completed": completed, "steps": step,
-               "ticks": stats1["ticks"] - stats0["ticks"], "wall_s": wall,
-               "tick_dispatch_ms": dispatch, "tick_block_ms": block,
-               "block_ms_per_token": block / done_tokens if done_tokens else None,
-               "overlap_frac": 1.0 - block / (dispatch + block) if dispatch + block else None,
-               "wasted_tokens": stats1["wasted_tokens"] - stats0["wasted_tokens"]}
-        return row, [results.get(rid_of.get(i)) for i in range(len(queue))]
-
-    def solo_logits(eng, row, gen_toks):
-        """The single-row ``generate``'s own logits for each of its tokens:
-        its prefill, then its decode steps teacher-forced, at its read
-        geometry."""
-        S, T = row.size, eng.cfg.max_seq_len
-        with torch.inference_mode():
-            c = tf.init_cache(eng.cfg, 1, T, "cuda")
-            lg, c = tf.forward_with_cache(eng._eng.params, eng.cfg,
-                                          torch.from_numpy(row[None]).long().cuda(), c, 0,
-                                          last_only=True)
-            out, pos, j = [lg[0, -1]], S, 0
-            for read_len, n in dec.read_stages(S, len(gen_toks) - 1, T, eng._eng._tight_floor()):
-                for _ in range(n):
-                    st, c = tf.forward_with_cache(eng._eng.params, eng.cfg,
-                                                  gen_toks[None, j:j + 1].long(), c, pos,
-                                                  read_len=read_len)
-                    out.append(st[0, -1])
-                    pos, j = pos + 1, j + 1
-        return torch.stack(out).float()
+        return replay_schedule(eng, queue, depth)
 
     eng, programs, warm_s = build()
     counts, rows, streams = {}, {}, {}
@@ -1422,20 +1522,8 @@ def serve_pool_phase(gen, card):
     # one profiled replay a depth: the device's kernel time and launches a
     # tick, and its idle share of the unprofiled serve's wall
     for depth in (0, 1):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            prow, _ = run_serve(eng, depth)
-        kernels = device_kernels(prof)
-        device_s, launches = sum(t for _, t, _ in kernels), sum(c for _, _, c in kernels)
-        measured = device_s > 0
-        rows[depth].update(
-            device_ms_per_tick=device_s * 1e3 / prow["ticks"] if measured else "not measured",
-            launches_per_tick=launches / prow["ticks"],
-            device_idle_share=(1 - device_s / rows[depth]["wall_s"]) if measured
-            else "not measured",
-            profiled_replay_wall_s=prow["wall_s"],
-            device_ms_by_category={c: v["device_s"] * 1e3
-                                   for c, v in by_category(kernels).items()})
-        check(measured, f"serve_pool depth {depth}: the profiler saw no device kernel")
+        rows[depth].update(profiled_replay(eng, queue, depth, rows[depth],
+                                           f"serve_pool depth {depth}"))
         emit({"phase": "serve_pool", "model": "gpt2-125m", "dtype": "bfloat16", "slots": SLOTS,
               "cache_len": CACHE, "tokens_per_tick": BURST, "requests": N_REQ,
               "new_tokens": NEW, "pipeline_depth": depth, "tick_programs": programs,
@@ -1453,7 +1541,8 @@ def serve_pool_phase(gen, card):
         entry = {"len": int(p.size), "equal": not diff.size}
         if diff.size:
             j = int(diff[0])
-            top2 = solo_logits(eng, p, torch.from_numpy(want).cuda())[j].topk(2).values
+            top2 = teacher_forced_logits(eng._eng.params, eng.cfg, eng._eng._tight_floor(), p,
+                                         torch.from_numpy(want).cuda())[j].topk(2).values
             margin = float(top2[0] - top2[1])
             entry.update(first_diff_step=j, solo_margin=margin)
             check(margin < 2 * LOGITS_TOL,
@@ -1551,6 +1640,346 @@ def serve_pool_phase(gen, card):
     return counts, k7
 
 
+@contextlib.contextmanager
+def counted_rounds(dec):
+    """Record each speculative round's (active rows, accepted drafts) by
+    wrapping the loop's host acceptance (``decoding._accept_round``, which
+    the loop looks up by name each round)."""
+    rounds, accept = [], dec._accept_round
+
+    def counted(drafts, active, *args, **kwargs):
+        out = accept(drafts, active, *args, **kwargs)
+        rounds.append((int(active.sum()), int(out[0].sum())))
+        return out
+
+    dec._accept_round = counted
+    try:
+        yield rounds
+    finally:
+        dec._accept_round = accept
+
+
+def spec_generate_phase(gen, card):
+    """``bench_decode``'s draft probe (the JAX package's ``_bench_impl.py:535-
+    577``) through ``init_inference(draft_model=)`` -> ``generate``: the GPT-2
+    350M bf16 target of the serving phase (weights from seed 0, flash
+    attention, ``max_out_tokens`` 256) and a draft of the same preset at 4
+    layers, B 8 x 128 + 128 greedy, at gamma 2, 4 and 8; plain ``generate``
+    on the same weights is the yardstick, in the same call. For each gamma
+    (``spec_generate``): the wall, new tokens/s and the speedup over plain,
+    the rounds, the acceptance (drafts accepted over drafts proposed to
+    active rows), device ms and launches a round from two short profiled
+    calls (8 and 24 new tokens: their difference over the rounds'), the idle
+    share (1 - device ms a round x rounds / the unprofiled wall), and
+    K1/K7/K8 launches. Checks:
+    K1 launches once a layer for each prefill (24 + 4), K7 (2L + 1) a
+    forward of either model ((1 + rounds) target forwards, 1 + rounds x
+    (gamma + 1) draft ones), K8 never; each stream equals plain greedy or
+    first differs at a step whose plain top-2 margin is under 2 LOGITS_TOL
+    (the single-row teacher-forced logits). Then the target as its own
+    draft at gamma 4, under the same rule (``spec_generate_self``). Returns
+    the launch counts of the three measured calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import decoding as dec
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import op_builder
+
+    B, P, NEW, CACHE, GAMMAS = 8, 128, 128, 256, (2, 4, 8)
+    model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16")
+    draft_model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16", num_layers=4,
+                                                  attn_impl="pallas")
+    base = {"dtype": "bfloat16", "attn_impl": "pallas", "max_out_tokens": CACHE}
+    eng = deepspeed_tpu_torch.init_inference(
+        model, config={**base, "speculative": {"enabled": True, "mode": "draft",
+                                               "num_draft_tokens": GAMMAS[0]}},
+        draft_model=draft_model, seed=0)
+    plain = deepspeed_tpu_torch.init_inference(model, config=base, params=eng.params)
+    L, Ld, V = eng.cfg.num_layers, eng._draft_engine.cfg.num_layers, eng.cfg.vocab_size
+    toks = torch.randint(0, V, (B, P), generator=gen, device="cuda")
+    rows_np = toks.cpu().numpy()
+
+    plain.generate(toks, max_new_tokens=NEW)  # warm-up
+    plain_wall = generate_wall(plain, toks, NEW)[0]
+    want = plain.generate(toks, max_new_tokens=NEW).cpu().numpy()
+    margins = {}
+
+    def margins_of(b):
+        def get():
+            if b not in margins:
+                margins[b] = top2_margins(teacher_forced_logits(
+                    plain.params, plain.cfg, plain._tight_floor(), rows_np[b],
+                    torch.from_numpy(want[b, P:]).cuda()))
+            return margins[b]
+        return get
+
+    def agreement(out, what):
+        return [stream_agreement(out[b], want[b], rows_np[b], margins_of(b), what)
+                for b in range(B)]
+
+    def spec_call(engine, gamma, new=NEW, **kwargs):
+        with counted_rounds(dec) as rounds:
+            out = engine.generate(toks, max_new_tokens=new, num_draft_tokens=gamma, **kwargs)
+            torch.cuda.synchronize()
+        active = sum(a for a, _ in rounds)
+        return out, {"rounds": len(rounds), "drafted": gamma * active,
+                     "accepted": sum(n for _, n in rounds),
+                     "acceptance": sum(n for _, n in rounds) / (gamma * active) if active else None}
+
+    emit({"phase": "spec_generate_plain", "model": "gpt2-350m", "batch": B, "prompt": P,
+          "new_tokens": NEW, "cache_len": CACHE, "generate_s": plain_wall,
+          "new_tokens_per_s": B * NEW / plain_wall, "card": card})
+    counts = {}
+    def profiled_round(gamma):
+        """Device ms, launches and kernel categories a round: two profiled
+        calls of PROFILED_NEW new tokens, (long - short) / their rounds'
+        difference, so the prefills cancel."""
+        got = []
+        for new in PROFILED_NEW:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, acc = spec_call(eng, gamma, new=new)
+            kernels = device_kernels(prof)
+            got.append((sum(t for _, t, _ in kernels), sum(c for _, _, c in kernels),
+                        acc["rounds"], by_category(kernels)))
+        (d0, n0, r0, c0), (d1, n1, r1, c1) = got
+        rounds = max(r1 - r0, 1)
+        return ((d1 - d0) / rounds if d1 > 0 else None, (n1 - n0) / rounds,
+                {c: (v["device_s"] - c0.get(c, {"device_s": 0.0})["device_s"]) * 1e3 / rounds
+                 for c, v in c1.items()})
+
+    for gamma in GAMMAS:
+        spec_call(eng, gamma, new=4)  # warm-up: the round shapes
+        op_builder.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, acc = spec_call(eng, gamma)
+        wall = time.perf_counter() - t0
+        launched = op_builder.launch_counts()
+        for k, c in launched.items():
+            counts[k] = counts.get(k, 0) + c
+        R = acc["rounds"]
+        k1, k7, k8 = (launched[k] for k in ("flash_fwd", "fused_norm_fwd", "fused_norm_bwd"))
+        k7_want = (2 * L + 1) * (1 + R) + (2 * Ld + 1) * (1 + R * (gamma + 1))
+        check(k1 == L + Ld and k7 == k7_want and k8 == 0,
+              f"spec_generate gamma {gamma}: K1/K7/K8 launched {k1}/{k7}/{k8} times, "
+              f"expected {L + Ld}/{k7_want}/0")
+        out = out.cpu().numpy()
+        check(out.shape == (B, P + NEW) and bool(((out >= 0) & (out < V)).all()),
+              f"spec_generate gamma {gamma}: output shape {out.shape} / range")
+        agree = agreement(out, f"spec_generate gamma {gamma}")
+        device_s, launches, categories = profiled_round(gamma)
+        measured = device_s is not None
+        check(measured, f"spec_generate gamma {gamma}: the profiler saw no device kernel")
+        emit({"phase": "spec_generate", "gamma": gamma, "draft": "gpt2-350m, 4 layers",
+              "batch": B, "prompt": P, "new_tokens": NEW, "generate_s": wall,
+              "new_tokens_per_s": B * NEW / wall, "speedup_vs_plain": plain_wall / wall,
+              **acc, "tokens_per_round_per_row": (NEW - 1) / R,
+              "device_ms_per_round": device_s * 1e3 if measured else "not measured",
+              "launches_per_round": launches,
+              "device_idle_share": 1 - device_s * R / wall if measured else "not measured",
+              "device_ms_by_category_per_round": categories,
+              "k1_launches": k1, "k7_launches": k7, "k8_launches": k8,
+              "streams_equal_to_plain": sum(e["equal"] for e in agree), "rows": agree,
+              "tie_margin": 2 * LOGITS_TOL, "card": card})
+    out, acc = spec_call(plain, 4, draft=plain)
+    agree = agreement(out.cpu().numpy(), "spec_generate_self")
+    emit({"phase": "spec_generate_self", "gamma": 4, "draft": "the target itself", **acc,
+          "streams_equal_to_plain": sum(e["equal"] for e in agree), "rows": agree,
+          "card": card})
+    del eng, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_pool_spec_phase(gen, card):
+    """``bench_serving``'s speculative pool (the JAX package's
+    ``_bench_impl.py:767-840``): GPT-2 125M bf16 at full width and depth
+    (flash asked for, vector positions keep K1 off), 8 slots of cache 256,
+    ``tokens_per_tick=1``, the 32-request schedule of ``serve_pool``. Runs:
+    ngram at gamma 2, 4 and 8, then draft mode (``gpt2-125m`` at 3 layers,
+    weights from seed 1) at the best ngram gamma, each warmed as the bench's
+    run_spec warms it; the plain pool at ``tokens_per_tick=1`` is the
+    yardstick, in the same call. For each (``serve_pool_spec``): tokens/s
+    at depth 1 and 0, the acceptance, device ms and launches a tick from one
+    profiled replay of the schedule's first 4 requests, the idle share (1 -
+    device ms a tick x ticks / the unprofiled wall), K1/K7/K8 launches. Checks: every
+    request completes; the streams at depths 0 and 1 are equal (draft mode:
+    a depth-0 replay of the first 8 requests), and each
+    equals the plain pool's or first differs at a step whose single-row
+    top-2 margin is under 2 LOGITS_TOL; K7 launches 25 a target forward (a
+    tick, a fused prompt chunk), plus 7 a draft forward (gamma + 1 a tick,
+    one prefill a request) in draft mode, K1 and K8 never. Then the target
+    as its own draft at gamma 4 over the first 16 requests, whose
+    acceptance must reach 0.9
+    (``serve_pool_spec_self``), and a spec tick of each mode, fused and
+    separate admission included, dispatched where a host sync raises
+    (``serve_pool_spec_sync``). Returns the launch counts of the measured
+    speculative serves."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import op_builder
+
+    SLOTS, CACHE, GAMMAS = 8, 256, (2, 4, 8)
+    model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", max_seq_len=1024)
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    params = tf.map_params(lambda p: p.to(torch.bfloat16), model.init(gen))
+    draft_model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16",
+                                                  max_seq_len=1024, num_layers=3)
+    draft_params = tf.map_params(lambda p: p.to(torch.bfloat16), draft_model.init(
+        torch.Generator(device="cuda").manual_seed(1)))
+    Ld = draft_model.cfg.num_layers
+    queue = serving_schedule(V)
+
+    def build(gamma=None, mode=None, **kwargs):
+        config = {"dtype": "bfloat16", "attn_impl": "pallas"}
+        if gamma is not None:
+            config["speculative"] = {"enabled": True, "pool": True, "mode": mode,
+                                     "num_draft_tokens": gamma}
+        if mode == "draft":
+            kwargs.setdefault("draft_model", draft_model)
+            kwargs.setdefault("draft_params", draft_params)
+        eng = ContinuousBatchingEngine(model, config=config, params=params, max_slots=SLOTS,
+                                       cache_len=CACHE, tokens_per_tick=1, **kwargs)
+        return (eng, *warm_pool(eng, queue, CACHE))
+
+    eng, _, _ = build()
+    plain_row, plain_streams = replay_schedule(eng, queue, 1)
+    plain_row.update(profiled_replay(eng, queue, 1, plain_row, "serve_pool_spec plain",
+                                     window=PROFILED_REQUESTS))
+    margins = {}
+
+    def margins_of(i):
+        def get():
+            if i not in margins:
+                margins[i] = top2_margins(teacher_forced_logits(
+                    eng._eng.params, eng.cfg, eng._eng._tight_floor(), queue[i][1],
+                    torch.from_numpy(plain_streams[i][queue[i][1].size:]).cuda()))
+            return margins[i]
+        return get
+
+    def agreement(streams, what):
+        complete = all(s is not None and s.size == q[1].size + q[2]
+                       for s, q in zip(streams, queue))
+        check(complete, f"{what}: not every request completed with {SERVE_NEW} new tokens")
+        if not complete:
+            return []
+        return [stream_agreement(s, w, q[1], margins_of(i), what)
+                for i, (s, w, q) in enumerate(zip(streams, plain_streams, queue))]
+
+    emit({"phase": "serve_pool_spec_plain", "model": "gpt2-125m", "slots": SLOTS,
+          "cache_len": CACHE, "tokens_per_tick": 1, "requests": len(queue),
+          "pipeline_depth": 1, **plain_row, "card": card})
+
+    counts, best = {}, None
+    plan = [(g, "ngram") for g in GAMMAS]
+    while plan:
+        gamma, mode = plan.pop(0)
+        what = f"serve_pool_spec {mode} gamma {gamma}"
+        spec, programs, warm_s = build(gamma, mode)
+        rows, streams = {}, {}
+        for depth in (1, 0):
+            # the draft mode's depth-0 replay takes the first requests only:
+            # its rounds cost the most host time
+            q = queue[:DEPTH0_DRAFT_REQUESTS] if depth == 0 and mode == "draft" else queue
+            op_builder.reset_launch_counts()
+            rows[depth], streams[depth] = replay_schedule(spec, q, depth)
+            launched = op_builder.launch_counts()
+            for k, c in launched.items():
+                counts[k] = counts.get(k, 0) + c
+            ticks = rows[depth]["ticks"]
+            k7_want = (2 * L + 1) * (ticks + sum(1 for _, p, _ in q if p.size > 1))
+            if mode == "draft":
+                k7_want += (2 * Ld + 1) * ((gamma + 1) * ticks + len(q))
+            k1, k7, k8 = (launched[k] for k in ("flash_fwd", "fused_norm_fwd", "fused_norm_bwd"))
+            check(k1 == 0 and k7 == k7_want and k8 == 0,
+                  f"{what} depth {depth}: K1/K7/K8 launched {k1}/{k7}/{k8} times, "
+                  f"expected 0/{k7_want}/0")
+            rows[depth].update(k1_launches=k1, k7_launches=k7, k8_launches=k8)
+        same = all(a is not None and b is not None and np.array_equal(a, b)
+                   for a, b in zip(streams[0], streams[1]))
+        check(same, f"{what}: the streams at depth 0 and depth 1 differ")
+        agree = agreement(streams[1], what)
+        rows[1].update(profiled_replay(spec, queue, 1, rows[1], what, window=PROFILED_REQUESTS))
+        emit({"phase": "serve_pool_spec", "mode": mode, "gamma": gamma,
+              "draft": "gpt2-125m, 3 layers, seed 1" if mode == "draft" else None,
+              "tick_programs": programs, "warmup_s": warm_s, **rows[1],
+              "speedup_vs_plain": rows[1]["tokens_per_s"] / plain_row["tokens_per_s"],
+              "depth0": {k: rows[0][k] for k in ("tokens_per_s", "completed", "wall_s", "ticks",
+                                                 "spec_acceptance", "tick_block_ms")},
+              "depths_equal": same, "equal_to_plain": sum(e["equal"] for e in agree),
+              "streams": [e for e in agree if not e["equal"]], "card": card})
+        if mode == "ngram" and (best is None or rows[1]["tokens_per_s"] > best[1]):
+            best = (gamma, rows[1]["tokens_per_s"])
+        if not plan and mode == "ngram":
+            plan.append((best[0], "draft"))
+        del spec
+        torch.cuda.empty_cache()
+
+    # the target as its own draft: greedy proposals the target would emit
+    spec, _, _ = build(4, "draft", draft_model=model, draft_params=params)
+    row, streams = replay_schedule(spec, queue[:SELF_DRAFT_REQUESTS], 1)
+    agree = agreement(streams, "serve_pool_spec_self")
+    check(row["spec_acceptance"] is not None and row["spec_acceptance"] >= 0.9,
+          f"serve_pool_spec_self: acceptance {row['spec_acceptance']} < 0.9")
+    emit({"phase": "serve_pool_spec_self", "gamma": 4, "draft": "the target itself", **row,
+          "equal_to_plain": sum(e["equal"] for e in agree), "card": card})
+    del spec, eng
+    torch.cuda.empty_cache()
+
+    # spec ticks of both modes, with their admissions, where any host sync
+    # raises: a depth of 8 retires nothing in two steps
+    sync_rows = []
+    for mode in ("ngram", "draft"):
+        for fused in (True, False):
+            kw = {"draft_model": draft_model, "draft_params": draft_params} if mode == "draft" \
+                else {}
+            config = {"dtype": "bfloat16", "attn_impl": "pallas",
+                      "speculative": {"enabled": True, "pool": True, "mode": mode,
+                                      "num_draft_tokens": 4}}
+            seng = ContinuousBatchingEngine(model, config=config, params=params,
+                                            max_slots=SLOTS, cache_len=CACHE, pipeline_depth=8,
+                                            fused_prefill=fused, **kw)
+            prompts = [q[1] for q in queue[:3]]
+            for p in prompts:  # warm the same shapes first
+                seng.submit(p, max_new_tokens=8)
+            while seng.has_work():
+                seng.step()
+            want = seng.finished()
+            rids = [seng.submit(p, max_new_tokens=8) for p in prompts]
+            torch.cuda.synchronize()
+            error = None
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(2):
+                    seng.step()
+            except RuntimeError as e:
+                error = str(e)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            inflight = len(seng._inflight)
+            check(error is None and inflight == 2,
+                  f"serve_pool_spec_sync {mode} fused={fused}: {inflight} ticks in flight, "
+                  f"sync error {error}")
+            if error is None:
+                while seng.has_work():
+                    seng.step()
+                got = seng.finished()
+                check(all(np.array_equal(got[r], want[w]) for r, w in zip(rids, sorted(want))),
+                      f"serve_pool_spec_sync {mode} fused={fused}: the results differ from the "
+                      f"same requests served before")
+            sync_rows.append({"mode": mode, "fused_prefill": fused, "steps_dispatched": 2,
+                              "ticks_in_flight": inflight,
+                              "fused_prefill_ticks": seng.tick_stats()["fused_prefill_ticks"],
+                              "sync_error": error})
+            del seng
+    emit({"phase": "serve_pool_spec_sync", "runs": sync_rows, "card": card})
+    torch.cuda.empty_cache()
+    return counts
+
+
 def smi_card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1597,6 +2026,26 @@ def serve_pool_main():
     card = smi_card()
     build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
     serve_pool_phase(torch.Generator(device="cuda").manual_seed(0), card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
+def spec_main():
+    """``python3 chip_smoke.py --spec``: the speculative phases alone
+    (``spec_generate*`` and ``serve_pool_spec*``; no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    spec_generate_phase(gen, card)
+    serve_pool_spec_phase(gen, card)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
     return 1 if failures else 0
@@ -2107,6 +2556,13 @@ def main():
     # geometry, pipeline depths 0 and 1, counted from 0 over both serves
     pool_counts, pool_k7 = serve_pool_phase(gen, card)
     torch.cuda.empty_cache()
+    # ---- speculative decoding: bench_decode's draft probe (GPT-2 350M) and
+    # bench_serving's speculative pool (GPT-2 125M), each counted from 0
+    spec_counts = spec_generate_phase(gen, card)
+    pool_spec_counts = serve_pool_spec_phase(gen, card)
+    check(spec_counts.get("flash_fwd", 0) > 0 and spec_counts.get("fused_norm_fwd", 0) > 0
+          and pool_spec_counts.get("fused_norm_fwd", 0) > 0,
+          "speculative paths: K1 never launched on serve_spec or K7 on one of the two")
 
     # ---- the training path: GPT-2 125M, seq 1024, micro-batch 8, bf16, flash
     # attention, no remat, with the JAX package's bench config
@@ -2491,6 +2947,8 @@ def main():
                    "serve_int8": int8_counts.get(kname, 0),
                    "serve_ragged": ragged_counts.get(kname, 0),
                    "serve_pool": pool_counts.get(kname, 0),
+                   "serve_spec": spec_counts.get(kname, 0),
+                   "serve_pool_spec": pool_spec_counts.get(kname, 0),
                    "train": train_counts.get(kname, 0),
                    "train_sparse": sparse_counts.get(kname, 0),
                    "fused_ops": fused_counts.get(kname, 0)}
@@ -2566,5 +3024,6 @@ def main():
 
 
 if __name__ == "__main__":
-    ENTRIES = {("--decode-step",): decode_step_main, ("--serve-pool",): serve_pool_main}
+    ENTRIES = {("--decode-step",): decode_step_main, ("--serve-pool",): serve_pool_main,
+               ("--spec",): spec_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

@@ -9,12 +9,14 @@ its module paths and never imports it (nor JAX). Entry points run on
 from deepspeed_tpu_torch.version import __version__
 
 
-def init_inference(model, config=None, params=None, device=None, seed: int = 0):
+def init_inference(model, config=None, params=None, device=None, seed: int = 0,
+                   draft_model=None, draft_params=None):
     """Reference: ``deepspeed_tpu.init_inference``. Imported on call, so
     ``import deepspeed_tpu_torch`` stays light."""
     from deepspeed_tpu_torch.inference.engine import init_inference as _init
 
-    return _init(model, config=config, params=params, device=device, seed=seed)
+    return _init(model, config=config, params=params, device=device, seed=seed,
+                 draft_model=draft_model, draft_params=draft_params)
 
 
 def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None,

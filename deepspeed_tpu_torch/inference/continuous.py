@@ -52,8 +52,18 @@ Tight-read ticks (engine config ``kv_tight_read``, default on): every tick
 attends a bucketed ACTIVE length. ``tick_stats()`` reports dispatch and
 blocked milliseconds, emitted and wasted tokens and the depth reached.
 
-Not ported (``NotImplementedError``, ROADMAP.md Queue 1): the speculative
-pool (``speculative`` config, ``draft_model``; item 5), a serving mesh
+Speculative ticks (config ``speculative: {"enabled": true, "pool": true}``,
+single-token ticks): every tick proposes ``num_draft_tokens`` tokens a live
+row, by n-gram matching on the request's own history (``mode="ngram"``, host
+numpy, ``inference/ngram.py``) or through a draft model with its own pool
+cache (``mode="draft"``, ``draft_model=``), and ONE target forward over the
+(gamma+1)-wide window verifies them, with acceptance on the device
+(``decoding.compile_spec_pool_tick_fn``). A row's position and token count
+then ride the device with its other tick state; fused admission prefills
+its prompt chunks through a separate segment dispatch on the same step.
+``tick_stats()`` adds the drafted and accepted counts and their ratio.
+
+Not ported (``NotImplementedError``, ROADMAP.md Queue 1): a serving mesh
 (``mesh``; item 8), and telemetry with its memory attribution
 (``telemetry``, ``memory_snapshot``, ``hbm_components``,
 ``analyze_program_memory``; items 11 and 12).
@@ -67,12 +77,15 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.inference import ngram
 from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.decoding import (
     compile_pool_tick_fn,
     compile_ragged_prefill_fn,
     compile_row_update_fn,
     compile_segment_fn,
+    compile_spec_pool_tick_fn,
+    compile_spec_row_update_fn,
     read_bucket,
 )
 from deepspeed_tpu_torch.models import transformer as tf
@@ -104,12 +117,18 @@ class _Request:
     chunks: Optional[List[tuple]] = None
     # KV-cache bytes this request's row streamed across its decode ticks
     kv_bytes_read: int = 0
+    # speculative ticks: drafts proposed for this request and drafts its
+    # verify rounds accepted
+    spec_drafted: int = 0
+    spec_accepted: int = 0
     # tick-window span accumulation (span_hook)
     win_kind: Optional[str] = None
     win_t0: float = 0.0
     win_t1: float = 0.0
     win_ticks: int = 0
     win_tokens: int = 0
+    win_drafted: int = 0
+    win_accepted: int = 0
 
 
 class _TickRecord:
@@ -117,15 +136,17 @@ class _TickRecord:
     the packed result's host buffer and the event behind its copy, plus
     what is needed to attribute it when the tick is retired."""
 
-    __slots__ = ("packed", "event", "live", "k", "row_bytes", "fused", "t0")
+    __slots__ = ("packed", "event", "live", "k", "row_bytes", "fused", "spec", "t0")
 
-    def __init__(self, packed, event, live, k, row_bytes, fused):
+    def __init__(self, packed, event, live, k, row_bytes, fused, spec=0):
         self.packed = packed          # host (B, k+2) int32, valid once event is done
         self.event = event            # CUDA event after the copy (None on the CPU)
         self.live = live              # slot -> _Request live at dispatch
         self.k = k                    # burst length (1 for plain/fused)
         self.row_bytes = row_bytes    # KV bytes one row streams per step
         self.fused = fused            # carried a prefill chunk
+        self.spec = spec              # a speculative round's gamma (0 = plain);
+        # its packed row is (tokens[gamma+1], n_emitted, done, n_accepted)
         self.t0 = 0.0                 # dispatch time for window spans
 
 
@@ -144,8 +165,22 @@ class _Pool:
         self.last_tok_dev = torch.zeros(n_slots, dtype=torch.int32, device=dev)
         self.done_dev = torch.ones(n_slots, dtype=torch.int32, device=dev)
         self.set_row_fn = compile_row_update_fn(engine.cfg, n_slots, donate=engine.donate_cache)
+        # speculative tick state: pos/gen join the device-threaded tensors (a
+        # spec row advances by its own accepted count, which only the device
+        # knows at dispatch), and draft mode keeps a second KV cache of the
+        # same geometry with its own segment function for the draft prefill
+        self.draft_cache = None
+        if engine.spec_gamma:
+            self.pos_dev = torch.full((n_slots,), length, dtype=torch.int32, device=dev)
+            self.gen_dev = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+            self.spec_set_row_fn = compile_spec_row_update_fn(engine.cfg, n_slots,
+                                                              donate=engine.donate_cache)
+            if engine.spec_mode == "draft":
+                self.draft_segment_fn = compile_segment_fn(engine.draft_cfg, n_slots, length)
+                self.draft_cache = tf.init_cache(engine.draft_cfg, n_slots, length, device=dev)
         # host DISPATCH mirrors: the position/emission count each row will
-        # have reached once every dispatched tick retires
+        # have reached once every dispatched tick retires (speculative rows:
+        # pos an upper bound, gen a lower one, reconciled at retire)
         self.disp_pos = np.zeros(n_slots, np.int32)
         self.disp_gen = np.zeros(n_slots, np.int32)
         # fused prefill: admitted requests whose prompt chunks still need
@@ -185,9 +220,6 @@ class ContinuousBatchingEngine:
         from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
         parsed = InferenceConfig.parse(config)
-        if parsed.speculative.enabled or draft_model is not None or draft_params is not None:
-            raise not_ported("the speculative pool (speculative config, draft_model; "
-                             "ROADMAP Queue 1 item 5)")
         if mesh is not None:
             raise not_ported("a serving mesh for the batching engine (ROADMAP Queue 1 item 8)")
         if parsed.telemetry.enabled:
@@ -212,8 +244,48 @@ class ContinuousBatchingEngine:
         self.donate_cache = donate_cache
         # ONE base key: every sampled token is keyed (seed, rid, token index)
         self._base_key = int(seed)
+
+        # speculative pooled ticks (speculative.enabled and .pool): every tick
+        # proposes spec_gamma tokens a live row and ONE target forward
+        # verifies them (decoding.compile_spec_pool_tick_fn)
+        spec = self._eng.config.speculative
         self.spec_gamma = 0
         self.spec_mode = None
+        self._draft_eng = None
+        self.draft_cfg = None
+        if spec.enabled and spec.pool:
+            if spec.mode not in ("draft", "ngram"):
+                raise ValueError(f"speculative.mode must be 'draft' or 'ngram', got {spec.mode!r}")
+            if tokens_per_tick != 1:
+                raise ValueError("speculative pool ticks require tokens_per_tick=1 "
+                                 "(the gamma-wide verify round IS the burst)")
+            if spec.num_draft_tokens < 1:
+                raise ValueError(
+                    f"speculative.num_draft_tokens must be >= 1, got {spec.num_draft_tokens}")
+            if spec.mode == "draft":
+                if draft_model is None:
+                    raise ValueError(
+                        "speculative.mode='draft' needs draft_model= (a smaller "
+                        "same-vocabulary model), or set speculative.mode='ngram' for "
+                        "draft-free self-drafting")
+                # the draft shares the cache format: int8 KV covers both trees
+                self._draft_eng = InferenceEngine(
+                    draft_model,
+                    config={"dtype": self._eng.config.dtype,
+                            "kv_cache_dtype": self._eng.config.kv_cache_dtype,
+                            "kv_tight_read": self._eng.config.kv_tight_read,
+                            "kv_read_floor": self._eng.config.kv_read_floor},
+                    params=draft_params, device=self.device, seed=seed)
+                self.draft_cfg = self._draft_eng._ring_off_cfg
+                if self.draft_cfg.vocab_size != self.cfg.vocab_size:
+                    raise ValueError(
+                        f"draft must share the vocabulary: draft vocab "
+                        f"{self.draft_cfg.vocab_size} != target vocab {self.cfg.vocab_size}")
+            self.spec_gamma = spec.num_draft_tokens
+            self.spec_mode = spec.mode
+        elif draft_model is not None:
+            raise ValueError("draft_model= given but speculative pool ticks are off: set "
+                             "speculative={'enabled': True, 'pool': True} (mode='draft')")
 
         if cache_buckets is None:
             cache_len = min(cache_len or self.cfg.max_seq_len, self.cfg.max_seq_len)
@@ -527,7 +599,8 @@ class ContinuousBatchingEngine:
         s["overlap_frac"] = round(1.0 - s["block_ms"] / host, 4) if host > 0 else None
         s["spec_gamma"] = self.spec_gamma
         s["spec_mode"] = self.spec_mode
-        s["spec_acceptance"] = None
+        s["spec_acceptance"] = (round(s["spec_accepted"] / s["spec_drafted"], 4)
+                                if s["spec_drafted"] else None)
         return s
 
     def _place(self, req: _Request) -> Optional[tuple]:
@@ -580,7 +653,7 @@ class ContinuousBatchingEngine:
 
         recs: Dict[int, _TickRecord] = {}
         for pi, pool in enumerate(self._pools):
-            rec = self._dispatch_tick(pool)
+            rec = self._dispatch_spec_tick(pool) if self.spec_gamma else self._dispatch_tick(pool)
             if rec is not None:
                 recs[pi] = rec
         # host enqueue time only: the device runs on behind it; the block
@@ -725,6 +798,103 @@ class ContinuousBatchingEngine:
             pool.disp_gen[slot] += adv
         return rec
 
+    def _spec_round_bytes(self, pool: _Pool, read_len: Optional[int]) -> int:
+        """KV bytes ONE row streams a speculative round: the target's verify
+        reads its window once (the gamma+1 queries share one cache read),
+        plus gamma+1 draft steps each streaming the draft cache's window (0
+        for ngram: drafting is host-side)."""
+        total = self._row_read_bytes(pool, read_len)
+        if self.spec_mode == "draft":
+            total += (self.spec_gamma + 1) * tf.kv_read_bytes_per_row(
+                self.draft_cfg, read_len if read_len is not None else pool.length)
+        return total
+
+    def _spec_tick_fn(self, pool: _Pool, read_len: Optional[int]):
+        """The pool's speculative tick at tight-read length ``read_len``,
+        keyed ``("spec", read_len)`` beside the plain variants."""
+        key = ("spec", read_len)
+        if key not in pool.tick_fns:
+            pool.tick_fns[key] = compile_spec_pool_tick_fn(
+                self.cfg, pool.n_slots, pool.length, self.spec_gamma, self.temperature,
+                self.top_k, self.top_p, eos_token_id=self.eos_token_id, read_len=read_len,
+                donate=self.donate_cache, draft_cfg=self.draft_cfg)[0]
+        return pool.tick_fns[key]
+
+    def _dispatch_spec_tick(self, pool: _Pool) -> Optional[_TickRecord]:
+        """Speculative counterpart of :meth:`_dispatch_tick`: one gamma-verify
+        round a pool a step, enqueue-only like the plain path. Fused
+        admission rides a SEPARATE segment dispatch on the same step (prompt
+        chunks never enter the spec tick; the admitting row joins the round
+        on the step its last chunk dispatches), so decode rows keep
+        speculating through a long prompt's prefill."""
+        g, n = self.spec_gamma, pool.n_slots
+        params = self._eng.params
+        fused = False
+        if self.fused_prefill and pool.prefill_q:
+            admit = pool.prefill_q[0]
+            ctoks, cpos0, nreal, _ = admit.chunks.pop(0)
+            W = read_bucket(nreal, pool.chunk_cap, _CHUNK_FLOOR)
+            seg_toks = np.zeros((n, W), np.int32)
+            seg_toks[admit.slot, :nreal] = ctoks
+            seg_pos = np.full(n, pool.length, np.int32)
+            seg_pos[admit.slot] = cpos0
+            d_toks, d_pos = self._upload(seg_toks, seg_pos)
+            _, pool.cache = pool.segment_fn(params, d_toks, pool.cache, d_pos)
+            fused = True
+            if not admit.chunks:
+                pool.prefill_q.popleft()
+                admit.chunks = None  # joins the round below
+        run_mask = np.zeros(n, np.int32)
+        quota = np.zeros(n, np.int32)
+        rids = np.zeros(n, np.int32)
+        live: Dict[int, _Request] = {}
+        extent = 0
+        for slot, req in pool.active.items():
+            if req.chunks:
+                continue  # mid-prefill: run_mask parks the row
+            if pool.disp_gen[slot] >= req.quota:
+                continue  # quota covered by rounds in flight (disp_gen is a lower
+                # bound; the device's threaded done flag decides)
+            live[slot] = req
+            run_mask[slot] = 1
+            quota[slot] = req.quota
+            rids[slot] = req.rid
+            extent = max(extent, int(pool.disp_pos[slot]) + g + 1)
+        if not live:
+            return None
+        read_len = self._read_len(pool, min(extent, pool.length))
+        fn = self._spec_tick_fn(pool, read_len)
+        if self.spec_mode == "draft":
+            d_quota, d_rids, d_mask = self._upload(quota, rids, run_mask)
+            (packed, pool.cache, pool.draft_cache, pool.last_tok_dev, pool.done_dev,
+             pool.pos_dev, pool.gen_dev) = fn(
+                params, self._draft_eng.params, pool.cache, pool.draft_cache,
+                pool.last_tok_dev, pool.done_dev, pool.pos_dev, pool.gen_dev, d_quota, d_rids,
+                d_mask, self._base_key)
+        else:
+            drafts = np.zeros((n, g), np.int32)
+            order = self._eng.config.speculative.ngram_max_order
+            for slot, req in live.items():
+                # under dispatch-ahead the host context lags the device by up
+                # to pipeline_depth rounds: that only lowers the acceptance
+                ctx = (np.concatenate([req.prompt, np.asarray(req.generated, np.int32)])
+                       if req.generated else req.prompt)
+                drafts[slot] = ngram.propose(ctx, g, order)
+            d_quota, d_rids, d_mask, d_drafts = self._upload(quota, rids, run_mask, drafts)
+            (packed, pool.cache, pool.last_tok_dev, pool.done_dev, pool.pos_dev,
+             pool.gen_dev) = fn(params, pool.cache, pool.last_tok_dev, pool.done_dev,
+                                pool.pos_dev, pool.gen_dev, d_quota, d_rids, d_mask, d_drafts,
+                                self._base_key)
+        # dispatch mirrors: pos becomes an UPPER bound (the device advances by
+        # accepted + 1 <= gamma + 1; read geometry only) and gen a LOWER one
+        # (an active round emits >= 1); _retire reconciles both
+        for slot in live:
+            pool.disp_pos[slot] += g + 1
+            pool.disp_gen[slot] += 1
+        host, event = self._fetch_async(packed)
+        return _TickRecord(host, event, live, g + 1, self._spec_round_bytes(pool, read_len),
+                           fused, spec=g)
+
     def _retire(self, recs: Dict[int, _TickRecord], emitted: Dict[int, List[int]]) -> float:
         """Retire one in-flight tick: ONE wait on its packed result per
         pool, then host attribution only. Returns the ms spent blocked."""
@@ -744,11 +914,12 @@ class ContinuousBatchingEngine:
                     f"tick result fetch took {dt:.3f}s (> fetch_timeout_s="
                     f"{self.fetch_timeout_s}): device unhealthy, tick pipeline abandoned")
             block_ms += dt * 1000.0
-            k = rec.k
+            k, g = rec.k, rec.spec
             hook = self.span_hook
             if hook is not None:
                 t_ret = time.monotonic()
-                tick_kind = "prefill_chunk" if rec.fused else "decode_window"
+                tick_kind = ("spec_verify_round" if g else
+                             "prefill_chunk" if rec.fused else "decode_window")
             for slot, req in rec.live.items():
                 if pool.active.get(slot) is not req:
                     # cancelled / already finished while in flight: the
@@ -758,9 +929,23 @@ class ContinuousBatchingEngine:
                 n = int(arr[slot, k])
                 stats["tokens"] += n
                 stats["wasted_tokens"] += k - n
-                # the row streamed k read windows whether or not it
-                # accepted all k tokens
-                req.kv_bytes_read += k * rec.row_bytes
+                if g:
+                    accepted = int(arr[slot, g + 3])
+                    stats["spec_drafted"] += g
+                    stats["spec_accepted"] += accepted
+                    req.spec_drafted += g
+                    req.spec_accepted += accepted
+                    # reconcile the dispatch mirrors: the round advanced pos
+                    # by accepted + 1 (the mirror assumed gamma + 1) and
+                    # emitted n (the mirror assumed 1)
+                    pool.disp_pos[slot] -= g - accepted
+                    pool.disp_gen[slot] += n - 1
+                    # row_bytes is the whole round's (one window + draft steps)
+                    req.kv_bytes_read += rec.row_bytes
+                else:
+                    # the row streamed k read windows whether or not it
+                    # accepted all k tokens
+                    req.kv_bytes_read += k * rec.row_bytes
                 if hook is not None:
                     if req.win_kind is not None and req.win_kind != tick_kind:
                         self._flush_window(req)
@@ -770,6 +955,9 @@ class ContinuousBatchingEngine:
                     req.win_t1 = t_ret
                     req.win_ticks += 1
                     req.win_tokens += n
+                    if g:
+                        req.win_drafted += g
+                        req.win_accepted += accepted
                     if req.win_ticks >= self.span_window_ticks:
                         self._flush_window(req)
                 if n:
@@ -788,9 +976,13 @@ class ContinuousBatchingEngine:
             req.win_kind = None
             return
         attrs = {"ticks": req.win_ticks, "tokens": req.win_tokens}
+        if req.win_kind == "spec_verify_round":
+            attrs["drafted"] = req.win_drafted
+            attrs["accepted"] = req.win_accepted
         self.span_hook(req.rid, req.win_kind, req.win_t0, req.win_t1, attrs)
         req.win_kind = None
         req.win_ticks = req.win_tokens = 0
+        req.win_drafted = req.win_accepted = 0
 
     # -- internals ------------------------------------------------------
     def _prefill_for_bucket(self, bucket: int):
@@ -861,6 +1053,9 @@ class ContinuousBatchingEngine:
             pool.cache = insert_fn(pool.cache, pre["cache"], slot)
             start = pre["tokens"].size
             toks = req.prompt[start:]
+        if self.spec_gamma:
+            self._admit_spec(req, pool, pi, slot, toks, start)
+            return
         if self.fused_prefill:
             req.chunks = self._chunk_schedule(pool, toks, start)
             pool.prefill_q.append(req)
@@ -908,6 +1103,42 @@ class ContinuousBatchingEngine:
             _, small = prefill_fn(self._eng.params, d_toks, d_pos, small)
             pool.cache = insert_fn(pool.cache, small, slot)
 
+    def _admit_spec(self, req: _Request, pool: _Pool, pi: int, slot: int, toks: np.ndarray,
+                    start: int):
+        """Speculative admission. The row always prefills its tokens but the
+        last (fused: chunks through the pool's segment function, one a step;
+        separate: the bucket prefill and splice); the row's first round
+        feeds the last prompt token, whose verify logits give the first
+        generated token, so fused and separate admission give one stream.
+        Draft mode also prefills the full prompt but its last token through
+        the draft's segment function in one dispatch (prefix caching is
+        target-only: the draft cache starts cold)."""
+        m = int(toks.size)
+        first_pos = start + m - 1
+        if self.spec_mode == "draft":
+            mfull = int(req.prompt.size)
+            if mfull > 1:
+                db = read_bucket(mfull - 1, pool.length)
+                dtoks = np.zeros((pool.n_slots, db), np.int32)
+                dtoks[slot, :mfull - 1] = req.prompt[:mfull - 1]
+                dpos = np.full(pool.n_slots, pool.length, np.int32)
+                dpos[slot] = 0
+                d_toks, d_pos = self._upload(dtoks, dpos)
+                _, pool.draft_cache = pool.draft_segment_fn(self._draft_eng.params, d_toks,
+                                                            pool.draft_cache, d_pos)
+        if self.fused_prefill and m > 1:
+            req.chunks = self._chunk_schedule(pool, toks[:-1], start)
+            pool.prefill_q.append(req)
+        else:
+            self._separate_prefill(pool, pi, slot, req, toks, start)
+        if self.fault_hook is not None:
+            self.fault_hook("set_row", {"tick": self._tick_index, "slot": slot})
+        pool.last_tok_dev, pool.done_dev, pool.pos_dev, pool.gen_dev = pool.spec_set_row_fn(
+            pool.last_tok_dev, pool.done_dev, pool.pos_dev, pool.gen_dev, slot, int(toks[-1]),
+            0, first_pos, int(req.gen_base))
+        pool.disp_pos[slot] = first_pos
+        pool.disp_gen[slot] = req.gen_base
+
     def precompile_tick_programs(self, progress: Optional[Callable] = None) -> int:
         """Run (and wait on) the FULL tick family once on throwaway state:
         every (pool, read bucket, {plain/burst, fused chunk widths}) variant
@@ -920,6 +1151,9 @@ class ContinuousBatchingEngine:
             for pool in self._pools:
                 read_lens = sorted({self._read_len(pool, e) for e in range(1, pool.length + 1)},
                                    key=lambda r: (r is None, r))
+                if self.spec_gamma:
+                    count += self._precompile_spec(pool, read_lens, progress)
+                    continue
                 chunks: List[Optional[int]] = [None]
                 if self.fused_prefill:
                     chunks += sorted({read_bucket(m, pool.chunk_cap, _CHUNK_FLOOR)
@@ -948,6 +1182,49 @@ class ContinuousBatchingEngine:
                         if progress is not None:
                             progress(f"tick(pool={pool.length}, read_len={rl}, chunk={ch}) "
                                      f"in {time.time() - t0:.1f}s")
+        return count
+
+    def _precompile_spec(self, pool: _Pool, read_lens, progress) -> int:
+        """Speculative arm of :meth:`precompile_tick_programs`: the spec tick
+        at each read bucket on throwaway state, then (fused admission) the
+        segment forward at each chunk width."""
+        count, g, n, dev = 0, self.spec_gamma, pool.n_slots, self.device
+
+        def zeros():
+            return torch.zeros(n, dtype=torch.int32, device=dev)
+
+        for rl in read_lens:
+            t0 = time.time()
+            fn = self._spec_tick_fn(pool, rl)
+            cache = tf.init_cache(self.cfg, n, pool.length, device=dev)
+            state = (zeros(), torch.ones(n, dtype=torch.int32, device=dev),
+                     torch.full((n,), pool.length, dtype=torch.int32, device=dev), zeros(),
+                     zeros(), zeros(), zeros())
+            if self.spec_mode == "draft":
+                dcache = tf.init_cache(self.draft_cfg, n, pool.length, device=dev)
+                out = fn(self._eng.params, self._draft_eng.params, cache, dcache, *state,
+                         self._base_key)
+            else:
+                out = fn(self._eng.params, cache, *state,
+                         torch.zeros((n, g), dtype=torch.int64, device=dev), self._base_key)
+            out[0].cpu()
+            count += 1
+            if progress is not None:
+                progress(f"spec_tick(pool={pool.length}, read_len={rl}, mode={self.spec_mode}, "
+                         f"gamma={g}) in {time.time() - t0:.1f}s")
+        if self.fused_prefill:
+            for W in sorted({read_bucket(m, pool.chunk_cap, _CHUNK_FLOOR)
+                             for m in range(1, pool.chunk_cap + 1)}):
+                t0 = time.time()
+                cache = tf.init_cache(self.cfg, n, pool.length, device=dev)
+                logits, _ = pool.segment_fn(
+                    self._eng.params, torch.zeros((n, W), dtype=torch.int64, device=dev), cache,
+                    torch.full((n,), pool.length, dtype=torch.int64, device=dev))
+                logits[:, 0, 0].cpu()
+                count += 1
+                if progress is not None:
+                    progress(f"spec_segment(pool={pool.length}, chunk={W}) "
+                             f"in {time.time() - t0:.1f}s")
         return count
 
     def _finish(self, pool: _Pool, slot: int):

@@ -1,9 +1,13 @@
 """KV-cached decode machinery (counterpart of ``deepspeed_tpu/inference/decoding.py``),
 cut to the serving slice: the tight-read geometry, sampling, the
 whole-generation path that ``InferenceEngine.generate`` runs, the
-per-row-position paths of ragged (padded) prompts and chunked prefill, and
-the continuous-batching tick programs (``compile_pool_tick_fn``,
-``compile_row_update_fn``) with their per-request keyed sampler.
+per-row-position paths of ragged (padded) prompts and chunked prefill, the
+continuous-batching tick programs (``compile_pool_tick_fn``,
+``compile_row_update_fn``) with their per-request keyed sampler, and
+speculative decoding: the standalone draft-model loop
+(``speculative_generate``, acceptance in host numpy as in the reference) and
+the speculative pool tick (``compile_spec_pool_tick_fn``, acceptance on the
+device, ngram and draft-model proposals).
 
 The reference compiles a generation into one XLA program; the port runs the
 same steps eagerly (CUDA graphs are later work), with the same read
@@ -125,15 +129,63 @@ def request_keys(base_key: int, rids, gens):
     return _mix32(k ^ (gens.long() & _M32))
 
 
+def _unit(h):
+    """32-bit hashes -> f32 uniforms in (0, 1): 23 bits a value,
+    (h + 1/2) / 2**23, exact in f32."""
+    return ((h >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
+
+
+def _key_uniforms(keys, vocab_size: int):
+    """(B, V) uniforms from (B,) keys, one a vocab index."""
+    v = torch.arange(vocab_size, device=keys.device, dtype=torch.int64)
+    return _unit(_mix32(_mix32(keys[:, None] ^ ((v * 0x9E3779B1) & _M32)[None, :])))
+
+
 def request_uniforms(base_key: int, rids, gens, vocab_size: int):
     """(B, V) f32 uniforms in (0, 1) keyed by (seed, rid, gen, vocab index):
     a counter-based hash in int64 tensor ops, so the bits are the same on
-    the CPU and the card and nothing waits on the host. 23 bits a value,
-    (h + 1/2) / 2**23, exact in f32."""
-    keys = request_keys(base_key, rids, gens)
-    v = torch.arange(vocab_size, device=keys.device, dtype=torch.int64)
-    h = _mix32(_mix32(keys[:, None] ^ ((v * 0x9E3779B1) & _M32)[None, :]))
-    return ((h >> 9).to(torch.float32) + 0.5) * (2.0 ** -23)
+    the CPU and the card and nothing waits on the host."""
+    return _key_uniforms(request_keys(base_key, rids, gens), vocab_size)
+
+
+# Speculative tick lanes: a third level on top of request_keys' (seed, rid,
+# token index) identity separates the three independent draws speculation
+# makes at a token index: the draft proposal, the acceptance uniform and the
+# bonus/correction draw. The residual draw at an index is independent of
+# the acceptance uniform that rejected the proposal there, which rejection
+# sampling needs.
+LANE_DRAFT, LANE_ACCEPT, LANE_BONUS = 1, 2, 3
+# the lane keys' own domain constant: a lane key is a hash of a plain key
+# and a word no plain key mixes in, so the two families stay apart
+_SPEC_DOMAIN = 0x5BD1E995
+
+
+def spec_request_keys(base_key: int, rids, gens, lane: int):
+    """Per-row speculative sampling keys, the counterpart of the reference's
+    ``fold_in(fold_in(fold_in(base, rid), gen), lane)``: like
+    :func:`request_keys`, a key depends only on (engine seed, request id,
+    token index, lane), never on the slot, the tick depth or how many
+    proposals earlier rounds accepted. ``rids``/``gens`` are integer tensors
+    of one shape; returns int64 keys of that shape in [0, 2**32)."""
+    return _mix32(request_keys(base_key, rids, gens) ^ _mix32(_SPEC_DOMAIN ^ int(lane)))
+
+
+def spec_accept_uniforms(base_key: int, rids, gens):
+    """One f32 uniform in (0, 1) a (rid, token index) from the acceptance
+    lane; ``rids``/``gens`` of one shape, the result of that shape."""
+    return _unit(_mix32(spec_request_keys(base_key, rids, gens, LANE_ACCEPT)))
+
+
+def spec_uniforms(base_key: int, rids, gens, lane: int, vocab_size: int):
+    """(B, V) uniforms of a lane (the draft proposal's, the bonus draw's)
+    for Gumbel-max over the vocabulary."""
+    return _key_uniforms(spec_request_keys(base_key, rids, gens, lane), vocab_size)
+
+
+def _gumbel_max(logp, u):
+    """Categorical draw over (B, V) log-probabilities from (B, V)
+    uniforms."""
+    return torch.argmax(logp - torch.log(-torch.log(u)), dim=-1)
 
 
 def select_token_rows(logits, temperature: float, top_k: int, base_key: int, rids, gens,
@@ -146,7 +198,25 @@ def select_token_rows(logits, temperature: float, top_k: int, base_key: int, rid
         return torch.argmax(logits, dim=-1).to(torch.int32)
     filtered = _filter_logits(logits, temperature, top_k, top_p)
     u = request_uniforms(base_key, rids, gens, logits.shape[-1])
-    return torch.argmax(filtered - torch.log(-torch.log(u)), dim=-1).to(torch.int32)
+    return _gumbel_max(filtered, u).to(torch.int32)
+
+
+def compile_decode_fns(cfg, batch_size: int, cache_len: int):
+    """(prefill_fn, decode_fn, None, None): the aligned prefill and the
+    1-wide decode step, the reference's quadruple without shardings. The
+    prefill (``pos`` 0: flash attention under ``attn_impl="pallas"``) returns
+    the last position's logits (B, 1, V), the only row its callers read;
+    ``decode_fn(params, tok, cache, pos) -> (logits (B, V), cache)``."""
+
+    def prefill(params, tokens, cache):
+        assert tokens.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
+        return tf.forward_with_cache(params, cfg, tokens, cache, 0, last_only=True)
+
+    def decode(params, tok, cache, pos):
+        logits, cache = tf.forward_with_cache(params, cfg, tok, cache, pos)
+        return logits[:, -1], cache
+
+    return prefill, decode, None, None
 
 
 def compile_generate_fn(cfg, batch_size: int, cache_len: int, max_new_tokens: int,
@@ -456,3 +526,425 @@ def compile_row_update_fn(cfg, batch_size: int, donate: bool = True):
         return last_tok, done
 
     return set_row
+
+
+def compile_spec_pool_tick_fn(cfg, batch_size: int, cache_len: int, gamma: int,
+                              temperature: float, top_k: int, top_p: float,
+                              eos_token_id: Optional[int] = None,
+                              read_len: Optional[int] = None, donate: bool = True,
+                              draft_cfg=None):
+    """Speculative continuous-batching tick (the reference's signature less
+    ``mesh`` and the shardings): every active row proposes ``gamma``
+    tokens, ONE target forward over the (gamma+1)-wide window verifies all
+    rows at once, and the lossless accept/correct rule (the on-device mirror
+    of :func:`_accept_round`) runs on the device. Per-row accepted counts,
+    the bonus token and the new positions land in one packed int32 buffer,
+    so the host keeps its one fetch a tick and dispatch-ahead composes.
+
+    Draft-model mode (``draft_cfg`` given): a second model proposes
+    autoregressively through its own pool-geometry KV cache (gamma 1-wide
+    steps and one more that caches the last proposal's KV)::
+
+        run(params, draft_params, cache, draft_cache, last_tok, done, pos,
+            gen, quota, rids, run_mask, base_key)
+          -> (packed, cache, draft_cache, last_tok, done, pos, gen)
+
+    N-gram mode (``draft_cfg=None``): the host proposes ``drafts`` (B,
+    gamma) from each request's own context (``inference/ngram.py``), a
+    point-mass proposal q = δ(d)::
+
+        run(params, cache, last_tok, done, pos, gen, quota, rids, run_mask,
+            drafts, base_key)
+          -> (packed, cache, last_tok, done, pos, gen)
+
+    ``pos``/``gen`` are device-THREADED here: a row advances by its own
+    accepted count, which the host learns only when it retires the tick.
+    ``run_mask`` (1 = the row decodes this tick) parks rows the host cannot
+    run without touching their threaded state. Parked and done rows write
+    at position ``cache_len``, and window columns at positions >=
+    ``cache_len`` drop their writes (the vector-position cache write), so a
+    window that overruns the cache is safe; such columns are quota-clipped
+    out of acceptance.
+
+    ``packed`` is (B, gamma+4) int32: ``[:, :gamma+1]`` the emitted tokens
+    (the accepted prefix, then the bonus/correction), ``[:, gamma+1]``
+    n_emitted, ``[:, gamma+2]`` the done flag, ``[:, gamma+3]`` the accepted
+    draft count. Greedy emits the target's argmax chain; sampled draws come
+    from :func:`spec_request_keys`' lanes. The threaded state and the caches
+    are updated in place (``donate=False``: on copies). Returns ``(run_fn,
+    None, None)``."""
+    assert gamma >= 1, gamma
+    B, g1 = batch_size, gamma + 1
+    greedy = temperature <= 0.0
+    draft_mode = draft_cfg is not None
+
+    def accept_round(vlogits, drafts, qstack, active, pos, gen, quota, last_tok, done, rids,
+                     base_key):
+        """On-device mirror of :func:`_accept_round` plus the emission and
+        state bookkeeping around it. ``qstack`` None: a point-mass
+        proposal."""
+        dev = drafts.device
+        iota_g = torch.arange(gamma, device=dev)
+        iota_g1 = torch.arange(g1, device=dev)
+        gen, quota = gen.long(), quota.long()
+        if greedy:
+            tgt = torch.argmax(vlogits, dim=-1)  # (B, g1)
+            match = drafts == tgt[:, :gamma]
+        else:
+            V = vlogits.shape[-1]
+            p = _filtered_probs(vlogits.reshape(B * g1, V), temperature, top_k,
+                                top_p).reshape(B, g1, V)
+            p_at = p[:, :gamma].gather(2, drafts[..., None])[..., 0]
+            if qstack is None:
+                ratio = p_at  # point-mass proposal: q(d) == 1
+            else:
+                q_at = qstack.gather(2, drafts[..., None])[..., 0]
+                ratio = p_at / torch.clamp(q_at, min=1e-20)
+            u = spec_accept_uniforms(base_key, rids.long()[:, None].expand(B, gamma),
+                                     gen[:, None] + iota_g[None, :])
+            match = u < torch.clamp(ratio, max=1.0)
+        # the leading run of accepted drafts: its length is the index of the
+        # first rejection (gamma when none), whatever way a backend breaks
+        # argmin ties
+        n_acc = match.long().cumprod(dim=1).sum(dim=1)
+
+        rem = torch.clamp(quota - gen, min=0)
+        n_take = torch.minimum(n_acc, rem)
+        if eos_token_id is not None:
+            eos_mask = (drafts == eos_token_id) & (iota_g[None] < n_take[:, None])
+            first_eos = (~eos_mask).long().cumprod(dim=1).sum(dim=1)  # gamma when none
+            took_eos = first_eos < gamma
+            n_take = torch.minimum(n_take, first_eos + 1)
+        else:
+            took_eos = torch.zeros_like(active)
+        took_eos = took_eos & active
+        n_take = torch.where(active, n_take, 0)
+
+        bonus_ok = active & ~took_eos & (n_take == n_acc) & (gen + n_take < quota)
+        if greedy:
+            bonus = tgt.gather(1, n_take[:, None])[:, 0]
+        else:
+            p_b = p.gather(1, n_take[:, None, None].expand(B, 1, V))[:, 0]
+            at = torch.clamp(n_take, max=gamma - 1)
+            if qstack is None:
+                d_b = drafts.gather(1, at[:, None])
+                q_b = torch.zeros_like(p_b).scatter_(1, d_b, 1.0)
+            else:
+                q_b = qstack.gather(1, at[:, None, None].expand(B, 1, V))[:, 0]
+            residual = torch.clamp(p_b - q_b, min=0.0)
+            dist = torch.where((n_take < gamma)[:, None], residual, p_b)
+            tot = dist.sum(dim=1, keepdim=True)
+            dist = torch.where(tot > 0, dist / torch.where(tot > 0, tot, 1.0), p_b)
+            u = spec_uniforms(base_key, rids, gen + n_take, LANE_BONUS, V)
+            bonus = _gumbel_max(torch.where(dist > 0, torch.log(dist), -1e30), u)
+
+        n_emit = n_take + bonus_ok.long()
+        pad_drafts = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+        tok_out = torch.where(
+            iota_g1[None] < n_take[:, None], pad_drafts,
+            torch.where((iota_g1[None] == n_take[:, None]) & bonus_ok[:, None],
+                        bonus[:, None], 0))
+        gen2 = torch.where(active, gen + n_emit, gen)
+        done2 = torch.where(active & (took_eos | (gen2 >= quota)), 1, done)
+        if eos_token_id is not None:
+            done2 = torch.where(active & bonus_ok & (bonus == eos_token_id), 1, done2)
+        last2 = torch.where(active & bonus_ok, bonus, last_tok.long())
+        # rollback on rejection IS the position rule: the next window starts
+        # right after the last verified input column the row consumed, so
+        # rejected drafts' KV is overwritten before any query reaches it
+        pos2 = torch.where(active, pos.long() + n_take + 1, pos.long())
+        packed = torch.cat([tok_out, n_emit[:, None], done2[:, None].long(), n_take[:, None]],
+                           dim=1).to(torch.int32)
+        return packed, last2, done2, pos2, gen2
+
+    def threaded(state):
+        return state if donate else tuple(t.clone() for t in state)
+
+    def verify(params, cache, drafts, qstack, last_tok, done, pos, gen, quota, rids, active,
+               base_key):
+        wpos = torch.where(active, pos.long(), cache_len)
+        seg = torch.cat([last_tok.long()[:, None], drafts], dim=1)
+        vlogits, cache = tf.forward_with_cache(params, cfg, seg, cache, wpos, read_len=read_len)
+        packed, last2, done2, pos2, gen2 = accept_round(
+            vlogits, drafts, qstack, active, pos, gen, quota, last_tok, done, rids, base_key)
+        for t, new in ((last_tok, last2), (done, done2), (pos, pos2), (gen, gen2)):
+            t.copy_(new)
+        return packed, cache
+
+    if not draft_mode:
+        def run(params, cache, last_tok, done, pos, gen, quota, rids, run_mask, drafts,
+                base_key):
+            assert last_tok.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
+            if not donate:
+                cache = _clone_cache(cache)
+            last_tok, done, pos, gen = threaded((last_tok, done, pos, gen))
+            active = (done == 0) & (run_mask == 1)
+            packed, cache = verify(params, cache, drafts.long(), None, last_tok, done, pos,
+                                   gen, quota, rids, active, base_key)
+            return packed, cache, last_tok, done, pos, gen
+
+        return run, None, None
+
+    def run(params, draft_params, cache, draft_cache, last_tok, done, pos, gen, quota, rids,
+            run_mask, base_key):
+        assert last_tok.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
+        if not donate:
+            cache, draft_cache = _clone_cache(cache), _clone_cache(draft_cache)
+        last_tok, done, pos, gen = threaded((last_tok, done, pos, gen))
+        active = (done == 0) & (run_mask == 1)
+        cur, ds, qs = last_tok.long(), [], []
+        for i in range(gamma + 1):
+            # the last step only caches the final proposal's KV, so that the
+            # draft's context is whole when every proposal is accepted
+            dlogits, draft_cache = tf.forward_with_cache(
+                draft_params, draft_cfg, cur[:, None], draft_cache,
+                torch.where(active, pos.long() + i, cache_len), read_len=read_len)
+            if i == gamma:
+                break
+            lg = dlogits[:, 0]
+            if greedy:
+                cur = torch.argmax(lg, dim=-1)
+            else:
+                q = _filtered_probs(lg, temperature, top_k, top_p)
+                u = spec_uniforms(base_key, rids, gen.long() + i, LANE_DRAFT, q.shape[-1])
+                cur = _gumbel_max(torch.where(q > 0, torch.log(q), -1e30), u)
+                qs.append(q)
+            ds.append(cur)
+        drafts = torch.stack(ds, dim=1)
+        qstack = None if greedy else torch.stack(qs, dim=1)
+        packed, cache = verify(params, cache, drafts, qstack, last_tok, done, pos, gen, quota,
+                               rids, active, base_key)
+        return packed, cache, draft_cache, last_tok, done, pos, gen
+
+    return run, None, None
+
+
+def compile_spec_row_update_fn(cfg, batch_size: int, donate: bool = True):
+    """:func:`compile_row_update_fn` for the speculative tick's wider
+    device-threaded state: ``pos``/``gen`` ride the tick chain too, so
+    admission sets them the same enqueue-only way (``fill_``). Returns
+    ``set_row(last_tok, done, pos, gen, slot, tok, flag, p, g) -> (last_tok,
+    done, pos, gen)``."""
+
+    def set_row(last_tok, done, pos, gen, slot, tok, flag, p, g):
+        assert last_tok.shape[0] == batch_size
+        state = (last_tok, done, pos, gen)
+        if not donate:
+            state = tuple(t.clone() for t in state)
+        for t, value in zip(state, (tok, flag, p, g)):
+            t[slot].fill_(value)
+        return state
+
+    return set_row
+
+
+def _filtered_probs(logits, temperature: float, top_k: int, top_p: float):
+    """Normalized f32 sampling distribution after the same temperature /
+    top-k / top-p filtering :func:`select_token` applies: the q/p
+    distributions of the speculative acceptance test must be what plain
+    sampling would use."""
+    return torch.softmax(_filter_logits(logits, temperature, top_k, top_p), dim=-1)
+
+
+def _sample_rows(probs, host_rng):
+    """One categorical draw per row of a (B, V) numpy probability matrix:
+    vectorized inverse CDF."""
+    u = host_rng.random((probs.shape[0], 1))
+    cum = np.cumsum(probs, axis=-1)
+    cum /= cum[:, -1:]
+    idx = (cum <= u).sum(axis=-1).astype(np.int32)
+    return np.minimum(idx, probs.shape[1] - 1)
+
+
+def _accept_round(drafts, active, lens, max_new_tokens, eos_token_id,
+                  tgt=None, pdists=None, qstack=None, host_rng=None):
+    """One vectorized speculative accept/correct round in host numpy (the
+    reference's, line for line).
+
+    Inputs: drafts (B, gamma); active (B,) rows still generating; lens (B,)
+    tokens emitted so far. Greedy passes ``tgt`` (B, gamma+1) argmax tokens;
+    sampling passes ``pdists`` (B, gamma+1, V) target distributions,
+    ``qstack`` (B, gamma, V) draft distributions and the host rng.
+
+    Returns (n_take, bonus, bonus_ok, took_eos): the accepted drafts to
+    append (0 for inactive rows; quota- and EOS-truncated), the
+    correction/extra token, whether it is appended, and whether an accepted
+    draft was EOS."""
+    B, gamma = drafts.shape
+    greedy = tgt is not None
+    if greedy:
+        match = drafts == tgt[:, :gamma]
+    else:
+        p_at = np.take_along_axis(pdists[:, :gamma], drafts[..., None], axis=2)[..., 0]
+        q_at = np.take_along_axis(qstack, drafts[..., None], axis=2)[..., 0]
+        u = host_rng.random((B, gamma))
+        match = u < np.minimum(1.0, p_at / np.maximum(q_at, 1e-20))
+    n_acc = np.where(match.all(axis=1), gamma, (~match).argmax(axis=1)).astype(np.int32)
+
+    rem = np.maximum(max_new_tokens - lens, 0)
+    n_take = np.minimum(n_acc, rem)
+    if eos_token_id is not None:
+        iota = np.arange(gamma, dtype=np.int32)[None]
+        eos_mask = (drafts == eos_token_id) & (iota < n_take[:, None])
+        took_eos = eos_mask.any(axis=1)
+        first_eos = np.where(took_eos, eos_mask.argmax(axis=1), gamma)
+        n_take = np.minimum(n_take, first_eos + 1).astype(np.int32)
+    else:
+        took_eos = np.zeros(B, bool)
+    took_eos = took_eos & active
+    n_take = np.where(active, n_take, 0).astype(np.int32)
+
+    # the bonus: the target's correction at the rejection point (n_take <
+    # gamma) or an extra draw past a fully accepted block, appended only
+    # for rows not finished by the quota or an accepted EOS
+    bonus_ok = active & ~took_eos & (n_take == n_acc) & (lens + n_take < max_new_tokens)
+    if greedy:
+        bonus = np.take_along_axis(tgt, n_take[:, None], axis=1)[:, 0].astype(np.int32)
+    else:
+        p_b = np.take_along_axis(pdists, n_take[:, None, None], axis=1)[:, 0]  # (B, V)
+        q_b = np.take_along_axis(
+            qstack, np.minimum(n_take, gamma - 1)[:, None, None], axis=1)[:, 0]
+        residual = np.maximum(p_b - q_b, 0.0)
+        dist = np.where((n_take < gamma)[:, None], residual, p_b)
+        tot = dist.sum(axis=1, keepdims=True)
+        dist = np.where(tot > 0, dist / np.where(tot > 0, tot, 1.0), p_b)
+        bonus = _sample_rows(dist, host_rng)
+    return n_take, bonus, bonus_ok, took_eos
+
+
+def _host_seed(generator: torch.Generator) -> int:
+    """The host rng's seed, drawn from the caller's ``torch.Generator`` (the
+    reference draws it from its JAX key)."""
+    return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator, device=generator.device))
+
+
+def speculative_decode_loop(t_prefill, t_segment, d_prefill, d_decode, params_t, params_d,
+                            tokens, cache_t, cache_d, max_new_tokens: int, gamma: int,
+                            temperature: float, top_k: int, top_p: float,
+                            generator: Optional[torch.Generator] = None,
+                            eos_token_id: Optional[int] = None):
+    """Draft-model speculative decoding (lossless).
+
+    Each round the draft proposes ``gamma`` tokens autoregressively, the
+    target verifies them all in ONE (gamma+1)-wide segment forward, and the
+    standard accept/resample rule keeps the output distribution exactly the
+    target's (greedy: token for token the plain greedy stream). Rows advance
+    by their own accepted counts (per-row positions). As in the reference,
+    each draft step's proposal and each round's verdict come to the host,
+    where acceptance runs in numpy with an rng seeded from ``generator``.
+    ``t_segment``/``d_decode`` take (B,) position vectors. Returns (B, S +
+    max_new_tokens) int32 on the tokens' device; rows that stop at EOS are
+    EOS-padded."""
+    if max_new_tokens <= 0:
+        return tokens.to(torch.int32)
+    B, S = tokens.shape
+    dev = tokens.device
+    greedy = temperature <= 0.0
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    host_rng = np.random.default_rng(_host_seed(generator))
+
+    def to_host(t):
+        return t.cpu().numpy()
+
+    logits_t, cache_t = t_prefill(params_t, tokens, cache_t)
+    _, cache_d = d_prefill(params_d, tokens, cache_d)
+    last_logits = logits_t[:, -1]
+    if greedy:
+        t0 = to_host(torch.argmax(last_logits, dim=-1)).astype(np.int32)
+    else:
+        t0 = _sample_rows(to_host(_filtered_probs(last_logits, temperature, top_k, top_p)),
+                          host_rng)
+
+    # fixed-width output buffer and per-row lengths; rows that finish early
+    # are padded with EOS
+    pad = eos_token_id if eos_token_id is not None else 0
+    out = np.full((B, max_new_tokens), pad, np.int32)
+    out[:, 0] = t0
+    lens = np.ones((B,), np.int32)
+    last = t0.astype(np.int32)
+    pos = np.full((B,), S, np.int32)
+    done = (lens >= max_new_tokens) | (
+        (t0 == eos_token_id) if eos_token_id is not None else np.zeros(B, bool))
+
+    def up(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+    while not done.all():
+        # gamma proposals; one more step caches d_gamma's KV so the draft's
+        # context stays whole when every proposal is accepted
+        drafts = np.zeros((B, gamma), np.int32)
+        qdists = []
+        cur = last
+        for i in range(gamma + 1):
+            logits_d, cache_d = d_decode(params_d, up(cur[:, None]), cache_d, up(pos + i))
+            if i == gamma:
+                break
+            if greedy:
+                d = to_host(torch.argmax(logits_d[:, 0], dim=-1)).astype(np.int32)
+            else:
+                q = to_host(_filtered_probs(logits_d[:, 0], temperature, top_k, top_p))
+                qdists.append(q)
+                d = _sample_rows(q, host_rng)
+            drafts[:, i] = d
+            cur = d.astype(np.int32)
+
+        # verify every proposal in one target forward
+        seg = np.concatenate([last[:, None], drafts], axis=1)  # (B, gamma+1)
+        logits_v, cache_t = t_segment(params_t, up(seg), cache_t, up(pos))
+        tgt = pdists = qstack = None
+        if greedy:
+            tgt = to_host(torch.argmax(logits_v, dim=-1)).astype(np.int32)
+        else:
+            V = logits_v.shape[-1]
+            pdists = to_host(_filtered_probs(logits_v.reshape(B * (gamma + 1), V),
+                                             temperature, top_k, top_p)).reshape(B, gamma + 1, V)
+            qstack = np.stack(qdists, axis=1)  # (B, gamma, V)
+
+        # whole-batch accept / correct
+        active = ~done
+        n_take, bonus, bonus_ok, took_eos = _accept_round(
+            drafts, active, lens, max_new_tokens, eos_token_id,
+            tgt=tgt, pdists=pdists, qstack=qstack, host_rng=host_rng)
+        cols = lens[:, None] + np.arange(gamma, dtype=np.int32)[None]
+        valid = (np.arange(gamma)[None] < n_take[:, None]) & (cols < max_new_tokens)
+        br, bi = np.nonzero(valid)
+        out[br, cols[br, bi]] = drafts[br, bi]
+        lens = lens + n_take
+        bb = np.nonzero(bonus_ok)[0]
+        out[bb, lens[bb]] = bonus[bb]
+        lens = lens + bonus_ok.astype(np.int32)
+        last = np.where(bonus_ok, bonus, last).astype(np.int32)
+        pos = pos + np.where(active, n_take + 1, 0).astype(np.int32)
+        done = done | took_eos | (lens >= max_new_tokens)
+        if eos_token_id is not None:
+            done = done | (bonus_ok & (bonus == eos_token_id))
+
+    return torch.cat([tokens.to(torch.int32), torch.from_numpy(out).to(dev)], dim=1)
+
+
+def speculative_generate(cfg, params, draft, tokens, max_new_tokens: int, temperature: float,
+                         top_k: int, top_p: float, generator, gamma: int,
+                         max_out_tokens: Optional[int], get_fns,
+                         eos_token_id: Optional[int] = None):
+    """Speculative-decoding orchestration (the verify round's cache slack,
+    function lookup, cache init, loop). ``get_fns(B, cache_len) ->
+    (t_prefill, t_segment)`` supplies the target's functions; ``draft`` is
+    an ``InferenceEngine`` that provides its own through ``_spec_fns``."""
+    if draft.cfg.vocab_size != cfg.vocab_size:
+        raise ValueError(
+            f"draft must share the vocabulary: draft vocab {draft.cfg.vocab_size} != "
+            f"target vocab {cfg.vocab_size}")
+    if gamma < 1:
+        raise ValueError(f"speculative.num_draft_tokens must be >= 1, got {gamma}")
+    B, S = tokens.shape
+    total = S + max_new_tokens + gamma + 1  # the verify round's overrun slack
+    cache_len = bounded_cache_len(total, max(cfg.max_seq_len, total), max_out_tokens)
+    t_prefill, t_segment = get_fns(B, cache_len)
+    d_prefill, d_decode = draft._spec_fns(B, cache_len)
+    cache_t = tf.init_cache(cfg, B, cache_len, device=tokens.device)
+    cache_d = tf.init_cache(draft.cfg, B, cache_len, device=tokens.device)
+    return speculative_decode_loop(
+        t_prefill, t_segment, d_prefill, d_decode, params, draft.params, tokens, cache_t,
+        cache_d, max_new_tokens, gamma, temperature, top_k, top_p, generator,
+        eos_token_id=eos_token_id)

@@ -2,7 +2,9 @@
 cut to one device: the whole-generation ``generate`` path, ragged prompts
 (``attention_mask``), chunked prefill (``prefill_chunk_size``), int8 weights
 (``dtype="int8"`` / ``quant``) and the int8 KV cache
-(``kv_cache_dtype="int8"``), ``forward`` and EOS truncation.
+(``kv_cache_dtype="int8"``), draft-model speculative decoding (``generate(...,
+draft=)`` or ``init_inference(draft_model=)``), ``forward`` and EOS
+truncation.
 
 Weights come from a seeded ``torch.Generator``, from the reference's param
 tree as numpy arrays (bridged by ``models.transformer.params_from_numpy``)
@@ -12,8 +14,8 @@ dtype at load, then, for int8 weights, each matmul weight is quantized
 passed; without CUDA and without that argument it raises.
 
 Features outside the slice raise ``NotImplementedError`` (ROADMAP.md):
-tensor-parallel meshes, speculative decoding, the per-token decode loop
-(``fused_generate: false``) and telemetry.
+tensor-parallel meshes, the per-token decode loop (``fused_generate:
+false``) and telemetry.
 """
 
 import dataclasses
@@ -27,11 +29,13 @@ from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.decoding import (
     bounded_cache_len,
     chunked_generate,
+    compile_decode_fns,
     compile_generate_fn,
     compile_ragged_prefill_fn,
     compile_segment_fn,
     ragged_decode_loop,
     read_bucket,
+    speculative_generate,
 )
 from deepspeed_tpu_torch.models import transformer as tf
 from deepspeed_tpu_torch.ops.quantizer import fake_quantize, quantize_weight
@@ -48,7 +52,6 @@ def _check_config(config: InferenceConfig) -> None:
     checks = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1"),
         (config.mesh.shape is not None or config.mesh.rules, "a serving mesh (config.mesh)"),
-        (config.speculative.enabled, "speculative decoding"),
         (not config.fused_generate,
          "the per-token decode loop with bucket migration (fused_generate=false)"),
         (config.telemetry.enabled, "telemetry"),
@@ -180,7 +183,9 @@ class InferenceEngine:
     def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0,
                  generator: Optional[torch.Generator] = None,
-                 eos_token_id: Optional[int] = None, attention_mask=None):
+                 eos_token_id: Optional[int] = None,
+                 draft: Optional["InferenceEngine"] = None,
+                 num_draft_tokens: Optional[int] = None, attention_mask=None):
         """Greedy or temperature/top-k/top-p sampling over a KV cache sized
         once for the request. Returns (B, S + max_new_tokens) int32 tokens on
         the engine's device. Sampling draws from ``generator`` (default: one
@@ -190,7 +195,14 @@ class InferenceEngine:
         prompts, left or right padded: pads never enter the KV cache, each
         row decodes from its own length, and the prompt region is returned
         as given. With ``prefill_chunk_size`` set, every prompt (masked or
-        not) prefills in chunks of that many columns."""
+        not) prefills in chunks of that many columns.
+
+        Passing ``draft`` (a second, smaller engine on the same vocabulary)
+        switches to lossless speculative decoding: the draft proposes
+        ``num_draft_tokens`` tokens a round and this engine verifies them in
+        one segment forward (``speculative.num_draft_tokens`` is the
+        default; ``speculative.enabled`` with ``init_inference(draft_model=)``
+        attaches a draft to every call). Chunked prefill is skipped then."""
         tokens = self._tokens(input_ids)
         B, S = tokens.shape
         if max_new_tokens <= 0:
@@ -209,6 +221,28 @@ class InferenceEngine:
         max_len = bounded_cache_len(total, self.cfg.max_seq_len, self.config.max_out_tokens)
         if generator is None and temperature > 0.0:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        speculating = draft is not None or self.config.speculative.enabled
+        if attention_mask is not None and speculating:
+            raise NotImplementedError("speculative decoding does not take attention_mask yet")
+        if draft is None and speculating:
+            draft = getattr(self, "_draft_engine", None)
+            if draft is None:
+                raise ValueError(
+                    "speculative.enabled but no draft model: pass draft= to generate() or "
+                    "draft_model= to init_inference(), or set speculative.mode='ngram' for "
+                    "draft-free self-drafting (pooled serving, ContinuousBatchingEngine)")
+        if draft is not None:
+            gamma = (num_draft_tokens if num_draft_tokens is not None
+                     else self.config.speculative.num_draft_tokens)
+            if gamma < 1:
+                raise ValueError(f"speculative.num_draft_tokens must be >= 1, got {gamma}")
+            result = speculative_generate(
+                self._ring_off_cfg, self.params, draft, tokens, max_new_tokens, temperature,
+                top_k, top_p, generator, gamma, self.config.max_out_tokens,
+                get_fns=self._spec_fns, eos_token_id=eos_token_id)
+            if eos_token_id is not None:
+                result = self._truncate_eos(result, S, eos_token_id)
+            return result
         cache = tf.init_cache(self.cfg, B, max_len, device=self.device)
         if self.config.prefill_chunk_size or attention_mask is not None:
             prefill_fn, segment_fn = self._ragged_fns_for(B, max_len)
@@ -260,6 +294,14 @@ class InferenceEngine:
         return (compile_ragged_prefill_fn(self.cfg, batch_size, max_len),
                 self._segment_fn(batch_size, max_len))
 
+    def _spec_fns(self, batch_size: int, max_len: int):
+        """(prefill_fn, segment_fn) of speculative decoding, for the target
+        (a (gamma+1)-wide verify) and the draft (1-wide steps) alike: the
+        aligned prefill of :func:`compile_decode_fns` and the full-read
+        segment dispatcher."""
+        prefill_fn = compile_decode_fns(self._ring_off_cfg, batch_size, max_len)[0]
+        return prefill_fn, self._segment_fn(batch_size, max_len)
+
     @staticmethod
     def _truncate_eos(tokens, prompt_len, eos_id):
         """Pad everything after each row's first generated EOS with EOS."""
@@ -273,7 +315,23 @@ class InferenceEngine:
         return out
 
 
-def init_inference(model, config=None, params=None, device=None, seed: int = 0) -> InferenceEngine:
+def init_inference(model, config=None, params=None, device=None, seed: int = 0,
+                   draft_model=None, draft_params=None) -> InferenceEngine:
     """Reference: ``deepspeed_tpu.init_inference``. ``device`` defaults to
-    the current CUDA device; pass ``"cpu"`` to run the plain PyTorch paths."""
-    return InferenceEngine(model, config=config, params=params, device=device, seed=seed)
+    the current CUDA device; pass ``"cpu"`` to run the plain PyTorch paths.
+
+    ``draft_model`` (with ``speculative.enabled``) attaches a smaller
+    same-vocabulary model whose engine drives speculative decoding on every
+    ``generate`` call. The draft takes the target's ``dtype`` and cache
+    format (``kv_cache_dtype``, ``kv_tight_read``, ``kv_read_floor``);
+    ``draft_params`` may be the reference's numpy tree."""
+    engine = InferenceEngine(model, config=config, params=params, device=device, seed=seed)
+    if draft_model is not None:
+        engine._draft_engine = InferenceEngine(
+            draft_model,
+            config={"dtype": engine.config.dtype,
+                    "kv_cache_dtype": engine.config.kv_cache_dtype,
+                    "kv_tight_read": engine.config.kv_tight_read,
+                    "kv_read_floor": engine.config.kv_read_floor},
+            params=draft_params, device=engine.device, seed=seed)
+    return engine

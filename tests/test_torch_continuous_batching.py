@@ -447,9 +447,6 @@ class TestLifecycle:
     def test_unported_surface_raises(self, setup):
         _, params = setup
         model = ttf.TransformerModel(ttf.TransformerConfig(**CFG))
-        with pytest.raises(NotImplementedError, match="item 5"):
-            ContinuousBatchingEngine(model, params=params, device="cpu",
-                                     config={"speculative": {"enabled": True, "pool": True}})
         with pytest.raises(NotImplementedError, match="item 8"):
             ContinuousBatchingEngine(model, params=params, device="cpu", mesh=object())
         cb = _port(setup, max_slots=1)

@@ -2,7 +2,8 @@
 the flash kernels K1-K3, the block-sparse kernels K4-K6 and the fused norm
 kernels K7-K8; the int8 decode path's W8A8 product (``int8_linear``,
 cuBLASLt's int8 product through ``torch._int_mm``) and int8 engine; and the
-continuous-batching engine's ticks, dispatched where a host sync raises.
+continuous-batching engine's ticks, plain and speculative (ngram and draft
+modes), dispatched where a host sync raises.
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -41,6 +42,8 @@ calls on the CPU: the quantization is f32 arithmetic in the same order
 product sums exactly in int32 on both, and the rescale is two f32 products
 and one cast: bit for bit.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -895,4 +898,77 @@ def test_keyed_uniforms_on_the_card_equal_the_cpu():
     gens = torch.tensor([0, 1, 64, 2 ** 31 - 1]).repeat(16)
     cpu = tdec.request_uniforms(2 ** 40 + 5, rids, gens, 50257)
     card = tdec.request_uniforms(2 ** 40 + 5, rids.cuda(), gens.cuda(), 50257)
+    assert torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("mode", ["ngram", "draft"])
+def test_spec_pool_ticks_dispatch_without_a_host_sync(mode, fused):
+    """The speculative pool's ticks never wait on the card either: three
+    admissions (fused: their prompt chunks through the separate segment
+    dispatch; separate: the bucket prefill and splice, and in draft mode
+    the draft's prefill) and two verify rounds, dispatched under
+    ``torch.cuda.set_sync_debug_mode("error")``. The ngram proposals go up
+    in the same pinned copy as the tick's other host vectors. A depth of 8
+    retires nothing in two steps; the results then equal the same requests
+    served before."""
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    _need_card()
+    cfg = ttf.TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+                                max_seq_len=128, dtype="bfloat16", attn_impl="pallas")
+    kw = {}
+    if mode == "draft":
+        kw = dict(draft_model=ttf.TransformerModel(dataclasses.replace(cfg, num_layers=1)))
+    eng = ContinuousBatchingEngine(
+        ttf.TransformerModel(cfg),
+        config={"speculative": {"enabled": True, "pool": True, "mode": mode,
+                                "num_draft_tokens": 3}},
+        max_slots=4, cache_len=96, pipeline_depth=8, prefill_chunk=32, fused_prefill=fused, **kw)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 256, n).astype(np.int32) for n in (20, 45, 7)]
+    for p in prompts:  # the same shapes once, outside the check
+        eng.submit(p, max_new_tokens=9)
+    while eng.has_work():
+        eng.step()
+    want = eng.finished()
+    rids = [eng.submit(p, max_new_tokens=9) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(eng._inflight) == 2 and not eng.poisoned
+    assert (eng.tick_stats()["fused_prefill_ticks"] > 0) == fused
+    while eng.has_work():
+        eng.step()
+    got = eng.finished()
+    for r, w in zip(rids, sorted(want)):
+        np.testing.assert_array_equal(got[r], want[w])
+    assert eng.tick_stats()["spec_drafted"] > 0
+
+
+def test_spec_lane_uniforms_on_the_card_equal_the_cpu():
+    """The speculative lanes' keys and uniforms (the acceptance scalar and
+    the vocab-wide draws) are integer hashing in int64 tensor ops: the same
+    bits on both devices."""
+    from deepspeed_tpu_torch.inference import decoding as tdec
+
+    _need_card()
+    rids = torch.arange(16).repeat_interleave(4)
+    gens = torch.tensor([0, 1, 64, 2 ** 31 - 1]).repeat(16)
+    base = 2 ** 40 + 5
+    for lane in (tdec.LANE_DRAFT, tdec.LANE_ACCEPT, tdec.LANE_BONUS):
+        cpu = tdec.spec_request_keys(base, rids, gens, lane)
+        assert torch.equal(tdec.spec_request_keys(base, rids.cuda(), gens.cuda(), lane).cpu(),
+                           cpu)
+        cpu = tdec.spec_uniforms(base, rids, gens, lane, 50257)
+        card = tdec.spec_uniforms(base, rids.cuda(), gens.cuda(), lane, 50257)
+        assert torch.equal(card.cpu(), cpu)
+    grid = (rids[:, None].expand(64, 8), gens[:, None] + torch.arange(8)[None])
+    cpu = tdec.spec_accept_uniforms(base, *grid)
+    card = tdec.spec_accept_uniforms(base, *(t.cuda() for t in grid))
     assert torch.equal(card.cpu(), cpu)

@@ -165,7 +165,7 @@ def test_decode_kv_bytes_matches_reference():
 
 
 @pytest.mark.parametrize("config", [
-    {"tensor_parallel": {"tp_size": 2}}, {"speculative": {"enabled": True}},
+    {"tensor_parallel": {"tp_size": 2}},
     {"fused_generate": False}, {"telemetry": {"enabled": True}},
     {"mesh": {"shape": {"data": 1, "tensor": 2}}}, {"profile_model_time": True},
 ])
@@ -173,6 +173,21 @@ def test_features_outside_the_slice_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         deepspeed_tpu_torch.init_inference(ttf.TransformerModel(ttf.TransformerConfig(**CFG)),
                                            config=config, device="cpu")
+
+
+def test_speculation_without_a_draft_raises_as_the_reference(setup):
+    """``speculative.enabled`` with no draft anywhere fails loudly in both
+    packages (ValueError naming the draft and the pooled ngram route), and
+    does not fall back to plain decoding."""
+    config = {"dtype": "float32", "speculative": {"enabled": True}}
+    jeng = deepspeed_tpu.init_inference(jtf.TransformerModel(jtf.TransformerConfig(**CFG)),
+                                        params=setup["params"], config=config)
+    with pytest.raises(ValueError, match="no draft model") as ref:
+        jeng.generate(jnp.asarray(setup["toks"]), max_new_tokens=4)
+    eng = _engine(setup["params"], speculative={"enabled": True})
+    with pytest.raises(ValueError, match="no draft model") as port:
+        eng.generate(setup["toks"], max_new_tokens=4)
+    assert "mode='ngram'" in str(port.value) and "mode='ngram'" in str(ref.value)
 
 
 @pytest.mark.parametrize("config,cfg_dtype,kv", [
