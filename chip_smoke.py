@@ -44,6 +44,15 @@ backward):
     a self-draft pool's acceptance, spec ticks dispatched where a host sync
     raises; ``serve_pool_spec``), each stream held to plain greedy under
     the bf16 tie rule;
+  - the serving layer (``deepspeed_tpu_torch.serving.ServingEngine`` over
+    the batching engine, with the telemetry hub, the ops server, the
+    single-replica loadgen and fault recovery) on the serving tick's GPT-2
+    125M engine build: the layer's cost against the bare pool on the same
+    schedule (``serve_layer_overhead``), two open-loop runs of the loadgen
+    (fifo at 4 req/s with a ``/metrics`` scrape and a rebuilt timeline; edf
+    with deadlines, all arriving at once, shedding and expiring;
+    ``serve_layer_load``), and a fault plan with two rebuilds at depths 0
+    and 1 (``serve_layer_chaos``); ``--serve-layer`` runs these alone;
   - training (``deepspeed_tpu_torch.initialize`` -> ``forward`` /
     ``backward`` / ``step``) on GPT-2 125M at full width and depth, seq
     1024, micro-batch 8, bf16, flash attention, AdamW: 2 warm-up and 10
@@ -1293,6 +1302,8 @@ def ragged_chunked_phase(gen, card):
 
 
 SERVE_REQUESTS, SERVE_NEW = 32, 64
+# bench_serving's pool: slots, cache length, burst
+SERVE_SLOTS, SERVE_CACHE, SERVE_BURST = 8, 256, 4
 # the speculative phases profile a window (the first requests of a
 # schedule, a few rounds of a generate): the profiler's cost grows with the
 # launches it records
@@ -1314,6 +1325,28 @@ def serving_schedule(vocab_size):
     return [(t, rs.randint(0, vocab_size, (n,)).astype(np.int32), new) for t, n, new in arrivals]
 
 
+def serving_model(gen):
+    """The serving phases' model: GPT-2 125M at full width and depth
+    (``max_seq_len`` 1024) and its bf16 weights drawn from ``gen``."""
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", max_seq_len=1024)
+    return model, tf.map_params(lambda p: p.to(torch.bfloat16), model.init(gen))
+
+
+def build_pool(model, params, config=None, **kwargs):
+    """A batching engine in ``bench_serving``'s geometry: 8 slots of cache
+    256, bf16, flash asked for (vector positions keep K1 off), bursts of 4
+    unless ``tokens_per_tick`` says otherwise; ``config`` adds to that
+    engine config."""
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+
+    kwargs.setdefault("tokens_per_tick", SERVE_BURST)
+    return ContinuousBatchingEngine(
+        model, config={"dtype": "bfloat16", "attn_impl": "pallas", **(config or {})},
+        params=params, max_slots=SERVE_SLOTS, cache_len=SERVE_CACHE, **kwargs)
+
+
 def warm_pool(eng, queue, cache_len):
     """Warm a batching engine as the bench's build_engine and run_spec do:
     the tick family, then one request a prompt bucket (the admission
@@ -1333,26 +1366,41 @@ def warm_pool(eng, queue, cache_len):
     return programs, time.perf_counter() - t0
 
 
-def replay_schedule(eng, queue, depth):
+def replay_schedule(eng, queue, depth, layer=None):
     """One replay of an arrival schedule [(step, prompt, new)] through a
     batching engine at a pipeline depth, as ``bench_serving``'s run_serve;
     returns the row of host and token counts and each request's result.
     Request i takes rid i in every replay: the rid is part of a sampled
-    token's key."""
-    import numpy as np
-
+    token's key. With ``layer``, a ``ServingEngine`` over ``eng``, the
+    requests go through the layer instead: its ``submit`` (a shed fails),
+    ``step`` and ``reap``; the tick counters stay the engine's."""
     eng.pipeline_depth = depth
     stats0 = dict(eng._tick_stats)
+    front = layer or eng
+
+    def submit(i):
+        if layer is None:
+            return eng.submit(queue[i][1], max_new_tokens=queue[i][2], rid=i)
+        adm = layer.submit(queue[i][1], max_new_tokens=queue[i][2])
+        check(adm.status != "shed", f"replay through the layer: request {i} shed "
+                                    f"({adm.reason})")
+        return adm.rid
+
+    def reap_finished():
+        if layer is None:
+            return eng.finished()
+        return {rid: r.result for rid, r in layer.reap().items() if r.state == "finished"}
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step, done_tokens, completed = 0, 0, 0
     pending, rid_of, results = list(range(len(queue))), {}, {}
-    while pending or eng.has_work():
+    while pending or front.has_work():
         for i in [i for i in pending if queue[i][0] <= step]:
-            rid_of[i] = eng.submit(queue[i][1], max_new_tokens=queue[i][2], rid=i)
+            rid_of[i] = submit(i)
         pending = [i for i in pending if queue[i][0] > step]
-        done_tokens += sum(len(v) for v in eng.step().values())
-        finished = eng.finished()
+        done_tokens += sum(len(v) for v in front.step().values())
+        finished = reap_finished()
         completed += len(finished)
         results.update(finished)
         step += 1
@@ -1475,24 +1523,19 @@ def serve_pool_phase(gen, card):
     import numpy as np
     import torch.nn.functional as F
 
-    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
     from deepspeed_tpu_torch.inference import decoding as dec
-    from deepspeed_tpu_torch.models import transformer as tf
     from deepspeed_tpu_torch.ops import fused_norm as fnorm
     from deepspeed_tpu_torch.ops import op_builder
 
-    SLOTS, CACHE, BURST, NEW, N_REQ = 8, 256, 4, SERVE_NEW, SERVE_REQUESTS
-    model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", max_seq_len=1024)
+    SLOTS, CACHE, BURST, NEW, N_REQ = (SERVE_SLOTS, SERVE_CACHE, SERVE_BURST, SERVE_NEW,
+                                       SERVE_REQUESTS)
+    model, params = serving_model(gen)
     L, V, D = model.cfg.num_layers, model.cfg.vocab_size, model.cfg.hidden_size
-    params = tf.map_params(lambda p: p.to(torch.bfloat16), model.init(gen))
-    config = {"dtype": "bfloat16", "attn_impl": "pallas"}
     queue = serving_schedule(V)
 
     def build(**kwargs):
         """An engine warmed as the bench's build_engine."""
-        kwargs.setdefault("tokens_per_tick", BURST)
-        eng = ContinuousBatchingEngine(model, config=config, params=params, max_slots=SLOTS,
-                                       cache_len=CACHE, **kwargs)
+        eng = build_pool(model, params, **kwargs)
         return (eng, *warm_pool(eng, queue, CACHE))
 
     def run_serve(eng, depth):
@@ -1559,8 +1602,7 @@ def serve_pool_phase(gen, card):
     # where any host sync raises: a depth of 8 retires nothing in two steps
     sync_rows = []
     for tpt in (BURST, 1):
-        seng = ContinuousBatchingEngine(model, config=config, params=params, max_slots=SLOTS,
-                                        cache_len=CACHE, tokens_per_tick=tpt, pipeline_depth=8)
+        seng = build_pool(model, params, tokens_per_tick=tpt, pipeline_depth=8)
         prompts = [q[1] for q in queue[:3]]
         for p in prompts:  # warm the same shapes first
             seng.submit(p, max_new_tokens=8)
@@ -1818,14 +1860,12 @@ def serve_pool_spec_phase(gen, card):
     speculative serves."""
     import numpy as np
 
-    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
     from deepspeed_tpu_torch.models import transformer as tf
     from deepspeed_tpu_torch.ops import op_builder
 
-    SLOTS, CACHE, GAMMAS = 8, 256, (2, 4, 8)
-    model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", max_seq_len=1024)
+    SLOTS, CACHE, GAMMAS = SERVE_SLOTS, SERVE_CACHE, (2, 4, 8)
+    model, params = serving_model(gen)
     L, V = model.cfg.num_layers, model.cfg.vocab_size
-    params = tf.map_params(lambda p: p.to(torch.bfloat16), model.init(gen))
     draft_model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16",
                                                   max_seq_len=1024, num_layers=3)
     draft_params = tf.map_params(lambda p: p.to(torch.bfloat16), draft_model.init(
@@ -1834,15 +1874,14 @@ def serve_pool_spec_phase(gen, card):
     queue = serving_schedule(V)
 
     def build(gamma=None, mode=None, **kwargs):
-        config = {"dtype": "bfloat16", "attn_impl": "pallas"}
+        config = {}
         if gamma is not None:
             config["speculative"] = {"enabled": True, "pool": True, "mode": mode,
                                      "num_draft_tokens": gamma}
         if mode == "draft":
             kwargs.setdefault("draft_model", draft_model)
             kwargs.setdefault("draft_params", draft_params)
-        eng = ContinuousBatchingEngine(model, config=config, params=params, max_slots=SLOTS,
-                                       cache_len=CACHE, tokens_per_tick=1, **kwargs)
+        eng = build_pool(model, params, config, tokens_per_tick=1, **kwargs)
         return (eng, *warm_pool(eng, queue, CACHE))
 
     eng, _, _ = build()
@@ -1936,12 +1975,10 @@ def serve_pool_spec_phase(gen, card):
         for fused in (True, False):
             kw = {"draft_model": draft_model, "draft_params": draft_params} if mode == "draft" \
                 else {}
-            config = {"dtype": "bfloat16", "attn_impl": "pallas",
-                      "speculative": {"enabled": True, "pool": True, "mode": mode,
+            config = {"speculative": {"enabled": True, "pool": True, "mode": mode,
                                       "num_draft_tokens": 4}}
-            seng = ContinuousBatchingEngine(model, config=config, params=params,
-                                            max_slots=SLOTS, cache_len=CACHE, pipeline_depth=8,
-                                            fused_prefill=fused, **kw)
+            seng = build_pool(model, params, config, tokens_per_tick=1, pipeline_depth=8,
+                              fused_prefill=fused, **kw)
             prompts = [q[1] for q in queue[:3]]
             for p in prompts:  # warm the same shapes first
                 seng.submit(p, max_new_tokens=8)
@@ -1977,6 +2014,387 @@ def serve_pool_spec_phase(gen, card):
             del seng
     emit({"phase": "serve_pool_spec_sync", "runs": sync_rows, "card": card})
     torch.cuda.empty_cache()
+    return counts
+
+
+def serve_layer_phase(card):
+    """The serving layer (``deepspeed_tpu_torch.serving``: ``ServingEngine``
+    over the batching engine, its policies and recovery, the telemetry hub,
+    the single-replica loadgen) on ``serve_pool``'s GPT-2 125M engine build
+    (bf16, 8 slots of cache 256, bursts of 4). Three phases, each driven
+    path counted from 0 (K7 only: vector positions keep K1 off, no K8):
+
+    - ``serve_layer_overhead``: ``serve_pool``'s 32-request schedule at
+      depth 1 through a bare ``ContinuousBatchingEngine``, through
+      ``ServingEngine`` (fifo, the hub off) and with the hub on and a
+      trace written, each on its own engine, twice in turns (bare, layer,
+      hub, hub, layer, bare); tokens/s, ticks, dispatch and blocked ms a
+      tick, each arm's mean tokens/s over the bare pool's; every stream
+      the same as the first bare replay's or first differing at a top-2
+      margin < 2 LOGITS_TOL.
+    - ``serve_layer_load``: ``synth_workload(48, seed=0, prompts 32-128, 64
+      new)`` through ``run_load`` on the real clock, (a) fifo at 4 req/s
+      Poisson with the hub on, the ops server scraped over loopback once
+      during the run (from another thread; it must succeed and end before
+      the run does) and once after, and a request's timeline rebuilt from
+      the trace, (b) edf, all 48 arriving at once (the burst process) into
+      a queue of 16, each with a deadline of 1.25 waves at the layer arm's
+      measured pace, so that it must shed and expire (checked);
+      ``summarize``'s scorecard of each; every record terminal, none lost;
+      (a)'s first 8 finished streams against their single-row ``generate``
+      under the tie rule.
+    - ``serve_layer_chaos``: the schedule's first 16 requests driven tick by
+      tick on an injected clock, fault-free, then under a retried dispatch
+      error, a fetch hang and a preemption with a same-size
+      ``engine_factory``, at depths 0 and 1: every request finishes, none
+      lost, conservation, ``recovery_stats()``; each recovered stream
+      against the fault-free one (bit for bit where the card gives it, else
+      first differing at a top-2 margin < 2 LOGITS_TOL); recovery and
+      outage ms (the scorecard's goodput dip is left out: two waves of
+      completions leave empty bins in the fault-free run too).
+
+    Returns the K7/K1/K8 launch counts of the driven serves."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.serving import (
+        Fault,
+        FaultInjector,
+        FaultPlan,
+        RecoveryConfig,
+        ServingEngine,
+    )
+    from deepspeed_tpu_torch.serving import loadgen
+    from deepspeed_tpu_torch.telemetry import read_trace
+    from deepspeed_tpu_torch.telemetry import timeline
+
+    # serve_pool's weights when it runs alone (a seed-0 generator)
+    model, params = serving_model(torch.Generator(device="cuda").manual_seed(0))
+
+    def build(config=None, **kwargs):
+        return build_pool(model, params, config, **kwargs)
+
+    # one engine for the single-row yardsticks and the tie margins
+    solo_eng = build()._eng
+    L = model.cfg.num_layers
+    queue = serving_schedule(model.cfg.vocab_size)
+    counts = {}
+
+    def drive(fn):
+        """Run one driven serve with the launch counts from 0; add them."""
+        op_builder.reset_launch_counts()
+        out = fn()
+        for k, c in op_builder.launch_counts().items():
+            counts[k] = counts.get(k, 0) + c
+        return out
+
+    def margins_along(prompt, gen_toks):
+        """The top-2 margins of a single row's own logits along a stream."""
+        return top2_margins(teacher_forced_logits(solo_eng.params, solo_eng.cfg,
+                                                  solo_eng._tight_floor(), prompt, gen_toks))
+
+    def solo(prompt, new):
+        """A request's own single-row ``generate`` and its top-2 margins."""
+        want = solo_eng.generate(torch.from_numpy(prompt[None]).long().cuda(),
+                                 max_new_tokens=new)[0, prompt.size:]
+        margins = margins_along(prompt, want)
+        return np.concatenate([prompt, want.cpu().numpy()]), (lambda: margins)
+
+    # ---- serve_layer_overhead -------------------------------------------
+    # three engines built and warmed alike; their replays in turns (bare,
+    # layer, hub, hub, layer, bare), so that the host's drift over the call
+    # falls on every arm alike; each arm's tokens/s is the mean of its two
+    runs, replays = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in ("bare", "layer", "layer_hub"):
+            config = ({"telemetry": {"enabled": True, "trace_file": f"{tmp}/overhead.jsonl"}}
+                      if run == "layer_hub" else None)
+            eng = build(config)
+            warm_pool(eng, queue, SERVE_CACHE)
+            # the budget holds the whole schedule: these runs measure the
+            # layer's cost, not its shedding
+            runs[run] = eng if run == "bare" else ServingEngine(
+                eng, policy="fifo", pipeline_depth=1, kv_budget_tokens=1 << 20)
+        for run in ("bare", "layer", "layer_hub", "layer_hub", "layer", "bare"):
+            target = runs[run]
+            row, got = drive(lambda: replay_schedule(target, queue, 1) if run == "bare"
+                             else replay_schedule(target._cb, queue, 1, layer=target))
+            row["tick_dispatch_ms_per_tick"] = row["tick_dispatch_ms"] / max(row["ticks"], 1)
+            row["tick_block_ms_per_tick"] = row["tick_block_ms"] / max(row["ticks"], 1)
+            row["k7_launches"] = op_builder.launch_counts()["fused_norm_fwd"]
+            replays.setdefault(run, []).append((row, got))
+        for run in ("layer", "layer_hub"):
+            runs[run].close()
+        trace_kinds = sorted({e["kind"] for e in read_trace(f"{tmp}/overhead.jsonl")})
+    del runs
+    reference = replays["bare"][0][1]
+    margins = {}
+
+    def margins_of(i):
+        def get():
+            if i not in margins:
+                margins[i] = margins_along(
+                    queue[i][1], torch.from_numpy(reference[i][queue[i][1].size:]).cuda())
+            return margins[i]
+        return get
+
+    agree, rows = {}, {}
+    for run, reps in replays.items():
+        for j, (row, got) in enumerate(reps):
+            complete = all(s is not None for s in got) and row["completed"] == len(queue)
+            check(complete and row["k7_launches"] > 0,
+                  f"serve_layer_overhead {run} replay {j}: {row['completed']} of {len(queue)} "
+                  f"requests completed, K7 launched {row['k7_launches']} times")
+            if run == "bare" and j == 0:
+                continue
+            agree[f"{run}_{j}"] = [
+                stream_agreement(s, w, q[1], margins_of(i), f"serve_layer_overhead {run}")
+                for i, (s, w, q) in enumerate(zip(got, reference, queue))
+                if s is not None and w is not None]
+        rows[run] = {k: [row[k] for row, _ in reps] for k in (
+            "tokens_per_s", "ticks", "wall_s", "tick_dispatch_ms_per_tick",
+            "tick_block_ms_per_tick", "k7_launches")}
+        rows[run]["mean_tokens_per_s"] = statistics.mean(rows[run]["tokens_per_s"])
+    bare_tps = rows["bare"]["mean_tokens_per_s"]
+    emit({"phase": "serve_layer_overhead", "model": "gpt2-125m", "dtype": "bfloat16",
+          "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE, "tokens_per_tick": SERVE_BURST,
+          "pipeline_depth": 1,
+          "requests": len(queue), "order": "bare, layer, layer_hub, layer_hub, layer, bare",
+          "runs": rows,
+          "layer_over_bare_tokens_per_s": rows["layer"]["mean_tokens_per_s"] / bare_tps,
+          "layer_hub_over_bare_tokens_per_s": rows["layer_hub"]["mean_tokens_per_s"] / bare_tps,
+          "equal_to_bare": {run: sum(e["equal"] for e in a) for run, a in agree.items()},
+          "differing": {run: [e for e in a if not e["equal"]] for run, a in agree.items()},
+          "trace_kinds": trace_kinds, "card": card})
+    torch.cuda.empty_cache()
+
+    # ---- serve_layer_load ------------------------------------------------
+    workload = loadgen.synth_workload(48, seed=0, prompt_range=(32, 128), new_range=(64, 64))
+    vocab = model.cfg.vocab_size
+    # (b)'s overload is certain whatever the host's speed: all 48 arrive at
+    # once into 8 slots and a queue of 16 (24 shed), and the deadline is
+    # 1.25 of a wave (8 requests' 64 tokens) at the layer arm's measured
+    # pace above, so the queue's second wave, placed after two waves,
+    # expires unless the host runs 1.6x faster than it did there
+    wave_s = statistics.mean(rows["layer"]["wall_s"]) * SERVE_SLOTS / len(queue)
+    deadline_ms = 1.25 * wave_s * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = f"{tmp}/load.jsonl"
+        for run, policy, kw in (("a", "fifo", {}), ("b", "edf", {"max_queue_depth": 16})):
+            config = ({"telemetry": {"enabled": True, "trace_file": trace}}
+                      if run == "a" else None)
+            eng = build(config)
+            warm_pool(eng, queue, SERVE_CACHE)
+            srv = ServingEngine(eng, policy=policy, pipeline_depth=1, **kw)
+            if run == "a":
+                items, rate, process = workload, 4.0, "poisson"
+            else:
+                items = [dict(w, deadline_ms=deadline_ms) for w in workload]
+                rate, process = 16.0, "burst"
+            arrivals = loadgen.gen_arrivals(len(items), rate, process, seed=0,
+                                            burst_size=len(items))
+            mid = {}
+            if run == "a":
+                ops = srv.start_ops_server(port=0)
+
+                def scrape(ops=ops):
+                    with urllib.request.urlopen(ops.url + "/metrics", timeout=10) as r:
+                        metrics = r.read().decode()
+                    with urllib.request.urlopen(ops.url + "/healthz", timeout=10) as r:
+                        return metrics, r.status, json.loads(r.read())
+
+                def scrape_mid():
+                    """The scrape taken while the run is under way, from
+                    another thread: its result or its error, and when it
+                    ended."""
+                    try:
+                        mid["scrape"] = scrape()
+                    except Exception as e:  # noqa: BLE001 - checked below
+                        mid["error"] = repr(e)
+                    mid["done_s"] = time.perf_counter()
+
+                timer = threading.Timer(arrivals[len(arrivals) // 2], scrape_mid)
+                timer.start()
+            records, wall_s = drive(lambda: loadgen.run_load(srv, items, arrivals, seed=0))
+            run_end_s = time.perf_counter()
+            k7 = op_builder.launch_counts()["fused_norm_fwd"]
+            summary = loadgen.summarize(records, wall_s, tick_stats=srv.tick_stats())
+            lost = [i for i, r in enumerate(records)
+                    if r.get("state") not in ("finished", "shed", "expired", "cancelled")]
+            check(len(records) == len(items) and not lost,
+                  f"serve_layer_load ({run}): requests {lost} ended in no terminal state")
+            verdicts = {s: sum(1 for r in records if r["status"] == s)
+                        for s in ("admitted", "queued", "shed")}
+            row = {"policy": policy, "rate_rps": rate, "process": process, **kw,
+                   "requests": len(items), "verdicts": verdicts, "k7_launches": k7,
+                   **{k: summary.get(k) for k in (
+                       "outcomes", "wall_s", "offered_rps", "shed_rate", "shed_by_reason",
+                       "throughput_tok_s", "goodput_tok_s", "ttft_ms", "tbt_ms", "queue_ms",
+                       "deadline_met_frac", "host")}}
+            if run == "a":
+                timer.join()
+                final = scrape()  # and once more after the run, for the final count
+                finished = sum(1 for r in records if r.get("state") == "finished")
+                admitted = [float(line.split()[1]) for line in final[0].splitlines()
+                            if line.startswith("serve_admitted_total ")]
+                check("scrape" in mid and mid["done_s"] < run_end_s
+                      and mid["scrape"][1] == final[1] == 200,
+                      f"serve_layer_load (a): the scrape during the run "
+                      f"{mid.get('error') or mid.get('scrape', [None, None])[1]}, ended "
+                      f"{mid.get('done_s', float('nan')) - run_end_s:+.3f} s after the run; "
+                      f"after the run /healthz {final[1]}")
+                check(admitted == [finished],
+                      f"serve_layer_load (a): /metrics serve_admitted_total {admitted}, "
+                      f"{finished} requests admitted and finished")
+                if "scrape" in mid:
+                    row["scrape"] = {"mid_run_status": mid["scrape"][2],
+                                     "mid_run_metric_lines": len(mid["scrape"][0].splitlines()),
+                                     "mid_run_ended_s_before_run_end": run_end_s - mid["done_s"],
+                                     "serve_admitted_total": admitted}
+                agree_solo = []
+                for i, r in enumerate(records):
+                    if r.get("state") != "finished" or len(agree_solo) == 8:
+                        continue
+                    prompt = loadgen._item_prompt(items[i], i, 0, vocab)
+                    want, m = solo(prompt, int(items[i]["max_new_tokens"]))
+                    got = np.concatenate([prompt, np.asarray(r["generated"], np.int32)])
+                    agree_solo.append(stream_agreement(got, want, prompt, m,
+                                                       "serve_layer_load (a)"))
+                row["equal_to_single_row"] = sum(e["equal"] for e in agree_solo)
+                row["single_row_checked"] = len(agree_solo)
+                srv.close()
+                tls = timeline.build_timelines(read_trace(trace))
+                done = [tl for tl in tls.values() if tl.spans and not tl.orphans]
+                check(bool(done), "serve_layer_load (a): no clean timeline in the trace")
+                if done:
+                    tl = done[0]
+                    row["timeline"] = {"trace_id": tl.trace_id, "spans": len(tl.spans),
+                                       "duration_ms": tl.duration_ms,
+                                       "critical_path_ms": tl.critical_path(),
+                                       "attribution_ms": tl.attribution(),
+                                       "dominant": tl.dominant_kind(),
+                                       "timelines": len(tls),
+                                       "with_orphans": sum(1 for t in tls.values()
+                                                           if t.orphans)}
+            else:
+                srv.close()
+                outcomes = row["outcomes"] or {}
+                row.update(deadline_ms=deadline_ms, wave_s=wave_s)
+                check(outcomes.get("shed", 0) > 0 and outcomes.get("expired", 0) > 0,
+                      f"serve_layer_load (b): outcomes {outcomes}: the overload must shed "
+                      f"and expire")
+            emit({"phase": "serve_layer_load", "run": run, "model": "gpt2-125m",
+                  "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+                  "tokens_per_tick": SERVE_BURST, **row, "card": card})
+            del srv, eng
+    torch.cuda.empty_cache()
+
+    # ---- serve_layer_chaos ---------------------------------------------
+    chaos_queue = queue[:16]
+    plan_faults = (("dispatch_error", 3), ("fetch_hang", 6), ("preempt", 10))
+    chaos_rows = []
+    for depth in (0, 1):
+        outs = {}
+        for faulted in (False, True):
+            eng = build(pipeline_depth=depth)
+            kw = {}
+            injector = None
+            if faulted:
+                injector = FaultInjector(FaultPlan([Fault(tick=t, kind=k)
+                                                    for k, t in plan_faults]))
+                eng.fault_hook = injector
+                kw = dict(engine_factory=lambda mesh_shape=None: build(pipeline_depth=depth),
+                          recovery=RecoveryConfig())
+            srv = ServingEngine(eng, clock=time.perf_counter, pipeline_depth=depth, **kw)
+
+            def run_ticks(srv=srv):
+                """Submit when due, one step a tick; a request shed while
+                the breaker is open ("recovering") is submitted again on
+                the next tick, as a client honouring the verdict would."""
+                t0 = time.perf_counter()
+                step, pending, rid_of, resubmits = 0, list(range(len(chaos_queue))), {}, 0
+                while pending or srv.has_work():
+                    for i in [i for i in pending if chaos_queue[i][0] <= step]:
+                        adm = srv.submit(chaos_queue[i][1], max_new_tokens=chaos_queue[i][2])
+                        if adm:
+                            rid_of[i] = adm.rid
+                        else:
+                            check(adm.reason == "recovering",
+                                  f"serve_layer_chaos: request {i} shed ({adm.reason})")
+                            resubmits += 1
+                    pending = [i for i in pending if i not in rid_of]
+                    srv.step()
+                    step += 1
+                torch.cuda.synchronize()
+                return rid_of, t0, time.perf_counter() - t0, step, resubmits
+
+            rid_of, t0, wall, steps, resubmits = drive(run_ticks)
+            done = srv.reap()
+            records = []
+            for i in range(len(chaos_queue)):
+                req = done.get(rid_of.get(i))
+                records.append({"state": req.state if req else None,
+                                "tokens": len(req.tokens) if req else 0,
+                                "generated": list(req.tokens) if req else [],
+                                "recoveries": req.recoveries if req else 0,
+                                "finish_s": (req.finish_t - t0) if req and req.finish_t
+                                else None})
+            outs[faulted] = (records, wall, steps, srv.recovery_stats(), injector, resubmits)
+            srv.close()
+            del srv, eng
+        free, chaos = outs[False][0], outs[True][0]
+        records, wall, steps, stats, injector, resubmits = outs[True]
+        states = [r["state"] for r in records]
+        check(states == ["finished"] * len(chaos_queue) == [r["state"] for r in free],
+              f"serve_layer_chaos depth {depth}: states {states}")
+        check(stats["lost_requests"] == 0 and stats["rebuilds"] == 2 and stats["retries"] == 1
+              and injector.pending() == 0 and not stats["breaker_open"],
+              f"serve_layer_chaos depth {depth}: recovery_stats {stats}, "
+              f"{injector.pending()} planned faults unfired")
+        agree = []
+        for i, (a, b) in enumerate(zip(chaos, free)):
+            if a["state"] != "finished" or b["state"] != "finished":
+                continue
+            prompt = chaos_queue[i][1]
+            got = np.concatenate([prompt, np.asarray(a["generated"], np.int32)])
+            want = np.concatenate([prompt, np.asarray(b["generated"], np.int32)])
+
+            def m(want=want, prompt=prompt):
+                return margins_along(prompt, torch.from_numpy(want[prompt.size:]).cuda())
+
+            agree.append(stream_agreement(got, want, prompt, m,
+                                          f"serve_layer_chaos depth {depth}"))
+        card_records = [{k: r[k] for k in ("state", "tokens", "recoveries", "finish_s")}
+                        for r in records]
+        score = loadgen.chaos_scorecard(card_records, wall, stats, injected=injector.fired)
+        # the scorecard's goodput dip is left out: 16 completions in two
+        # waves leave empty bins in the fault-free run too (it read 1.0
+        # with and without faults), so the outage is read from
+        # recovery_stats (outage_ms_total, lost_ticks) instead
+        row = {"pipeline_depth": depth, "requests": len(chaos_queue), "steps": steps,
+               "wall_s": wall, "fault_free_wall_s": outs[False][1],
+               "plan": [{"tick": t, "kind": k} for k, t in plan_faults],
+               "finished": states.count("finished"),
+               "resubmitted_while_recovering": resubmits,
+               "conservation": len(states) == sum(states.count(s) for s in (
+                   "finished", "shed", "expired", "cancelled")),
+               "recovered_requests": score["recovered_requests"],
+               "bit_equal_to_fault_free": sum(e["equal"] for e in agree),
+               "differing": [e for e in agree if not e["equal"]],
+               "recovery_stats": stats}
+        chaos_rows.append(row)
+        emit({"phase": "serve_layer_chaos", "model": "gpt2-125m", "slots": SERVE_SLOTS,
+              "cache_len": SERVE_CACHE, "tokens_per_tick": SERVE_BURST, **row, "card": card})
+        torch.cuda.empty_cache()
+    check(counts.get("fused_norm_fwd", 0) > 0 and counts.get("flash_fwd", 0) == 0
+          and counts.get("fused_norm_bwd", 0) == 0,
+          f"serve_layer: K7/K1/K8 launched {counts.get('fused_norm_fwd', 0)}/"
+          f"{counts.get('flash_fwd', 0)}/{counts.get('fused_norm_bwd', 0)} times, "
+          f"expected >0/0/0")
     return counts
 
 
@@ -2046,6 +2464,24 @@ def spec_main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     spec_generate_phase(gen, card)
     serve_pool_spec_phase(gen, card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
+def serve_layer_main():
+    """``python3 chip_smoke.py --serve-layer``: the serving layer's phases
+    alone (``serve_layer_*``; no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
+    serve_layer_phase(card)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
     return 1 if failures else 0
@@ -2563,6 +2999,10 @@ def main():
     check(spec_counts.get("flash_fwd", 0) > 0 and spec_counts.get("fused_norm_fwd", 0) > 0
           and pool_spec_counts.get("fused_norm_fwd", 0) > 0,
           "speculative paths: K1 never launched on serve_spec or K7 on one of the two")
+    # ---- the serving layer over the batching engine: overhead, load, chaos
+    # on serve_pool's engine build, counted from 0 over the driven serves
+    layer_counts = serve_layer_phase(card)
+    torch.cuda.empty_cache()
 
     # ---- the training path: GPT-2 125M, seq 1024, micro-batch 8, bf16, flash
     # attention, no remat, with the JAX package's bench config
@@ -2949,6 +3389,7 @@ def main():
                    "serve_pool": pool_counts.get(kname, 0),
                    "serve_spec": spec_counts.get(kname, 0),
                    "serve_pool_spec": pool_spec_counts.get(kname, 0),
+                   "serve_layer": layer_counts.get(kname, 0),
                    "train": train_counts.get(kname, 0),
                    "train_sparse": sparse_counts.get(kname, 0),
                    "fused_ops": fused_counts.get(kname, 0)}
@@ -3025,5 +3466,5 @@ def main():
 
 if __name__ == "__main__":
     ENTRIES = {("--decode-step",): decode_step_main, ("--serve-pool",): serve_pool_main,
-               ("--spec",): spec_main}
+               ("--spec",): spec_main, ("--serve-layer",): serve_layer_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

@@ -63,10 +63,18 @@ then ride the device with its other tick state; fused admission prefills
 its prompt chunks through a separate segment dispatch on the same step.
 ``tick_stats()`` adds the drafted and accepted counts and their ratio.
 
+Telemetry (engine config ``telemetry``; the inner engine's hub, which the
+serving layer shares and re-injects into rebuilt engines): each tick then
+drives the ``torch.profiler`` window, sets the ``cache_utilization`` and
+``tick_inflight_depth`` gauges, observes ``tick_dispatch_ms`` and
+``tick_block_ms``, counts ``burst_wasted_tokens`` and emits a
+``serving_tick`` event; each finished request emits ``inference_request``
+(``path: "continuous"``). Every value is host-side already: telemetry adds
+no wait on the device to a tick.
+
 Not ported (``NotImplementedError``, ROADMAP.md Queue 1): a serving mesh
-(``mesh``; item 8), and telemetry with its memory attribution
-(``telemetry``, ``memory_snapshot``, ``hbm_components``,
-``analyze_program_memory``; items 11 and 12).
+(``mesh``; item 8), the memory attribution (``memory_snapshot``,
+``hbm_components``; item 11 (b)) and ``analyze_program_memory`` (item 12).
 """
 
 import time
@@ -78,7 +86,6 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.inference import ngram
-from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.decoding import (
     compile_pool_tick_fn,
     compile_ragged_prefill_fn,
@@ -219,11 +226,8 @@ class ContinuousBatchingEngine:
                  draft_model=None, draft_params=None, device=None):
         from deepspeed_tpu_torch.inference.engine import InferenceEngine
 
-        parsed = InferenceConfig.parse(config)
         if mesh is not None:
             raise not_ported("a serving mesh for the batching engine (ROADMAP Queue 1 item 8)")
-        if parsed.telemetry.enabled:
-            raise not_ported("the batching engine's telemetry (ROADMAP Queue 1 item 11)")
         self._eng = InferenceEngine(model, config=config, params=params, device=device,
                                     seed=seed)
         # slot caches are written at per-row depths (ragged admission): the
@@ -320,11 +324,12 @@ class ContinuousBatchingEngine:
         # "unknown")
         self._cancelled: "OrderedDict[int, None]" = OrderedDict()
         self._cancelled_cap = 4096
-        # serving-layer hooks, as the reference's: request_event_hook is
-        # kept for the surface (events need telemetry, not ported);
-        # span_hook gets (rid, span_kind, t0, t1, attrs) per coalesced
-        # tick window; fault_hook (point, info) at "dispatch", "retire" and
-        # "set_row" and may raise
+        # serving-layer hooks, as the reference's: request_event_hook gets
+        # (rid, event) in _finish and may enrich or replace the
+        # inference_request event before it is emitted; span_hook gets
+        # (rid, span_kind, t0, t1, attrs) per coalesced tick window;
+        # fault_hook (point, info) at "dispatch", "retire" and "set_row"
+        # and may raise
         self.request_event_hook: Optional[Callable[[int, dict], Optional[dict]]] = None
         self.span_hook: Optional[Callable[[int, str, float, float, dict], None]] = None
         self.span_window_ticks = 16
@@ -340,7 +345,10 @@ class ContinuousBatchingEngine:
 
     @property
     def telemetry(self):
-        raise not_ported("the batching engine's telemetry (ROADMAP Queue 1 item 11)")
+        """The engine stack's ONE telemetry hub, owned by the inner
+        InferenceEngine (serving recovery re-injects it into replacement
+        engines, so counters and the trace span engine generations)."""
+        return self._eng.telemetry
 
     # -- single-pool compatibility surface (tests, introspection) --------
     @property
@@ -369,10 +377,10 @@ class ContinuousBatchingEngine:
         return sum(p.kv_bytes() for p in self._pools)
 
     def hbm_components(self):
-        raise not_ported("hbm_components (device-memory attribution; ROADMAP Queue 1 item 11)")
+        raise not_ported("hbm_components (device-memory attribution; ROADMAP Queue 1 item 11 (b))")
 
     def memory_snapshot(self, reason: str):
-        raise not_ported("memory_snapshot (device-memory attribution; ROADMAP Queue 1 item 11)")
+        raise not_ported("memory_snapshot (device-memory attribution; ROADMAP Queue 1 item 11 (b))")
 
     def analyze_program_memory(self):
         raise not_ported("analyze_program_memory (program analysis; ROADMAP Queue 1 item 12)")
@@ -676,9 +684,40 @@ class ContinuousBatchingEngine:
         # retire down to the pipeline depth; with nothing new dispatched the
         # remaining in-flight ticks are the drain tail
         block_ms = 0.0
+        tokens0, wasted0 = stats["tokens"], stats["wasted_tokens"]
+        drafted0, accepted0 = stats["spec_drafted"], stats["spec_accepted"]
         while self._inflight and (len(self._inflight) > self.pipeline_depth or not recs):
             block_ms += self._retire(self._inflight.popleft(), emitted)
         stats["block_ms"] += block_ms
+
+        tele = self._eng.telemetry
+        if tele.enabled:
+            # tick-indexed profiler window: profile_start_step counts
+            # scheduler ticks here
+            tele.maybe_capture(self._tick_index)
+            reg = tele.registry
+            reg.gauge("cache_utilization").set(self.cache_utilization())
+            reg.gauge("tick_inflight_depth").set(len(self._inflight))
+            n_tokens = stats["tokens"] - tokens0
+            n_wasted = stats["wasted_tokens"] - wasted0
+            if recs or block_ms:
+                reg.histogram("tick_dispatch_ms").observe(dispatch_ms)
+                reg.histogram("tick_block_ms").observe(block_ms)
+                if n_wasted:
+                    reg.counter("burst_wasted_tokens").inc(n_wasted)
+                event = {
+                    "dispatch_ms": round(dispatch_ms, 4),
+                    "block_ms": round(block_ms, 4),
+                    "inflight": len(self._inflight),
+                    "emitted": n_tokens,
+                    "wasted": n_wasted,
+                    "fused_prefill": any(r.fused for r in recs.values()),
+                }
+                if self.spec_gamma:
+                    event["spec_gamma"] = self.spec_gamma
+                    event["spec_drafted"] = stats["spec_drafted"] - drafted0
+                    event["spec_accepted"] = stats["spec_accepted"] - accepted0
+                tele.emit("serving_tick", event)
         return emitted
 
     def cache_utilization(self) -> float:
@@ -1228,7 +1267,35 @@ class ContinuousBatchingEngine:
         return count
 
     def _finish(self, pool: _Pool, slot: int):
+        tele = self._eng.telemetry
+        # pool pressure BEFORE the pop: the event describes the state this
+        # request served under
+        util = self.cache_utilization() if tele.enabled else 0.0
         req = pool.active.pop(slot)
+        # tail window span BEFORE the request leaves the serving layer's
+        # engine-rid table (the hook resolves the trace through it)
         self._flush_window(req)
         self._results[req.rid] = np.concatenate(
             [req.prompt, np.asarray(req.generated, np.int32)])
+        if tele.enabled:
+            new = len(req.generated)
+            event = {
+                "request": int(req.rid),
+                "path": "continuous",
+                "batch": 1,
+                "prompt_tokens": int(req.prompt.size),
+                "new_tokens": new,
+                "cache_len": pool.length,
+                "kv_dtype": "int8" if self.cfg.kv_cache_dtype == "int8" else self.cfg.dtype,
+                "kv_bytes_read": int(req.kv_bytes_read),
+                "cache_utilization": round(util, 4),
+            }
+            if new:
+                event["kv_bytes_per_token"] = round(req.kv_bytes_read / new, 1)
+            if self.spec_gamma:
+                event["spec_gamma"] = self.spec_gamma
+                event["spec_drafted"] = int(req.spec_drafted)
+                event["spec_accepted"] = int(req.spec_accepted)
+            if self.request_event_hook is not None:
+                event = self.request_event_hook(req.rid, event) or event
+            tele.emit("inference_request", event)

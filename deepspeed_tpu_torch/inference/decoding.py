@@ -16,12 +16,23 @@ geometry: prefill, then one Python loop per :func:`read_stages` stage. The
 functions, so that a CUDA-graph capture can take their place.
 """
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models import transformer as tf
+
+
+def _mark_first_token(timings: Optional[dict], token):
+    """TTFT hook: when the caller passes a ``timings`` dict (telemetry
+    enabled), wait for the first sampled token and stamp its wall clock.
+    ``None`` (the default everywhere) never waits on the device."""
+    if timings is not None:
+        if token.is_cuda:
+            torch.cuda.synchronize(token.device)
+        timings["first_token_s"] = time.time()
 
 
 def read_bucket(n: int, cap: int, floor: int = 16) -> int:
@@ -321,7 +332,7 @@ def _check_mask(attention_mask, shape):
 def ragged_decode_loop(ragged_prefill_fn, segment_fn, params, tokens, attention_mask,
                        cache, cache_len: int, max_new_tokens: int, temperature: float,
                        top_k: int, generator=None, top_p: float = 1.0,
-                       tight_read: bool = False):
+                       tight_read: bool = False, timings: Optional[dict] = None):
     """Generate over a PADDED prompt batch (HF attention_mask semantics, left
     or right padding): prefill once with per-row dense positions, then
     per-row-position decode. Returns (B, S + max_new_tokens) int32: the
@@ -336,6 +347,7 @@ def ragged_decode_loop(ragged_prefill_fn, segment_fn, params, tokens, attention_
                                       cache)
     last_logits = logits[torch.arange(B, device=dev), torch.as_tensor(last_col, device=dev)]
     nxt = select_token(last_logits, temperature, top_k, generator, top_p)
+    _mark_first_token(timings, nxt)
     gen = _segment_decode_tail(segment_fn, params, nxt, cache, prompt_lens,
                                max_new_tokens - 1, temperature, top_k, generator, top_p,
                                active0=int(prompt_lens.max()) if tight_read else None)
@@ -345,7 +357,7 @@ def ragged_decode_loop(ragged_prefill_fn, segment_fn, params, tokens, attention_
 def chunked_generate(ragged_prefill_fn, segment_fn, params, tokens, cache, cache_len: int,
                      chunk: int, max_new_tokens: int, temperature: float, top_k: int,
                      generator=None, top_p: float = 1.0, attention_mask=None,
-                     tight_read: bool = False):
+                     tight_read: bool = False, timings: Optional[dict] = None):
     """Generate with CHUNKED prefill: the prompt streams through (B, chunk)
     prefill segments, so prefill's peak memory is bounded by the chunk and
     one segment shape serves every prompt length. The last chunk's pads
@@ -383,6 +395,7 @@ def chunked_generate(ragged_prefill_fn, segment_fn, params, tokens, cache, cache
         sel = torch.as_tensor(in_chunk, device=dev)[:, None]
         last_logits = picked if last_logits is None else torch.where(sel, picked, last_logits)
     nxt = select_token(last_logits, temperature, top_k, generator, top_p)
+    _mark_first_token(timings, nxt)
     gen = _segment_decode_tail(segment_fn, params, nxt, cache, prompt_lens,
                                max_new_tokens - 1, temperature, top_k, generator, top_p,
                                active0=int(prompt_lens.max()) if tight_read else None)

@@ -13,12 +13,18 @@ dtype at load, then, for int8 weights, each matmul weight is quantized
 (scales stay f32). The engine runs on CUDA unless ``device="cpu"`` is
 passed; without CUDA and without that argument it raises.
 
+With the ``telemetry`` block enabled, every ``generate``/``forward`` call
+emits the reference's ``inference_request`` event through the engine's
+hub (``self.telemetry``, which the batching engine and the serving layer
+share); only then does a call wait on the device for its timing.
+
 Features outside the slice raise ``NotImplementedError`` (ROADMAP.md):
 tensor-parallel meshes, the per-token decode loop (``fused_generate:
-false``) and telemetry.
+false``) and ``profile_model_time``.
 """
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -33,12 +39,14 @@ from deepspeed_tpu_torch.inference.decoding import (
     compile_generate_fn,
     compile_ragged_prefill_fn,
     compile_segment_fn,
+    decode_kv_bytes,
     ragged_decode_loop,
     read_bucket,
     speculative_generate,
 )
 from deepspeed_tpu_torch.models import transformer as tf
 from deepspeed_tpu_torch.ops.quantizer import fake_quantize, quantize_weight
+from deepspeed_tpu_torch.telemetry import Telemetry
 from deepspeed_tpu_torch.utils import not_ported
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -54,7 +62,6 @@ def _check_config(config: InferenceConfig) -> None:
         (config.mesh.shape is not None or config.mesh.rules, "a serving mesh (config.mesh)"),
         (not config.fused_generate,
          "the per-token decode loop with bucket migration (fused_generate=false)"),
-        (config.telemetry.enabled, "telemetry"),
         (config.moe.enabled, "MoE inference"),
         (config.profile_model_time, "profile_model_time"),
     ]
@@ -159,6 +166,11 @@ class InferenceEngine:
             params = (quantize_weights(params) if nbits == 8
                       else fake_quantize_weights(params, cfg, nbits))
         self.params = params
+        # telemetry hub (JSONL request traces, TTFT/decode latency; inert
+        # when the block is disabled). A plain attribute: the serving
+        # layer re-injects its hub into every rebuilt engine
+        self.telemetry = Telemetry(self.config.telemetry, role="inference")
+        self._request_id = 0
         log_dist(f"InferenceEngine ready: dtype={cfg.dtype} quant={self._weight_quant} "
                  f"kv_cache_dtype={cfg.kv_cache_dtype} attn_impl={cfg.attn_impl} "
                  f"device={self.device}", ranks=[0])
@@ -177,7 +189,73 @@ class InferenceEngine:
     @torch.inference_mode()
     def forward(self, input_ids):
         """Full-sequence logits (B, S, V)."""
-        return tf.apply(self.params, self.cfg, self._tokens(input_ids))
+        t0 = time.time()
+        tokens = self._tokens(input_ids)
+        logits = tf.apply(self.params, self.cfg, tokens)
+        return self._finish_request("forward", t0, logits, prompt_tokens=tokens.shape[1],
+                                    new_tokens=0, batch=tokens.shape[0])
+
+    def _kv_fields(self, prompt_len: int, new_tokens: int, cache_len: int,
+                   floor: Optional[int], batch: int) -> Optional[dict]:
+        """KV-read accounting of a generate call (None when telemetry is
+        off): the cache bytes its decode steps streamed (host math over
+        the read geometry the decode loop runs), the per-decoded-token
+        rate, the cache dtype, and the share of the allocation used."""
+        if not self.telemetry.enabled:
+            return None
+        per_row = decode_kv_bytes(self.cfg, prompt_len, new_tokens, cache_len, floor)
+        decoded = max(new_tokens - 1, 0)
+        fields = {
+            "kv_dtype": "int8" if self.cfg.kv_cache_dtype == "int8" else self.cfg.dtype,
+            "kv_bytes_read": int(batch) * per_row,
+            "cache_utilization": round(min((prompt_len + new_tokens) / cache_len, 1.0), 4),
+        }
+        if decoded:
+            fields["kv_bytes_per_token"] = round(per_row / decoded, 1)
+        return fields
+
+    def _finish_request(self, path: str, t0: float, result, prompt_tokens: int,
+                        new_tokens: int, batch: int, cache_len: Optional[int] = None,
+                        timings: Optional[dict] = None, kv: Optional[dict] = None):
+        """Single exit point of every forward/generate path: with telemetry
+        on, wait for the device and emit one ``inference_request`` event
+        (TTFT where the path has a first-token boundary, tokens/s, the
+        cache length and the KV-read fields). The reference's
+        ``compile_cache_hit`` has no counterpart: the port compiles
+        nothing."""
+        if not self.telemetry.enabled:
+            return result
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.time()
+        total_s = now - t0
+        self._request_id += 1
+        event = {
+            "request": self._request_id,
+            "path": path,
+            "batch": int(batch),
+            "prompt_tokens": int(prompt_tokens),
+            "new_tokens": int(new_tokens),
+            "total_ms": total_s * 1000.0,
+        }
+        if cache_len is not None:
+            event["cache_len"] = int(cache_len)
+        if kv is not None:
+            event.update(kv)
+        ttft_s = (timings or {}).get("first_token_s")
+        if ttft_s is not None:
+            event["ttft_ms"] = (ttft_s - t0) * 1000.0
+        if new_tokens > 0 and total_s > 0:
+            event["tokens_per_sec"] = int(batch) * (prompt_tokens + new_tokens) / total_s
+            if ttft_s is None:
+                event["decode_tokens_per_sec"] = int(batch) * new_tokens / total_s
+            elif new_tokens > 1:
+                # the first token lands at TTFT; rate the rest over the
+                # decode span
+                event["decode_tokens_per_sec"] = (
+                    int(batch) * (new_tokens - 1) / max(now - ttft_s, 1e-9))
+        self.telemetry.emit("inference_request", event)
+        return result
 
     @torch.inference_mode()
     def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 0.0,
@@ -236,31 +314,49 @@ class InferenceEngine:
                      else self.config.speculative.num_draft_tokens)
             if gamma < 1:
                 raise ValueError(f"speculative.num_draft_tokens must be >= 1, got {gamma}")
+            t0 = time.time()
             result = speculative_generate(
                 self._ring_off_cfg, self.params, draft, tokens, max_new_tokens, temperature,
                 top_k, top_p, generator, gamma, self.config.max_out_tokens,
                 get_fns=self._spec_fns, eos_token_id=eos_token_id)
+            result = self._finish_request("speculative", t0, result, prompt_tokens=S,
+                                          new_tokens=max_new_tokens, batch=B)
             if eos_token_id is not None:
                 result = self._truncate_eos(result, S, eos_token_id)
             return result
         cache = tf.init_cache(self.cfg, B, max_len, device=self.device)
+        # TTFT stamp of the host-driven loops (telemetry only: stamping
+        # waits for the first token)
+        timings = {} if self.telemetry.enabled else None
         if self.config.prefill_chunk_size or attention_mask is not None:
             prefill_fn, segment_fn = self._ragged_fns_for(B, max_len)
+            t0 = time.time()
             if self.config.prefill_chunk_size:
+                path = "chunked_prefill"
                 result = chunked_generate(
                     prefill_fn, segment_fn, self.params, tokens, cache, max_len,
                     self.config.prefill_chunk_size, max_new_tokens, temperature, top_k,
                     generator, top_p, attention_mask=attention_mask,
-                    tight_read=self.config.kv_tight_read)
+                    tight_read=self.config.kv_tight_read, timings=timings)
             else:
+                path = "ragged"
                 result = ragged_decode_loop(
                     prefill_fn, segment_fn, self.params, tokens, attention_mask, cache,
                     max_len, max_new_tokens, temperature, top_k, generator, top_p,
-                    tight_read=self.config.kv_tight_read)
+                    tight_read=self.config.kv_tight_read, timings=timings)
+            result = self._finish_request(
+                path, t0, result, prompt_tokens=S, new_tokens=max_new_tokens, batch=B,
+                cache_len=max_len, timings=timings,
+                kv=self._kv_fields(longest, max_new_tokens, max_len, self._tight_floor(), B))
         else:
+            floor = self._tight_floor()
             fn = compile_generate_fn(self.cfg, B, max_len, max_new_tokens, temperature,
-                                     top_k, top_p, read_floor=self._tight_floor())
+                                     top_k, top_p, read_floor=floor)
+            t0 = time.time()
             result = fn(self.params, tokens, cache, generator)
+            result = self._finish_request(
+                "fused", t0, result, prompt_tokens=S, new_tokens=max_new_tokens, batch=B,
+                cache_len=max_len, kv=self._kv_fields(S, max_new_tokens, max_len, floor, B))
         if eos_token_id is not None:
             result = self._truncate_eos(result, S, eos_token_id)
         return result

@@ -1,0 +1,123 @@
+"""Serving-layer request records (counterpart of
+``deepspeed_tpu/serving/request.py``, copied): lifecycle states, admission
+verdicts, and the per-request bookkeeping (:class:`ServeRequest`) the
+scheduler policies order and the telemetry hook reads. numpy only.
+"""
+
+import math
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional
+
+import numpy as np
+
+# -- request lifecycle states ------------------------------------------
+# QUEUED -> RUNNING -> FINISHED is the happy path; QUEUED requests may
+# instead terminate CANCELLED (caller) or EXPIRED (deadline blew while
+# waiting); RUNNING ones may terminate CANCELLED (slot freed mid-flight)
+# or SHED (the engine was lost and recovery could not re-admit — the
+# fault-tolerance path's honest terminal state: nothing is silently
+# dropped, admitted == finished + shed + expired + cancelled).
+QUEUED = "queued"
+RUNNING = "running"
+FINISHED = "finished"
+CANCELLED = "cancelled"
+EXPIRED = "expired"
+
+# -- admission verdicts (ServingEngine.submit) -------------------------
+# ADMITTED: handed to the batching engine immediately (a fitting slot was
+#   free and nothing queued outranked it) — the next tick prefills it.
+# QUEUED_STATUS: accepted into the bounded queue; the scheduler policy
+#   decides its turn.
+# SHED: rejected under backpressure (queue full / KV budget / recovering)
+#   — nothing was enqueued, no request id exists, retry after the hint.
+#   Doubles as the terminal STATE of an admitted request the fault-
+#   tolerance layer could not carry through an engine loss.
+ADMITTED = "admitted"
+QUEUED_STATUS = "queued"
+SHED = "shed"
+
+TERMINAL_STATES = (FINISHED, CANCELLED, EXPIRED, SHED)
+
+
+@dataclass
+class Admission:
+    """What ``ServingEngine.submit`` returns instead of growing an
+    unbounded list: an explicit verdict plus backpressure context."""
+
+    status: str                          # ADMITTED | QUEUED_STATUS | SHED
+    rid: Optional[int] = None            # None iff shed
+    reason: str = ""                     # shed cause ("queue_full", "kv_budget")
+    retry_after_s: Optional[float] = None  # shed only: load-based ETA, None if unknown
+
+    def __bool__(self) -> bool:          # truthy == the request is in the system
+        return self.status != SHED
+
+
+@dataclass
+class ServeRequest:
+    """One request's serving-side record. Times are clock() seconds (the
+    engine's injectable clock); ``None`` until the transition happens."""
+
+    rid: int
+    prompt: np.ndarray
+    max_new_tokens: int
+    priority: int = 0                    # higher = more urgent
+    tenant: str = "default"
+    deadline_ms: Optional[float] = None  # SLO: relative to submit time
+    on_token: Optional[Callable[[int, int], None]] = None  # (rid, token)
+
+    state: str = QUEUED
+    submit_t: float = 0.0
+    admit_t: Optional[float] = None
+    first_token_t: Optional[float] = None
+    finish_t: Optional[float] = None
+    # the ONE SLO verdict every reporting surface shares (trace event,
+    # serve_deadline_* counters, loadgen records): set by whichever
+    # observer judges first, never recomputed from a later clock read
+    deadline_met: Optional[bool] = None
+    tokens: List[int] = field(default_factory=list)
+    result: Optional[np.ndarray] = None  # prompt + generated, set at FINISHED
+    engine_rid: Optional[int] = None     # ContinuousBatchingEngine rid once RUNNING
+    # serving-level prefix id when admission splices a registered prefix
+    # (ServingEngine.register_prefix); the RecoveryLog records it so a
+    # rebuilt engine re-registers before re-admitting
+    prefix_id: Optional[int] = None
+    # times this request was re-admitted onto a rebuilt engine (fault
+    # tolerance; 0 = never touched by a recovery)
+    recoveries: int = 0
+    # request-scoped tracing (telemetry/spans.py): trace_id is the span
+    # layer's request identity (None = sampled out, no spans emitted);
+    # span_root is the root queue span's id and span_parent the span the
+    # NEXT tick-window spans hang off (the latest admission /
+    # recovery_replay span). The recovery snapshot carries all three, so
+    # a migrated request's survivor-side spans stitch onto the same
+    # trace_id across replicas.
+    trace_id: Optional[str] = None
+    span_root: Optional[str] = None
+    span_parent: Optional[str] = None
+
+    @property
+    def need_tokens(self) -> int:
+        """KV-budget footprint: the slot extent this request commits to."""
+        return int(self.prompt.size) + self.max_new_tokens
+
+    @property
+    def deadline_at(self) -> float:
+        """Absolute deadline in clock() seconds (+inf when no SLO): the
+        EDF sort key and the queued-work expiry threshold."""
+        if self.deadline_ms is None:
+            return math.inf
+        return self.submit_t + self.deadline_ms / 1000.0
+
+    def waited_s(self, now: float) -> float:
+        return max(0.0, now - self.submit_t)
+
+    def queue_ms(self) -> Optional[float]:
+        if self.admit_t is None:
+            return None
+        return (self.admit_t - self.submit_t) * 1000.0
+
+    def ttft_ms(self) -> Optional[float]:
+        if self.first_token_t is None:
+            return None
+        return (self.first_token_t - self.submit_t) * 1000.0

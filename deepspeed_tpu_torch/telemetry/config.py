@@ -1,8 +1,9 @@
 """Telemetry config block (counterpart of ``deepspeed_tpu/telemetry/config.py``).
 
-Only the dataclass is ported, so that ``InferenceConfig`` parses the same
-JSON. The telemetry layer itself is not ported yet: the inference engine
-raises ``NotImplementedError`` when ``enabled`` is true (ROADMAP.md).
+The inference config (``InferenceConfig.telemetry``) parses it; the
+inference engine builds its :class:`~deepspeed_tpu_torch.telemetry.Telemetry`
+hub from it. Default off: with ``enabled: false`` no trace file is created
+and no engine pays for a measurement.
 
     "telemetry": {
         "enabled": true,
@@ -24,7 +25,8 @@ class TelemetryConfig:
     emit_to_monitor: bool = True
     # block on device work at step boundaries so phase wall times measure compute
     sync_timers: bool = True
-    # per-device peak FLOP/s (TFLOP/s) for the MFU denominator; 0 = auto-detect
+    # per-device peak FLOP/s (TFLOP/s) for the MFU denominator; 0 = the
+    # H100's dense bf16 peak (989)
     peak_tflops_per_device: float = 0.0
     # device-trace capture window: start step (0 = never) and length
     profile_start_step: int = 0

@@ -1,0 +1,107 @@
+"""Request-scoped span emission over the telemetry hub (counterpart of
+``deepspeed_tpu/telemetry/spans.py``, copied).
+
+One ``SpanEmitter`` per emitting scope (a serving engine) writes closed
+spans as ``kind: "span"`` trace events through the scope's hub, and a
+disabled hub keeps the whole layer inert (``emit`` is one attribute
+check). Span ids are unique per process (a module-level scope counter
+feeds each emitter's prefix), so several emitters can share ONE trace
+file without collisions.
+
+Timestamps are monotonic-clock seconds (``time.monotonic`` by default;
+an emitter owning a different monotonic clock, such as the serving
+engine's injected ``clock``, passes it in, and every span in one trace
+file must share one clock domain for the read side's interval math to
+mean anything). The read side is ``telemetry/timeline.py``, which also
+owns the span-kind tables this module validates against.
+"""
+
+import itertools
+import time
+from typing import Callable, Optional
+
+from deepspeed_tpu_torch.telemetry.timeline import SPAN_KINDS
+
+_SCOPES = itertools.count()
+
+
+class SpanEmitter:
+    """Emit closed spans for one scope through a telemetry hub.
+
+    ``telemetry`` is a hub-shaped object (``.enabled`` + ``.emit``) or
+    None; disabled/None hubs make every call a no-op returning None.
+    ``new_span_id()`` mints ids without emitting — the migration stitch
+    allocates the bridge span's id first, hands it to the survivor as a
+    parent, and emits the bridge only once placement succeeded."""
+
+    def __init__(self, telemetry=None, clock: Callable[[], float] = time.monotonic):
+        self._tele = telemetry
+        self.clock = clock
+        self._scope = next(_SCOPES)
+        self._seq = 0
+
+    @property
+    def enabled(self) -> bool:
+        tele = self._tele
+        return tele is not None and bool(getattr(tele, "enabled", False))
+
+    def rebind(self, telemetry):
+        """Point at another hub (a rebuilt engine adopting the survivor
+        hub); span ids keep their scope — causality survives the swap."""
+        self._tele = telemetry
+
+    def new_span_id(self) -> str:
+        self._seq += 1
+        return f"s{self._scope}-{self._seq}"
+
+    def emit(self, span: str, trace_id, t0: float, t1: float, *,
+             span_id: Optional[str] = None, parent_id: Optional[str] = None,
+             attrs: Optional[dict] = None) -> Optional[str]:
+        """Write one closed span; returns its span_id (None when the hub
+        is disabled or the request is sampled out — ``trace_id`` None).
+        ``t1 < t0`` clamps to a zero-length span rather than lying."""
+        if trace_id is None or not self.enabled:
+            return None
+        if span not in SPAN_KINDS:
+            raise ValueError(f"unknown span kind {span!r} "
+                             f"(register it in telemetry/timeline.py)")
+        sid = span_id if span_id is not None else self.new_span_id()
+        t0 = float(t0)
+        t1 = max(float(t1), t0)
+        payload = {
+            "span": span,
+            "trace_id": str(trace_id),
+            "span_id": sid,
+            "t0": t0,
+            "t1": t1,
+            "dur_ms": (t1 - t0) * 1000.0,
+        }
+        if parent_id is not None:
+            payload["parent_id"] = str(parent_id)
+        if attrs:
+            payload["attrs"] = dict(attrs)
+        self._tele.emit("span", payload)
+        return sid
+
+
+def make_trace_sampler(rate: float, seed: int = 0):
+    """Deterministic per-request sampling decision for span emission
+    (``ds_loadgen --trace-sample P``): a pure hash of (seed, rid) —
+    stable across replicas, re-admissions, and runs with the same seed,
+    with no RNG state to share or lock. Returns ``sampler(rid) -> bool``;
+    rate >= 1 traces everything, rate <= 0 nothing."""
+    if rate >= 1.0:
+        return lambda rid: True
+    if rate <= 0.0:
+        return lambda rid: False
+    threshold = int(rate * (1 << 32))
+
+    def sampler(rid: int) -> bool:
+        # splitmix64-style integer hash: uniform over the rid space and
+        # identical on every host that shares the seed
+        x = (int(rid) + 0x9E3779B97F4A7C15 * (seed + 1)) & 0xFFFFFFFFFFFFFFFF
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+        return ((x ^ (x >> 31)) & 0xFFFFFFFF) < threshold
+
+    return sampler

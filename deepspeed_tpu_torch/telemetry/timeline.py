@@ -1,0 +1,320 @@
+"""Per-request timeline reconstruction from ``"span"`` trace events
+(counterpart of ``deepspeed_tpu/telemetry/timeline.py``, copied).
+
+The write side (``telemetry/spans.py`` + the serving emit sites) records
+request-scoped spans into the same JSONL trace every other telemetry
+event rides: one ``kind: "span"`` line per closed span, carrying
+``trace_id`` (the request identity, stable across engine rebuilds),
+``span_id`` / ``parent_id`` causality, and a monotonic-clock ``t0``/``t1``
+window. This module is the READ side: group spans by trace_id, stitch the
+parent/child tree, find orphans, and attribute each request's wall time
+to the span kind that dominated it.
+
+Stdlib-only and self-contained (no intra-package imports), so a tool can
+load it by file path. The span-kind tables live HERE; ``telemetry/
+spans.py`` (the write side) imports them from this module, never the
+reverse.
+"""
+
+import json
+from typing import Dict, Iterable, List, Optional
+
+# Every span kind the stack emits. Serving request lifecycle: queue
+# (submit -> handover), admission (the handover/engine-submit work),
+# then per-tick windows (prefill_chunk / decode_window /
+# spec_verify_round) from the continuous engine's retire path.
+# Cross-replica: migration (router-emitted, bridges the dead replica's
+# spans to the survivor's). Recovery: recovery_replay (in-process
+# rebuild re-admission). Ops: drain_wait (drain() -> queue dry).
+# Training reuses the same model: train_step / train_retry /
+# train_rebuild under a ``step:N`` trace_id.
+SPAN_KINDS = (
+    "queue",
+    "admission",
+    "prefill_chunk",
+    "decode_window",
+    "spec_verify_round",
+    "migration",
+    "recovery_replay",
+    "drain_wait",
+    "train_step",
+    "train_retry",
+    "train_rebuild",
+)
+
+# Coarse queue-vs-compute-vs-recovery attribution for the blame tables.
+SPAN_CATEGORY = {
+    "queue": "queue",
+    "drain_wait": "queue",
+    "admission": "compute",
+    "prefill_chunk": "compute",
+    "decode_window": "compute",
+    "spec_verify_round": "compute",
+    "train_step": "compute",
+    "migration": "recovery",
+    "recovery_replay": "recovery",
+    "train_retry": "recovery",
+    "train_rebuild": "recovery",
+}
+
+
+class Span:
+    """One closed span parsed off a trace event."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "kind", "t0", "t1",
+                 "replica", "attrs", "ts")
+
+    def __init__(self, event: dict):
+        self.trace_id = str(event["trace_id"])
+        self.span_id = str(event["span_id"])
+        parent = event.get("parent_id")
+        self.parent_id = str(parent) if parent is not None else None
+        self.kind = str(event["span"])
+        self.t0 = float(event["t0"])
+        self.t1 = max(float(event["t1"]), self.t0)
+        self.replica = event.get("replica")
+        self.attrs = event.get("attrs") or {}
+        self.ts = event.get("ts")
+
+    @property
+    def dur_ms(self) -> float:
+        return (self.t1 - self.t0) * 1000.0
+
+    def __repr__(self):  # pragma: no cover — debugging aid
+        return (f"Span({self.kind} {self.span_id} trace={self.trace_id} "
+                f"[{self.t0:.6f},{self.t1:.6f}])")
+
+
+class Timeline:
+    """All spans of one trace_id, stitched into a parent/child forest.
+
+    ``orphans`` lists spans whose ``parent_id`` names a span_id absent
+    from the trace — causality the writer claimed but the file cannot
+    back (a missed migration stitch, a rotated-away parent). A clean
+    reconstruction has zero."""
+
+    def __init__(self, trace_id: str, spans: List[Span]):
+        self.trace_id = trace_id
+        self.spans = sorted(spans, key=lambda s: (s.t0, s.t1, s.span_id))
+        self.by_id = {s.span_id: s for s in self.spans}
+        self.orphans = [s for s in self.spans
+                        if s.parent_id is not None
+                        and s.parent_id not in self.by_id]
+        self.roots = [s for s in self.spans if s.parent_id is None]
+
+    @property
+    def t_start(self) -> float:
+        return min(s.t0 for s in self.spans)
+
+    @property
+    def t_end(self) -> float:
+        return max(s.t1 for s in self.spans)
+
+    @property
+    def duration_ms(self) -> float:
+        return (self.t_end - self.t_start) * 1000.0
+
+    @property
+    def replicas(self) -> List[str]:
+        """Replica tags touched, in first-seen (time) order."""
+        seen = []
+        for s in self.spans:
+            if s.replica is not None and s.replica not in seen:
+                seen.append(s.replica)
+        return seen
+
+    def depth(self, span: Span) -> int:
+        """Ancestor count via parent links (root = 0); an orphan's chain
+        stops at the missing parent."""
+        d, cur, hops = 0, span, 0
+        while cur.parent_id is not None and hops <= len(self.spans):
+            nxt = self.by_id.get(cur.parent_id)
+            if nxt is None:
+                break
+            d += 1
+            cur = nxt
+            hops += 1
+        return d
+
+    def children(self, span_id: str) -> List[Span]:
+        return [s for s in self.spans if s.parent_id == span_id]
+
+    # -- attribution ----------------------------------------------------
+    def critical_path(self) -> Dict[str, float]:
+        """{span kind: ms} — every instant of [t_start, t_end] charged to
+        the DEEPEST span covering it (ties: the later-starting one — the
+        most specific work running then). Instants no span covers are
+        charged to ``"gap"``. Sums exactly to ``duration_ms``."""
+        if not self.spans:
+            return {}
+        cuts = sorted({t for s in self.spans for t in (s.t0, s.t1)})
+        out: Dict[str, float] = {}
+        for lo, hi in zip(cuts, cuts[1:]):
+            if hi <= lo:
+                continue
+            covering = [s for s in self.spans if s.t0 <= lo and s.t1 >= hi]
+            if covering:
+                best = max(covering, key=lambda s: (self.depth(s), s.t0))
+                kind = best.kind
+            else:
+                kind = "gap"
+            out[kind] = out.get(kind, 0.0) + (hi - lo) * 1000.0
+        return out
+
+    def attribution(self) -> Dict[str, float]:
+        """Critical-path ms folded to queue / compute / recovery / gap."""
+        out: Dict[str, float] = {}
+        for kind, ms in self.critical_path().items():
+            cat = SPAN_CATEGORY.get(kind, "gap")
+            out[cat] = out.get(cat, 0.0) + ms
+        return out
+
+    def dominant_kind(self) -> Optional[str]:
+        """The span kind holding the most critical-path time (gap
+        excluded unless it is all there is)."""
+        path = self.critical_path()
+        real = {k: v for k, v in path.items() if k != "gap"}
+        pool = real or path
+        if not pool:
+            return None
+        return max(sorted(pool), key=lambda k: pool[k])
+
+
+def iter_events(path: str) -> Iterable[dict]:
+    """Parsed events off a JSONL trace, torn/malformed lines skipped —
+    the same tolerance as ``telemetry.trace.read_trace`` (duplicated
+    here so this module stays loadable by file path, off-repo)."""
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                ev = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(ev, dict):
+                yield ev
+
+
+def spans_of(events: Iterable[dict]) -> List[Span]:
+    out = []
+    for ev in events:
+        if ev.get("kind") != "span":
+            continue
+        try:
+            out.append(Span(ev))
+        except (KeyError, TypeError, ValueError):
+            continue  # torn span line: same tolerance as read_trace
+    return out
+
+
+def build_timelines(events: Iterable[dict]) -> Dict[str, Timeline]:
+    """{trace_id: Timeline} over every span event in the iterable."""
+    grouped: Dict[str, List[Span]] = {}
+    for span in spans_of(events):
+        grouped.setdefault(span.trace_id, []).append(span)
+    return {tid: Timeline(tid, spans) for tid, spans in grouped.items()}
+
+
+def slo_blame(events: Iterable[dict],
+              timelines: Optional[Dict[str, Timeline]] = None) -> List[dict]:
+    """SLO-miss blame rows: join ``inference_request`` events that missed
+    their deadline (``deadline_met: false``) with their reconstructed
+    timeline's dominant span kind. Rows sorted worst-first by ttft."""
+    events = list(events)
+    if timelines is None:
+        timelines = build_timelines(events)
+    rows = []
+    for ev in events:
+        if ev.get("kind") != "inference_request":
+            continue
+        if ev.get("deadline_met") is not False:
+            continue
+        tid = ev.get("trace_id")
+        tl = timelines.get(str(tid)) if tid is not None else None
+        rows.append({
+            "trace_id": str(tid) if tid is not None else None,
+            "request": ev.get("request"),
+            "tenant": ev.get("tenant"),
+            "deadline_ms": ev.get("deadline_ms"),
+            "ttft_ms": ev.get("ttft_ms"),
+            "queue_ms": ev.get("queue_ms"),
+            "dominant": tl.dominant_kind() if tl is not None else None,
+            "attribution": tl.attribution() if tl is not None else None,
+            "replicas": tl.replicas if tl is not None else [],
+        })
+    rows.sort(key=lambda r: -(r["ttft_ms"] or 0.0))
+    return rows
+
+
+# -- Chrome-trace / Perfetto export -------------------------------------
+
+def to_chrome_trace(timelines: Dict[str, Timeline]) -> dict:
+    """Chrome trace-event JSON (the format Perfetto / chrome://tracing
+    load): one complete (``ph: "X"``) event per span, microsecond
+    timestamps rebased to the earliest span in the export, one pid per
+    replica tag (spans with no tag share pid 0), one tid per trace_id —
+    so a migrated request renders as the SAME thread lane crossing
+    process (replica) groups. ``process_name`` / ``thread_name``
+    metadata events label the lanes."""
+    all_spans = [s for tl in timelines.values() for s in tl.spans]
+    if not all_spans:
+        return {"traceEvents": [], "displayTimeUnit": "ms"}
+    origin = min(s.t0 for s in all_spans)
+    replicas = sorted({s.replica for s in all_spans if s.replica is not None})
+    pid_of = {rep: i + 1 for i, rep in enumerate(replicas)}
+    tid_of = {tid: i + 1 for i, tid in enumerate(sorted(timelines))}
+    events = []
+    for rep, pid in [(None, 0)] + sorted(pid_of.items()):
+        events.append({
+            "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+            "args": {"name": rep if rep is not None else "unscoped"}})
+    for tid_str, tl in sorted(timelines.items()):
+        for pid in sorted({pid_of.get(s.replica, 0) for s in tl.spans}):
+            events.append({
+                "name": "thread_name", "ph": "M", "pid": pid,
+                "tid": tid_of[tid_str],
+                "args": {"name": f"trace {tid_str}"}})
+    for s in sorted(all_spans, key=lambda s: (s.t0, s.t1, s.span_id)):
+        args = {"trace_id": s.trace_id, "span_id": s.span_id}
+        if s.parent_id is not None:
+            args["parent_id"] = s.parent_id
+        args.update(s.attrs)
+        events.append({
+            "name": s.kind,
+            "cat": SPAN_CATEGORY.get(s.kind, "other"),
+            "ph": "X",
+            "ts": round((s.t0 - origin) * 1e6, 3),
+            "dur": round((s.t1 - s.t0) * 1e6, 3),
+            "pid": pid_of.get(s.replica, 0),
+            "tid": tid_of[s.trace_id],
+            "args": args,
+        })
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def validate_chrome_trace(doc: dict) -> List[str]:
+    """Structural lint for an export (the golden-format gate): returns
+    human-readable problems, empty when the document is loadable
+    trace-event JSON."""
+    problems = []
+    if not isinstance(doc, dict) or "traceEvents" not in doc:
+        return ["not a trace-event document (no traceEvents key)"]
+    for i, ev in enumerate(doc["traceEvents"]):
+        if not isinstance(ev, dict):
+            problems.append(f"event {i}: not an object")
+            continue
+        ph = ev.get("ph")
+        if ph not in ("X", "M"):
+            problems.append(f"event {i}: unexpected ph {ph!r}")
+            continue
+        for field in ("name", "pid", "tid"):
+            if field not in ev:
+                problems.append(f"event {i}: missing {field}")
+        if ph == "X":
+            if not isinstance(ev.get("ts"), (int, float)) or ev["ts"] < 0:
+                problems.append(f"event {i}: bad ts {ev.get('ts')!r}")
+            if not isinstance(ev.get("dur"), (int, float)) or ev["dur"] < 0:
+                problems.append(f"event {i}: bad dur {ev.get('dur')!r}")
+    return problems

@@ -453,8 +453,6 @@ class TestLifecycle:
         for name in ("hbm_components", "analyze_program_memory"):
             with pytest.raises(NotImplementedError, match="item 1[12]"):
                 getattr(cb, name)()
-        with pytest.raises(NotImplementedError, match="item 11"):
-            cb.telemetry
 
 
 # ---------------------------------------------------------------------------

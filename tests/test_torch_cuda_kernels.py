@@ -972,3 +972,79 @@ def test_spec_lane_uniforms_on_the_card_equal_the_cpu():
     cpu = tdec.spec_accept_uniforms(base, *grid)
     card = tdec.spec_accept_uniforms(base, *(t.cuda() for t in grid))
     assert torch.equal(card.cpu(), cpu)
+
+
+def _serving_card_engine(**kw):
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    cfg = ttf.TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+                                max_seq_len=128, dtype="bfloat16", attn_impl="pallas")
+    return ContinuousBatchingEngine(ttf.TransformerModel(cfg), max_slots=4, cache_len=96,
+                                    prefill_chunk=32, **kw)
+
+
+def test_serving_ticks_with_telemetry_dispatch_without_a_host_sync(tmp_path):
+    """The serving layer over a card engine with the telemetry hub on (a
+    trace file, every gauge, histogram, event and span) adds no wait on
+    the card to a tick: three admissions and two serving ticks under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a depth of 8 retires
+    nothing), then the run finishes with the same results as before."""
+    from deepspeed_tpu_torch.serving import ServingEngine
+    from deepspeed_tpu_torch.telemetry import read_trace
+
+    _need_card()
+    trace = str(tmp_path / "serve.jsonl")
+    eng = _serving_card_engine(config={"telemetry": {"enabled": True, "trace_file": trace}})
+    srv = ServingEngine(eng, pipeline_depth=8)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 256, n).astype(np.int32) for n in (20, 45, 7)]
+    want = [srv.submit(p, max_new_tokens=9).rid for p in prompts]
+    srv.run()
+    want = [srv.result(r) for r in want]
+    rids = [srv.submit(p, max_new_tokens=9).rid for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            srv.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(eng._inflight) == 2 and not eng.poisoned
+    srv.run()
+    for r, w in zip(rids, want):
+        np.testing.assert_array_equal(srv.result(r), w)
+    srv.close()
+    kinds = {e["kind"] for e in read_trace(trace)}
+    assert {"serving_tick", "inference_request", "span"} <= kinds
+
+
+def test_serving_rebuild_on_the_card_finishes_every_request():
+    """One fault plan on the card (a retried dispatch error, a fetch hang
+    and a preemption): the serving layer rebuilds the engine at the same
+    size twice and every request finishes, none lost."""
+    from deepspeed_tpu_torch.serving import (
+        Fault,
+        FaultInjector,
+        FaultPlan,
+        RecoveryConfig,
+        ServingEngine,
+    )
+
+    _need_card()
+    eng = _serving_card_engine()
+    eng.fault_hook = FaultInjector(FaultPlan([Fault(tick=3, kind="dispatch_error"),
+                                              Fault(tick=5, kind="fetch_hang"),
+                                              Fault(tick=8, kind="preempt")]))
+    srv = ServingEngine(eng, engine_factory=lambda mesh_shape=None: _serving_card_engine(),
+                        recovery=RecoveryConfig(backoff_s=0.0))
+    rs = np.random.RandomState(1)
+    adms = [srv.submit(rs.randint(0, 256, n).astype(np.int32), max_new_tokens=12)
+            for n in (20, 45, 7, 30)]
+    srv.run()
+    done = srv.reap()
+    assert [done[a.rid].state for a in adms] == ["finished"] * 4
+    assert all(len(done[a.rid].tokens) == 12 for a in adms)
+    stats = srv.recovery_stats()
+    assert (stats["retries"], stats["rebuilds"], stats["lost_requests"]) == (1, 2, 0)
+    assert srv._cb.device.type == "cuda"

@@ -166,13 +166,61 @@ def test_decode_kv_bytes_matches_reference():
 
 @pytest.mark.parametrize("config", [
     {"tensor_parallel": {"tp_size": 2}},
-    {"fused_generate": False}, {"telemetry": {"enabled": True}},
+    {"fused_generate": False},
     {"mesh": {"shape": {"data": 1, "tensor": 2}}}, {"profile_model_time": True},
 ])
 def test_features_outside_the_slice_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         deepspeed_tpu_torch.init_inference(ttf.TransformerModel(ttf.TransformerConfig(**CFG)),
                                            config=config, device="cpu")
+
+
+# wall-clock fields of an inference_request event; every other field must
+# equal the reference's (compile_cache_hit has no counterpart: the port
+# compiles nothing)
+_TIMING_FIELDS = {"ts", "total_ms", "ttft_ms", "tokens_per_sec", "decode_tokens_per_sec"}
+
+
+@pytest.mark.parametrize("over", [{}, {"prefill_chunk_size": 4}], ids=["whole", "chunked"])
+def test_inference_request_events_match_the_reference(setup, tmp_path, over):
+    """With telemetry on, each generate/forward call emits the reference's
+    ``inference_request`` event: the same fields (TTFT where the path has a
+    first-token boundary), equal apart from the timings, on the fused,
+    chunked, ragged, speculative and forward paths."""
+    from deepspeed_tpu_torch.telemetry import read_trace
+
+    params, toks = setup["params"], setup["toks"]
+    mask = np.ones_like(toks)
+    mask[0, :3] = 0
+    events = {}
+    for side in ("ref", "port"):
+        config = {"dtype": "float32", "attn_impl": "pallas", "kv_read_floor": FLOOR,
+                  "telemetry": {"enabled": True,
+                                "trace_file": str(tmp_path / f"{side}.jsonl")}, **over}
+        if side == "ref":
+            eng = deepspeed_tpu.init_inference(jtf.TransformerModel(jtf.TransformerConfig(**CFG)),
+                                               params=params, config=config)
+            ids = jnp.asarray(toks)
+        else:
+            eng = deepspeed_tpu_torch.init_inference(
+                ttf.TransformerModel(ttf.TransformerConfig(**CFG)), config=config,
+                params=params, device="cpu")
+            ids = toks
+        eng.generate(ids, max_new_tokens=8)
+        eng.generate(ids, max_new_tokens=8, attention_mask=mask)
+        eng.generate(ids, max_new_tokens=6, draft=eng, num_draft_tokens=2)
+        eng.forward(ids)
+        eng.telemetry.close()
+        events[side] = [e for e in read_trace(str(tmp_path / f"{side}.jsonl"))
+                        if e["kind"] == "inference_request"]
+    paths = [e["path"] for e in events["port"]]
+    assert paths == [e["path"] for e in events["ref"]]
+    assert paths == (["chunked_prefill", "chunked_prefill"] if over else ["fused", "ragged"]) + [
+        "speculative", "forward"]
+    for ref, port in zip(events["ref"], events["port"]):
+        assert set(ref) - {"compile_cache_hit"} == set(port), port["path"]
+        for key in set(port) - _TIMING_FIELDS:
+            assert port[key] == ref[key], (port["path"], key)
 
 
 def test_speculation_without_a_draft_raises_as_the_reference(setup):
