@@ -53,6 +53,16 @@ backward):
     with deadlines, all arriving at once, shedding and expiring;
     ``serve_layer_load``), and a fault plan with two rebuilds at depths 0
     and 1 (``serve_layer_chaos``); ``--serve-layer`` runs these alone;
+  - the serving fleet (``FleetRouter`` over ``ServingEngine`` replicas on
+    one card, one host thread and one hub, the ops server live) on the same
+    build: a 1-replica fleet against the bare layer on the replayed
+    schedule (streams and engine rids bit for bit), the loadgen's
+    ``--replicas 1,2`` sweep at Poisson 4 req/s, a kill of a replica
+    holding running streams with a replacement 5 ticks later (lost 0,
+    migrated streams under the bf16 tie rule), ``rolling_under_load`` with
+    the ops plane scraped mid-run, and ``burst_frontend`` at 1 and 2 fixed
+    replicas and autoscaled 1:2 (``serve_fleet``; ``--fleet`` runs it
+    alone);
   - training (``deepspeed_tpu_torch.initialize`` -> ``forward`` /
     ``backward`` / ``step``) on GPT-2 125M at full width and depth, seq
     1024, micro-batch 8, bf16, flash attention, AdamW: 2 warm-up and 10
@@ -256,9 +266,14 @@ NORM_TAGS = {
 }
 
 failures = []
+T0 = time.perf_counter()
 
 
 def emit(obj):
+    """Print one JSON line; a phase's line also gets ``t_s``, the script's
+    seconds so far (where the run's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -594,11 +609,20 @@ def by_category(kernels):
 
 
 def device_kernels(prof):
-    """(name, device seconds, launches) of every kernel in a profile."""
+    """(name, device seconds, launches) of every kernel (and copy or set)
+    that ran on the card in a profile, from the profiler's raw events:
+    ``key_averages()`` gives the same sums but took ~6 s to build for a
+    profiled serving replay's ~39,000 launches on the H100 machine's host,
+    against 0.46 s here."""
     from torch.autograd import DeviceType
 
-    return [(e.key, e.self_device_time_total / 1e6, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    agg = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation() \
+                and e.duration_ns() > 0:
+            t, n = agg.get(e.name(), (0, 0))
+            agg[e.name()] = (t + e.duration_ns(), n + 1)
+    return [(name, t / 1e9, n) for name, (t, n) in agg.items()]
 
 
 def generate_wall(eng, toks, n_new, **kwargs):
@@ -1350,7 +1374,8 @@ def build_pool(model, params, config=None, **kwargs):
 def warm_pool(eng, queue, cache_len):
     """Warm a batching engine as the bench's build_engine and run_spec do:
     the tick family, then one request a prompt bucket (the admission
-    prefills). Returns (tick functions warmed, seconds)."""
+    prefills); the tick counters then start from 0, as the loadgen's
+    ``--warm`` leaves them. Returns (tick functions warmed, seconds)."""
     import numpy as np
 
     from deepspeed_tpu_torch.inference import decoding as dec
@@ -1362,54 +1387,139 @@ def warm_pool(eng, queue, cache_len):
     while eng.has_work():
         eng.step()
     eng.finished()
+    for k, v in eng._tick_stats.items():
+        eng._tick_stats[k] = type(v)(0)
     torch.cuda.synchronize()
     return programs, time.perf_counter() - t0
 
 
-def replay_schedule(eng, queue, depth, layer=None):
-    """One replay of an arrival schedule [(step, prompt, new)] through a
-    batching engine at a pipeline depth, as ``bench_serving``'s run_serve;
-    returns the row of host and token counts and each request's result.
-    Request i takes rid i in every replay: the rid is part of a sampled
-    token's key. With ``layer``, a ``ServingEngine`` over ``eng``, the
-    requests go through the layer instead: its ``submit`` (a shed fails),
-    ``step`` and ``reap``; the tick counters stay the engine's."""
-    eng.pipeline_depth = depth
-    stats0 = dict(eng._tick_stats)
-    front = layer or eng
+def drive(counts, fn):
+    """Run one driven serve with the kernel launch counts from 0, add them
+    to ``counts`` and return what ``fn`` returns."""
+    from deepspeed_tpu_torch.ops import op_builder
 
-    def submit(i):
-        if layer is None:
-            return eng.submit(queue[i][1], max_new_tokens=queue[i][2], rid=i)
-        adm = layer.submit(queue[i][1], max_new_tokens=queue[i][2])
-        check(adm.status != "shed", f"replay through the layer: request {i} shed "
-                                    f"({adm.reason})")
-        return adm.rid
+    op_builder.reset_launch_counts()
+    out = fn()
+    for k, c in op_builder.launch_counts().items():
+        counts[k] = counts.get(k, 0) + c
+    return out
 
-    def reap_finished():
-        if layer is None:
-            return eng.finished()
-        return {rid: r.result for rid, r in layer.reap().items() if r.state == "finished"}
+
+class ServingBuild:
+    """The serving phases' one GPT-2 125M build: ``serving_model``'s model
+    and bf16 weights (drawn from ``gen``), ``serving_schedule``'s 32
+    requests, and ``engine()``: a batching engine in ``build_pool``'s
+    geometry on those weights, warmed as the bench's build_engine
+    (``warm_pool``; its tick programs and seconds in ``last_warm``) unless
+    ``warm`` is False; ``gamma`` and ``mode`` make it a speculative pool."""
+
+    def __init__(self, gen):
+        self.model, self.params = serving_model(gen)
+        self.queue = serving_schedule(self.model.cfg.vocab_size)
+        self.last_warm = None
+
+    def engine(self, config=None, *, warm=True, gamma=None, mode=None, **kwargs):
+        config = dict(config or {})
+        if gamma is not None:
+            config["speculative"] = {"enabled": True, "pool": True, "mode": mode,
+                                     "num_draft_tokens": gamma}
+        eng = build_pool(self.model, self.params, config, **kwargs)
+        if warm:
+            self.last_warm = warm_pool(eng, self.queue, SERVE_CACHE)
+        return eng
+
+
+class ScheduleFront:
+    """``replay_schedule``'s one view of what it drives. A batching engine
+    takes request i as rid i (the rid is part of a sampled token's key) and
+    gives its results from ``finished()``; a ``ServingEngine`` or a
+    ``FleetRouter`` (the same admission surface) gives the rid from its
+    ``submit`` (a shed fails the check) and its finished results from
+    ``reap()``, keeping each one's engine rid in ``engine_rids`` (by the
+    rid that ``rid_of`` gives request i)."""
+
+    def __init__(self, target):
+        from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+
+        self.target = target
+        self.bare = isinstance(target, ContinuousBatchingEngine)
+        self.rid_of, self.engine_rids = {}, {}
+
+    def engines(self):
+        if self.bare:
+            return [self.target]
+        if hasattr(self.target, "steppable_engines"):
+            return [srv._cb for _, srv in self.target.steppable_engines()]
+        return [self.target._cb]
+
+    def submit(self, i, prompt, new):
+        if self.bare:
+            rid = self.target.submit(prompt, max_new_tokens=new, rid=i)
+        else:
+            adm = self.target.submit(prompt, max_new_tokens=new)
+            check(adm.status != "shed", f"replay through {type(self.target).__name__}: "
+                                        f"request {i} shed ({adm.reason})")
+            rid = adm.rid
+        self.rid_of[i] = rid
+        return rid
+
+    def collect(self):
+        if self.bare:
+            return self.target.finished()
+        done = {rid: r for rid, r in self.target.reap().items() if r.state == "finished"}
+        self.engine_rids.update({rid: r.engine_rid for rid, r in done.items()})
+        return {rid: r.result for rid, r in done.items()}
+
+    def tick_stats(self):
+        if hasattr(self.target, "steppable_engines"):
+            return fleet_tick_stats(self.target)
+        return self.target.tick_stats()
+
+
+def fleet_tick_stats(router):
+    """The tick counters summed over every replica a ``FleetRouter`` has
+    held, dead and drained ones too (its own ``tick_stats()`` sums the
+    live ones only, so a replica that leaves takes its ticks with it)."""
+    out = {}
+    for rep in router._replicas.values():
+        for k, v in rep.serving.tick_stats().items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def replay_schedule(target, queue, depth, front=None):
+    """One replay of an arrival schedule [(step, prompt, new)] at a
+    pipeline depth, as ``bench_serving``'s run_serve, through a batching
+    engine, a ``ServingEngine`` or a ``FleetRouter`` (``ScheduleFront``;
+    pass ``front`` to keep its engine rids); returns the row of host and
+    token counts (tick counters summed over the engines) and each request's
+    result."""
+    front = front or ScheduleFront(target)
+    engines = front.engines()
+    for eng in engines:
+        eng.pipeline_depth = depth
+    keys = ("block_ms", "dispatch_ms", "ticks", "wasted_tokens", "spec_drafted",
+            "spec_accepted")
+    stats0 = front.tick_stats()
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step, done_tokens, completed = 0, 0, 0
     pending, rid_of, results = list(range(len(queue))), {}, {}
-    while pending or front.has_work():
+    while pending or target.has_work():
         for i in [i for i in pending if queue[i][0] <= step]:
-            rid_of[i] = submit(i)
+            rid_of[i] = front.submit(i, queue[i][1], queue[i][2])
         pending = [i for i in pending if queue[i][0] > step]
-        done_tokens += sum(len(v) for v in front.step().values())
-        finished = reap_finished()
+        done_tokens += sum(len(v) for v in target.step().values())
+        finished = front.collect()
         completed += len(finished)
         results.update(finished)
         step += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    stats1 = eng._tick_stats
-    delta = {k: stats1[k] - stats0[k] for k in ("block_ms", "dispatch_ms", "ticks",
-                                                 "wasted_tokens", "spec_drafted",
-                                                 "spec_accepted")}
+    stats1 = front.tick_stats()
+    delta = {k: stats1.get(k, 0) - stats0.get(k, 0) for k in keys}
     block, dispatch = delta["block_ms"], delta["dispatch_ms"]
     row = {"tokens_per_s": done_tokens / wall, "tokens": done_tokens,
            "completed": completed, "steps": step, "ticks": delta["ticks"], "wall_s": wall,
@@ -1417,7 +1527,7 @@ def replay_schedule(eng, queue, depth, layer=None):
            "block_ms_per_token": block / done_tokens if done_tokens else None,
            "overlap_frac": 1.0 - block / (dispatch + block) if dispatch + block else None,
            "wasted_tokens": delta["wasted_tokens"]}
-    if eng.spec_gamma:
+    if engines[0].spec_gamma:
         row.update(spec_drafted=delta["spec_drafted"], spec_accepted=delta["spec_accepted"],
                    spec_acceptance=(delta["spec_accepted"] / delta["spec_drafted"]
                                     if delta["spec_drafted"] else None))
@@ -1427,8 +1537,9 @@ def replay_schedule(eng, queue, depth, layer=None):
 def profiled_replay(eng, queue, depth, row, what, window=None):
     """The device's kernel time and launches a tick from one profiled replay
     of the schedule (or of its first ``window`` requests, which keeps the
-    profile short), and the idle share of the unprofiled replay ``row``:
-    1 - device ms a tick x its ticks / its wall."""
+    profile short) through ``eng`` (anything ``replay_schedule`` drives),
+    and the idle share of the unprofiled run ``row`` (its ``ticks`` and
+    ``wall_s``): 1 - device ms a tick x its ticks / its wall."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1529,19 +1640,15 @@ def serve_pool_phase(gen, card):
 
     SLOTS, CACHE, BURST, NEW, N_REQ = (SERVE_SLOTS, SERVE_CACHE, SERVE_BURST, SERVE_NEW,
                                        SERVE_REQUESTS)
-    model, params = serving_model(gen)
+    sb = ServingBuild(gen)
+    model, queue = sb.model, sb.queue
     L, V, D = model.cfg.num_layers, model.cfg.vocab_size, model.cfg.hidden_size
-    queue = serving_schedule(V)
-
-    def build(**kwargs):
-        """An engine warmed as the bench's build_engine."""
-        eng = build_pool(model, params, **kwargs)
-        return (eng, *warm_pool(eng, queue, CACHE))
 
     def run_serve(eng, depth):
         return replay_schedule(eng, queue, depth)
 
-    eng, programs, warm_s = build()
+    eng = sb.engine()
+    programs, warm_s = sb.last_warm
     counts, rows, streams = {}, {}, {}
     for depth in (0, 1):
         op_builder.reset_launch_counts()
@@ -1602,7 +1709,7 @@ def serve_pool_phase(gen, card):
     # where any host sync raises: a depth of 8 retires nothing in two steps
     sync_rows = []
     for tpt in (BURST, 1):
-        seng = build_pool(model, params, tokens_per_tick=tpt, pipeline_depth=8)
+        seng = sb.engine(warm=False, tokens_per_tick=tpt, pipeline_depth=8)
         prompts = [q[1] for q in queue[:3]]
         for p in prompts:  # warm the same shapes first
             seng.submit(p, max_new_tokens=8)
@@ -1639,7 +1746,7 @@ def serve_pool_phase(gen, card):
     emit({"phase": "serve_pool_sync", "runs": sync_rows, "card": card})
 
     # sampled: the same tokens at both depths (per-request keys)
-    seng, _, _ = build(temperature=0.8, top_k=40, seed=3)
+    seng = sb.engine(temperature=0.8, top_k=40, seed=3)
     sampled = {depth: run_serve(seng, depth)[1] for depth in (0, 1)}
     same_sampled = all(a is not None and b is not None and np.array_equal(a, b)
                        for a, b in zip(sampled[0], sampled[1]))
@@ -1864,27 +1971,22 @@ def serve_pool_spec_phase(gen, card):
     from deepspeed_tpu_torch.ops import op_builder
 
     SLOTS, CACHE, GAMMAS = SERVE_SLOTS, SERVE_CACHE, (2, 4, 8)
-    model, params = serving_model(gen)
+    sb = ServingBuild(gen)
+    model, params, queue = sb.model, sb.params, sb.queue
     L, V = model.cfg.num_layers, model.cfg.vocab_size
     draft_model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16",
                                                   max_seq_len=1024, num_layers=3)
     draft_params = tf.map_params(lambda p: p.to(torch.bfloat16), draft_model.init(
         torch.Generator(device="cuda").manual_seed(1)))
     Ld = draft_model.cfg.num_layers
-    queue = serving_schedule(V)
 
     def build(gamma=None, mode=None, **kwargs):
-        config = {}
-        if gamma is not None:
-            config["speculative"] = {"enabled": True, "pool": True, "mode": mode,
-                                     "num_draft_tokens": gamma}
         if mode == "draft":
             kwargs.setdefault("draft_model", draft_model)
             kwargs.setdefault("draft_params", draft_params)
-        eng = build_pool(model, params, config, tokens_per_tick=1, **kwargs)
-        return (eng, *warm_pool(eng, queue, CACHE))
+        return sb.engine(gamma=gamma, mode=mode, tokens_per_tick=1, **kwargs)
 
-    eng, _, _ = build()
+    eng = build()
     plain_row, plain_streams = replay_schedule(eng, queue, 1)
     plain_row.update(profiled_replay(eng, queue, 1, plain_row, "serve_pool_spec plain",
                                      window=PROFILED_REQUESTS))
@@ -1917,7 +2019,8 @@ def serve_pool_spec_phase(gen, card):
     while plan:
         gamma, mode = plan.pop(0)
         what = f"serve_pool_spec {mode} gamma {gamma}"
-        spec, programs, warm_s = build(gamma, mode)
+        spec = build(gamma, mode)
+        programs, warm_s = sb.last_warm
         rows, streams = {}, {}
         for depth in (1, 0):
             # the draft mode's depth-0 replay takes the first requests only:
@@ -1958,7 +2061,7 @@ def serve_pool_spec_phase(gen, card):
         torch.cuda.empty_cache()
 
     # the target as its own draft: greedy proposals the target would emit
-    spec, _, _ = build(4, "draft", draft_model=model, draft_params=params)
+    spec = build(4, "draft", draft_model=model, draft_params=params)
     row, streams = replay_schedule(spec, queue[:SELF_DRAFT_REQUESTS], 1)
     agree = agreement(streams, "serve_pool_spec_self")
     check(row["spec_acceptance"] is not None and row["spec_acceptance"] >= 0.9,
@@ -1973,12 +2076,7 @@ def serve_pool_spec_phase(gen, card):
     sync_rows = []
     for mode in ("ngram", "draft"):
         for fused in (True, False):
-            kw = {"draft_model": draft_model, "draft_params": draft_params} if mode == "draft" \
-                else {}
-            config = {"speculative": {"enabled": True, "pool": True, "mode": mode,
-                                      "num_draft_tokens": 4}}
-            seng = build_pool(model, params, config, tokens_per_tick=1, pipeline_depth=8,
-                              fused_prefill=fused, **kw)
+            seng = build(4, mode, warm=False, pipeline_depth=8, fused_prefill=fused)
             prompts = [q[1] for q in queue[:3]]
             for p in prompts:  # warm the same shapes first
                 seng.submit(p, max_new_tokens=8)
@@ -2073,24 +2171,16 @@ def serve_layer_phase(card):
     from deepspeed_tpu_torch.telemetry import timeline
 
     # serve_pool's weights when it runs alone (a seed-0 generator)
-    model, params = serving_model(torch.Generator(device="cuda").manual_seed(0))
+    sb = ServingBuild(torch.Generator(device="cuda").manual_seed(0))
+    model, queue = sb.model, sb.queue
 
     def build(config=None, **kwargs):
-        return build_pool(model, params, config, **kwargs)
+        return sb.engine(config, warm=False, **kwargs)
 
     # one engine for the single-row yardsticks and the tie margins
     solo_eng = build()._eng
     L = model.cfg.num_layers
-    queue = serving_schedule(model.cfg.vocab_size)
     counts = {}
-
-    def drive(fn):
-        """Run one driven serve with the launch counts from 0; add them."""
-        op_builder.reset_launch_counts()
-        out = fn()
-        for k, c in op_builder.launch_counts().items():
-            counts[k] = counts.get(k, 0) + c
-        return out
 
     def margins_along(prompt, gen_toks):
         """The top-2 margins of a single row's own logits along a stream."""
@@ -2113,16 +2203,14 @@ def serve_layer_phase(card):
         for run in ("bare", "layer", "layer_hub"):
             config = ({"telemetry": {"enabled": True, "trace_file": f"{tmp}/overhead.jsonl"}}
                       if run == "layer_hub" else None)
-            eng = build(config)
-            warm_pool(eng, queue, SERVE_CACHE)
+            eng = sb.engine(config)
             # the budget holds the whole schedule: these runs measure the
             # layer's cost, not its shedding
             runs[run] = eng if run == "bare" else ServingEngine(
                 eng, policy="fifo", pipeline_depth=1, kv_budget_tokens=1 << 20)
         for run in ("bare", "layer", "layer_hub", "layer_hub", "layer", "bare"):
             target = runs[run]
-            row, got = drive(lambda: replay_schedule(target, queue, 1) if run == "bare"
-                             else replay_schedule(target._cb, queue, 1, layer=target))
+            row, got = drive(counts, lambda: replay_schedule(target, queue, 1))
             row["tick_dispatch_ms_per_tick"] = row["tick_dispatch_ms"] / max(row["ticks"], 1)
             row["tick_block_ms_per_tick"] = row["tick_block_ms"] / max(row["ticks"], 1)
             row["k7_launches"] = op_builder.launch_counts()["fused_norm_fwd"]
@@ -2187,8 +2275,7 @@ def serve_layer_phase(card):
         for run, policy, kw in (("a", "fifo", {}), ("b", "edf", {"max_queue_depth": 16})):
             config = ({"telemetry": {"enabled": True, "trace_file": trace}}
                       if run == "a" else None)
-            eng = build(config)
-            warm_pool(eng, queue, SERVE_CACHE)
+            eng = sb.engine(config)
             srv = ServingEngine(eng, policy=policy, pipeline_depth=1, **kw)
             if run == "a":
                 items, rate, process = workload, 4.0, "poisson"
@@ -2219,7 +2306,8 @@ def serve_layer_phase(card):
 
                 timer = threading.Timer(arrivals[len(arrivals) // 2], scrape_mid)
                 timer.start()
-            records, wall_s = drive(lambda: loadgen.run_load(srv, items, arrivals, seed=0))
+            records, wall_s = drive(counts, lambda: loadgen.run_load(srv, items, arrivals,
+                                                                     seed=0))
             run_end_s = time.perf_counter()
             k7 = op_builder.launch_counts()["fused_norm_fwd"]
             summary = loadgen.summarize(records, wall_s, tick_stats=srv.tick_stats())
@@ -2332,7 +2420,7 @@ def serve_layer_phase(card):
                 torch.cuda.synchronize()
                 return rid_of, t0, time.perf_counter() - t0, step, resubmits
 
-            rid_of, t0, wall, steps, resubmits = drive(run_ticks)
+            rid_of, t0, wall, steps, resubmits = drive(counts, run_ticks)
             done = srv.reap()
             records = []
             for i in range(len(chaos_queue)):
@@ -2395,6 +2483,337 @@ def serve_layer_phase(card):
           f"serve_layer: K7/K1/K8 launched {counts.get('fused_norm_fwd', 0)}/"
           f"{counts.get('flash_fwd', 0)}/{counts.get('fused_norm_bwd', 0)} times, "
           f"expected >0/0/0")
+    return counts
+
+
+def serve_fleet_phase(card):
+    """The serving fleet (``deepspeed_tpu_torch.serving``: ``FleetRouter``
+    over ``ServingEngine`` replicas, failover by migration, drain and
+    rolling restart, the autoscaler, the scenarios, the loadgen's fleet
+    runner ``build_fleet``/``fleet_run``) on the serving tick's GPT-2 125M
+    build (``ServingBuild``, seed-0 weights: bf16, 8 slots of cache 256,
+    bursts of 4, depth 1, fifo; every replica warmed at its build). Every
+    replica shares one card, one host thread and one hub (registry only),
+    with the fleet's ops server live. Each driven run is counted from 0 (K7
+    only: vector positions keep K1 off, no K8); each run's K7 launches,
+    engine ticks (over every replica it held), host ms a tick and wall;
+    for the sweep's two runs also, from one profiled replay of the
+    schedule's first 4 requests through the same router, the device ms and
+    launches a tick and the idle share of the run's wall (a profile costs
+    ~15 s of the phase, so the other runs have none).
+
+    - (a) ``serve_fleet`` a_replay: ``serve_pool``'s 32-request schedule
+      through a 1-replica fleet and a bare ``ServingEngine``, in turns
+      (bare, fleet, fleet, bare): the fleet's tokens/s over the bare
+      layer's, and every stream and engine rid equal, bit for bit (slot 0's
+      rid base is 0). a_sweep_1, a_sweep_2: ``synth_workload(48, seed=0,
+      prompts 32-128, 64 new)`` at Poisson 4 req/s through 1 and 2
+      replicas (the loadgen's ``--replicas 1,2``), ``fleet_record``.
+    - (b) b_kill: the same at 2 replicas; at the first tick from 20 on
+      where the lowest healthy replica runs streams it is killed, and a
+      replacement joins 5 ticks later. lost 0, migrated > 0, conservation;
+      every migrated stream against a_sweep_2's under the bf16 tie rule,
+      the count bit for bit, the replacement's build ms, TTFT/TBT beside
+      a_sweep_2's.
+    - (c) c_rolling: ``scenarios/rolling_under_load.jsonl`` at 2 replicas:
+      nothing lost, each replica replaced once (r0, r1 drained; r2, r3
+      healthy); ``/healthz``, ``/statusz`` and ``/metrics`` scraped from
+      another thread mid-run (checked after ``join()``).
+    - (d) d_fixed_1, d_fixed_2, d_autoscale: ``scenarios/
+      burst_frontend.jsonl`` at 1 and 2 fixed replicas and with the
+      autoscaler (1:2, from 1): goodput and SLO goodput (deadline-met
+      tokens) a replica, the autoscaler's ``stats()``.
+
+    Returns the K7/K1/K8 launch counts of the driven runs."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.serving import Scenario, ServingEngine, loadgen, scenario_scorecard
+
+    sb = ServingBuild(torch.Generator(device="cuda").manual_seed(0))
+    model, queue = sb.model, sb.queue
+    vocab = model.cfg.vocab_size
+    solo_eng = sb.engine(warm=False)._eng
+    scen_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenarios")
+    counts, builds_ms = {}, []
+    t_phase = time.perf_counter()
+
+    def make_engine(first):
+        """A replica's batching engine, warmed; the first of a fleet
+        carries the run's hub (registry only, for the ops server)."""
+        t0 = time.perf_counter()
+        eng = sb.engine({"telemetry": {"enabled": True, "trace_file": ""}} if first else None)
+        builds_ms.append((time.perf_counter() - t0) * 1e3)
+        return eng
+
+    def fleet(n, **serving_kw):
+        router = loadgen.build_fleet(make_engine, n, serving_kw={"policy": "fifo", **serving_kw})
+        router.start_ops_server(port=0)
+        return router
+
+    def device_row(router, ticks, wall_s, what):
+        """Device ms and launches a tick from a profiled replay of the
+        schedule's first requests through ``router``; the idle share of a
+        run of ``ticks`` engine ticks in ``wall_s``."""
+        prof = profiled_replay(router, queue, 1, {"ticks": ticks, "wall_s": wall_s}, what,
+                               window=PROFILED_REQUESTS)
+        return {k: prof[k] for k in ("device_ms_per_tick", "launches_per_tick",
+                                     "device_idle_share")}
+
+    def run_row(router, summary, records, k7):
+        """A run's row: the loadgen's scorecard and the run's counts."""
+        host = summary.get("host") or {}
+        fl = summary["fleet"]
+        lost = [i for i, r in enumerate(records)
+                if r.get("rid") is not None and r.get("state") not in (
+                    "finished", "shed", "expired", "cancelled")]
+        row = {k: summary.get(k) for k in (
+            "requests", "outcomes", "wall_s", "offered_rps", "throughput_tok_s",
+            "goodput_tok_s", "shed_rate", "deadline_met_frac", "ttft_ms", "tbt_ms",
+            "queue_ms")}
+        slo_good = sum(r.get("tokens", 0) for r in records if r.get("deadline_met") is True)
+        row.update(slo_goodput_tok_s=slo_good / summary["wall_s"],
+                   ticks=fleet_tick_stats(router)["ticks"],
+                   tick_dispatch_ms_mean=host.get("tick_dispatch_ms_mean"),
+                   tick_block_ms_mean=host.get("tick_block_ms_mean"), k7_launches=k7,
+                   unterminated=lost,
+                   fleet={k: fl[k] for k in ("submitted", "admitted", "shed", "spillovers",
+                                             "migrated", "lost", "replica_deaths",
+                                             "conservation_ok")},
+                   replicas={rid: {k: info[k] for k in ("state", "admitted", "migrated_in",
+                                                         "migrated_out")}
+                             for rid, info in fl["replicas"].items()})
+        return row
+
+    def one_run(what, n, workload, arrivals, seed=0, before=None, profiled=False, **run_kw):
+        """Build an n-replica fleet, drive one open-loop run through the
+        loadgen's fleet runner (then, if ``profiled``, a profiled replay),
+        close it."""
+        router = fleet(n)
+        extra = before(router) if before is not None else None
+        summary, records = drive(counts, lambda: loadgen.fleet_run(
+            router, workload, arrivals, seed=seed, **run_kw))
+        k7 = op_builder.launch_counts()["fused_norm_fwd"]
+        row = run_row(router, summary, records, k7)
+        if profiled:
+            row.update(device_row(router, row["ticks"], row["wall_s"], f"serve_fleet {what}"))
+        check(not row["unterminated"] and row["fleet"]["lost"] == 0
+              and row["fleet"]["conservation_ok"] and k7 > 0,
+              f"serve_fleet {what}: requests {row['unterminated']} unterminated, fleet "
+              f"{row['fleet']}, K7 {k7}")
+        router.close()
+        return row, summary, records, extra
+
+    # ---- (a) the 1-replica fleet against the bare layer, replayed --------
+    budget = {"kv_budget_tokens": 1 << 20}  # the whole schedule fits: nothing sheds
+    targets = {"bare": ServingEngine(sb.engine(), policy="fifo", **budget),
+               "fleet": fleet(1, **budget)}
+    replays = {}
+    for run in ("bare", "fleet", "fleet", "bare"):
+        front = ScheduleFront(targets[run])
+        row, got = drive(counts, lambda: replay_schedule(targets[run], queue, 1, front=front))
+        row["k7_launches"] = op_builder.launch_counts()["fused_norm_fwd"]
+        erids = [front.engine_rids.get(front.rid_of.get(i)) for i in range(len(queue))]
+        replays.setdefault(run, []).append((row, got, erids))
+    same = [all(a is not None and b is not None and np.array_equal(a, b)
+                for a, b in zip(f[1], b[1]))
+            for f, b in zip(replays["fleet"], replays["bare"])]
+    rids_same = [f[2] == b[2] and None not in f[2]
+                 for f, b in zip(replays["fleet"], replays["bare"])]
+    check(all(same) and all(rids_same),
+          f"serve_fleet a_replay: fleet streams equal the bare layer's {same}, engine rids "
+          f"{rids_same}")
+    tps = {run: statistics.mean(r[0]["tokens_per_s"] for r in reps)
+           for run, reps in replays.items()}
+    emit({"phase": "serve_fleet", "run": "a_replay", "replicas": 1, "requests": len(queue),
+          "order": "bare, fleet, fleet, bare",
+          "tokens_per_s": {run: [r[0]["tokens_per_s"] for r in reps]
+                           for run, reps in replays.items()},
+          "fleet_over_bare_tokens_per_s": tps["fleet"] / tps["bare"],
+          "ticks": {run: [r[0]["ticks"] for r in reps] for run, reps in replays.items()},
+          "k7_launches": {run: [r[0]["k7_launches"] for r in reps]
+                          for run, reps in replays.items()},
+          "streams_equal": same, "engine_rids_equal": rids_same,
+          "wall_s": {run: [r[0]["wall_s"] for r in reps] for run, reps in replays.items()},
+          "tick_dispatch_ms_per_tick": {
+              run: [r[0]["tick_dispatch_ms"] / max(r[0]["ticks"], 1) for r in reps]
+              for run, reps in replays.items()},
+          "tick_block_ms_per_tick": {
+              run: [r[0]["tick_block_ms"] / max(r[0]["ticks"], 1) for r in reps]
+              for run, reps in replays.items()}, "card": card})
+    targets["bare"].close()
+    targets["fleet"].close()
+    del targets, replays
+    torch.cuda.empty_cache()
+
+    # ---- (a) the --replicas 1,2 sweep, open loop ---------------------------
+    workload = loadgen.synth_workload(48, seed=0, prompt_range=(32, 128), new_range=(64, 64))
+    arrivals = loadgen.gen_arrivals(len(workload), 4.0, "poisson", seed=0)
+    results, sweep = {}, {}
+    for n in (1, 2):
+        row, summary, records, _ = one_run(f"a_sweep_{n}", n, workload, arrivals,
+                                           profiled=True)
+        results[str(n)], sweep[n] = summary, (row, records)
+        emit({"phase": "serve_fleet", "run": f"a_sweep_{n}", "replicas": n,
+              "rate_rps": 4.0, "process": "poisson", **row, "card": card})
+    record = loadgen.fleet_record(results, {
+        "requests": len(workload), "rate": 4.0, "process": "poisson", "seed": 0,
+        "pipeline_depth": 1, "slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+        "deadline_ms": None, "preset": "gpt2-125m", "kill_replica": None,
+        "rolling_restart": None, "rate_curve": None, "scenario": None, "autoscale": None},
+        device="cuda")
+    r1, r2 = sweep[1][0], sweep[2][0]
+    emit({"phase": "serve_fleet", "run": "a_fleet_record", "kind": record["kind"],
+          "device_kind": record["device_kind"], "replicas": record["replicas"],
+          "curves": record["curves"],
+          "two_over_one_tokens_per_s": r2["throughput_tok_s"] / r1["throughput_tok_s"],
+          "two_over_one_tbt_p50": r2["tbt_ms"]["p50"] / r1["tbt_ms"]["p50"],
+          "card": card})
+    torch.cuda.empty_cache()
+
+    # ---- (b) kill a replica holding running streams, restore it ----------
+    chaos = {}
+
+    def arm_kill(router):
+        def maybe_kill(r):
+            if "tick" in chaos:
+                return
+            st = r.statusz()
+            if st["tick"] < 20:
+                return
+            victim = next((rid for rid in r.replica_ids()
+                           if st["replicas"][rid]["state"] == "healthy"), None)
+            running = st["replicas"][victim]["statusz"]["residue_running"] if victim else 0
+            if not running:
+                return
+            chaos.update(tick=st["tick"], victim=victim, running=running)
+            r.kill(victim, detail="serve_fleet kill")
+
+            def restore(rr):
+                t0 = time.perf_counter()
+                chaos["replacement"] = rr.add()
+                chaos["replacement_build_ms"] = (time.perf_counter() - t0) * 1e3
+
+            r.at_tick(st["tick"] + 5, restore)
+
+        router.on_step(maybe_kill)
+
+    row, summary, records, _ = one_run("b_kill", 2, workload, arrivals, before=arm_kill)
+    free_records = sweep[2][1]
+    agree = []
+    margins = {}
+    for i, (got_r, free_r) in enumerate(zip(records, free_records)):
+        if not got_r.get("recoveries") or got_r.get("state") != "finished" \
+                or free_r.get("state") != "finished":
+            continue
+        prompt = loadgen._item_prompt(workload[i], i, 0, vocab)
+        got = np.concatenate([prompt, np.asarray(got_r["generated"], np.int32)])
+        want = np.concatenate([prompt, np.asarray(free_r["generated"], np.int32)])
+
+        def m(i=i, want=want, prompt=prompt):
+            if i not in margins:
+                margins[i] = top2_margins(teacher_forced_logits(
+                    solo_eng.params, solo_eng.cfg, solo_eng._tight_floor(), prompt,
+                    torch.from_numpy(want[prompt.size:]).cuda()))
+            return margins[i]
+
+        agree.append(stream_agreement(got, want, prompt, m, "serve_fleet b_kill"))
+    all_equal = sum(1 for a, b in zip(records, free_records)
+                    if a.get("generated") is not None and a.get("generated") == b.get("generated"))
+    score = loadgen.chaos_scorecard(records, summary["wall_s"], {})
+    check("replacement" in chaos and row["fleet"]["migrated"] > 0 and agree
+          and row["fleet"]["replica_deaths"] == 1,
+          f"serve_fleet b_kill: kill {chaos}, fleet {row['fleet']}, {len(agree)} migrated "
+          f"streams compared")
+    emit({"phase": "serve_fleet", "run": "b_kill", "replicas": 2, "kill": chaos, **row,
+          "migrated_streams": len(agree),
+          "migrated_bit_equal": sum(e["equal"] for e in agree),
+          "migrated_differing": [e for e in agree if not e["equal"]],
+          "all_streams_bit_equal_to_fault_free": all_equal,
+          "goodput_dip": score.get("goodput_dip"),
+          "fault_free": {k: r2[k] for k in ("ttft_ms", "tbt_ms", "throughput_tok_s")},
+          "card": card})
+    torch.cuda.empty_cache()
+
+    # ---- (c) rolling restart under load, the ops plane scraped mid-run ----
+    sc = Scenario.load(os.path.join(scen_dir, "rolling_under_load.jsonl"))
+    workload_c, arrivals_c = sc.compile()
+    mid = {}
+
+    def arm_scrape(router):
+        ops = router._ops_server
+
+        def scrape_mid():
+            """The scrape taken while the run is under way, from another
+            thread: its result or its error, and when it ended."""
+            try:
+                out = {}
+                for path in ("/healthz", "/statusz", "/metrics"):
+                    with urllib.request.urlopen(ops.url + path, timeout=10) as r:
+                        out[path] = (r.status, r.read().decode())
+                mid["scrape"] = out
+            except Exception as e:  # noqa: BLE001 - checked after join()
+                mid["error"] = repr(e)
+            mid["done_s"] = time.perf_counter()
+
+        timer = threading.Timer(arrivals_c[len(arrivals_c) // 2], scrape_mid)
+        timer.start()
+        return timer
+
+    row, summary, records, timer = one_run("c_rolling", 2, workload_c, arrivals_c,
+                                           seed=sc.seed, before=arm_scrape, scenario=sc)
+    run_end_s = time.perf_counter()
+    timer.join()
+    states = {rid: info["state"] for rid, info in row["replicas"].items()}
+    scrape = mid.get("scrape") or {}
+    status = json.loads(scrape["/statusz"][1]) if "/statusz" in scrape else {}
+    check("scrape" in mid and mid["done_s"] < run_end_s
+          and all(v[0] == 200 for v in scrape.values())
+          and any(line.startswith("fleet_admitted_total") for line in
+                  scrape["/metrics"][1].splitlines()),
+          f"serve_fleet c_rolling: the mid-run scrape {mid.get('error') or sorted(scrape)}")
+    check(states == {"r0": "drained", "r1": "drained", "r2": "healthy", "r3": "healthy"}
+          and row["fleet"]["replica_deaths"] == 0 and row["fleet"]["migrated"] == 0,
+          f"serve_fleet c_rolling: replica states {states}, fleet {row['fleet']}")
+    emit({"phase": "serve_fleet", "run": "c_rolling", "scenario": sc.name, **row,
+          "scorecard": scenario_scorecard(sc, summary),
+          "mid_run_scrape": {"statuses": {k: v[0] for k, v in scrape.items()},
+                             "health": json.loads(scrape["/healthz"][1]) if scrape else None,
+                             "statusz_placeable": status.get("placeable"),
+                             "statusz_rolling_restart": status.get("rolling_restart"),
+                             "metric_lines": len(scrape["/metrics"][1].splitlines())
+                             if scrape else 0,
+                             "ended_s_before_run_end": run_end_s - mid.get("done_s", run_end_s),
+                             "error": mid.get("error")},
+          "card": card})
+    torch.cuda.empty_cache()
+
+    # ---- (d) burst_frontend: fixed 1, fixed 2, autoscaled 1:2 ---------------
+    sc = Scenario.load(os.path.join(scen_dir, "burst_frontend.jsonl"))
+    workload_d, arrivals_d = sc.compile()
+    for what, n, autoscale in (("d_fixed_1", 1, None), ("d_fixed_2", 2, None),
+                               ("d_autoscale", 1, (1, 2))):
+        row, summary, records, _ = one_run(what, n, workload_d, arrivals_d, seed=sc.seed,
+                                           scenario=sc, autoscale=autoscale)
+        scaler = summary.get("autoscaler")
+        mean_replicas = scaler["mean_replicas"] if scaler else float(n)
+        emit({"phase": "serve_fleet", "run": what, "scenario": sc.name, **row,
+              "autoscaler": scaler, "mean_replicas": mean_replicas,
+              "goodput_per_replica": row["goodput_tok_s"] / mean_replicas,
+              "slo_goodput_per_replica": row["slo_goodput_tok_s"] / mean_replicas,
+              "card": card})
+        torch.cuda.empty_cache()
+    check(counts.get("fused_norm_fwd", 0) > 0 and counts.get("flash_fwd", 0) == 0
+          and counts.get("fused_norm_bwd", 0) == 0,
+          f"serve_fleet: K7/K1/K8 launched {counts.get('fused_norm_fwd', 0)}/"
+          f"{counts.get('flash_fwd', 0)}/{counts.get('fused_norm_bwd', 0)} times, "
+          f"expected >0/0/0")
+    emit({"phase": "serve_fleet_summary", "replica_builds_ms": builds_ms,
+          "phase_s": time.perf_counter() - t_phase, "k7_launches": counts.get("fused_norm_fwd", 0),
+          "card": card})
     return counts
 
 
@@ -2482,6 +2901,24 @@ def serve_layer_main():
     card = smi_card()
     build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
     serve_layer_phase(card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
+def serve_fleet_main():
+    """``python3 chip_smoke.py --fleet``: the serving fleet's phase alone
+    (``serve_fleet``; no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
+    serve_fleet_phase(card)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
     return 1 if failures else 0
@@ -3003,6 +3440,10 @@ def main():
     # on serve_pool's engine build, counted from 0 over the driven serves
     layer_counts = serve_layer_phase(card)
     torch.cuda.empty_cache()
+    # ---- the serving fleet over ServingEngine replicas on one card: the
+    # sweep, a kill with migration, a rolling restart, the autoscaler
+    fleet_counts = serve_fleet_phase(card)
+    torch.cuda.empty_cache()
 
     # ---- the training path: GPT-2 125M, seq 1024, micro-batch 8, bf16, flash
     # attention, no remat, with the JAX package's bench config
@@ -3390,6 +3831,7 @@ def main():
                    "serve_spec": spec_counts.get(kname, 0),
                    "serve_pool_spec": pool_spec_counts.get(kname, 0),
                    "serve_layer": layer_counts.get(kname, 0),
+                   "serve_fleet": fleet_counts.get(kname, 0),
                    "train": train_counts.get(kname, 0),
                    "train_sparse": sparse_counts.get(kname, 0),
                    "fused_ops": fused_counts.get(kname, 0)}
@@ -3466,5 +3908,6 @@ def main():
 
 if __name__ == "__main__":
     ENTRIES = {("--decode-step",): decode_step_main, ("--serve-pool",): serve_pool_main,
-               ("--spec",): spec_main, ("--serve-layer",): serve_layer_main}
+               ("--spec",): spec_main, ("--serve-layer",): serve_layer_main,
+               ("--fleet",): serve_fleet_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

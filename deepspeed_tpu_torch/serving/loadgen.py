@@ -1,6 +1,6 @@
 """Open-loop load generator and trace-replay harness for the serving
-layer (counterpart of ``deepspeed_tpu/serving/loadgen.py``), single
-replica.
+layer (counterpart of ``deepspeed_tpu/serving/loadgen.py``): one replica,
+or a fleet of them behind a :class:`FleetRouter` (``--replicas``).
 
 Open-loop means arrivals follow a schedule that does NOT wait for the
 server — the regime that exposes tail latency and shedding (a closed loop
@@ -9,8 +9,8 @@ self-throttles and hides both). The harness:
 1. generates (or replays) a workload: arrival times from a Poisson /
    uniform / bursty process or a time-varying rate curve, plus
    per-request prompt/output-length, priority, tenant, and deadline mixes;
-2. drives a :class:`ServingEngine` in-process — submit when due, step
-   while there is work;
+2. drives a :class:`ServingEngine` (or a ``FleetRouter`` over several)
+   in-process — submit when due, step while there is work;
 3. reports what serving stacks are judged on: TTFT / TBT / queue-wait
    percentiles, goodput vs offered load, shed rate, and the host's tick
    overhead.
@@ -24,12 +24,13 @@ workloads and arrivals for the same seeds.
 
     python -m deepspeed_tpu_torch.serving.loadgen --device cpu --preset toy
     python -m deepspeed_tpu_torch.serving.loadgen --preset gpt2-125m --dtype bfloat16
+    python -m deepspeed_tpu_torch.serving.loadgen --device cpu --replicas 1,2 --kill-replica 5:12
+    python -m deepspeed_tpu_torch.serving.loadgen --device cpu --replicas 2 --scenario FILE.jsonl
 
+The fleet's replicas share one device (``--device``) and one host thread.
 Not ported (the flags exit with the item that brings them, ROADMAP.md
-Queue 1): the fleet (``--replicas``, ``--kill-replica``,
-``--rolling-restart``, ``--fleet-out``, ``--autoscale``, ``--scenario``;
-item 11 (a), second part) and the serving mesh (``--mesh``, ``--ab-mesh``,
-``--mesh-out``, ``--chaos-degrade``; item 8).
+Queue 1): the serving mesh (``--mesh``, ``--ab-mesh``, ``--mesh-out``,
+``--chaos-degrade``; item 8).
 """
 
 import argparse
@@ -403,6 +404,91 @@ def chaos_scorecard(records: List[dict], wall_s: float, recovery: dict,
     return out
 
 
+def fleet_scorecard(router, records: List[dict]) -> dict:
+    """The ``fleet`` summary section for a :class:`FleetRouter` run:
+    per-replica placement outcomes (from the fleet ``statusz``) plus the
+    conservation check the failover contract promises — every admitted
+    request ends terminal (finished / shed / expired / cancelled);
+    replica death loses none silently."""
+    st = router.statusz()
+    placed = [r for r in records if "rid" in r]
+    terminal = sum(1 for r in placed if "state" in r)
+    return {
+        "replicas": {
+            rid: {"state": info["state"], "admitted": info["admitted"],
+                  "shed": info["shed"],
+                  "migrated_in": info["migrated_in"],
+                  "migrated_out": info["migrated_out"]}
+            for rid, info in sorted(st["replicas"].items())
+        },
+        "submitted": st["submitted"],
+        "admitted": st["admitted"],
+        "shed": st["shed"],
+        "spillovers": st["spillovers"],
+        "migrated": st["migrated"],
+        "lost": st["lost"],
+        "replica_deaths": st["replica_deaths"],
+        "conservation_ok": (terminal == len(placed)
+                            and len(placed) == st["admitted"]),
+    }
+
+
+def format_fleet_sweep(results: "Dict[str, dict]") -> str:
+    """``--replicas 1,2,4``: one scorecard per fleet size plus the
+    goodput / SLO-met curve table — the scaling headline of a sweep."""
+    lines = []
+    for n in sorted(results, key=int):
+        lines += [f"== fleet: {n} replica(s) ==",
+                  format_summary(results[n]).rstrip(), ""]
+    lines.append("replicas  throughput  goodput   shed     deadline-met")
+    for n in sorted(results, key=int):
+        s = results[n]
+        dm = s.get("deadline_met_frac")
+        lines.append(f"{n:<9} {s['throughput_tok_s']:<11} "
+                     f"{s['goodput_tok_s']:<9} {s['shed_rate']:<8.2%} "
+                     f"{f'{dm:.2%}' if dm is not None else '-'}")
+    return "\n".join(lines) + "\n"
+
+
+def fleet_record(results: "Dict[str, dict]", workload_args: dict,
+                 device: str = "cuda") -> dict:
+    """FLEET_*-style JSON record for a ``--replicas`` sweep: the
+    goodput/SLO curve per fleet size plus the full summaries, in the
+    shape the repo's committed perf records use. ``device`` is where the
+    replicas ran: the record names that device's kind and count."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        device_kind = torch.cuda.get_device_name(dev)
+        n_devices = torch.cuda.device_count()
+    else:
+        device_kind, n_devices = dev.type, 1
+    curves = {
+        n: {
+            "throughput_tok_s": s.get("throughput_tok_s"),
+            "goodput_tok_s": s.get("goodput_tok_s"),
+            "shed_rate": s.get("shed_rate"),
+            "deadline_met_frac": s.get("deadline_met_frac"),
+            "ttft_ms": s.get("ttft_ms"),
+            "replica_deaths": (s.get("fleet") or {}).get("replica_deaths"),
+            "migrated": (s.get("fleet") or {}).get("migrated"),
+            "lost": (s.get("fleet") or {}).get("lost"),
+            "conservation_ok": (s.get("fleet") or {}).get("conservation_ok"),
+        }
+        for n, s in results.items()
+    }
+    return {
+        "kind": "serving_fleet_sweep",
+        "device_kind": device_kind,
+        "n_devices": n_devices,
+        "replicas": sorted(int(n) for n in results),
+        "curves": curves,
+        "workload": workload_args,
+        "summaries": results,
+    }
+
+
 def summarize(records: List[dict], wall_s: float,
               tick_stats: Optional[dict] = None) -> dict:
     """The serving scorecard over one run's records: counts per outcome,
@@ -542,6 +628,28 @@ def format_summary(summary: dict) -> str:
                          f"(floor {dip['floor_tok_s']} tok/s vs median "
                          f"{dip['baseline_tok_s']} tok/s over "
                          f"{dip['bin_s']}s bins)")
+    scaler = summary.get("autoscaler")
+    if scaler:
+        lines.append(
+            f"autoscaler     ups {scaler.get('scale_ups', 0)}   "
+            f"downs {scaler.get('scale_downs', 0)}   "
+            f"skips {scaler.get('scale_down_skips', 0)}   "
+            f"degrade level {scaler.get('degrade_level', 0)}   "
+            f"mean replicas {scaler.get('mean_replicas')}")
+    if summary.get("scenario"):
+        lines.append(f"scenario       {summary['scenario']}")
+    fleet = summary.get("fleet")
+    if fleet:
+        reps = "  ".join(
+            f"{rid}:{info['state']} adm={info['admitted']} "
+            f"mig={info['migrated_in']}/{info['migrated_out']}"
+            for rid, info in fleet["replicas"].items())
+        lines.append(f"fleet          {reps}")
+        lines.append(
+            f"               deaths {fleet['replica_deaths']}   "
+            f"migrated {fleet['migrated']}   lost {fleet['lost']}   "
+            f"spillovers {fleet['spillovers']}   conservation "
+            + ("ok" if fleet["conservation_ok"] else "VIOLATED"))
     return "\n".join(lines) + "\n"
 
 
@@ -595,6 +703,12 @@ def _parse_range(spec: str):
     return int(lo), int(hi)
 
 
+def _parse_kill(spec: str):
+    # "12" -> (12, None); "12:40" -> (12, 40)
+    tick, sep, restore = spec.partition(":")
+    return int(tick), (int(restore) if sep else None)
+
+
 def _parse_buckets(spec: str):
     # "2x32,1x64" -> [(2, 32), (1, 64)]
     out = []
@@ -608,11 +722,8 @@ def _parse_buckets(spec: str):
 
 # flags of the reference's CLI that need parts of the system the port has
 # not taken yet: flag -> the ROADMAP.md item that brings it
-_FLEET = "the fleet, ROADMAP Queue 1 item 11 (a), second part"
 _MESH = "the serving mesh, ROADMAP Queue 1 item 8"
 _NOT_PORTED_FLAGS = {
-    "replicas": _FLEET, "kill_replica": _FLEET, "rolling_restart": _FLEET,
-    "fleet_out": _FLEET, "autoscale": _FLEET, "scenario": _FLEET,
     "mesh": _MESH, "ab_mesh": _MESH, "mesh_out": _MESH, "chaos_degrade": _MESH,
 }
 
@@ -691,6 +802,25 @@ def main(argv=None) -> int:
                    help="watchdog on the per-tick packed-result fetch; "
                         "an over-budget fetch abandons the engine and "
                         "triggers a rebuild (--chaos)")
+    p.add_argument("--replicas", default=None, metavar="N[,N..]",
+                   help="serve through a FleetRouter over N ServingEngine "
+                        "replicas on the one --device; a comma list "
+                        "(e.g. 1,2,4) sweeps fleet sizes over the SAME "
+                        "workload and reports the goodput/SLO-met curve")
+    p.add_argument("--kill-replica", default=None, metavar="TICK[:RESTORE]",
+                   help="chaos: abruptly kill the lowest-slot healthy "
+                        "replica at router tick TICK (1-based, replayable "
+                        "— same surface as the fault plans); live streams "
+                        "migrate to survivors and resume bitwise. With "
+                        ":RESTORE, a fresh replica joins at that tick")
+    p.add_argument("--rolling-restart", type=int, default=None,
+                   metavar="TICK", help="start a zero-loss rolling restart "
+                        "of the whole fleet at router tick TICK (add the "
+                        "replacement first, then drain — capacity never "
+                        "dips)")
+    p.add_argument("--fleet-out", default=None, metavar="FILE",
+                   help="write the --replicas sweep as a FLEET_*-style "
+                        "JSON record (goodput/SLO curve per fleet size)")
     p.add_argument("--policy", default="fifo",
                    choices=("fifo", "priority", "edf", "fair"))
     p.add_argument("--queue-depth", type=int, default=64)
@@ -715,6 +845,20 @@ def main(argv=None) -> int:
                    help="time-varying arrival rate instead of a flat "
                         "--process schedule: diurnal:PERIOD:PEAK, "
                         "step:T:RATE or burst_train:GAP:SIZE")
+    p.add_argument("--scenario", default=None, metavar="FILE.jsonl",
+                   help="run a serving/scenarios.py scenario: one seeded "
+                        "JSONL artifact composing a rate curve, tenant/"
+                        "deadline mixes, and (fleet mode) embedded "
+                        "replica chaos — see scenarios/ for the checked-"
+                        "in matrix")
+    p.add_argument("--autoscale", default=None, metavar="MIN:MAX",
+                   help="fleet mode: attach the serving/autoscaler.py "
+                        "policy loop — scale between MIN and MAX "
+                        "replicas off queue/shed/occupancy signals, "
+                        "walking the degradation ladder when capped")
+    p.add_argument("--autoscale-cooldown", type=float, default=2.0,
+                   metavar="S", help="min seconds between autoscaler "
+                        "decisions (hysteresis)")
     p.add_argument("--dump-workload", default=None,
                    help="write the synthesized workload+arrivals as "
                         "replayable JSONL")
@@ -760,7 +904,56 @@ def main(argv=None) -> int:
                 "a no-chaos run of the same workload)")
     if not 0.0 <= args.trace_sample <= 1.0:
         p.error("--trace-sample must be in [0, 1]")
-    if args.replay:
+    if (args.kill_replica or args.rolling_restart is not None
+            or args.fleet_out or args.autoscale) and not args.replicas:
+        p.error("--kill-replica / --rolling-restart / --fleet-out / "
+                "--autoscale need --replicas (they operate on the fleet "
+                "router)")
+    fleet_sizes = kill_spec = scale_bounds = None
+    if args.replicas:
+        try:
+            fleet_sizes = [int(x) for x in args.replicas.split(",")]
+        except ValueError:
+            p.error(f"--replicas {args.replicas!r} is not N or N,N,..")
+        if any(n < 1 for n in fleet_sizes):
+            p.error("--replicas sizes must be >= 1")
+        if args.ab_pipeline or args.ab_spec or args.chaos:
+            p.error("--replicas does not combine with the pipeline/spec/"
+                    "mesh A/B modes or engine-level --chaos — fleet chaos is "
+                    "--kill-replica / --rolling-restart (replica-level "
+                    "faults through the router's replayable tick hooks)")
+        kill_spec = _parse_kill(args.kill_replica) if args.kill_replica \
+            else None
+        if args.autoscale:
+            lo, sep, hi = args.autoscale.partition(":")
+            try:
+                scale_bounds = (int(lo), int(hi))
+            except ValueError:
+                p.error(f"--autoscale {args.autoscale!r} is not MIN:MAX")
+            if len(fleet_sizes) != 1:
+                p.error("--autoscale starts from ONE --replicas size "
+                        "(the sweep compares FIXED fleet sizes; run the "
+                        "autoscaled side separately)")
+    scenario = None
+    if args.scenario:
+        if args.replay:
+            p.error("--scenario IS a replayable workload artifact; it "
+                    "does not combine with --replay")
+        if args.rate_curve:
+            p.error("the rate curve lives in the scenario header; "
+                    "--rate-curve does not combine with --scenario")
+        from deepspeed_tpu_torch.serving.scenarios import Scenario
+
+        scenario = Scenario.load(args.scenario)
+        if scenario.chaos and not args.replicas:
+            p.error(f"scenario {scenario.name!r} embeds replica chaos; "
+                    f"it needs --replicas (fleet mode)")
+        if scenario.chaos and (args.kill_replica
+                               or args.rolling_restart is not None):
+            p.error("scenario chaos does not combine with --kill-replica "
+                    "/ --rolling-restart (one chaos schedule per run)")
+        workload, arrivals = scenario.compile()
+    elif args.replay:
         workload, arrivals = load_workload(args.replay)
         if arrivals is None and args.rate_curve:
             arrivals = gen_curve_arrivals(len(workload), args.rate,
@@ -914,6 +1107,11 @@ def main(argv=None) -> int:
         serving.close()
         return summary
 
+    if fleet_sizes is not None:
+        return _run_fleet(args, fleet_sizes, kill_spec, scale_bounds,
+                          scenario, workload, arrivals, build_cb,
+                          span_sampler)
+
     if args.ab_spec:
         # SAME replayed workload both sides; the plain side writes a
         # sibling trace so both pay identical telemetry overhead
@@ -949,6 +1147,140 @@ def main(argv=None) -> int:
             sys.stdout.write(format_summary(summary))
     if args.trace_out:
         print(f"trace written to {args.trace_out}")
+    return 0
+
+
+def build_fleet(make_engine, n: int, *, serving_kw: Optional[dict] = None):
+    """A :class:`FleetRouter` over ``n`` ``ServingEngine`` replicas that
+    share ONE telemetry hub. ``make_engine(first)`` builds a replica's
+    batching engine; the first one's hub (``first`` True: build it with the
+    run's telemetry config — trace file, ops registry) becomes the base,
+    and every replica — including the first, and any kill-restore or
+    rolling-restart replacement — talks through a ``ReplicaTelemetry``
+    facade that tags its events and metrics with the replica id.
+    ``serving_kw`` goes to every replica's ``ServingEngine``."""
+    from deepspeed_tpu_torch.serving.engine import ServingEngine
+    from deepspeed_tpu_torch.serving.fleet import attach_replica_telemetry
+    from deepspeed_tpu_torch.serving.router import FleetRouter
+
+    holder: dict = {}
+
+    def factory(replica_id: str):
+        first = "hub" not in holder
+        cb = make_engine(first)
+        if first:
+            holder["hub"] = cb._eng.telemetry
+        attach_replica_telemetry(cb, holder["hub"], replica_id)
+        return ServingEngine(cb, **(serving_kw or {}))
+
+    return FleetRouter(factory, replicas=n)
+
+
+def kill_lowest_healthy(router):
+    """The replayable chaos kill of ``--kill-replica``: the lowest-slot
+    healthy replica dies abruptly."""
+    for rid in router.replica_ids():  # slot order
+        if router.statusz()["replicas"][rid]["state"] == "healthy":
+            router.kill(rid, detail="loadgen --kill-replica")
+            return
+
+
+def fleet_run(router, workload: List[dict], arrivals: List[float], *, seed: int = 0,
+              kill: Optional[tuple] = None, rolling_restart: Optional[int] = None,
+              scenario=None, autoscale: Optional[tuple] = None,
+              autoscale_cooldown: float = 2.0):
+    """One open-loop run through a fleet: arm the chaos schedule (``kill``
+    = (TICK, RESTORE or None), ``rolling_restart`` = TICK, or the
+    scenario's own) and the autoscaler (``autoscale`` = (MIN, MAX)), drive
+    :func:`run_load`, and score it. Returns ``(summary, records)``: the
+    summary gains the ``fleet`` section, and ``autoscaler``, ``scenario``
+    and ``chaos`` where they apply. The router stays open."""
+    scaler = None
+    if autoscale is not None:
+        from deepspeed_tpu_torch.serving.autoscaler import AutoscalerConfig, FleetAutoscaler
+
+        scaler = FleetAutoscaler(router, AutoscalerConfig(
+            min_replicas=autoscale[0], max_replicas=autoscale[1],
+            cooldown_s=autoscale_cooldown))
+    if scenario is not None:
+        scenario.arm(router)
+    if kill is not None:
+        tick, restore = kill
+        router.at_tick(tick, kill_lowest_healthy)
+        if restore is not None:
+            router.at_tick(restore, lambda r: r.add())
+    if rolling_restart is not None:
+        router.at_tick(rolling_restart, lambda r: r.rolling_restart())
+    records, wall_s = run_load(router, workload, arrivals, seed=seed)
+    summary = summarize(records, wall_s, tick_stats=router.tick_stats())
+    summary["fleet"] = fleet_scorecard(router, records)
+    if scaler is not None:
+        summary["autoscaler"] = scaler.stats()
+    if scenario is not None:
+        summary["scenario"] = scenario.name
+    if (kill is not None or rolling_restart is not None
+            or (scenario is not None and scenario.chaos)):
+        summary["chaos"] = chaos_scorecard(records, wall_s, router.recovery_stats())
+    return summary, records
+
+
+def _run_fleet(args, fleet_sizes, kill_spec, scale_bounds, scenario,
+               workload, arrivals, build_cb, span_sampler) -> int:
+    """``--replicas``: route the workload through a FleetRouter, once per
+    fleet size, and print (or record) the fleet scorecards."""
+    serving_kw = dict(policy=args.policy, max_queue_depth=args.queue_depth,
+                      kv_budget_tokens=args.kv_budget, aging_s=args.aging_s,
+                      span_sampler=span_sampler)
+
+    def one_fleet_run(n: int, trace_out=None) -> dict:
+        router = build_fleet(
+            lambda first: build_cb(args.pipeline_depth,
+                                   trace_out=trace_out if first else None),
+            n, serving_kw=serving_kw)
+        if args.ops_port is not None:
+            ops = router.start_ops_server(port=args.ops_port)
+            print(f"fleet ops server live at {ops.url} "
+                  f"(/metrics /healthz /statusz)")
+        summary, _ = fleet_run(router, workload, arrivals, seed=args.seed,
+                               kill=kill_spec, rolling_restart=args.rolling_restart,
+                               scenario=scenario, autoscale=scale_bounds,
+                               autoscale_cooldown=args.autoscale_cooldown)
+        router.close()
+        return summary
+
+    results = {}
+    for n in fleet_sizes:
+        trace = args.trace_out
+        if trace and len(fleet_sizes) > 1:
+            trace = f"{trace}.x{n}.jsonl"
+        results[str(n)] = one_fleet_run(n, trace_out=trace)
+    if args.fleet_out:
+        record = fleet_record(results, {
+            "requests": len(workload), "rate": args.rate,
+            "process": args.process, "seed": args.seed,
+            "pipeline_depth": args.pipeline_depth,
+            "slots": args.slots, "cache_len": args.cache_len,
+            "deadline_ms": args.deadline_ms, "preset": args.preset,
+            "kill_replica": args.kill_replica,
+            "rolling_restart": args.rolling_restart,
+            "rate_curve": args.rate_curve,
+            "scenario": scenario.name if scenario else None,
+            "autoscale": args.autoscale}, device=args.device)
+        with open(args.fleet_out, "w") as fh:
+            json.dump(record, fh, indent=2, sort_keys=True)
+        print(f"fleet record written to {args.fleet_out}")
+    if args.as_json:
+        print(json.dumps(results if len(fleet_sizes) > 1
+                         else results[str(fleet_sizes[0])],
+                         indent=2, sort_keys=True))
+    elif len(fleet_sizes) > 1:
+        sys.stdout.write(format_fleet_sweep(results))
+    else:
+        sys.stdout.write(format_summary(results[str(fleet_sizes[0])]))
+    if args.trace_out:
+        print(f"trace written to {args.trace_out}"
+              + (".x<N>.jsonl per fleet size"
+                 if len(fleet_sizes) > 1 else ""))
     return 0
 
 

@@ -3,7 +3,11 @@ the flash kernels K1-K3, the block-sparse kernels K4-K6 and the fused norm
 kernels K7-K8; the int8 decode path's W8A8 product (``int8_linear``,
 cuBLASLt's int8 product through ``torch._int_mm``) and int8 engine; and the
 continuous-batching engine's ticks, plain and speculative (ngram and draft
-modes), dispatched where a host sync raises.
+modes), dispatched where a host sync raises; the serving layer and the fleet
+over card engines: ticks with the telemetry hub, and fleet ticks with the
+health probe and the ops server on their threads, dispatched where a host
+sync raises; a recovery rebuild, and a replica kill with migration, that
+finish every request.
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -1048,3 +1052,105 @@ def test_serving_rebuild_on_the_card_finishes_every_request():
     stats = srv.recovery_stats()
     assert (stats["retries"], stats["rebuilds"], stats["lost_requests"]) == (1, 2, 0)
     assert srv._cb.device.type == "cuda"
+
+
+def _card_fleet(n, hub=False, **serving_kw):
+    """A ``FleetRouter`` over ``n`` replicas of the card engine on the same
+    weights, sharing one hub (registry only) when ``hub``."""
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.serving import FleetRouter, ServingEngine, attach_replica_telemetry
+
+    cfg = ttf.TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+                                max_seq_len=128, dtype="bfloat16", attn_impl="pallas")
+    params = ttf.TransformerModel(cfg).init(torch.Generator().manual_seed(0))
+    holder = {}
+
+    def factory(replica_id):
+        config = ({"telemetry": {"enabled": True, "trace_file": ""}}
+                  if hub and not holder else None)
+        eng = _serving_card_engine(params=params, config=config)
+        if hub:
+            holder.setdefault("hub", eng._eng.telemetry)
+            attach_replica_telemetry(eng, holder["hub"], replica_id)
+        return ServingEngine(eng, **serving_kw)
+
+    return FleetRouter(factory, replicas=n)
+
+
+def test_fleet_ticks_with_the_probe_and_ops_threads_dispatch_without_a_host_sync():
+    """A 2-replica fleet with the health probe running every 10 ms on its
+    thread and the ops server scraped from another (``/healthz``,
+    ``/statusz``, ``/metrics``) while the main thread dispatches two fleet
+    ticks under ``torch.cuda.set_sync_debug_mode("error")``: nothing the
+    router reads from a replica (``health``, ``statusz``,
+    ``admission_outlook``, ``committed_tokens``) waits on the card. A depth
+    of 8 retires nothing; the run then finishes with the same results as
+    before."""
+    import threading
+    import time
+    import urllib.request
+
+    _need_card()
+    router = _card_fleet(2, hub=True, pipeline_depth=8)
+    ops = router.start_ops_server(port=0)
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(0, 256, n).astype(np.int32) for n in (20, 45, 7, 33, 12, 26)]
+    want = [router.submit(p, max_new_tokens=9).rid for p in prompts]
+    router.run()
+    want = [router.result(r) for r in want]
+    frids = [router.submit(p, max_new_tokens=9).rid for p in prompts]
+    stop, scrapes, errors = threading.Event(), [], []
+
+    def scrape():
+        while not stop.is_set():
+            for path in ("/healthz", "/statusz", "/metrics"):
+                try:
+                    with urllib.request.urlopen(ops.url + path, timeout=5) as r:
+                        scrapes.append((path, r.status))
+                except Exception as e:  # noqa: BLE001 - asserted below
+                    errors.append((path, repr(e)))
+
+    torch.cuda.synchronize()
+    probe = router.start_probe(0.01)
+    scraper = threading.Thread(target=scrape, daemon=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scraper.start()
+        for _ in range(2):
+            router.step()
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        scraper.join(timeout=10)
+        alive = probe.is_alive()
+        router.stop_probe()
+        torch.cuda.set_sync_debug_mode(0)
+    assert alive and not errors and {p for p, _ in scrapes} == {"/healthz", "/statusz",
+                                                                 "/metrics"}
+    assert all(status == 200 for _, status in scrapes)
+    for _, srv in router.steppable_engines():
+        assert len(srv._cb._inflight) == 2 and not srv._cb.poisoned
+    router.run()
+    for r, w in zip(frids, want):
+        np.testing.assert_array_equal(router.result(r), w)
+    router.close()
+
+
+def test_fleet_kill_on_the_card_migrates_and_finishes_every_request():
+    """A replica killed on the card with running streams: the survivor
+    re-prefills each one's prompt and emitted tokens and finishes it; no
+    request is lost."""
+    _need_card()
+    router = _card_fleet(2)
+    rs = np.random.RandomState(3)
+    adms = [router.submit(rs.randint(0, 256, n).astype(np.int32), max_new_tokens=12)
+            for n in (20, 45, 7, 30, 11, 16)]
+    router.at_tick(4, lambda r: r.kill("r0", detail="card test"))
+    router.run()
+    done = router.reap()
+    assert [done[a.rid].state for a in adms] == ["finished"] * 6
+    assert all(len(done[a.rid].tokens) == 12 for a in adms)
+    st = router.statusz()
+    assert st["migrated"] > 0 and st["lost"] == 0 and st["replica_deaths"] == 1
+    assert all(srv._cb.device.type == "cuda" for _, srv in router.steppable_engines())
+    router.close()

@@ -37,8 +37,8 @@ SAMPLED = dict(temperature=0.9, top_k=20, seed=7)
 class FakeClock:
     """Deterministic clock: time moves only when the test says so."""
 
-    def __init__(self):
-        self.t = 0.0
+    def __init__(self, t: float = 0.0):
+        self.t = t
 
     def __call__(self) -> float:
         return self.t
