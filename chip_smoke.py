@@ -75,7 +75,17 @@ backward):
     width and depth, seq 4096, micro-batch 2, bf16, the fixed sparsity
     layout: 2 warm-up and 10 timed steps, a model-level check of the
     block-sparse kernels with the dense layout (against the flash engine in
-    bf16, against the xla engine in f32), then a profiled breakdown.
+    bf16, against the xla engine in f32), then a profiled breakdown;
+  - Llama-family serving (``--llama`` runs these phases alone): the
+    ``llama2-7b`` preset at full width and depth, B 8 x 512 + 64 greedy,
+    fused and per-token with bucket migration, the streams equal and held to
+    the uncached teacher-forced forward, the allocation walk to the
+    reference's rule, the decode step beside its bound (``llama_serve``);
+    then Mistral 7B's published shape, B 1 x 4,608 + 256 greedy with the
+    rolling (ring) KV cache on and off (``mistral_ring``). Rope and the
+    window and ring masks are plain PyTorch, as the reference computes them
+    outside Pallas; the prefills run K1 (GQA and the window band for
+    Mistral), every norm K7.
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after. Prints JSON lines as it goes; the line before the last
 names the card and its power limit (as nvidia-smi reports them), and the
@@ -2817,6 +2827,340 @@ def serve_fleet_phase(card):
     return counts
 
 
+# Mistral 7B v0.1's published shape (mistralai/Mistral-7B-v0.1 config.json:
+# hidden 4096, 32 layers, 32 heads with 8 kv heads, intermediate 14336, vocab
+# 32000, sliding_window 4096, rope_theta 10000, rms_norm_eps 1e-5, 32768
+# positions, untied head), mapped as the reference's LlamaPolicy.config maps
+# an HF Mistral config (deepspeed_tpu/module_inject/policies.py:191-222)
+MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
+                  num_kv_heads=8, ffn_hidden_size=14336, max_seq_len=32768,
+                  pos_embedding="rope", norm_type="rmsnorm", activation="silu_glu",
+                  tie_embeddings=False, use_bias=False, norm_eps=1e-5, rope_theta=10000.0,
+                  attn_impl="pallas", local_attn_windows=(4096,) * 32)
+
+
+@contextlib.contextmanager
+def recorded_walk(eng):
+    """The allocation walk of ``eng``'s requests inside the block: the cache
+    length each request's ``init_cache`` allocates, then each migration's."""
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    walk, real_init, real_grow = [], tf.init_cache, eng._grow_cache
+
+    def init_cache(cfg, batch_size, max_len=None, *args, **kw):
+        walk.append(max_len)
+        return real_init(cfg, batch_size, max_len, *args, **kw)
+
+    def grow(cache, new_len):
+        walk.append(new_len)
+        return real_grow(cache, new_len)
+
+    tf.init_cache, eng._grow_cache = init_cache, grow
+    try:
+        yield walk
+    finally:
+        tf.init_cache = real_init
+        del eng._grow_cache
+
+
+def alloc_walk_rule(S, new, max_len, floor):
+    """The reference's allocation walk of the per-token loop
+    (``deepspeed_tpu/inference/engine.py:620-658``): ``read_bucket(S + 1)``,
+    then ``read_bucket(pos + 1)`` whenever a decode write at pos (S to
+    S + new - 2) reaches the allocation; tight reads off keep ``max_len``."""
+    from deepspeed_tpu_torch.inference.decoding import read_bucket
+
+    if floor is None:
+        return [max_len]
+    walk = [min(read_bucket(S + 1, max_len, floor), max_len)]
+    for pos in range(S, S + new - 1):
+        if pos + 1 > walk[-1]:
+            walk.append(min(read_bucket(pos + 1, max_len, floor), max_len))
+    return walk
+
+
+def timed_generate(eng, toks, new):
+    """(tokens, wall s, launch counts) of one greedy ``generate``."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    before = op_builder.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.generate(toks, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = op_builder.launch_counts()
+    return out, wall, {k: after[k] - before.get(k, 0) for k in after}
+
+
+def teacher_forced_check(params, cfg, out, prompt, what):
+    """The generated tokens against the uncached ``forward`` over the same
+    sequence (teacher-forced): every token is the forward's argmax at its
+    position, or that position's top-2 margin is under 2 LOGITS_TOL (the
+    bf16 tie rule). Returns the counts and the widest margin of a
+    mismatch."""
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    with torch.inference_mode():
+        logits = tf.forward(params, cfg, out[:, :-1].long())[:, prompt - 1:].float()
+    want = logits.argmax(-1)
+    got = out[:, prompt:].long()
+    margins = top2_margins(logits).to(got.device)
+    miss = want != got
+    worst = float(margins[miss].max()) if bool(miss.any()) else 0.0
+    check(worst < 2 * LOGITS_TOL,
+          f"{what}: a generated token differs from the teacher-forced forward's argmax at a "
+          f"top-2 margin of {worst} >= {2 * LOGITS_TOL}")
+    return {"tokens": int(got.numel()), "equal_to_forward_argmax": int((~miss).sum()),
+            "widest_mismatch_margin": worst, "tie_margin": 2 * LOGITS_TOL}
+
+
+def decode_step_profile(eng, toks, short=4, long=12):
+    """A decode step of greedy ``generate`` at toks' shape: wall ms from one
+    unprofiled call of each length, device ms, launches and device ms by
+    kernel category from one profiled call of each (raw profiler events),
+    as (long - short) / (long - short tokens); the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    generate_wall(eng, toks, short)  # warm-up at this shape
+    wall = {n: generate_wall(eng, toks, n)[0] for n in (short, long)}
+    kernels = {}
+    for n in (short, long):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.generate(toks, max_new_tokens=n)
+            torch.cuda.synchronize()
+        kernels[n] = device_kernels(prof)
+    steps = long - short
+    measured = bool(kernels[short] and kernels[long])
+    dev = {n: sum(t for _, t, _ in k) for n, k in kernels.items()}
+    launches = {n: sum(c for _, _, c in k) for n, k in kernels.items()}
+    cats = {n: by_category(k) for n, k in kernels.items()}
+    wall_ms = (wall[long] - wall[short]) / steps * 1e3
+    device_ms = (dev[long] - dev[short]) / steps * 1e3
+    by_cat = {c: (v["device_s"] - cats[short].get(c, {"device_s": 0.0})["device_s"])
+              / steps * 1e3 for c, v in cats[long].items()}
+    short_by_name = {name: (t, c) for name, t, c in kernels[short]}
+    per_kernel = sorted(((name, (t - short_by_name.get(name, (0.0, 0))[0]) / steps * 1e3,
+                          (c - short_by_name.get(name, (0.0, 0))[1]) / steps)
+                         for name, t, c in kernels[long]), key=lambda x: -x[1])
+    return {"wall_ms_per_step": wall_ms,
+            "device_ms_per_step": device_ms if measured else "not measured",
+            "device_idle_share_per_step": 1 - device_ms / wall_ms if measured
+            else "not measured",
+            "launches_per_step": (launches[long] - launches[short]) / steps,
+            "device_ms_per_step_by_category": by_cat if measured else "not measured",
+            "top_kernels_per_step": [{"name": name[:100], "ms": ms, "launches": n}
+                                     for name, ms, n in per_kernel[:10]]}
+
+
+def llama_serve_phase(gen, card):
+    """Llama 2 7B serving (the repo's ``llama2-7b`` preset at full width and
+    depth: 32 layers, D 4096, 32 heads of 128, SwiGLU 11008, vocab 32000,
+    untied head, no biases; bf16, random weights from the engine's seeded
+    CUDA generator, ``attn_impl="pallas"``): B 8 x 512 + 64 greedy through
+    ``init_inference`` -> ``generate``, fused and per-token with bucket
+    migration (``fused_generate: false``, the default floor), and a B 8 x 100
+    + 60 request whose per-token cache migrates 128 -> 256. Checks: the two
+    paths' streams equal, the allocation walk equals the reference's rule,
+    the stream against the uncached teacher-forced ``forward`` under the
+    bf16 tie rule; K1 once a layer a prefill, K7 2 L + 1 times a forward, K8
+    never. Prints the decode step (wall and device ms, launches, idle share,
+    device ms by kernel category) beside its bound (the weights' bytes and
+    the KV bytes the step's attention needs, over the memory rate), K7 at
+    the decode rows (8 x 4096 RMSNorm) against its plain version, and the
+    peak device memory. Returns the phase's launch counts and the K7 row."""
+    import torch.nn.functional as F
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.decoding import bounded_cache_len
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+    from deepspeed_tpu_torch.ops import op_builder
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.TransformerModel.from_preset("llama2-7b", dtype="bfloat16", attn_impl="pallas")
+    config = {"dtype": "bfloat16", "attn_impl": "pallas"}
+    eng = deepspeed_tpu_torch.init_inference(model, config=config, seed=0)
+    loop = deepspeed_tpu_torch.init_inference(model, config=dict(config, fused_generate=False),
+                                              params=eng.params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, V, L = eng.cfg, eng.cfg.vocab_size, eng.cfg.num_layers
+    floor = eng.config.kv_read_floor
+    B, P, NEW = 8, 512, 64
+    toks = torch.randint(0, V, (B, P), generator=gen, device="cuda")
+    short = torch.randint(0, V, (B, 100), generator=gen, device="cuda")
+    eng.generate(toks[:, :16], max_new_tokens=2)  # warm-up: cuBLAS, kernel load
+
+    op_builder.reset_launch_counts()
+    runs = {}
+    for name, e, prompt, new in (("fused", eng, toks, NEW), ("per_token", loop, toks, NEW),
+                                 ("fused_p100", eng, short, 60),
+                                 ("per_token_p100", loop, short, 60)):
+        with recorded_walk(e) as walk:
+            out, wall, launched = timed_generate(e, prompt, new)
+        runs[name] = {"out": out, "wall_s": wall, "launched": launched, "walk": list(walk),
+                      "prompt": prompt.shape[1], "new": new}
+    counts = op_builder.launch_counts()
+
+    rows = {}
+    for name, r in runs.items():
+        out, S, new, launched = r["out"], r["prompt"], r["new"], r["launched"]
+        check(tuple(out.shape) == (B, S + new) and bool(((out >= 0) & (out < V)).all()),
+              f"llama_serve {name}: output shape {tuple(out.shape)} / range")
+        check(launched["flash_fwd"] == L and launched["fused_norm_fwd"] == (2 * L + 1) * new
+              and launched["fused_norm_bwd"] == 0,
+              f"llama_serve {name}: K1/K7/K8 launched {launched['flash_fwd']}/"
+              f"{launched['fused_norm_fwd']}/{launched['fused_norm_bwd']}, expected "
+              f"{L}/{(2 * L + 1) * new}/0")
+        max_len = bounded_cache_len(S + new, cfg.max_seq_len, eng.config.max_out_tokens)
+        want_walk = (alloc_walk_rule(S, new, max_len, floor) if name.startswith("per_token")
+                     else [max_len])
+        check(r["walk"] == want_walk,
+              f"llama_serve {name}: allocation walk {r['walk']}, the rule gives {want_walk}")
+        rows[name] = {"prompt": S, "new_tokens": new, "generate_s": r["wall_s"],
+                      "new_tokens_per_s": B * new / r["wall_s"], "alloc_walk": r["walk"],
+                      "alloc_walk_rule": want_walk, "k1_launches": launched["flash_fwd"],
+                      "k7_launches": launched["fused_norm_fwd"],
+                      "k8_launches": launched["fused_norm_bwd"]}
+    for a, b in (("fused", "per_token"), ("fused_p100", "per_token_p100")):
+        same = torch.equal(runs[a]["out"], runs[b]["out"])
+        rows[b]["equal_to_fused"] = same
+        check(same, f"llama_serve: the per-token stream ({b}) differs from the fused one")
+    teacher = teacher_forced_check(eng.params, cfg, runs["fused"]["out"], P, "llama_serve")
+    del runs
+
+    step = decode_step_profile(eng, toks)
+    weight_bytes = leaf_bytes(eng.params) - V * cfg.hidden_size * 2 + B * cfg.hidden_size * 2
+    # the attention of step j (j = 1 .. NEW - 1) needs P + j cached positions
+    # (and its own); the mean over the run's steps
+    kv_bytes = B * statistics.mean(tf.kv_read_bytes_per_row(cfg, P + j + 1)
+                                   for j in range(1, NEW))
+    flops = 2.0 * B * (cfg.num_params() - V * cfg.hidden_size)
+    bound_ms, bound_by = bound(flops, weight_bytes + kv_bytes, torch.bfloat16)
+
+    # K7 at the decode step's rows: 8 x 4096 RMSNorm, bf16 scale, no bias
+    D = cfg.hidden_size
+    x = torch.randn(B, D, generator=gen, device="cuda", dtype=torch.bfloat16)
+    scale = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(torch.bfloat16)
+    out = fnorm._cuda_fwd(x, scale, None, cfg.norm_eps, True, with_stats=False)[0]
+    ref = fnorm._reference_fwd(x, scale, None, cfg.norm_eps, True)[0]
+    err = (out.float() - ref.float()).abs().max().item()
+    check(err <= NORM_TOL[torch.bfloat16] * max(ref.float().abs().max().item(), 1.0),
+          f"llama_serve_k7: K7 at 8 x 4096 differs from its plain version by {err}")
+    (k7_bound_ms, k7_bound_by), _ = norm_bounds(B, D, torch.bfloat16, torch.bfloat16, False,
+                                                reference_partial_rows(B))
+    k7 = {"phase": "llama_serve_k7", "rows": B, "D": D, "dtype": "bfloat16", "kind": "rms",
+          "variant": fnorm.kernel_variant(D, x.dtype, x), "max_abs_err": err,
+          "ms": cuda_ms(lambda: fnorm._cuda_fwd(x, scale, None, cfg.norm_eps, True,
+                                               with_stats=False)),
+          "plain_ms": cuda_ms(lambda: fnorm._reference_fwd(x, scale, None, cfg.norm_eps, True)),
+          "library_ms": cuda_ms(lambda: F.rms_norm(x, (D,), scale, cfg.norm_eps)),
+          "bound_ms": k7_bound_ms, "bound_by": k7_bound_by,
+          "launches_per_decode_step": 2 * L + 1, "card": card}
+    emit({"phase": "llama_serve", "model": "llama2-7b", "layers": L, "hidden": cfg.hidden_size,
+          "heads": cfg.num_heads, "kv_heads": cfg.kv_heads, "head_dim": cfg.head_dim,
+          "ffn": cfg.ffn_size, "vocab": V, "params": cfg.num_params(), "batch": B,
+          "kv_read_floor": floor, "build_s": build_s, "requests": rows,
+          "teacher_forced": teacher,
+          "decode_step": {**step, "batch": B, "prompt": P,
+                          "k1_launches_per_request": rows["fused"]["k1_launches"],
+                          "k7_launches_per_request": rows["fused"]["k7_launches"],
+                          "k7_launches_per_step": 2 * L + 1,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "bound_weight_bytes": weight_bytes, "bound_kv_bytes": kv_bytes},
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": card})
+    emit(k7)
+    del eng, loop, model
+    torch.cuda.empty_cache()
+    return counts, k7
+
+
+def mistral_ring_phase(gen, card):
+    """Mistral 7B's published shape (``MISTRAL_7B``; bf16, random weights
+    from the engine's seeded CUDA generator): B 1 x 4,608 + 256 greedy
+    through ``generate``, with the rolling KV cache on (the engine switches
+    it on: a 4,096-slot ring that drops the first 512 positions at the
+    prefill) and off (``rolling_kv_cache: false``, a 4,864-slot cache). The
+    prefill runs K1's band with GQA group 4 at hd 128 in both. Checks: the
+    ring stream against the full cache's under the bf16 tie rule and both
+    against the uncached teacher-forced ``forward``; the caches' lengths and
+    bytes. Prints both caches' bytes and each decode step's wall and device
+    ms, and the peak device memory. Returns the phase's launch counts."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference.decoding import bounded_cache_len
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import op_builder
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tf.TransformerModel(tf.TransformerConfig(**MISTRAL_7B, dtype="bfloat16"))
+    ring = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bfloat16"}, seed=0)
+    full = deepspeed_tpu_torch.init_inference(
+        model, config={"dtype": "bfloat16", "rolling_kv_cache": False}, params=ring.params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    cfg, V, L = ring.cfg, ring.cfg.vocab_size, ring.cfg.num_layers
+    check(ring.cfg.rolling_kv_cache and not full.cfg.rolling_kv_cache,
+          "mistral_ring: the engine did not switch the ring on (or off)")
+    B, P, NEW, W = 1, 4608, 256, cfg.uniform_window
+    toks = torch.randint(0, V, (B, P), generator=gen, device="cuda")
+    ring.generate(toks[:, :16], max_new_tokens=2)  # warm-up
+
+    op_builder.reset_launch_counts()
+    runs = {}
+    for name, e in (("ring", ring), ("full", full)):
+        with recorded_walk(e) as walk:
+            out, wall, launched = timed_generate(e, toks, NEW)
+        runs[name] = {"out": out, "wall_s": wall, "launched": launched, "cache_len": walk}
+    counts = op_builder.launch_counts()
+
+    total = P + NEW
+    want_len = {"ring": W, "full": bounded_cache_len(total, cfg.max_seq_len,
+                                                     ring.config.max_out_tokens)}
+    rows = {}
+    for name, r in runs.items():
+        out, launched = r["out"], r["launched"]
+        check(tuple(out.shape) == (B, total) and bool(((out >= 0) & (out < V)).all()),
+              f"mistral_ring {name}: output shape {tuple(out.shape)} / range")
+        check(r["cache_len"] == [want_len[name]],
+              f"mistral_ring {name}: cache lengths {r['cache_len']}, expected {want_len[name]}")
+        check(launched["flash_fwd"] == L and launched["fused_norm_fwd"] == (2 * L + 1) * NEW
+              and launched["fused_norm_bwd"] == 0,
+              f"mistral_ring {name}: K1/K7/K8 launched {launched['flash_fwd']}/"
+              f"{launched['fused_norm_fwd']}/{launched['fused_norm_bwd']}")
+        cache_bytes = leaf_bytes(tf.init_cache(cfg, B, want_len[name], device="meta"))
+        rows[name] = {"cache_len": r["cache_len"][0], "cache_bytes": cache_bytes,
+                      "generate_s": r["wall_s"], "new_tokens_per_s": B * NEW / r["wall_s"],
+                      "k1_launches": launched["flash_fwd"],
+                      "k7_launches": launched["fused_norm_fwd"],
+                      "teacher_forced": teacher_forced_check(
+                          ring.params, cfg, out, P, f"mistral_ring {name}")}
+    with torch.inference_mode():
+        want_logits = tf.forward(ring.params, cfg, runs["full"]["out"][:, :-1].long())
+    margins = top2_margins(want_logits[0, P - 1:].float())
+    del want_logits
+    prompt_np = toks[0].cpu().numpy()
+    agree = stream_agreement(runs["ring"]["out"][0].cpu(), runs["full"]["out"][0].cpu(),
+                             prompt_np, lambda: margins, "mistral_ring ring vs full")
+    del runs
+    for name, e in (("ring", ring), ("full", full)):
+        rows[name]["decode_step"] = decode_step_profile(e, toks)
+    emit({"phase": "mistral_ring", "model": "Mistral-7B-v0.1 shape", "layers": L,
+          "hidden": cfg.hidden_size, "heads": cfg.num_heads, "kv_heads": cfg.kv_heads,
+          "head_dim": cfg.head_dim, "ffn": cfg.ffn_size, "vocab": V, "window": W,
+          "params": cfg.num_params(), "batch": B, "prompt": P, "new_tokens": NEW,
+          "build_s": build_s, "runs": rows, "ring_vs_full": agree,
+          "cache_bytes_ring_over_full": rows["ring"]["cache_bytes"] / rows["full"]["cache_bytes"],
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": card})
+    del ring, full, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def smi_card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2919,6 +3263,27 @@ def serve_fleet_main():
     card = smi_card()
     build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
     serve_fleet_phase(card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
+def llama_main():
+    """``python3 chip_smoke.py --llama``: the Llama-family phases alone
+    (``llama_serve``, ``llama_serve_k7`` and ``mistral_ring``; no ``kernels``
+    line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    llama_serve_phase(gen, card)
+    mistral_ring_phase(gen, card)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
     return 1 if failures else 0
@@ -3051,6 +3416,10 @@ def main():
         "d_gqa_noncausal": (2, 512, 8, 2, 64, False, None, bf16),
         "e_train_b8_s1024": (8, 1024, 12, 12, 64, True, None, bf16),
         "f_train_b8_s1024_f32": (8, 1024, 12, 12, 64, True, None, f32),
+        # the prefills of llama_serve (llama2-7b) and mistral_ring (Mistral
+        # 7B: GQA group 4, the 4096-position window)
+        "g_llama2_7b_b8_s512": (8, 512, 32, 32, 128, True, None, bf16),
+        "h_mistral_7b_b1_s4608_w4096": (1, 4608, 32, 8, 128, True, 4096, bf16),
     }
     k1 = {}
     for name, (B, S, H, Hkv, hd, causal, window, dtype) in shapes.items():
@@ -3814,6 +4183,15 @@ def main():
     del sengine
     torch.cuda.empty_cache()
 
+    # ---- Llama-family serving: Llama 2 7B (fused and per-token with bucket
+    # migration), then Mistral 7B's shape with the rolling cache on and off;
+    # one 7B model on the card at a time, each path counted from 0
+    llama_counts, llama_k7 = llama_serve_phase(gen, card)
+    ring_counts = mistral_ring_phase(gen, card)
+    check(llama_counts.get("flash_fwd", 0) > 0 and llama_counts.get("fused_norm_fwd", 0) > 0
+          and ring_counts.get("flash_fwd", 0) > 0 and ring_counts.get("fused_norm_fwd", 0) > 0,
+          "llama paths: K1 or K7 never launched on llama_serve or mistral_ring")
+
     e1, a23, a456 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"], k456["a_fixed_b2_s4096"]
     a78 = k78["a_ln_8192x768_bf16"]
 
@@ -3834,7 +4212,9 @@ def main():
                    "serve_fleet": fleet_counts.get(kname, 0),
                    "train": train_counts.get(kname, 0),
                    "train_sparse": sparse_counts.get(kname, 0),
-                   "fused_ops": fused_counts.get(kname, 0)}
+                   "fused_ops": fused_counts.get(kname, 0),
+                   "llama_serve": llama_counts.get(kname, 0),
+                   "mistral_ring": ring_counts.get(kname, 0)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
@@ -3848,7 +4228,10 @@ def main():
          "variant": e1["variant"],
          "shape": "B8 S1024 H12 hd64 causal bf16",
          "ms": e1["kernel_ms"], "plain_ms": e1["plain_ms"], "bound_ms": e1["bound_ms"],
-         "bound_by": e1["bound_by"], "library_ms": e1["library_ms"]},
+         "bound_by": e1["bound_by"], "library_ms": e1["library_ms"],
+         "llama_shapes": {name: {key: k1[name][key] for key in (
+             "max_abs_err_o", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "tflops")} for name in ("g_llama2_7b_b8_s512", "h_mistral_7b_b1_s4608_w4096")}},
         {"name": "flash_bwd_dq", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{pallas}/flash_attention.py:222",
          **launches("flash_bwd_dq"), "max_abs_err": bwd_err(["dq"]), "variant": a23["variant"],
@@ -3888,7 +4271,10 @@ def main():
          "library_ms": a78["library_fwd_ms"],
          "serve_pool_shape": {key: pool_k7[key] for key in (
              "rows", "D", "dtype", "variant", "max_abs_err", "ms", "plain_ms", "library_ms",
-             "bound_ms", "bound_by")}},
+             "bound_ms", "bound_by")},
+         "llama_decode_shape": {key: llama_k7[key] for key in (
+             "rows", "D", "dtype", "kind", "variant", "max_abs_err", "ms", "plain_ms",
+             "library_ms", "bound_ms", "bound_by")}},
         {"name": "fused_norm_bwd", "route": "cuda", "source": f"{src}/fused_norm.cu",
          "replaces": f"{pallas}/fused_norm.py:55", **launches("fused_norm_bwd"),
          "max_abs_err": max(row["max_abs_err"]["dx"] for row in k78.values()),
@@ -3909,5 +4295,5 @@ def main():
 if __name__ == "__main__":
     ENTRIES = {("--decode-step",): decode_step_main, ("--serve-pool",): serve_pool_main,
                ("--spec",): spec_main, ("--serve-layer",): serve_layer_main,
-               ("--fleet",): serve_fleet_main}
+               ("--fleet",): serve_fleet_main, ("--llama",): llama_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

@@ -1,6 +1,7 @@
 """KV-cached decode machinery (counterpart of ``deepspeed_tpu/inference/decoding.py``),
 cut to the serving slice: the tight-read geometry, sampling, the
-whole-generation path that ``InferenceEngine.generate`` runs, the
+whole-generation path that ``InferenceEngine.generate`` runs, the per-token
+loop (:func:`decode_loop`, ``fused_generate: false``), the
 per-row-position paths of ragged (padded) prompts and chunked prefill, the
 continuous-batching tick programs (``compile_pool_tick_fn``,
 ``compile_row_update_fn``) with their per-request keyed sampler, and
@@ -217,10 +218,13 @@ def compile_decode_fns(cfg, batch_size: int, cache_len: int):
     1-wide decode step, the reference's quadruple without shardings. The
     prefill (``pos`` 0: flash attention under ``attn_impl="pallas"``) returns
     the last position's logits (B, 1, V), the only row its callers read;
-    ``decode_fn(params, tok, cache, pos) -> (logits (B, V), cache)``."""
+    ``decode_fn(params, tok, cache, pos) -> (logits (B, V), cache)``. Both
+    take a cache of any allocation up to ``cache_len``, as the reference's
+    jitted pair retraces at each of the per-token loop's migrated
+    allocations."""
 
     def prefill(params, tokens, cache):
-        assert tokens.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
+        assert tokens.shape[0] == batch_size and tf.cache_alloc_len(cache) <= cache_len
         return tf.forward_with_cache(params, cfg, tokens, cache, 0, last_only=True)
 
     def decode(params, tok, cache, pos):
@@ -260,6 +264,29 @@ def compile_generate_fn(cfg, batch_size: int, cache_len: int, max_new_tokens: in
         return torch.cat([tokens.to(torch.int32), torch.stack(out, dim=1)], dim=1)
 
     return fn
+
+
+def decode_loop(prefill_fn, decode_fn, params, tokens, cache, max_new_tokens: int,
+                temperature: float, top_k: int, generator: Optional[torch.Generator] = None,
+                top_p: float = 1.0, timings: Optional[dict] = None):
+    """Prefill + token-by-token decode, one ``decode_fn`` call a token (the
+    reference's per-token loop); returns (B, S + max_new_tokens) int32.
+    Samples are drawn from ``generator`` in the order of
+    :func:`compile_generate_fn`'s, so on one generator both paths give the
+    same sampled bits."""
+    if max_new_tokens <= 0:
+        return tokens.to(torch.int32)
+    S = tokens.shape[1]
+    logits, cache = prefill_fn(params, tokens, cache)
+    last = select_token(logits[:, -1], temperature, top_k, generator, top_p)
+    _mark_first_token(timings, last)
+    out = [last]
+    pos = S
+    for _ in range(max_new_tokens - 1):
+        step_logits, cache = decode_fn(params, out[-1][:, None], cache, pos)
+        out.append(select_token(step_logits, temperature, top_k, generator, top_p))
+        pos += 1
+    return torch.cat([tokens.to(torch.int32), torch.stack(out, dim=1)], dim=1)
 
 
 def compile_ragged_prefill_fn(cfg, batch_size: int, cache_len: int):

@@ -1,10 +1,13 @@
 """Inference engine (counterpart of ``deepspeed_tpu/inference/engine.py``),
-cut to one device: the whole-generation ``generate`` path, ragged prompts
+cut to one device: the whole-generation ``generate`` path and the per-token
+loop with bucket migration (``fused_generate: false``), ragged prompts
 (``attention_mask``), chunked prefill (``prefill_chunk_size``), int8 weights
 (``dtype="int8"`` / ``quant``) and the int8 KV cache
 (``kv_cache_dtype="int8"``), draft-model speculative decoding (``generate(...,
 draft=)`` or ``init_inference(draft_model=)``), ``forward`` and EOS
-truncation.
+truncation. Llama-family models serve with rope and sliding windows, and a
+uniform-window model (Mistral) gets the rolling (ring) KV cache on the
+aligned paths, as the reference switches it on.
 
 Weights come from a seeded ``torch.Generator``, from the reference's param
 tree as numpy arrays (bridged by ``models.transformer.params_from_numpy``)
@@ -19,8 +22,9 @@ hub (``self.telemetry``, which the batching engine and the serving layer
 share); only then does a call wait on the device for its timing.
 
 Features outside the slice raise ``NotImplementedError`` (ROADMAP.md):
-tensor-parallel meshes, the per-token decode loop (``fused_generate:
-false``) and ``profile_model_time``.
+tensor-parallel meshes, ``profile_model_time``, and telemetry on a per-token
+loop that can migrate its cache (the reference's memory snapshot at each
+migration belongs to ROADMAP.md Queue 1 item 11 (b)).
 """
 
 import dataclasses
@@ -40,11 +44,13 @@ from deepspeed_tpu_torch.inference.decoding import (
     compile_ragged_prefill_fn,
     compile_segment_fn,
     decode_kv_bytes,
+    decode_loop,
     ragged_decode_loop,
     read_bucket,
     speculative_generate,
 )
 from deepspeed_tpu_torch.models import transformer as tf
+from deepspeed_tpu_torch.ops.flash_attention import supports_seq_len
 from deepspeed_tpu_torch.ops.quantizer import fake_quantize, quantize_weight
 from deepspeed_tpu_torch.telemetry import Telemetry
 from deepspeed_tpu_torch.utils import not_ported
@@ -60,8 +66,6 @@ def _check_config(config: InferenceConfig) -> None:
     checks = [
         (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1"),
         (config.mesh.shape is not None or config.mesh.rules, "a serving mesh (config.mesh)"),
-        (not config.fused_generate,
-         "the per-token decode loop with bucket migration (fused_generate=false)"),
         (config.moe.enabled, "MoE inference"),
         (config.profile_model_time, "profile_model_time"),
     ]
@@ -144,6 +148,18 @@ class InferenceEngine:
             overrides["kv_cache_dtype"] = self.config.kv_cache_dtype
         if self.config.attn_impl is not None and self.config.attn_impl != cfg.attn_impl:
             overrides["attn_impl"] = self.config.attn_impl
+        # the rolling KV cache: exact for uniform-window models when the
+        # prefill rides the flash band kernel (a segment never reads the
+        # ring) and positions are relative (rope) or absent. Speculative
+        # decoding writes rows at their own depths, which the ring's aligned
+        # math does not cover, so it stays off then
+        if (self.config.rolling_kv_cache
+                and cfg.uniform_window is not None
+                and cfg.pos_embedding in ("rope", "none")
+                and overrides.get("attn_impl", cfg.attn_impl) == "pallas"
+                and cfg.causal
+                and not self.config.speculative.enabled):
+            overrides["rolling_kv_cache"] = True
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         tf.check_supported(cfg)
@@ -175,11 +191,26 @@ class InferenceEngine:
                  f"kv_cache_dtype={cfg.kv_cache_dtype} attn_impl={cfg.attn_impl} "
                  f"device={self.device}", ranks=[0])
 
+    def _ring_cache_len(self, max_len: int, prompt_len: int) -> int:
+        """Rolling-cache sizing: the cache shrinks to the window when the
+        prefill rides the flash band path (a segment never reads the ring),
+        or the prompt is a single token; otherwise the full length (the
+        ring's math is the plain cache's while nothing wraps)."""
+        if not self.cfg.rolling_kv_cache:
+            return max_len
+        if prompt_len > 1 and not supports_seq_len(prompt_len):
+            return max_len  # the einsum prefill must see an unwrapped cache
+        return min(max_len, self.cfg.uniform_window)
+
     @property
     def _ring_off_cfg(self):
-        """The model config with the rolling cache off, as the batching
-        engine's slot pools need it: the port has no ring, so its ``cfg``."""
-        return self.cfg
+        """The model config with the rolling cache off, for the paths that
+        write rows at their own depths (ragged, chunked, speculative, the
+        batching engine's pools): the ring's aligned math does not cover
+        them, so they run full-length caches."""
+        if not self.cfg.rolling_kv_cache:
+            return self.cfg
+        return dataclasses.replace(self.cfg, rolling_kv_cache=False)
 
     def _tokens(self, input_ids) -> torch.Tensor:
         if torch.is_tensor(input_ids):
@@ -196,19 +227,22 @@ class InferenceEngine:
                                     new_tokens=0, batch=tokens.shape[0])
 
     def _kv_fields(self, prompt_len: int, new_tokens: int, cache_len: int,
-                   floor: Optional[int], batch: int) -> Optional[dict]:
+                   floor: Optional[int], batch: int,
+                   alloc: Optional[int] = None) -> Optional[dict]:
         """KV-read accounting of a generate call (None when telemetry is
         off): the cache bytes its decode steps streamed (host math over
         the read geometry the decode loop runs), the per-decoded-token
-        rate, the cache dtype, and the share of the allocation used."""
+        rate, the cache dtype, and the share of the allocation (``alloc``,
+        default the cache length) used."""
         if not self.telemetry.enabled:
             return None
         per_row = decode_kv_bytes(self.cfg, prompt_len, new_tokens, cache_len, floor)
         decoded = max(new_tokens - 1, 0)
+        alloc = alloc if alloc is not None else cache_len
         fields = {
             "kv_dtype": "int8" if self.cfg.kv_cache_dtype == "int8" else self.cfg.dtype,
             "kv_bytes_read": int(batch) * per_row,
-            "cache_utilization": round(min((prompt_len + new_tokens) / cache_len, 1.0), 4),
+            "cache_utilization": round(min((prompt_len + new_tokens) / alloc, 1.0), 4),
         }
         if decoded:
             fields["kv_bytes_per_token"] = round(per_row / decoded, 1)
@@ -222,7 +256,9 @@ class InferenceEngine:
         (TTFT where the path has a first-token boundary, tokens/s, the
         cache length and the KV-read fields). The reference's
         ``compile_cache_hit`` has no counterpart: the port compiles
-        nothing."""
+        nothing; nor has its ``_timed_decode_retrace``, which journals the
+        per-token loop's XLA re-trace at an untraced allocation: the port
+        traces nothing."""
         if not self.telemetry.enabled:
             return result
         if self.device.type == "cuda":
@@ -265,9 +301,11 @@ class InferenceEngine:
                  draft: Optional["InferenceEngine"] = None,
                  num_draft_tokens: Optional[int] = None, attention_mask=None):
         """Greedy or temperature/top-k/top-p sampling over a KV cache sized
-        once for the request. Returns (B, S + max_new_tokens) int32 tokens on
-        the engine's device. Sampling draws from ``generator`` (default: one
-        seeded with 0 on the engine's device).
+        for the request (with ``fused_generate: false``, grown by bucket
+        migration as the loop writes; a window-sized ring under the rolling
+        cache). Returns (B, S + max_new_tokens) int32 tokens on the engine's
+        device. Sampling draws from ``generator`` (default: one seeded with 0
+        on the engine's device).
 
         ``attention_mask`` ((B, S) of 0/1, HF semantics) takes ragged
         prompts, left or right padded: pads never enter the KV cache, each
@@ -324,11 +362,11 @@ class InferenceEngine:
             if eos_token_id is not None:
                 result = self._truncate_eos(result, S, eos_token_id)
             return result
-        cache = tf.init_cache(self.cfg, B, max_len, device=self.device)
-        # TTFT stamp of the host-driven loops (telemetry only: stamping
-        # waits for the first token)
-        timings = {} if self.telemetry.enabled else None
         if self.config.prefill_chunk_size or attention_mask is not None:
+            cache = tf.init_cache(self.cfg, B, max_len, device=self.device)
+            # TTFT stamp of the host-driven loops (telemetry only: stamping
+            # waits for the first token)
+            timings = {} if self.telemetry.enabled else None
             prefill_fn, segment_fn = self._ragged_fns_for(B, max_len)
             t0 = time.time()
             if self.config.prefill_chunk_size:
@@ -349,17 +387,85 @@ class InferenceEngine:
                 cache_len=max_len, timings=timings,
                 kv=self._kv_fields(longest, max_new_tokens, max_len, self._tight_floor(), B))
         else:
-            floor = self._tight_floor()
-            fn = compile_generate_fn(self.cfg, B, max_len, max_new_tokens, temperature,
-                                     top_k, top_p, read_floor=floor)
-            t0 = time.time()
-            result = fn(self.params, tokens, cache, generator)
-            result = self._finish_request(
-                "fused", t0, result, prompt_tokens=S, new_tokens=max_new_tokens, batch=B,
-                cache_len=max_len, kv=self._kv_fields(S, max_new_tokens, max_len, floor, B))
+            result = self._generate_aligned(tokens, max_len, max_new_tokens, temperature,
+                                            top_k, top_p, generator)
         if eos_token_id is not None:
             result = self._truncate_eos(result, S, eos_token_id)
         return result
+
+    def _generate_aligned(self, tokens, max_len: int, max_new_tokens: int, temperature: float,
+                          top_k: int, top_p: float, generator):
+        """The aligned path of ``generate``: the whole-generation function
+        (``fused_generate``, its tight reads as bucket-staged loops), or the
+        per-token loop, whose cache starts at the prompt's read bucket and
+        grows by migration (:meth:`_migrating_decode_fn`). With the rolling
+        cache on, both run a window-sized ring and no tight reads."""
+        B, S = tokens.shape
+        max_len = self._ring_cache_len(max_len, S)
+        # tight reads never apply to the ring geometry (already O(window))
+        floor = None if self.cfg.rolling_kv_cache else self._tight_floor()
+        if self.config.fused_generate:
+            fn = compile_generate_fn(self.cfg, B, max_len, max_new_tokens, temperature,
+                                     top_k, top_p, read_floor=floor)
+            cache = tf.init_cache(self.cfg, B, max_len, device=self.device)
+            t0 = time.time()
+            result = fn(self.params, tokens, cache, generator)
+            return self._finish_request(
+                "fused", t0, result, prompt_tokens=S, new_tokens=max_new_tokens, batch=B,
+                cache_len=max_len, kv=self._kv_fields(S, max_new_tokens, max_len, floor, B))
+        if floor is not None and self.telemetry.enabled:
+            raise not_ported(
+                "telemetry on a per-token loop that migrates its cache (the memory_snapshot "
+                "at each migration, item 11 (b); kv_tight_read=false or fused_generate "
+                "avoid it)")
+        # the final allocation stops at bucket(total - 1): the last write
+        # lands at total - 2 (the closing sampled token is never cached)
+        total = S + max_new_tokens
+        alloc = max_len if floor is None else min(read_bucket(S + 1, max_len, floor), max_len)
+        final_alloc = (max_len if floor is None
+                       else min(read_bucket(max(S + 1, total - 1), max_len, floor), max_len))
+        prefill_fn, decode_fn, _, _ = compile_decode_fns(self.cfg, B, max_len)
+        if floor is not None:
+            decode_fn = self._migrating_decode_fn(decode_fn, max_len, floor)
+        cache = tf.init_cache(self.cfg, B, alloc, device=self.device)
+        timings = {} if self.telemetry.enabled else None
+        t0 = time.time()
+        result = decode_loop(prefill_fn, decode_fn, self.params, tokens, cache, max_new_tokens,
+                             temperature, top_k, generator, top_p, timings=timings)
+        return self._finish_request(
+            "decode_loop", t0, result, prompt_tokens=S, new_tokens=max_new_tokens, batch=B,
+            cache_len=max_len, timings=timings,
+            kv=self._kv_fields(S, max_new_tokens, max_len, floor, B, alloc=final_alloc))
+
+    def _migrating_decode_fn(self, decode_fn, max_len: int, floor: int):
+        """Wrap the decode step with bucket-migrated cache growth: when the
+        write position reaches the allocation, the cache migrates to the
+        next power-of-2 bucket (:meth:`_grow_cache`), so every step reads
+        the bucketed active length, the tight-read geometry, with no
+        per-step slicing."""
+
+        def dispatch(params, tok, cache, pos):
+            if pos + 1 > tf.cache_alloc_len(cache):
+                cache = self._grow_cache(cache, min(read_bucket(pos + 1, max_len, floor), max_len))
+            return decode_fn(params, tok, cache, pos)
+
+        return dispatch
+
+    @staticmethod
+    def _grow_cache(cache, new_len: int):
+        """Migrate a KV cache (dense or int8 components) to a longer time
+        axis: a new zeroed cache with the old one copied into its head; the
+        position mask keeps the tail inert until real writes reach it. It
+        cannot be in place: the allocation's length changes."""
+
+        def grow(c):
+            if isinstance(c, dict):
+                return {k: grow(v) for k, v in c.items()}
+            out = c.new_zeros(c.shape[:2] + (new_len,) + c.shape[3:])
+            out[:, :, :c.shape[2]] = c
+            return out
+
+        return {name: grow(c) for name, c in cache.items()}
 
     def _tight_floor(self) -> Optional[int]:
         """The tight-read bucket floor, or None when the knob is off."""
@@ -379,7 +485,8 @@ class InferenceEngine:
                 r = read_bucket(active, max_len, floor)
                 read_len = None if r >= max_len else r
             if read_len not in fns:
-                fns[read_len] = compile_segment_fn(self.cfg, batch_size, max_len, read_len)
+                fns[read_len] = compile_segment_fn(self._ring_off_cfg, batch_size, max_len,
+                                                   read_len)
             return fns[read_len](params, toks, cache, pos)
 
         return dispatch
@@ -387,7 +494,7 @@ class InferenceEngine:
     def _ragged_fns_for(self, batch_size: int, max_len: int):
         """(ragged_prefill_fn, segment_fn) of the attention_mask and
         chunked-prefill paths."""
-        return (compile_ragged_prefill_fn(self.cfg, batch_size, max_len),
+        return (compile_ragged_prefill_fn(self._ring_off_cfg, batch_size, max_len),
                 self._segment_fn(batch_size, max_len))
 
     def _spec_fns(self, batch_size: int, max_len: int):

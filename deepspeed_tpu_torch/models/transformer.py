@@ -26,11 +26,17 @@ weight may be ``{"q8": int8 (out, in), "s": f32 (out,)}``, which
 :func:`_linear` runs as the W8A8 product (``ops/quantizer.int8_linear``),
 and ``kv_cache_dtype="int8"`` stores the KV cache as int8 components.
 
-Features outside the slices (rope/alibi, MoE, windows and the rolling cache,
-post-LN and parallel residual, encoders and bidirectional attention,
-sequence parallelism, and for training dropout, remat, random-LTD and
-progressive layer drop) raise ``NotImplementedError``, with block-sparse
-attention as without it; see ROADMAP.md.
+Llama-family models serve too: rotary embeddings (whole or partial,
+half-split or interleaved pairs), uniform sliding windows (Mistral: the
+flash kernel's band on a prefill) and per-layer windows (GPT-Neo's
+alternation: the masked einsum path, as the reference's layer scan takes
+it), and the rolling (ring) KV cache of uniform-window models.
+
+Features outside the slices (ALiBi, MoE, post-LN and parallel residual,
+encoders and bidirectional attention, sequence parallelism, block-sparse
+attention with windows, and for training rope, windows, dropout, remat,
+random-LTD and progressive layer drop) raise ``NotImplementedError``; see
+ROADMAP.md.
 """
 
 import functools
@@ -49,7 +55,12 @@ from deepspeed_tpu_torch.ops.fused_norm import _fused_norm
 from deepspeed_tpu_torch.ops.quantizer import int8_linear
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 from deepspeed_tpu_torch.ops.transformer.fused_ops import fused_softmax
-from deepspeed_tpu_torch.ops.transformer.inference_ops import softmax_context, update_kv_cache
+from deepspeed_tpu_torch.ops.transformer.inference_ops import (
+    apply_rotary_pos_emb,
+    rope_table,
+    softmax_context,
+    update_kv_cache,
+)
 from deepspeed_tpu_torch.utils import not_ported
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -280,8 +291,12 @@ def get_config(preset: str, **overrides) -> TransformerConfig:
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for every config feature outside the port's slices, so that no
     such config silently takes another path."""
+    if cfg.rolling_kv_cache and cfg.uniform_window is None:
+        raise ValueError("the rolling KV cache needs one positive sliding window for every "
+                         f"layer (local_attn_windows={cfg.local_attn_windows!r})")
     checks = [
-        (cfg.pos_embedding not in ("learned", "none"), f"pos_embedding={cfg.pos_embedding!r}"),
+        (cfg.pos_embedding not in ("learned", "rope", "none"),
+         f"pos_embedding={cfg.pos_embedding!r}"),
         (cfg.norm_type not in ("layernorm", "rmsnorm"), f"norm_type={cfg.norm_type!r}"),
         (cfg.activation not in ("gelu", "relu", "silu_glu"),
          f"activation={cfg.activation!r}"),
@@ -289,8 +304,8 @@ def check_supported(cfg: TransformerConfig) -> None:
         (cfg.parallel_residual, "parallel_residual"),
         (not cfg.causal, "bidirectional attention (causal=False)"),
         (cfg.type_vocab_size > 0 or cfg.embed_norm, "encoder embeddings (type_vocab_size/embed_norm)"),
-        (cfg.local_attn_windows is not None, "local_attn_windows"),
-        (cfg.rolling_kv_cache, "the rolling KV cache"),
+        (cfg.attn_impl == "block_sparse" and cfg.local_attn_windows is not None,
+         "block-sparse attention with local_attn_windows"),
         (cfg.kv_cache_dtype not in ("model", "int8"), f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
         (cfg.moe_num_experts > 0, "MoE layers"),
         (cfg.seq_parallel != "none", f"seq_parallel={cfg.seq_parallel!r}"),
@@ -483,13 +498,31 @@ def _linear(x, w, b=None):
     return F.linear(x, w, b)
 
 
-def _qkv(h, attn_p, cfg: TransformerConfig):
+def _rope_table(cfg: TransformerConfig, positions):
+    """The rotary (cos, sin) table of a forward at ``positions`` (B, S), or
+    None without rope: every layer rotates at the same positions, so it is
+    built once a forward. Rows that share their positions (the aligned path)
+    share one row of the table."""
+    if cfg.pos_embedding != "rope":
+        return None
+    return rope_table(positions, cfg.rope_theta, cfg.rope_dim or cfg.head_dim)
+
+
+def _qkv(h, attn_p, cfg: TransformerConfig, rope=None):
     """Project h -> (q, k, v) heads: one fused matmul, split into strided
-    views (the flash kernel and the cache write read them as they are)."""
+    views (the flash kernel and the cache write read them as they are),
+    then, with rope, q and k rotated through the forward's table ``rope``
+    (:func:`_rope_table`), as the reference's ``_qkv`` rotates them."""
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     qkv = _linear(h, attn_p["wqkv"], attn_p.get("bqkv"))
     q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
-    return q.unflatten(-1, (nh, hd)), k.unflatten(-1, (nkv, hd)), v.unflatten(-1, (nkv, hd))
+    q, k, v = q.unflatten(-1, (nh, hd)), k.unflatten(-1, (nkv, hd)), v.unflatten(-1, (nkv, hd))
+    if rope is not None:
+        q = apply_rotary_pos_emb(q, None, rot_dim=cfg.rope_dim,
+                                 interleaved=cfg.rope_interleaved, table=rope)
+        k = apply_rotary_pos_emb(k, None, rot_dim=cfg.rope_dim,
+                                 interleaved=cfg.rope_interleaved, table=rope)
+    return q, k, v
 
 
 _SPARSITY_CONFIGS = {
@@ -514,15 +547,25 @@ def _sparse_layout(sparse_attention: tuple, num_heads: int, seq_len: int):
     return layout, config.block
 
 
-def _attention(q, k, v, cfg: TransformerConfig):
+def _attention(q, k, v, cfg: TransformerConfig, window=None, per_layer_window: bool = False):
     """Causal multi-head / grouped-query attention over a whole segment:
     the flash kernel for ``attn_impl="pallas"``, the block-sparse kernels
     for ``"block_sparse"`` (kv heads repeated first, the layout from
     ``cfg.sparse_attention``, default the fixed pattern), else
-    einsum-softmax-einsum with f32 logits (the reference's "xla" branch)."""
+    einsum-softmax-einsum with f32 logits (the reference's "xla" branch).
+
+    ``window`` restricts each query to the last ``window`` positions (0 =
+    unlimited). A uniform window is elided when it is ``<= 0`` or covers the
+    whole segment, and rides the flash kernel's band; a per-layer window
+    (``per_layer_window``: GPT-Neo's alternation, which the reference's
+    layer scan carries as a traced scalar) takes the masked einsum path,
+    as it does there."""
     B, S, nh, hd = q.shape
-    if cfg.attn_impl == "pallas":
-        return flash_attention(q, k, v, causal=cfg.causal, sm_scale=cfg.attn_scale)
+    if window is not None and not per_layer_window and (window <= 0 or window >= S):
+        window = None
+    if cfg.attn_impl == "pallas" and (window is None or (not per_layer_window and cfg.causal)):
+        return flash_attention(q, k, v, causal=cfg.causal, sm_scale=cfg.attn_scale,
+                               window=window)
     nkv = k.shape[2]
     if nkv != nh:  # autograd sums the repeated heads' gradients per group
         k = k.repeat_interleave(nh // nkv, dim=2)
@@ -533,8 +576,14 @@ def _attention(q, k, v, cfg: TransformerConfig):
                                       sm_scale=cfg.attn_scale)
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    mask = None
     if cfg.causal:
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    if window is not None and window > 0:
+        ar = torch.arange(S, device=q.device)
+        local_ok = ar[:, None] - ar[None, :] < window
+        mask = local_ok if mask is None else mask & local_ok
+    if mask is not None:
         logits = logits.masked_fill(~mask, -1e30)
     probs = fused_softmax(logits).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
@@ -560,13 +609,16 @@ def _embed(params, cfg: TransformerConfig, tokens):
     return F.embedding(tokens, params["embed"]["tok"]).to(cfg.torch_dtype)
 
 
-def _layer_body(x, layer_p, cfg: TransformerConfig):
-    """One pre-LN decoder layer over a whole sequence (no cache)."""
+def _layer_body(x, layer_p, cfg: TransformerConfig, rope=None, window=None,
+                per_layer_window: bool = False):
+    """One pre-LN decoder layer over a whole sequence (no cache); ``rope``
+    the forward's rotary table, ``window`` as :func:`_attention` takes it."""
     B, S, _ = x.shape
     attn_p, ln1, ln2 = layer_p["attn"], layer_p["ln1"], layer_p["ln2"]
     h = _norm(x, ln1["scale"], ln1.get("bias"), cfg)
-    q, k, v = _qkv(h, attn_p, cfg)
-    attn_out = _attention(q, k, v, cfg).reshape(B, S, cfg.num_heads * cfg.head_dim)
+    q, k, v = _qkv(h, attn_p, cfg, rope)
+    attn_out = _attention(q, k, v, cfg, window, per_layer_window).reshape(
+        B, S, cfg.num_heads * cfg.head_dim)
     x = x + _linear(attn_out, attn_p["wo"], attn_p.get("bo"))
     h = _norm(x, ln2["scale"], ln2.get("bias"), cfg)
     return x + _mlp_block(h, layer_p["mlp"], cfg)
@@ -581,8 +633,12 @@ def forward(params, cfg: TransformerConfig, tokens):
     x = _embed(params, cfg, tokens)
     if cfg.pos_embedding == "learned":
         x = x + params["embed"]["pos"][:S].to(cfg.torch_dtype)
-    for layer_p in params["layers"]:
-        x = _layer_body(x, layer_p, cfg)
+    rope = _rope_table(cfg, torch.arange(S, device=tokens.device)[None, :])
+    # the reference's layer scan carries per-layer windows as traced
+    # scalars, which keeps them on the masked path
+    windows = cfg.local_attn_windows or (None,) * cfg.num_layers
+    for layer_p, w in zip(params["layers"], windows):
+        x = _layer_body(x, layer_p, cfg, rope, w, cfg.varying_windows)
     x = _norm(x, params["final_norm"]["scale"], params["final_norm"].get("bias"), cfg)
     return _vocab_head(x, params, cfg)
 
@@ -630,6 +686,10 @@ def check_trainable(cfg: TransformerConfig) -> None:
     """Raise for the training features outside the training slice."""
     check_supported(cfg)
     checks = [
+        (cfg.pos_embedding == "rope",
+         "training with rope (Llama training: item 7's training half, after \"Perf\" 8)"),
+        (cfg.local_attn_windows is not None,
+         "training with local_attn_windows (item 7's training half, after \"Perf\" 8)"),
         (cfg.dropout > 0.0, f"dropout={cfg.dropout}"),
         (cfg.remat, "activation checkpointing (remat)"),
         (cfg.random_ltd, "random-LTD"),
@@ -699,35 +759,51 @@ def kv_read_bytes_per_row(cfg: TransformerConfig, read_len: int) -> int:
 
 
 def _layer_body_cached(x, layer_p, k_cache, v_cache, cfg: TransformerConfig, positions, pos,
-                       read_len=None):
+                       read_len=None, rope=None, window=None, per_layer_window: bool = False):
     """One decoder layer over a segment of S new tokens with KV cache.
 
     x: (B, S, D); k_cache/v_cache: (B, T, nkv, hd) of THIS layer (or its
     int8 components), written in place; pos: count of tokens already
     cached, a Python int (all rows aligned) or a (B,) tensor. ``read_len``
-    tight-reads the cache. Returns (x, k_cache, v_cache).
+    tight-reads the cache; ``rope`` is the forward's rotary table;
+    ``window`` the layer's local window (0 or None = unlimited), a
+    per-layer one (``per_layer_window``) kept off the flash prefill, as the
+    reference's layer scan keeps its traced windows. Returns (x, k_cache,
+    v_cache).
     """
     B, S, _ = x.shape
     attn_p, ln1 = layer_p["attn"], layer_p["ln1"]
     h = _norm(x, ln1["scale"], ln1.get("bias"), cfg)
-    q, k, v = _qkv(h, attn_p, cfg)
+    q, k, v = _qkv(h, attn_p, cfg, rope)
 
     # PREFILL fast path: pos is the literal int 0 only for a prefill, where
     # attention over the segment is exactly causal self-attention; lengths
     # the reference's auto-tiler can't cover stay on the einsum path, so
-    # both packages take the same path at each length.
+    # both packages take the same path at each length. A uniform window
+    # rides the kernel's band; the rolling cache relies on it (a segment
+    # must not read the ring, whose slots a long segment partly evicts).
     use_flash_prefill = (
         isinstance(pos, int) and pos == 0 and S > 1
+        and not per_layer_window
         and cfg.attn_impl == "pallas" and cfg.causal
         and cfg.pos_embedding != "alibi"
         and supports_seq_len(S)
     )
-    k_cache, v_cache = update_kv_cache(k_cache, v_cache, k, v, pos, positions)
+    ring = cfg.rolling_kv_cache
+    k_cache, v_cache = update_kv_cache(k_cache, v_cache, k, v, pos, positions, ring=ring)
     if use_flash_prefill:
-        attn_out = flash_attention(q, k, v, causal=True, sm_scale=cfg.attn_scale)
+        w = window if window is not None and 0 < window < S else None
+        attn_out = flash_attention(q, k, v, causal=True, sm_scale=cfg.attn_scale, window=w)
     else:
+        cache_T = (k_cache["q8"] if isinstance(k_cache, dict) else k_cache).shape[1]
+        if ring and S > 1 and cache_T < S:
+            raise ValueError(
+                "rolling KV cache: a multi-token segment longer than the ring must take the "
+                f"flash prefill path (S={S}, cache={cache_T}); a segment read through the "
+                "ring would see its own evictions")
         attn_out = softmax_context(q, k_cache, v_cache, pos, scale=cfg.attn_scale,
-                                   positions=positions, read_len=read_len)
+                                   positions=positions, local_window=window, ring=ring,
+                                   read_len=None if ring else read_len)
     attn_out = _linear(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim),
                        attn_p["wo"], attn_p.get("bo"))
     return _finish_layer_cached(x, h, attn_out, layer_p, cfg, k_cache, v_cache)
@@ -769,10 +845,18 @@ def forward_with_cache(params, cfg: TransformerConfig, tokens, cache, pos, posit
         clamped = positions.clamp(max=pos_table.shape[0] - 1)
         # aligned rows share row 0's positions, as in the reference
         x = x + (pos_table[clamped] if vector_pos else pos_table[clamped[0]])
+    rope = _rope_table(cfg, positions if vector_pos else positions[:1])
+    # as forward(): a uniform window stays a static int (the flash band
+    # prefill and the ring rely on it); per-layer windows ride the
+    # reference's layer scan as traced scalars, which keeps them off flash
+    varying = cfg.varying_windows
+    windows = (cfg.local_attn_windows if varying
+               else (cfg.uniform_window,) * cfg.num_layers)
     for i, layer_p in enumerate(params["layers"]):
         x, _, _ = _layer_body_cached(x, layer_p, _layer_cache(cache["k"], i),
                                      _layer_cache(cache["v"], i), cfg, positions, pos,
-                                     read_len=read_len)
+                                     read_len=read_len, rope=rope, window=windows[i],
+                                     per_layer_window=varying)
     if last_only:
         x = x[:, -1:]
     x = _norm(x, params["final_norm"]["scale"], params["final_norm"].get("bias"), cfg)

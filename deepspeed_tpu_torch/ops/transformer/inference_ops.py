@@ -1,15 +1,17 @@
 """Inference ops of the decode path (counterpart of
-``deepspeed_tpu/ops/transformer/inference_ops.py``): the KV-cache write and
-the cached masked attention that ``models/transformer.py`` calls, for dense
-caches in the model dtype and for int8 caches (``{"q8", "s"}`` components:
-int8 payload and f32 per-token-per-head scales).
+``deepspeed_tpu/ops/transformer/inference_ops.py``): the rotary embedding,
+the KV-cache write and the cached masked attention that
+``models/transformer.py`` calls, for dense caches in the model dtype and for
+int8 caches (``{"q8", "s"}`` components: int8 payload and f32
+per-token-per-head scales), with local (sliding) windows and the rolling
+(ring) cache of uniform-window models (Mistral).
 
-Cut to the serving slice: no rolling (ring) cache, no ALiBi, no local window
-(ROADMAP.md). Decode attention is plain PyTorch here, as it is plain einsum
-code that XLA fuses in the reference; a hand-written decode-attention kernel
-is later work. The int8 cache's dequantize is plain PyTorch too, so on the
-card it writes a model-dtype copy of the slice it reads (the reference's
-fuses into its attention read).
+Rope, decode attention and its window and ring masks are plain PyTorch here,
+as they are plain jnp code outside any Pallas kernel in the reference; a
+hand-written decode-attention kernel is later work. The int8 cache's
+dequantize is plain PyTorch too, so on the card it writes a model-dtype copy
+of the slice it reads (the reference's fuses into its attention read).
+ALiBi is not ported (ROADMAP.md Queue 1 item 10).
 
 Unlike the reference's pure functions, the cache write updates the cache
 tensors in place (no second copy of a cache that can hold gigabytes) and
@@ -23,10 +25,54 @@ import torch
 
 from deepspeed_tpu_torch.ops.quantizer import div_exact
 from deepspeed_tpu_torch.ops.transformer.fused_ops import fused_softmax
+from deepspeed_tpu_torch.utils import not_ported
 
 
 def _is_scalar(pos) -> bool:
     return not torch.is_tensor(pos) or pos.dim() == 0
+
+
+def rope_table(positions, theta: float = 10000.0, rot_dim: int = 64):
+    """(cos, sin) of the rotary angles at ``positions`` (B, S), each
+    (B, S, 1, rot_dim // 2) in f32, with the reference's arithmetic:
+    frequencies ``exp(-log(theta) * arange(half) / half)``, angles
+    ``positions * freqs``, all in f32. Every layer of a forward rotates at
+    the same positions, so the model builds this once a forward and hands it
+    to each layer: the bits equal building it in every call."""
+    half = rot_dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(div_exact(-math.log(theta) * ar, float(half)))
+    angles = positions[:, :, None].float() * freqs[None, None, :]
+    return torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+
+
+def apply_rotary_pos_emb(x, positions, theta: float = 10000.0,
+                         rot_dim: Optional[int] = None, interleaved: bool = True,
+                         table=None):
+    """Rotary embedding over x (B, S, H, hd) at absolute ``positions`` (B, S).
+
+    ``rot_dim`` rotates only the first rot_dim dims of each head (GPT-J /
+    GPT-NeoX partial rotary); ``interleaved`` pairs even/odd dims (GPT-J)
+    instead of the first and second half (llama / NeoX). The public default
+    stays the reference's ``interleaved=True``; the model passes
+    ``cfg.rope_interleaved``. ``table``: the (cos, sin) of
+    :func:`rope_table` at these positions, built once a forward by the
+    model. The rotation runs in f32 (a bf16 x times the f32 table promotes,
+    as in JAX), and only the result is cast back to x's dtype."""
+    hd = x.shape[-1]
+    rd = hd if rot_dim is None else rot_dim
+    rot, rest = x[..., :rd], x[..., rd:]
+    half = rd // 2
+    cos, sin = rope_table(positions, theta, rd) if table is None else table
+    if interleaved:
+        x1, x2 = rot[..., 0::2], rot[..., 1::2]
+        out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).flatten(-2)
+    else:
+        x1, x2 = rot[..., :half], rot[..., half:]
+        out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    if rd < hd:
+        out = torch.cat([out, rest.to(out.dtype)], dim=-1)
+    return out.to(x.dtype)
 
 
 def quantize_kv(x):
@@ -80,7 +126,29 @@ def _scatter_index(positions, T: int):
     return rows, slots, src, has_real
 
 
-def _write_component(cache, new, pos, scatter):
+def _ring_copies(pos: int, S: int, T: int):
+    """The ring write of an aligned segment of S new tokens at offset ``pos``
+    into T slots, as contiguous copies ``(source column, slot, length)``:
+    only the segment's last ``min(S, T)`` columns (positions ``>= pos + S -
+    T``) are kept, each at slot ``position mod T``, which makes at most two
+    runs of slots. The reference scatters every column and drops the stale
+    ones; the copies write the same slots with the same values."""
+    n = min(S, T)
+    first = pos + S - n  # the first kept position
+    col, slot = S - n, first % T
+    head = min(n, T - slot)
+    copies = [(col, slot, head)]
+    if head < n:
+        copies.append((col + head, 0, n - head))
+    return copies
+
+
+def _write_component(cache, new, pos, scatter, ring=False):
+    if ring:
+        T, S = cache.shape[1], new.shape[1]
+        for col, slot, n in _ring_copies(int(pos), S, T):
+            cache[:, slot:slot + n] = new[:, col:col + n].to(cache.dtype)
+        return cache
     if scatter is None:
         # contiguous write; like lax.dynamic_update_slice, the start is
         # clamped so that the segment fits
@@ -97,16 +165,16 @@ def _write_component(cache, new, pos, scatter):
     return cache
 
 
-def _write(cache, new, pos, scatter):
+def _write(cache, new, pos, scatter, ring=False):
     if isinstance(cache, dict):
         q, s = quantize_kv(new)
-        return {"q8": _write_component(cache["q8"], q, pos, scatter),
-                "s": _write_component(cache["s"], s, pos, scatter)}
-    return _write_component(cache, new, pos, scatter)
+        return {"q8": _write_component(cache["q8"], q, pos, scatter, ring),
+                "s": _write_component(cache["s"], s, pos, scatter, ring)}
+    return _write_component(cache, new, pos, scatter, ring)
 
 
 def update_kv_cache(k_cache, v_cache, k_new, v_new, pos,
-                    positions=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                    positions=None, ring=False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write S new keys/values into (B, T, H, hd) caches (or int8
     {"q8","s"} cache components: the write quantizes per token and head),
     in place.
@@ -115,19 +183,26 @@ def update_kv_cache(k_cache, v_cache, k_new, v_new, pos,
     ``pos`` (B,) vector with ``positions`` (B, S): per-row scatter, each
     row's segment at its own depth; columns outside [0, T) are dropped,
     matching the clamped read mask in :func:`softmax_context`.
+    ``ring``: the rolling cache of sliding-window models: position p lands
+    at slot p mod T, and of a segment longer than the cache only its last T
+    positions land. It needs the aligned path (a Python-int ``pos``), where
+    the write is at most two contiguous copies: no scatter, no host sync.
     """
     scatter = None
     if not _is_scalar(pos):
+        if ring:
+            raise ValueError("ring cache writes need the aligned (scalar-pos) path")
         if positions is None:
             raise ValueError("a vector pos needs the (B, S) positions of the new tokens")
         T = (k_cache["q8"] if isinstance(k_cache, dict) else k_cache).shape[1]
         scatter = _scatter_index(positions, T)
-    return (_write(k_cache, k_new, pos, scatter),
-            _write(v_cache, v_new, pos, scatter))
+    return (_write(k_cache, k_new, pos, scatter, ring),
+            _write(v_cache, v_new, pos, scatter, ring))
 
 
 def softmax_context(q, k_cache, v_cache, pos, scale: Optional[float] = None,
-                    positions=None, read_len: Optional[int] = None) -> torch.Tensor:
+                    positions=None, alibi_slopes=None, local_window=None,
+                    ring=False, read_len: Optional[int] = None) -> torch.Tensor:
     """Cached masked attention: q (B, S, nh, hd) against (B, T, nkv, hd)
     caches (GQA repeat applied here); int8 caches are dequantized to q's
     dtype at the read.
@@ -138,11 +213,30 @@ def softmax_context(q, k_cache, v_cache, pos, scale: Optional[float] = None,
         position p attends keys [0..p] (row 0's positions, as the reference).
       - ``positions`` (B, S) + vector ``pos`` (B,): the same rule row-wise.
 
-    ``read_len`` (int): attend only cache slots [0, read_len), the tight-read
-    geometry; the caller guarantees every attended position is below it, so
-    the result equals the full-length read.
+    ``local_window`` (int; 0 or None = unlimited) restricts each query to
+    the last ``local_window`` key positions (GPT-Neo local layers, Mistral's
+    sliding window). ``ring``: the cache is a rolling buffer, slot s holding
+    the latest absolute position congruent to s mod T; the masks run over
+    those derived positions (the plain cache's while nothing has wrapped),
+    and unwritten slots (a negative derived position) are masked. It needs
+    the aligned path and a window. ``read_len`` (int): attend only cache
+    slots [0, read_len), the tight-read geometry; the caller guarantees
+    every attended position is below it, so the result equals the
+    full-length read. ``alibi_slopes`` is the reference's ALiBi bias, not
+    ported (ROADMAP.md Queue 1 item 10).
     """
     B, S, nh, hd = q.shape
+    if ring:
+        if positions is None or not _is_scalar(pos):
+            raise ValueError("ring cache reads need the aligned (scalar-pos + positions) path")
+        if alibi_slopes is not None:
+            raise ValueError("the ring cache does not support ALiBi")
+        if local_window is None:
+            raise ValueError("the ring cache requires a sliding window (local_window)")
+        if read_len is not None:
+            raise ValueError("tight reads do not apply to the rolling (ring) cache")
+    if alibi_slopes is not None:
+        raise not_ported("ALiBi (alibi_slopes)")
     if read_len is not None:
         k_cache = slice_kv_time(k_cache, read_len)
         v_cache = slice_kv_time(v_cache, read_len)
@@ -158,6 +252,12 @@ def softmax_context(q, k_cache, v_cache, pos, scale: Optional[float] = None,
     logits = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() * scale  # (B, nh, S, T)
     T = kk.shape[1]
     kpos = torch.arange(T, device=q.device)[None, :]  # (1, T)
+    if ring:
+        # absolute position each slot holds after this segment's write: the
+        # largest a < pos + S with a = slot (mod T); negative = unwritten
+        last = int(pos) + S - 1
+        kpos = last - torch.remainder(last - kpos, T)
+    qpos = None
     if positions is None:
         mask = (kpos <= pos)[None, None]
     elif _is_scalar(pos):
@@ -166,6 +266,12 @@ def softmax_context(q, k_cache, v_cache, pos, scale: Optional[float] = None,
     else:
         qpos = positions[:, :, None]  # (B, S, 1) per-row positions
         mask = (kpos[None] <= qpos)[:, None]  # (B, 1, S, T)
+    if local_window is not None and qpos is not None and local_window > 0:
+        local_ok = kpos > qpos - local_window
+        mask = mask & (local_ok[None, None] if _is_scalar(pos) else local_ok[:, None])
+    if ring:
+        # unwritten slots: the causal mask alone would admit them for early queries
+        mask = mask & (kpos >= 0)[None, None]
     logits = logits.masked_fill(~mask, -1e30)
     probs = fused_softmax(logits).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, vv)

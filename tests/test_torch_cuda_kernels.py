@@ -1154,3 +1154,122 @@ def test_fleet_kill_on_the_card_migrates_and_finishes_every_request():
     assert st["migrated"] > 0 and st["lost"] == 0 and st["replica_deaths"] == 1
     assert all(srv._cb.device.type == "cuda" for _, srv in router.steppable_engines())
     router.close()
+
+
+# ---------------------------------------------------------------------------
+# Llama-family serving: K1 at the llama2-7b and Mistral 7B prefill shapes,
+# the ring write and the windowed decode, the per-token loop's migrations
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window", [(8, 512, 32, 32, 128, None),
+                                                 (1, 4608, 32, 8, 128, 4096)],
+                         ids=["llama2_7b_b8_s512", "mistral_7b_b1_s4608_w4096"])
+def test_flash_kernel_matches_plain_version_at_the_llama_prefills(B, S, H, Hkv, hd, window):
+    """K1 in bf16 at the prefill shapes of ``chip_smoke.py``'s ``llama_serve``
+    (causal, MHA) and ``mistral_ring`` (GQA group 4, the 4096-position
+    window), against ``_reference_fwd``, with the bf16 tolerance above."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(S)
+    q = torch.randn(B, S, H, hd, generator=g, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(B, S, Hkv, hd, generator=g, device="cuda", dtype=torch.bfloat16)
+    v = torch.randn(B, S, Hkv, hd, generator=g, device="cuda", dtype=torch.bfloat16)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    ro, rl = tfa._reference_fwd(q, k, v, True, hd ** -0.5, window)
+    assert torch.isfinite(o).all()
+    assert (o.float() - ro.float()).abs().max().item() <= O_TOL[torch.bfloat16]
+    assert (lse - rl).abs().max().item() <= LSE_TOL
+
+
+def _ring_case(device, int8):
+    """A ring of 8 slots over (2, T, 2, 64) bf16 or int8 caches, and three
+    aligned segments: 5 tokens, 13 (longer than the ring) and a decode."""
+    g = torch.Generator().manual_seed(11)
+    shape = (2, 8, 2, 64)
+    if int8:
+        caches = [{"q8": torch.zeros(shape, dtype=torch.int8),
+                   "s": torch.zeros(shape[:-1] + (1,))} for _ in range(2)]
+    else:
+        caches = [torch.zeros(shape, dtype=torch.bfloat16) for _ in range(2)]
+    segs = [(0, torch.randn(2, 5, 2, 64, generator=g), torch.randn(2, 5, 2, 64, generator=g)),
+            (5, torch.randn(2, 13, 2, 64, generator=g), torch.randn(2, 13, 2, 64, generator=g)),
+            (18, torch.randn(2, 1, 2, 64, generator=g), torch.randn(2, 1, 2, 64, generator=g))]
+    q = torch.randn(2, 1, 4, 64, generator=g)
+
+    def move(t):
+        return {k: v.to(device) for k, v in t.items()} if isinstance(t, dict) else t.to(device)
+
+    dt = torch.bfloat16
+    return ([move(c) for c in caches],
+            [(p, k.to(device, dt), v.to(device, dt)) for p, k, v in segs], q.to(device, dt))
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ring_write_and_windowed_decode_dispatch_without_a_host_sync(int8):
+    """The ring write (at most two slice copies at a Python-int position)
+    and the windowed ring read dispatch under the sync debug mode "error";
+    the ring's bits equal the same writes on the CPU, and the decode
+    attention agrees with the CPU's within the bf16 rounding of its output
+    (2**-7 of the largest |value|)."""
+    from deepspeed_tpu_torch.ops.transformer import inference_ops as tops
+
+    _need_card()
+    out = {}
+    for device in ("cpu", "cuda"):
+        (kc, vc), segs, q = _ring_case(device, int8)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for pos, kn, vn in segs:
+                positions = (pos + torch.arange(kn.shape[1], device=device))[None].expand(2, -1)
+                kc, vc = tops.update_kv_cache(kc, vc, kn, vn, pos, positions, ring=True)
+            pos = segs[-1][0]
+            o = tops.softmax_context(q, kc, vc, pos, positions=positions, local_window=6,
+                                     ring=True)
+        finally:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode(0)
+        out[device] = (kc, vc, o)
+    for a, b in zip(out["cpu"][:2], out["cuda"][:2]):
+        for name in (("q8", "s") if int8 else (None,)):
+            x, y = (a, b) if name is None else (a[name], b[name])
+            assert torch.equal(x, y.cpu())
+    o_cpu, o_card = out["cpu"][2].float(), out["cuda"][2].float().cpu()
+    assert (o_cpu - o_card).abs().max().item() <= 2.0 ** -7 * o_cpu.abs().max().item()
+
+
+def test_per_token_loop_migrating_twice_dispatches_without_a_host_sync():
+    """``fused_generate: false`` with a 16-slot floor: a 10-token prompt and
+    40 new tokens migrate the cache 16 -> 32 -> 64 while nothing waits on
+    the card; the stream equals the fused path's on the same engine build."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    _need_card()
+    cfg = ttf.TransformerConfig(vocab_size=256, hidden_size=256, num_layers=2, num_heads=2,
+                                num_kv_heads=1, max_seq_len=64, dtype="bfloat16",
+                                pos_embedding="rope", norm_type="rmsnorm",
+                                activation="silu_glu", use_bias=False, tie_embeddings=False,
+                                attn_impl="pallas")
+    config = {"dtype": "bfloat16", "kv_read_floor": 16}
+    fused = deepspeed_tpu_torch.init_inference(ttf.TransformerModel(cfg), config=config)
+    loop = deepspeed_tpu_torch.init_inference(ttf.TransformerModel(cfg), params=fused.params,
+                                              config=dict(config, fused_generate=False))
+    toks = torch.randint(0, 256, (2, 10), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0))
+    want = fused.generate(toks, max_new_tokens=40)  # also builds and loads K1 and K7
+    walk, real_grow = [], loop._grow_cache
+
+    def grow(cache, new_len):
+        walk.append(new_len)
+        return real_grow(cache, new_len)
+
+    loop._grow_cache = grow
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = loop.generate(toks, max_new_tokens=40)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert walk == [32, 64]
+    assert torch.equal(got, want)

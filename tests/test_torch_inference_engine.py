@@ -166,7 +166,6 @@ def test_decode_kv_bytes_matches_reference():
 
 @pytest.mark.parametrize("config", [
     {"tensor_parallel": {"tp_size": 2}},
-    {"fused_generate": False},
     {"mesh": {"shape": {"data": 1, "tensor": 2}}}, {"profile_model_time": True},
 ])
 def test_features_outside_the_slice_raise(config):

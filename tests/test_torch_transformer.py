@@ -206,8 +206,7 @@ def test_kv_read_bytes_match_reference():
 
 
 @pytest.mark.parametrize("over", [
-    dict(pos_embedding="rope"), dict(pos_embedding="alibi"), dict(moe_num_experts=4),
-    dict(local_attn_windows=(8, 8)), dict(rolling_kv_cache=True),
+    dict(pos_embedding="alibi"), dict(moe_num_experts=4),
     dict(norm_position="post"), dict(parallel_residual=True),
     dict(attn_impl="block_sparse", causal=False),
     dict(attn_impl="block_sparse", local_attn_windows=(8, 8)),
