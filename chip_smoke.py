@@ -85,7 +85,22 @@ backward):
     rolling (ring) KV cache on and off (``mistral_ring``). Rope and the
     window and ring masks are plain PyTorch, as the reference computes them
     outside Pallas; the prefills run K1 (GQA and the window band for
-    Mistral), every norm K7.
+    Mistral), every norm K7;
+  - HF models in and out (``module_inject``; ``--hf`` runs these phases
+    alone, after ``llama_serve``): ``llama_serve``'s Llama 2 7B weights
+    written as ``meta-llama/Llama-2-7b-hf``'s directory (two bf16
+    safetensors shards, their index and config.json, by this script's own
+    writer) and loaded back through ``init_inference(dir)``, the stream
+    equal to ``llama_serve``'s bit for bit (``hf_load_llama``); GPT-2 350M
+    exported to an HF state dict and loaded from an in-memory module and
+    from a ``save_hf_checkpoint`` directory, both streams equal to the
+    direct engine's (``hf_load_gpt2``); and every decoder family the
+    policies convert at its published config.json values (BLOOM-560m:
+    ALiBi and the embedding norm; Pythia-410m: the parallel residual and
+    partial rotary; GPT-J 6B: the shared LN and interleaved rotary; OPT-125m
+    pre- and post-LN; GPT-Neo-125M: per-layer windows), fused, per-token and
+    through the batching pool (``hf_families``). The card's machine has
+    neither transformers nor safetensors, and the port needs neither.
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after. Prints JSON lines as it goes; the line before the last
 names the card and its power limit (as nvidia-smi reports them), and the
@@ -2838,6 +2853,80 @@ MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=3
                   tie_embeddings=False, use_bias=False, norm_eps=1e-5, rope_theta=10000.0,
                   attn_impl="pallas", local_attn_windows=(4096,) * 32)
 
+# Llama 2 7B's published config.json (meta-llama/Llama-2-7b-hf), the file
+# hf_load_llama writes beside its shards: LlamaPolicy maps it onto the
+# llama2-7b preset that llama_serve builds
+LLAMA2_7B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "bos_token_id": 1, "eos_token_id": 2,
+    "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02,
+    "intermediate_size": 11008, "max_position_embeddings": 4096, "model_type": "llama",
+    "num_attention_heads": 32, "num_hidden_layers": 32, "num_key_value_heads": 32,
+    "pretraining_tp": 1, "rms_norm_eps": 1e-05, "rope_scaling": None,
+    "tie_word_embeddings": False, "torch_dtype": "float16", "use_cache": True,
+    "vocab_size": 32000,
+}
+# GPT-2 350M (the decode bench's model, gpt2-350m) as a GPT2LMHeadModel
+# config.json, for hf_load_gpt2's saved checkpoint
+GPT2_350M_CONFIG = {
+    "architectures": ["GPT2LMHeadModel"], "model_type": "gpt2", "vocab_size": 50257,
+    "n_embd": 1024, "n_layer": 24, "n_head": 16, "n_positions": 1024,
+    "layer_norm_epsilon": 1e-05, "activation_function": "gelu_new",
+}
+
+# the decoder families the policies convert, each at its published
+# config.json values (typed in: the card's machine has no transformers), read
+# by the port's config reader (module_inject/load_checkpoint.HFConfig);
+# "variant" names what each family drives that the others do not
+HF_FAMILIES = {
+    "bigscience/bloom-560m": {"variant": "ALiBi, embed_norm, vocab 250880", "config": {
+        "apply_residual_connection_post_layernorm": False, "architectures": ["BloomForCausalLM"],
+        "attention_dropout": 0.0, "attention_softmax_in_fp32": True, "bos_token_id": 1,
+        "eos_token_id": 2, "hidden_dropout": 0.0, "hidden_size": 1024,
+        "initializer_range": 0.02, "layer_norm_epsilon": 1e-05, "model_type": "bloom",
+        "n_head": 16, "n_inner": None, "n_layer": 24, "offset_alibi": 100, "pad_token_id": 3,
+        "pretraining_tp": 1, "slow_but_exact": False, "unk_token_id": 0, "use_cache": True,
+        "vocab_size": 250880}},
+    "EleutherAI/pythia-410m": {"variant": "parallel residual, rotary_pct 0.25, untied head",
+                               "config": {
+        "architectures": ["GPTNeoXForCausalLM"], "bos_token_id": 0, "eos_token_id": 0,
+        "hidden_act": "gelu", "hidden_size": 1024, "initializer_range": 0.02,
+        "intermediate_size": 4096, "layer_norm_eps": 1e-05, "max_position_embeddings": 2048,
+        "model_type": "gpt_neox", "num_attention_heads": 16, "num_hidden_layers": 24,
+        "rotary_emb_base": 10000, "rotary_pct": 0.25, "tie_word_embeddings": False,
+        "use_cache": True, "use_parallel_residual": True, "vocab_size": 50304}},
+    "EleutherAI/gpt-j-6b": {"variant": "shared LN, interleaved rotary 64 of head dim 256, "
+                                       "biased head", "config": {
+        "activation_function": "gelu_new", "architectures": ["GPTJForCausalLM"],
+        "attn_pdrop": 0.0, "bos_token_id": 50256, "embd_pdrop": 0.0, "eos_token_id": 50256,
+        "initializer_range": 0.02, "layer_norm_epsilon": 1e-05, "model_type": "gptj",
+        "n_embd": 4096, "n_head": 16, "n_inner": None, "n_layer": 28, "n_positions": 2048,
+        "resid_pdrop": 0.0, "rotary": True, "rotary_dim": 64, "scale_attn_weights": True,
+        "tie_word_embeddings": False, "use_cache": True, "vocab_size": 50400}},
+    "facebook/opt-125m": {"variant": "ReLU, pre-LN", "config": {
+        "activation_dropout": 0.0, "activation_function": "relu",
+        "architectures": ["OPTForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 2,
+        "do_layer_norm_before": True, "dropout": 0.1, "eos_token_id": 2, "ffn_dim": 3072,
+        "hidden_size": 768, "init_std": 0.02, "layerdrop": 0.0,
+        "max_position_embeddings": 2048, "model_type": "opt", "num_attention_heads": 12,
+        "num_hidden_layers": 12, "pad_token_id": 1, "use_cache": True, "vocab_size": 50272,
+        "word_embed_proj_dim": 768}},
+    "EleutherAI/gpt-neo-125M": {"variant": "per-layer windows 256, attn_scale 1.0", "config": {
+        "activation_function": "gelu_new", "architectures": ["GPTNeoForCausalLM"],
+        "attention_dropout": 0, "attention_layers": ["global", "local"] * 6,
+        "attention_types": [[["global", "local"], 6]], "bos_token_id": 50256,
+        "embed_dropout": 0, "eos_token_id": 50256, "hidden_size": 768,
+        "initializer_range": 0.02, "intermediate_size": None, "layer_norm_epsilon": 1e-05,
+        "max_position_embeddings": 2048, "model_type": "gpt_neo", "num_heads": 12,
+        "num_layers": 12, "resid_dropout": 0, "use_cache": True, "vocab_size": 50257,
+        "window_size": 256}},
+}
+# OPT-125m's widths as a post-LN model (OPT-350m itself, the published
+# post-LN OPT, projects its 512-wide embeddings in and out, which the policy
+# refuses as the reference's does)
+HF_FAMILIES["facebook/opt-125m, do_layer_norm_before=False (post-LN variant)"] = {
+    "variant": "post-LN", "config": dict(HF_FAMILIES["facebook/opt-125m"]["config"],
+                                         do_layer_norm_before=False)}
+
 
 @contextlib.contextmanager
 def recorded_walk(eng):
@@ -2968,7 +3057,9 @@ def llama_serve_phase(gen, card):
     device ms by kernel category) beside its bound (the weights' bytes and
     the KV bytes the step's attention needs, over the memory rate), K7 at
     the decode rows (8 x 4096 RMSNorm) against its plain version, and the
-    peak device memory. Returns the phase's launch counts and the K7 row."""
+    peak device memory. Returns the phase's launch counts, the K7 row and
+    what ``hf_load_llama_phase`` takes over: {"engine", "prompt", "fused"
+    (the fused stream)}; the engine stays on the card until it frees it."""
     import torch.nn.functional as F
 
     import deepspeed_tpu_torch
@@ -3030,6 +3121,7 @@ def llama_serve_phase(gen, card):
         rows[b]["equal_to_fused"] = same
         check(same, f"llama_serve: the per-token stream ({b}) differs from the fused one")
     teacher = teacher_forced_check(eng.params, cfg, runs["fused"]["out"], P, "llama_serve")
+    handoff = {"engine": eng, "prompt": toks, "fused": runs["fused"]["out"]}
     del runs
 
     step = decode_step_profile(eng, toks)
@@ -3074,8 +3166,7 @@ def llama_serve_phase(gen, card):
           "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": card})
     emit(k7)
     del eng, loop, model
-    torch.cuda.empty_cache()
-    return counts, k7
+    return counts, k7, handoff
 
 
 def mistral_ring_phase(gen, card):
@@ -3159,6 +3250,441 @@ def mistral_ring_phase(gen, card):
     del ring, full, model
     torch.cuda.empty_cache()
     return counts
+
+
+def hf_module_order(name):
+    """An HF Llama state dict's key order (its modules' order): the
+    embedding, then layer by layer, then the final norm and the head."""
+    if name.startswith("model.layers."):
+        return (1, int(name.split(".")[2]))
+    return (0 if "embed_tokens" in name else 2 if name.startswith("model.norm") else 3, 0)
+
+
+SAFETENSORS_DTYPES = {torch.float32: "F32", torch.bfloat16: "BF16", torch.float16: "F16",
+                      torch.int64: "I64", torch.int32: "I32", torch.int8: "I8",
+                      torch.uint8: "U8", torch.bool: "BOOL"}
+
+
+def write_safetensors(path, tensors):
+    """One ``.safetensors`` file of ``tensors`` (name -> tensor, in this
+    order, on any device): an 8-byte little-endian header length, the JSON
+    header (dtype, shape, data offsets) padded with spaces to 8 bytes, then
+    each tensor's bytes, copied to the host one tensor at a time."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            host = t.detach().contiguous().cpu()
+            f.write(memoryview(host.reshape(-1).view(torch.uint8).numpy()))
+    return offset
+
+
+def write_hf_shards(save_dir, state, config, n_shards=2):
+    """``state`` (name -> tensor) as an HF sharded safetensors checkpoint:
+    ``model-0000i-of-0000n.safetensors`` cut by size in the modules' order,
+    ``model.safetensors.index.json`` (total size and weight map) and
+    ``config.json``. Returns the bytes written."""
+    names = sorted(state, key=hf_module_order)
+    total = sum(state[k].numel() * state[k].element_size() for k in names)
+    shards, acc = [[]], 0
+    for k in names:
+        if acc >= total * len(shards) / n_shards and len(shards) < n_shards:
+            shards.append([])
+        shards[-1].append(k)
+        acc += state[k].numel() * state[k].element_size()
+    weight_map = {}
+    for i, keys in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(os.path.join(save_dir, fname), {k: state[k] for k in keys})
+        weight_map.update({k: fname for k in keys})
+    with open(os.path.join(save_dir, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": dict(sorted(
+            weight_map.items()))}, f, indent=2)
+    with open(os.path.join(save_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    return total
+
+
+def host_peak_rss_bytes():
+    """This process's peak resident set: {"VmHWM": from /proc/self/status
+    (None where the kernel does not report it), "ru_maxrss": from
+    getrusage}, in bytes."""
+    import resource
+
+    hwm = None
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmHWM:"):
+                hwm = int(line.split()[1]) * 1024
+    return {"VmHWM": hwm, "ru_maxrss": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+
+
+@contextlib.contextmanager
+def recorded_state_dicts():
+    """The ``ShardedStateDict``s that checkpoint loads inside the block
+    open (their ``shard_loads`` and ``bytes_read``)."""
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as lc
+
+    real, made = lc.ShardedStateDict, []
+
+    class Recorded(real):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    lc.ShardedStateDict = Recorded
+    try:
+        yield made
+    finally:
+        lc.ShardedStateDict = real
+
+
+def launch_rule_check(what, launched, L, norms_per_forward, forwards):
+    """K1 once a layer a prefill (``L``; 0 off flash), K7 as many times a
+    forward as the model has norms, K8 never."""
+    want = {"flash_fwd": L, "fused_norm_fwd": norms_per_forward * forwards, "fused_norm_bwd": 0}
+    got = {k: launched.get(k, 0) for k in want}
+    check(got == want, f"{what}: K1/K7/K8 launched {got}, expected {want}")
+    return got
+
+
+def hf_load_gpt2_phase(gen, card):
+    """GPT-2 350M (``gpt2-350m``, 24 x 1024, the decode bench's model; bf16,
+    weights from the engine's seeded CUDA generator) exported to an HF
+    state dict (``module_inject.export``) and loaded back two ways through
+    ``init_inference``: (a) an in-memory stand-in object with
+    ``state_dict()`` and ``config`` (the port's ``HFConfig`` of
+    ``GPT2_350M_CONFIG``), (b) ``save_hf_checkpoint`` into a temporary
+    directory (one f32 ``pytorch_model.bin`` and ``config.json``), then the
+    directory. Both with ``{"dtype": "bfloat16", "attn_impl": "pallas"}``.
+    Checks: the configs equal the direct engine's, and greedy B 8 x 128 +
+    128 of both equals the direct engine's stream bit for bit, with K1 24
+    and K7 49 times a forward. Returns the phase's launch counts."""
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.module_inject import export
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as lc
+    from deepspeed_tpu_torch.ops import op_builder
+
+    class HFStandIn:
+        """What ``init_inference`` takes as an HF module."""
+
+        def __init__(self, state, config):
+            self._state, self.config = state, config
+
+        def state_dict(self):
+            return dict(self._state)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    config = {"dtype": "bfloat16", "attn_impl": "pallas"}
+    model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16", attn_impl="pallas")
+    direct = deepspeed_tpu_torch.init_inference(model, config=config, seed=0)
+    cfg, L, V = direct.cfg, direct.cfg.num_layers, direct.cfg.vocab_size
+    hf_config = lc.HFConfig(GPT2_350M_CONFIG)
+    seconds = {}
+    t0 = time.perf_counter()
+    module = deepspeed_tpu_torch.init_inference(
+        HFStandIn(export.export_hf_state_dict(direct.params, cfg, "gpt2"), hf_config),
+        config=config)
+    torch.cuda.synchronize()
+    seconds["module_load_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="hf_gpt2_") as d:
+        t0 = time.perf_counter()
+        export.save_hf_checkpoint(d, direct.params, cfg, "gpt2", hf_config=hf_config)
+        seconds["save_s"] = time.perf_counter() - t0
+        seconds["checkpoint_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                                          for f in os.listdir(d))
+        t0 = time.perf_counter()
+        with recorded_state_dicts() as states:
+            loaded = deepspeed_tpu_torch.init_inference(d, config=config)
+        torch.cuda.synchronize()
+        seconds["dir_load_s"] = time.perf_counter() - t0
+    for name, e in (("module", module), ("dir", loaded)):
+        check(e.cfg == cfg, f"hf_load_gpt2 {name}: config {e.cfg} differs from the direct "
+                            f"engine's {cfg}")
+    B, P, NEW = 8, 128, 128
+    toks = torch.randint(0, V, (B, P), generator=gen, device="cuda")
+    direct.generate(toks[:, :16], max_new_tokens=2)  # warm-up
+    op_builder.reset_launch_counts()
+    runs = {name: timed_generate(e, toks, NEW)
+            for name, e in (("direct", direct), ("module", module), ("dir", loaded))}
+    counts = op_builder.launch_counts()
+    rows = {}
+    for name, (out, wall, launched) in runs.items():
+        check(tuple(out.shape) == (B, P + NEW) and bool(((out >= 0) & (out < V)).all()),
+              f"hf_load_gpt2 {name}: output shape {tuple(out.shape)} / range")
+        rows[name] = {"generate_s": wall, "new_tokens_per_s": B * NEW / wall,
+                      "launches": launch_rule_check(f"hf_load_gpt2 {name}", launched, L,
+                                                    2 * L + 1, NEW)}
+        if name != "direct":
+            same = torch.equal(out, runs["direct"][0])
+            rows[name]["equal_to_direct"] = same
+            check(same, f"hf_load_gpt2: the stream of the engine loaded from the {name} "
+                        "differs from the direct engine's")
+    emit({"phase": "hf_load_gpt2", "model": "gpt2-350m", "layers": L, "hidden": cfg.hidden_size,
+          "params": cfg.num_params(), "batch": B, "prompt": P, "new_tokens": NEW,
+          **seconds, "shard_loads": states[0].shard_loads if states else None,
+          "runs": rows, "k1_launches_per_request": L, "k7_launches_per_forward": 2 * L + 1,
+          "phase_s": time.perf_counter() - t_phase,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": card})
+    del direct, module, loaded, model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def checkpoint_dir_root():
+    """Where a multi-GB checkpoint is written: the temporary directory's
+    file system or the checkout's, whichever has more room (the checkout's
+    ``.scratch/`` is git-ignored)."""
+    import shutil
+    import tempfile
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".scratch")
+    os.makedirs(here, exist_ok=True)
+    return max((tempfile.gettempdir(), here), key=lambda d: shutil.disk_usage(d).free)
+
+
+def hf_load_llama_phase(handoff, card):
+    """Llama 2 7B from a checkpoint in HF's own layout: ``llama_serve``'s
+    engine's weights (``handoff``; no second init) exported
+    (``module_inject.export``) and written in bf16 as
+    ``meta-llama/Llama-2-7b-hf``'s directory is laid out: two
+    ``.safetensors`` shards cut by size, ``model.safetensors.index.json``
+    and its published ``config.json`` (``LLAMA2_7B_CONFIG``), by this
+    script's own writer. The serving engine is then freed, and
+    ``init_inference(dir, config={"dtype": "bfloat16"})`` loads it with one
+    shard open at a time (``cache_shards=1``). Checks: the loaded config
+    equals the served one, and its fused stream for ``llama_serve``'s B 8 x
+    512 + 64 prompt equals ``llama_serve``'s bit for bit, with K1 32 and K7
+    65 times a forward. Prints the free disk before writing, the write and
+    load seconds, the shard opens and tensor bytes read, this process's peak
+    resident memory before and after the load, and the peak card memory.
+    Returns the phase's launch counts."""
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.module_inject import export
+    from deepspeed_tpu_torch.ops import op_builder
+
+    t_phase = time.perf_counter()
+    eng, toks, want = handoff.pop("engine"), handoff["prompt"], handoff["fused"]
+    cfg, L = eng.cfg, eng.cfg.num_layers
+    root = checkpoint_dir_root()
+    free_before = shutil.disk_usage(root).free
+    with tempfile.TemporaryDirectory(prefix="hf_llama2_7b_", dir=root) as d:
+        t0 = time.perf_counter()
+        written = write_hf_shards(d, export.export_hf_state_dict(eng.params, cfg, "llama"),
+                                  LLAMA2_7B_CONFIG)
+        write_s = time.perf_counter() - t0
+        files = sorted(os.listdir(d))
+        del eng
+        handoff.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rss_before = host_peak_rss_bytes()
+        t0 = time.perf_counter()
+        with recorded_state_dicts() as states:
+            loaded = deepspeed_tpu_torch.init_inference(d, config={"dtype": "bfloat16"})
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        rss_after = host_peak_rss_bytes()
+    check(loaded.cfg == cfg, f"hf_load_llama: the loaded config {loaded.cfg} differs from the "
+                             f"served one {cfg}")
+    B, P = toks.shape
+    NEW = want.shape[1] - P
+    op_builder.reset_launch_counts()
+    out, wall, launched = timed_generate(loaded, toks, NEW)
+    counts = op_builder.launch_counts()
+    same = torch.equal(out, want)
+    check(same, "hf_load_llama: the stream of the engine loaded from the checkpoint differs "
+                "from llama_serve's")
+    emit({"phase": "hf_load_llama", "model": "meta-llama/Llama-2-7b-hf layout, llama2-7b weights",
+          "checkpoint_files": files, "checkpoint_tensor_bytes": written,
+          "disk_free_bytes_before_write": free_before, "checkpoint_root": root,
+          "write_s": write_s, "load_s": load_s,
+          "shard_loads": states[0].shard_loads if states else None,
+          "bytes_read": states[0].bytes_read if states else None, "cache_shards": 1,
+          "host_peak_rss_bytes_before_load": rss_before,
+          "host_peak_rss_bytes_after_load": rss_after,
+          "batch": B, "prompt": P, "new_tokens": NEW, "generate_s": wall,
+          "equal_to_llama_serve": same,
+          "launches": launch_rule_check("hf_load_llama", launched, L, 2 * L + 1, NEW),
+          "phase_s": time.perf_counter() - t_phase,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": card})
+    del loaded
+    torch.cuda.empty_cache()
+    return counts
+
+
+def norms_per_forward(cfg):
+    """K7 launches a forward of ``cfg``: the embedding norm, each layer's
+    norms (one with the shared LN) and the final norm of a pre-LN stack."""
+    per_layer = 1 if cfg.parallel_residual and cfg.shared_ln else 2
+    return (int(cfg.embed_norm) + cfg.num_layers * per_layer
+            + int(cfg.norm_position == "pre"))
+
+
+def bf16_error_bounds(params, cfg, out, prompt):
+    """The uncached ``forward``'s logits over ``out`` (B, S) at each
+    generated position, in the model dtype, and each position's own bf16
+    rounding error: the largest |difference| over the vocab from the same
+    forward in f32 on the same weights. Returns (logits, error), both
+    (B, S - prompt), on the host as f32."""
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    toks = out[:, :-1].long()
+    with torch.inference_mode():
+        low = tf.forward(params, cfg, toks)[:, prompt - 1:].float().cpu()
+        f32 = tf.map_params(lambda p: p.float(), params)
+        high = tf.forward(f32, dataclasses.replace(cfg, dtype="float32"), toks)[:, prompt - 1:]
+        del f32
+        err = (low - high.float().cpu()).abs().amax(-1)
+    return low, err
+
+
+def measured_tie_check(got, logits, err, what):
+    """``got`` (B, new) tokens against the argmax of ``logits`` (B, new, V):
+    a mismatch is a tie when its top-2 margin is under the larger of 2
+    LOGITS_TOL (the bf16 tie rule) and twice its position's own bf16 error
+    (``err``, from ``bf16_error_bounds``). Random weights with unscaled
+    attention (GPT-Neo, ``attn_scale`` 1.0) move a bf16 forward's logits by
+    ~1 from f32, against ~0.02 for the scaled families. Returns the counts,
+    the widest mismatch margin and the bound it was held to."""
+    margins = top2_margins(logits)
+    bound = torch.clamp(2 * err, min=2 * LOGITS_TOL)
+    miss = logits.argmax(-1) != got.cpu().long()
+    over = miss & (margins >= bound)
+    check(not bool(over.any()), f"{what}: {int(over.sum())} token(s) differ from the argmax at a "
+                                "top-2 margin above the tie bound")
+    worst = int(margins[miss].argmax()) if bool(miss.any()) else None
+    return {"tokens": int(got.numel()), "equal_to_forward_argmax": int((~miss).sum()),
+            "widest_mismatch_margin": float(margins[miss][worst]) if worst is not None else 0.0,
+            "its_tie_bound": float(bound[miss][worst]) if worst is not None else None}
+
+
+def hf_families_phase(gen, card):
+    """Every decoder family the policies convert, at its published
+    ``config.json`` values (``HF_FAMILIES``) read by the port's config
+    reader and mapped by the family's policy, with weights from the
+    engine's seeded CUDA generator, in bf16: greedy B 8 x 128 + 64 fused
+    and through the per-token loop (equal), held to the uncached
+    teacher-forced ``forward`` under the bf16 tie rule, and the same 8
+    requests through the continuous-batching pool (8 slots, cache 256: the
+    vector-position reads, ALiBi's included), each stream equal to the fused
+    one or first differing at a tie. A tie here is a top-2 margin under the
+    larger of the bf16 rule's 2 LOGITS_TOL and twice the position's own
+    bf16 error (``bf16_error_bounds``, ``measured_tie_check``). K7 as many
+    times a forward as the family has norms (fused and per-token), K1 never
+    (the policies keep these families on the masked path), K8 never.
+    Returns the phase's launch counts."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as lc
+    from deepspeed_tpu_torch.module_inject import policies
+    from deepspeed_tpu_torch.ops import op_builder
+
+    t_phase = time.perf_counter()
+    B, P, NEW = 8, 128, 64
+    total, rows = {}, {}
+    for family, entry in HF_FAMILIES.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg = policies.config_from_hf(lc.HFConfig(entry["config"]))
+        model = tf.TransformerModel(cfg)
+        eng = deepspeed_tpu_torch.init_inference(model, config={"dtype": "bfloat16"}, seed=0)
+        loop = deepspeed_tpu_torch.init_inference(
+            model, config={"dtype": "bfloat16", "fused_generate": False}, params=eng.params)
+        pool = ContinuousBatchingEngine(model, config={"dtype": "bfloat16"}, params=eng.params,
+                                        max_slots=B, cache_len=256)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cfg, V = eng.cfg, eng.cfg.vocab_size
+        toks = torch.randint(0, V, (B, P), generator=gen, device="cuda")
+        eng.generate(toks[:, :16], max_new_tokens=2)  # warm-up
+        op_builder.reset_launch_counts()
+        fused, fused_s, fused_launched = timed_generate(eng, toks, NEW)
+        per_token, loop_s, loop_launched = timed_generate(loop, toks, NEW)
+        prompts = [p.cpu().numpy() for p in toks]
+        before = op_builder.launch_counts()
+        t0 = time.perf_counter()
+        rids = [pool.submit(p, max_new_tokens=NEW) for p in prompts]
+        served = {}
+        while pool.has_work():
+            pool.step()
+            served.update(pool.finished())
+        served.update(pool.finished())
+        torch.cuda.synchronize()
+        pool_s = time.perf_counter() - t0
+        after = op_builder.launch_counts()
+        for k, c in after.items():
+            total[k] = total.get(k, 0) + c
+        per_forward = norms_per_forward(cfg)
+        name = family.split(",")[0] + (" post-LN" if cfg.norm_position == "post" else "")
+        check(tuple(fused.shape) == (B, P + NEW) and bool(((fused >= 0) & (fused < V)).all()),
+              f"hf_families {name}: output shape {tuple(fused.shape)} / range")
+        same = torch.equal(fused, per_token)
+        check(same, f"hf_families {name}: the per-token stream differs from the fused one")
+        launches = {path: launch_rule_check(f"hf_families {name} {path}", launched, 0,
+                                            per_forward, NEW)
+                    for path, launched in (("fused", fused_launched),
+                                           ("per_token", loop_launched))}
+        pool_k7 = after.get("fused_norm_fwd", 0) - before.get("fused_norm_fwd", 0)
+        check(pool_k7 > 0 and after.get("flash_fwd", 0) == before.get("flash_fwd", 0),
+              f"hf_families {name}: the pool launched K7 {pool_k7} times and K1 "
+              f"{after.get('flash_fwd', 0) - before.get('flash_fwd', 0)}")
+        logits, err = bf16_error_bounds(eng.params, cfg, fused, P)
+        teacher = measured_tie_check(fused[:, P:], logits, err,
+                                     f"hf_families {name} teacher-forced")
+        # where a pool stream first differs from the fused one (the same
+        # context up to there), its token is held as the fused ones are
+        agree = []
+        for b, r in enumerate(rids):
+            pooled = torch.from_numpy(served[r][P:]).long()
+            diff = torch.nonzero(pooled != fused[b, P:].cpu())
+            row = {"equal": not len(diff)}
+            if len(diff):
+                j = int(diff[0])
+                row.update(first_diff_step=j, **measured_tie_check(
+                    pooled[None, j:j + 1], logits[b:b + 1, j:j + 1], err[b:b + 1, j:j + 1],
+                    f"hf_families {name} pool row {b}"))
+            agree.append(row)
+        rows[family] = {
+            "variant": entry["variant"], "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+            "heads": cfg.num_heads, "head_dim": cfg.head_dim, "vocab": V,
+            "params": cfg.num_params(), "pos_embedding": cfg.pos_embedding,
+            "norm_position": cfg.norm_position, "parallel_residual": cfg.parallel_residual,
+            "shared_ln": cfg.shared_ln, "embed_norm": cfg.embed_norm, "rope_dim": cfg.rope_dim,
+            "rope_interleaved": cfg.rope_interleaved, "lm_head_bias": cfg.lm_head_bias,
+            "local_attn_windows": sorted(set(cfg.local_attn_windows or ())),
+            "attn_scale": cfg.attn_scale, "activation": cfg.activation,
+            "build_s": build_s, "fused_s": fused_s, "per_token_s": loop_s, "pool_s": pool_s,
+            "new_tokens_per_s_fused": B * NEW / fused_s, "per_token_equal_to_fused": same,
+            "k7_launches_per_forward": per_forward, "launches": launches,
+            "pool_k7_launches": pool_k7, "pool_vs_fused": agree,
+            "pool_streams_equal": sum(a["equal"] for a in agree),
+            "teacher_forced": teacher, "bf16_error_median": float(err.median()),
+            "bf16_error_max": float(err.max()),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del eng, loop, pool, model, fused, per_token
+    torch.cuda.empty_cache()
+    emit({"phase": "hf_families", "batch": B, "prompt": P, "new_tokens": NEW,
+          "families": rows, "phase_s": time.perf_counter() - t_phase, "card": card})
+    return total
 
 
 def smi_card():
@@ -3282,8 +3808,30 @@ def llama_main():
     card = smi_card()
     build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
     gen = torch.Generator(device="cuda").manual_seed(0)
-    llama_serve_phase(gen, card)
+    llama_serve_phase(gen, card)[2].clear()  # frees its engine
     mistral_ring_phase(gen, card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
+def hf_main():
+    """``python3 chip_smoke.py --hf``: the HF phases alone (``llama_serve``,
+    whose weights ``hf_load_llama`` loads back, then ``hf_load_gpt2`` and
+    ``hf_families``; no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    hf_load_llama_phase(llama_serve_phase(gen, card)[2], card)
+    hf_load_gpt2_phase(gen, card)
+    hf_families_phase(gen, card)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
     return 1 if failures else 0
@@ -4184,13 +4732,24 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- Llama-family serving: Llama 2 7B (fused and per-token with bucket
-    # migration), then Mistral 7B's shape with the rolling cache on and off;
-    # one 7B model on the card at a time, each path counted from 0
-    llama_counts, llama_k7 = llama_serve_phase(gen, card)
+    # migration), its weights through an HF checkpoint directory, then
+    # Mistral 7B's shape with the rolling cache on and off; one 7B model on
+    # the card at a time, each path counted from 0
+    llama_counts, llama_k7, handoff = llama_serve_phase(gen, card)
+    hf_llama_counts = hf_load_llama_phase(handoff, card)
     ring_counts = mistral_ring_phase(gen, card)
     check(llama_counts.get("flash_fwd", 0) > 0 and llama_counts.get("fused_norm_fwd", 0) > 0
           and ring_counts.get("flash_fwd", 0) > 0 and ring_counts.get("fused_norm_fwd", 0) > 0,
           "llama paths: K1 or K7 never launched on llama_serve or mistral_ring")
+
+    # ---- HF models in: GPT-2 350M from an HF module and a saved directory,
+    # then every decoder family the policies convert
+    hf_counts = {k: hf_llama_counts.get(k, 0) + c
+                 for k, c in hf_load_gpt2_phase(gen, card).items()}
+    family_counts = hf_families_phase(gen, card)
+    check(hf_counts.get("flash_fwd", 0) > 0 and hf_counts.get("fused_norm_fwd", 0) > 0
+          and family_counts.get("fused_norm_fwd", 0) > 0,
+          "HF paths: K1 never launched on hf_load, or K7 on hf_load or hf_families")
 
     e1, a23, a456 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"], k456["a_fixed_b2_s4096"]
     a78 = k78["a_ln_8192x768_bf16"]
@@ -4214,7 +4773,9 @@ def main():
                    "train_sparse": sparse_counts.get(kname, 0),
                    "fused_ops": fused_counts.get(kname, 0),
                    "llama_serve": llama_counts.get(kname, 0),
-                   "mistral_ring": ring_counts.get(kname, 0)}
+                   "mistral_ring": ring_counts.get(kname, 0),
+                   "hf_load": hf_counts.get(kname, 0),
+                   "hf_families": family_counts.get(kname, 0)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
@@ -4295,5 +4856,5 @@ def main():
 if __name__ == "__main__":
     ENTRIES = {("--decode-step",): decode_step_main, ("--serve-pool",): serve_pool_main,
                ("--spec",): spec_main, ("--serve-layer",): serve_layer_main,
-               ("--fleet",): serve_fleet_main, ("--llama",): llama_main}
+               ("--fleet",): serve_fleet_main, ("--llama",): llama_main, ("--hf",): hf_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

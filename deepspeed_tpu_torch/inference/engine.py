@@ -10,9 +10,12 @@ uniform-window model (Mistral) gets the rolling (ring) KV cache on the
 aligned paths, as the reference switches it on.
 
 Weights come from a seeded ``torch.Generator``, from the reference's param
-tree as numpy arrays (bridged by ``models.transformer.params_from_numpy``)
-or as this package's own tree; every float tensor is cast to the model
-dtype at load, then, for int8 weights, each matmul weight is quantized
+tree as numpy arrays (bridged by ``models.transformer.params_from_numpy``),
+from an HF model or checkpoint directory (``module_inject``: the policies
+give the reference's layout in the stored dtype, bridged the same way; a
+directory needs neither ``transformers`` nor ``safetensors``) or as this
+package's own tree; every float tensor is cast to the model dtype at load,
+then, for int8 weights, each matmul weight is quantized
 (scales stay f32). The engine runs on CUDA unless ``device="cpu"`` is
 passed; without CUDA and without that argument it raises.
 
@@ -79,9 +82,10 @@ def _check_config(config: InferenceConfig) -> None:
         raise ValueError(f"kv_read_floor must be a positive power of 2, got {floor!r}")
 
 
-def _is_numpy_tree(tree) -> bool:
-    leaf = tree["embed"]["tok"]
-    return not torch.is_tensor(leaf)
+def _is_reference_tree(tree) -> bool:
+    """The reference's layout (layers stacked in one dict: numpy arrays, or
+    the HF policies' tensors), not this package's list of layers."""
+    return isinstance(tree["layers"], dict)
 
 
 def _map_with_path(fn, tree, path=()):
@@ -133,10 +137,23 @@ class InferenceEngine:
     def __init__(self, model, config=None, params=None, device=None, seed: int = 0):
         self.config = InferenceConfig.parse(config)
         _check_config(self.config)
+        # the reference's dispatch: a checkpoint directory converts shard by
+        # shard, an HF torch module in place (module_inject)
+        if isinstance(model, str):
+            from deepspeed_tpu_torch.module_inject.load_checkpoint import convert_hf_checkpoint
+
+            model, hf_params = convert_hf_checkpoint(model)
+            params = hf_params if params is None else params
+        elif (hasattr(model, "state_dict") and hasattr(model, "config")
+              and not isinstance(model, (tf.TransformerModel, tf.TransformerConfig))):
+            from deepspeed_tpu_torch.module_inject.policies import convert_hf_model
+
+            model, hf_params = convert_hf_model(model)
+            params = hf_params if params is None else params
         if isinstance(model, tf.TransformerConfig):
             model = tf.TransformerModel(model)
         if not isinstance(model, tf.TransformerModel):
-            raise not_ported(f"models of type {type(model).__name__} (HF loading)")
+            raise not_ported(f"models of type {type(model).__name__}")
         cfg = model.cfg
         self._weight_quant = self.config.dtype == "int8" or self.config.quant.enabled
         overrides = {}
@@ -170,7 +187,7 @@ class InferenceEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
-        elif _is_numpy_tree(params):
+        elif _is_reference_tree(params):
             params = tf.params_from_numpy(params, cfg, self.device)
         # cast to the model dtype, THEN quantize: the scales stay f32
         dt = cfg.torch_dtype

@@ -30,13 +30,18 @@ Llama-family models serve too: rotary embeddings (whole or partial,
 half-split or interleaved pairs), uniform sliding windows (Mistral: the
 flash kernel's band on a prefill) and per-layer windows (GPT-Neo's
 alternation: the masked einsum path, as the reference's layer scan takes
-it), and the rolling (ring) KV cache of uniform-window models.
+it), and the rolling (ring) KV cache of uniform-window models. So do the
+other decoder shapes that ``module_inject``'s policies produce: ALiBi
+(BLOOM; the masked path on every prefill and decode, never flash), the
+LayerNorm over the embeddings (``embed_norm``), post-LN (OPT with
+``do_layer_norm_before=False``: no final norm) and the parallel residual
+with or without the shared LN (GPT-NeoX, GPT-J), with the lm head's bias.
 
-Features outside the slices (ALiBi, MoE, post-LN and parallel residual,
-encoders and bidirectional attention, sequence parallelism, block-sparse
-attention with windows, and for training rope, windows, dropout, remat,
-random-LTD and progressive layer drop) raise ``NotImplementedError``; see
-ROADMAP.md.
+Features outside the slices (MoE, the encoders: bidirectional attention,
+token types and ``quick_gelu``, sequence parallelism, block-sparse attention
+with windows or ALiBi, and for training rope, windows, ALiBi, ``embed_norm``,
+post-LN, the parallel residual, dropout, remat, random-LTD and progressive
+layer drop) raise ``NotImplementedError``; see ROADMAP.md.
 """
 
 import functools
@@ -295,17 +300,18 @@ def check_supported(cfg: TransformerConfig) -> None:
         raise ValueError("the rolling KV cache needs one positive sliding window for every "
                          f"layer (local_attn_windows={cfg.local_attn_windows!r})")
     checks = [
-        (cfg.pos_embedding not in ("learned", "rope", "none"),
+        (cfg.pos_embedding not in ("learned", "rope", "alibi", "none"),
          f"pos_embedding={cfg.pos_embedding!r}"),
         (cfg.norm_type not in ("layernorm", "rmsnorm"), f"norm_type={cfg.norm_type!r}"),
-        (cfg.activation not in ("gelu", "relu", "silu_glu"),
-         f"activation={cfg.activation!r}"),
-        (cfg.norm_position != "pre", "post-LN (norm_position='post')"),
-        (cfg.parallel_residual, "parallel_residual"),
-        (not cfg.causal, "bidirectional attention (causal=False)"),
-        (cfg.type_vocab_size > 0 or cfg.embed_norm, "encoder embeddings (type_vocab_size/embed_norm)"),
+        (cfg.activation not in ("gelu", "relu", "silu_glu"), f"activation={cfg.activation!r}"
+         + (" (the CLIP text encoder, Queue 1 item 10)" if cfg.activation == "quick_gelu" else "")),
+        (cfg.norm_position not in ("pre", "post"), f"norm_position={cfg.norm_position!r}"),
+        (not cfg.causal, "bidirectional attention (causal=False: the encoders, Queue 1 item 10)"),
+        (cfg.type_vocab_size > 0, "token-type embeddings (the encoders, Queue 1 item 10)"),
         (cfg.attn_impl == "block_sparse" and cfg.local_attn_windows is not None,
          "block-sparse attention with local_attn_windows"),
+        (cfg.attn_impl == "block_sparse" and cfg.pos_embedding == "alibi",
+         "block-sparse attention with ALiBi"),
         (cfg.kv_cache_dtype not in ("model", "int8"), f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
         (cfg.moe_num_experts > 0, "MoE layers"),
         (cfg.seq_parallel != "none", f"seq_parallel={cfg.seq_parallel!r}"),
@@ -335,11 +341,19 @@ def init(generator: torch.Generator, cfg: TransformerConfig):
     the model dtype). Same shapes and scales as the reference's ``init``;
     the numbers differ (another generator)."""
     check_supported(cfg)
-    dev = generator.device
+    return _init_tree(generator, cfg)
+
+
+def _init_tree(generator: Optional[torch.Generator], cfg: TransformerConfig):
+    """:func:`init` without the check; with ``generator=None`` the tree is
+    on the meta device: its shapes, with no numbers."""
+    dev = torch.device("meta") if generator is None else generator.device
     D, V, F_, L = cfg.hidden_size, cfg.vocab_size, cfg.ffn_size, cfg.num_layers
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
 
     def normal(*shape, std):
+        if generator is None:
+            return torch.empty(shape, device=dev, dtype=torch.float32)
         return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32) * std
 
     def zeros(*shape):
@@ -351,6 +365,10 @@ def init(generator: torch.Generator, cfg: TransformerConfig):
     params = {"embed": {"tok": normal(V, D, std=0.02)}, "final_norm": {"scale": ones(D)}}
     if cfg.pos_embedding == "learned":
         params["embed"]["pos"] = normal(cfg.max_seq_len, D, std=0.02)
+    if cfg.embed_norm:
+        params["embed_norm"] = {"scale": ones(D)}
+        if cfg.use_bias:
+            params["embed_norm"]["bias"] = zeros(D)
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": normal(V, D, std=1.0 / math.sqrt(D))}
         if cfg.lm_head_bias:
@@ -383,25 +401,32 @@ def init(generator: torch.Generator, cfg: TransformerConfig):
 
 
 def params_from_numpy(tree, cfg: TransformerConfig, device=None):
-    """The reference's param tree as numpy arrays (``jax.tree.map(np.asarray,
-    params)``: layers stacked ``(L, ...)``, weights ``x @ w``) -> this
-    package's tree on ``device``, computing the same function. Dtypes are
-    kept; the engine casts to the model dtype."""
+    """The reference's param tree (layers stacked ``(L, ...)``, weights laid
+    out ``x @ w``) -> this package's tree on ``device``, computing the same
+    function. Leaves are numpy arrays (``jax.tree.map(np.asarray, params)``)
+    or torch tensors (``module_inject``'s policies, in the dtype a
+    checkpoint stores); dtypes are kept, and the engine casts to the model
+    dtype. A tensor leaf moves to ``device`` before it is transposed or
+    concatenated there."""
     check_supported(cfg)
-    known = {"embed", "final_norm", "lm_head", "layers"}
+    known = {"embed", "embed_norm", "final_norm", "lm_head", "layers"}
     if set(tree) - known:
         raise not_ported(f"param groups {sorted(set(tree) - known)}")
 
     def t(a, transpose=False):
-        a = np.asarray(a)
-        if transpose:
-            a = a.T
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if not torch.is_tensor(a):
+            a = np.asarray(a)
+            return torch.from_numpy(np.ascontiguousarray(a.T if transpose else a)).to(device)
+        a = a.to(device)
+        return (a.T if transpose else a).contiguous()
 
-    params = {
-        "embed": {k: t(v) for k, v in tree["embed"].items()},
-        "final_norm": {k: t(v) for k, v in tree["final_norm"].items()},
-    }
+    def cat(parts):
+        if torch.is_tensor(parts[0]):
+            return torch.cat([p.to(device) for p in parts], dim=-1)
+        return np.concatenate(parts, axis=-1)
+
+    params = {group: {k: t(v) for k, v in tree[group].items()}
+              for group in ("embed", "embed_norm", "final_norm") if group in tree}
     if "lm_head" in tree:
         params["lm_head"] = {"w": t(tree["lm_head"]["w"], transpose=True)}
         if "b" in tree["lm_head"]:
@@ -410,9 +435,9 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
     attn, mlp = ly["attn"], ly["mlp"]
     layers = []
     for i in range(cfg.num_layers):
-        wqkv = np.concatenate([attn["wq"][i], attn["wk"][i], attn["wv"][i]], axis=1)
         layer = {
-            "attn": {"wqkv": t(wqkv, transpose=True), "wo": t(attn["wo"][i], transpose=True)},
+            "attn": {"wqkv": t(cat([attn["wq"][i], attn["wk"][i], attn["wv"][i]]), transpose=True),
+                     "wo": t(attn["wo"][i], transpose=True)},
             "mlp": {"wi": t(mlp["wi"][i], transpose=True), "wo": t(mlp["wo"][i], transpose=True)},
             "ln1": {k: t(v[i]) for k, v in ly["ln1"].items()},
             "ln2": {k: t(v[i]) for k, v in ly["ln2"].items()},
@@ -420,7 +445,7 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
         if "wg" in mlp:
             layer["mlp"]["wg"] = t(mlp["wg"][i], transpose=True)
         if "bq" in attn:
-            layer["attn"]["bqkv"] = t(np.concatenate([attn["bq"][i], attn["bk"][i], attn["bv"][i]]))
+            layer["attn"]["bqkv"] = t(cat([attn["bq"][i], attn["bk"][i], attn["bv"][i]]))
             layer["attn"]["bo"] = t(attn["bo"][i])
         if "bi" in mlp:
             layer["mlp"]["bi"] = t(mlp["bi"][i])
@@ -430,48 +455,56 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
     return params
 
 
+def _reference_layout(tree, cfg: TransformerConfig):
+    """This package's tree -> the reference's layout, as tensors of the
+    tree's own dtype and device: ``wqkv`` split back into ``wq``/``wk``/
+    ``wv``, weights transposed to ``x @ w``, layers stacked ``(L, ...)``."""
+    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    split = [nh * hd, nkv * hd, nkv * hd]
+
+    def stack(fn):
+        return torch.stack([fn(layer) for layer in tree["layers"]])
+
+    out = {group: dict(tree[group]) for group in ("embed", "embed_norm", "final_norm")
+           if group in tree}
+    if "lm_head" in tree:
+        out["lm_head"] = {"w": tree["lm_head"]["w"].T.contiguous()}
+        if "b" in tree["lm_head"]:
+            out["lm_head"]["b"] = tree["lm_head"]["b"]
+    first = tree["layers"][0]
+    attn = {}
+    for i, name in enumerate(("wq", "wk", "wv")):
+        attn[name] = stack(lambda ly, i=i: ly["attn"]["wqkv"].split(split, dim=0)[i].T)
+    attn["wo"] = stack(lambda ly: ly["attn"]["wo"].T)
+    if "bqkv" in first["attn"]:
+        for i, name in enumerate(("bq", "bk", "bv")):
+            attn[name] = stack(lambda ly, i=i: ly["attn"]["bqkv"].split(split)[i])
+        attn["bo"] = stack(lambda ly: ly["attn"]["bo"])
+    mlp = {k: stack(lambda ly, k=k: ly["mlp"][k].T)
+           for k in ("wi", "wo", "wg") if k in first["mlp"]}
+    mlp.update({k: stack(lambda ly, k=k: ly["mlp"][k]) for k in ("bi", "bo") if k in first["mlp"]})
+    out["layers"] = {
+        "attn": attn, "mlp": mlp,
+        "ln1": {k: stack(lambda ly, k=k: ly["ln1"][k]) for k in first["ln1"]},
+        "ln2": {k: stack(lambda ly, k=k: ly["ln2"][k]) for k in first["ln2"]},
+    }
+    return out
+
+
 def params_to_numpy(tree, cfg: TransformerConfig):
     """The inverse of :func:`params_from_numpy`: this package's tree (of
     parameters or of their gradients) -> the reference's layout as f32 numpy
     arrays: ``wqkv`` split back into ``wq``/``wk``/``wv``, weights transposed
     to ``x @ w``, layers stacked ``(L, ...)``."""
-    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-    split = [nh * hd, nkv * hd, nkv * hd]
+    f32 = map_params(lambda t: t.detach().float().cpu(), tree)
+    return map_params(lambda t: t.numpy(), _reference_layout(f32, cfg))
 
-    def n(t, transpose=False):
-        a = t.detach().float().cpu().numpy()
-        return np.ascontiguousarray(a.T if transpose else a)
 
-    def stack(fn):
-        return np.stack([fn(layer) for layer in tree["layers"]])
-
-    out = {
-        "embed": {k: n(v) for k, v in tree["embed"].items()},
-        "final_norm": {k: n(v) for k, v in tree["final_norm"].items()},
-    }
-    if "lm_head" in tree:
-        out["lm_head"] = {"w": n(tree["lm_head"]["w"], transpose=True)}
-        if "b" in tree["lm_head"]:
-            out["lm_head"]["b"] = n(tree["lm_head"]["b"])
-    first = tree["layers"][0]
-    attn = {}
-    for i, name in enumerate(("wq", "wk", "wv")):
-        attn[name] = stack(lambda ly, i=i: n(ly["attn"]["wqkv"].split(split, dim=0)[i], True))
-    attn["wo"] = stack(lambda ly: n(ly["attn"]["wo"], True))
-    if "bqkv" in first["attn"]:
-        for i, name in enumerate(("bq", "bk", "bv")):
-            attn[name] = stack(lambda ly, i=i: n(ly["attn"]["bqkv"].split(split)[i]))
-        attn["bo"] = stack(lambda ly: n(ly["attn"]["bo"]))
-    mlp = {k: stack(lambda ly, k=k: n(ly["mlp"][k], True))
-           for k in ("wi", "wo", "wg") if k in first["mlp"]}
-    mlp.update({k: stack(lambda ly, k=k: n(ly["mlp"][k]))
-                for k in ("bi", "bo") if k in first["mlp"]})
-    out["layers"] = {
-        "attn": attn, "mlp": mlp,
-        "ln1": {k: stack(lambda ly, k=k: n(ly["ln1"][k])) for k in first["ln1"]},
-        "ln2": {k: stack(lambda ly, k=k: n(ly["ln2"][k])) for k in first["ln2"]},
-    }
-    return out
+def reference_shapes(cfg: TransformerConfig):
+    """The shapes of the reference's ``init`` tree for ``cfg`` (its
+    ``jax.eval_shape``), from this package's init on the meta device mapped
+    through :func:`_reference_layout`: nothing is allocated."""
+    return map_params(lambda t: tuple(t.shape), _reference_layout(_init_tree(None, cfg), cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +558,25 @@ def _qkv(h, attn_p, cfg: TransformerConfig, rope=None):
     return q, k, v
 
 
+@functools.lru_cache(maxsize=16)
+def _alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """ALiBi's per-head slopes (Press et al.), f32: the reference's formula,
+    including its interleave for head counts that are not a power of 2.
+    Built once a device (its copy to the card is the only host sync) and
+    shared by every caller, which only reads it."""
+
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        slopes = pow2_slopes(n_heads)
+    else:
+        closest = 2 ** math.floor(math.log2(n_heads))
+        slopes = pow2_slopes(closest) + pow2_slopes(2 * closest)[0::2][: n_heads - closest]
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
 _SPARSITY_CONFIGS = {
     "dense": sc.DenseSparsityConfig,
     "fixed": sc.FixedSparsityConfig,
@@ -559,11 +611,13 @@ def _attention(q, k, v, cfg: TransformerConfig, window=None, per_layer_window: b
     whole segment, and rides the flash kernel's band; a per-layer window
     (``per_layer_window``: GPT-Neo's alternation, which the reference's
     layer scan carries as a traced scalar) takes the masked einsum path,
-    as it does there."""
+    as it does there. ALiBi adds its bias on the masked path, which it
+    never leaves."""
     B, S, nh, hd = q.shape
     if window is not None and not per_layer_window and (window <= 0 or window >= S):
         window = None
-    if cfg.attn_impl == "pallas" and (window is None or (not per_layer_window and cfg.causal)):
+    if (cfg.attn_impl == "pallas" and cfg.pos_embedding != "alibi"
+            and (window is None or (not per_layer_window and cfg.causal))):
         return flash_attention(q, k, v, causal=cfg.causal, sm_scale=cfg.attn_scale,
                                window=window)
     nkv = k.shape[2]
@@ -576,6 +630,10 @@ def _attention(q, k, v, cfg: TransformerConfig, window=None, per_layer_window: b
                                       sm_scale=cfg.attn_scale)
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if cfg.pos_embedding == "alibi":
+        pos = torch.arange(S, device=q.device, dtype=torch.float32)
+        rel = pos[None, :] - pos[:, None]  # (q, k): negative into the past
+        logits = logits + _alibi_slopes(nh, q.device)[None, :, None, None] * rel[None, None]
     mask = None
     if cfg.causal:
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
@@ -609,19 +667,58 @@ def _embed(params, cfg: TransformerConfig, tokens):
     return F.embedding(tokens, params["embed"]["tok"]).to(cfg.torch_dtype)
 
 
+def _embed_norm(x, params, cfg: TransformerConfig):
+    """The LayerNorm over the summed embeddings (BLOOM), where the config
+    has one."""
+    if not cfg.embed_norm:
+        return x
+    en = params["embed_norm"]
+    return _norm(x, en["scale"], en.get("bias"), cfg)
+
+
+def _final_norm(x, params, cfg: TransformerConfig):
+    """The final norm of a pre-LN stack; a post-LN stack ends normalized."""
+    if cfg.norm_position != "pre":
+        return x
+    return _norm(x, params["final_norm"]["scale"], params["final_norm"].get("bias"), cfg)
+
+
+def _residual(x, h, attn_out, layer_p, cfg: TransformerConfig):
+    """The residual topology and MLP of a layer, after its attention
+    (``h`` the attention's input): pre-LN (GPT-2, Llama), post-LN (OPT with
+    ``do_layer_norm_before=False``) or the parallel residual x + attn(h) +
+    mlp(ln2 x), or mlp(h) with the shared LN (GPT-NeoX, GPT-J)."""
+    mlp_p, ln1, ln2 = layer_p["mlp"], layer_p["ln1"], layer_p["ln2"]
+    if cfg.parallel_residual:
+        h2 = h if cfg.shared_ln else _norm(x, ln2["scale"], ln2.get("bias"), cfg)
+        return x + attn_out + _mlp_block(h2, mlp_p, cfg)
+    if cfg.norm_position == "pre":
+        x = x + attn_out
+        return x + _mlp_block(_norm(x, ln2["scale"], ln2.get("bias"), cfg), mlp_p, cfg)
+    x = _norm(x + attn_out, ln1["scale"], ln1.get("bias"), cfg)
+    return _norm(x + _mlp_block(x, mlp_p, cfg), ln2["scale"], ln2.get("bias"), cfg)
+
+
+def _attn_input(x, layer_p, cfg: TransformerConfig):
+    """The attention's input: ln1 of x (pre-LN and parallel residual), or x
+    itself (post-LN)."""
+    if cfg.norm_position != "pre":
+        return x
+    ln1 = layer_p["ln1"]
+    return _norm(x, ln1["scale"], ln1.get("bias"), cfg)
+
+
 def _layer_body(x, layer_p, cfg: TransformerConfig, rope=None, window=None,
                 per_layer_window: bool = False):
-    """One pre-LN decoder layer over a whole sequence (no cache); ``rope``
-    the forward's rotary table, ``window`` as :func:`_attention` takes it."""
+    """One decoder layer over a whole sequence (no cache); ``rope`` the
+    forward's rotary table, ``window`` as :func:`_attention` takes it."""
     B, S, _ = x.shape
-    attn_p, ln1, ln2 = layer_p["attn"], layer_p["ln1"], layer_p["ln2"]
-    h = _norm(x, ln1["scale"], ln1.get("bias"), cfg)
+    attn_p = layer_p["attn"]
+    h = _attn_input(x, layer_p, cfg)
     q, k, v = _qkv(h, attn_p, cfg, rope)
     attn_out = _attention(q, k, v, cfg, window, per_layer_window).reshape(
         B, S, cfg.num_heads * cfg.head_dim)
-    x = x + _linear(attn_out, attn_p["wo"], attn_p.get("bo"))
-    h = _norm(x, ln2["scale"], ln2.get("bias"), cfg)
-    return x + _mlp_block(h, layer_p["mlp"], cfg)
+    return _residual(x, h, _linear(attn_out, attn_p["wo"], attn_p.get("bo")), layer_p, cfg)
 
 
 def forward(params, cfg: TransformerConfig, tokens):
@@ -633,14 +730,14 @@ def forward(params, cfg: TransformerConfig, tokens):
     x = _embed(params, cfg, tokens)
     if cfg.pos_embedding == "learned":
         x = x + params["embed"]["pos"][:S].to(cfg.torch_dtype)
+    x = _embed_norm(x, params, cfg)
     rope = _rope_table(cfg, torch.arange(S, device=tokens.device)[None, :])
     # the reference's layer scan carries per-layer windows as traced
     # scalars, which keeps them on the masked path
     windows = cfg.local_attn_windows or (None,) * cfg.num_layers
     for layer_p, w in zip(params["layers"], windows):
         x = _layer_body(x, layer_p, cfg, rope, w, cfg.varying_windows)
-    x = _norm(x, params["final_norm"]["scale"], params["final_norm"].get("bias"), cfg)
-    return _vocab_head(x, params, cfg)
+    return _vocab_head(_final_norm(x, params, cfg), params, cfg)
 
 
 def _vocab_head(x, params, cfg: TransformerConfig):
@@ -685,9 +782,14 @@ def _ce_from_logits(logits, batch, tokens, denom=None):
 def check_trainable(cfg: TransformerConfig) -> None:
     """Raise for the training features outside the training slice."""
     check_supported(cfg)
+    variant = "item 10's training half"
     checks = [
         (cfg.pos_embedding == "rope",
          "training with rope (Llama training: item 7's training half, after \"Perf\" 8)"),
+        (cfg.pos_embedding == "alibi", f"training with ALiBi ({variant})"),
+        (cfg.embed_norm, f"training with embed_norm ({variant})"),
+        (cfg.norm_position != "pre", f"training post-LN ({variant})"),
+        (cfg.parallel_residual, f"training the parallel residual ({variant})"),
         (cfg.local_attn_windows is not None,
          "training with local_attn_windows (item 7's training half, after \"Perf\" 8)"),
         (cfg.dropout > 0.0, f"dropout={cfg.dropout}"),
@@ -772,8 +874,8 @@ def _layer_body_cached(x, layer_p, k_cache, v_cache, cfg: TransformerConfig, pos
     v_cache).
     """
     B, S, _ = x.shape
-    attn_p, ln1 = layer_p["attn"], layer_p["ln1"]
-    h = _norm(x, ln1["scale"], ln1.get("bias"), cfg)
+    attn_p = layer_p["attn"]
+    h = _attn_input(x, layer_p, cfg)
     q, k, v = _qkv(h, attn_p, cfg, rope)
 
     # PREFILL fast path: pos is the literal int 0 only for a prefill, where
@@ -801,20 +903,15 @@ def _layer_body_cached(x, layer_p, k_cache, v_cache, cfg: TransformerConfig, pos
                 "rolling KV cache: a multi-token segment longer than the ring must take the "
                 f"flash prefill path (S={S}, cache={cache_T}); a segment read through the "
                 "ring would see its own evictions")
+        slopes = (_alibi_slopes(cfg.num_heads, q.device) if cfg.pos_embedding == "alibi"
+                  else None)
         attn_out = softmax_context(q, k_cache, v_cache, pos, scale=cfg.attn_scale,
-                                   positions=positions, local_window=window, ring=ring,
+                                   positions=positions, alibi_slopes=slopes,
+                                   local_window=window, ring=ring,
                                    read_len=None if ring else read_len)
     attn_out = _linear(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim),
                        attn_p["wo"], attn_p.get("bo"))
-    return _finish_layer_cached(x, h, attn_out, layer_p, cfg, k_cache, v_cache)
-
-
-def _finish_layer_cached(x, h, attn_out, layer_p, cfg: TransformerConfig, k_cache, v_cache):
-    """Residual + MLP tail of a cached layer (pre-LN)."""
-    ln2 = layer_p["ln2"]
-    x = x + attn_out
-    h = _norm(x, ln2["scale"], ln2.get("bias"), cfg)
-    return x + _mlp_block(h, layer_p["mlp"], cfg), k_cache, v_cache
+    return _residual(x, h, attn_out, layer_p, cfg), k_cache, v_cache
 
 
 def forward_with_cache(params, cfg: TransformerConfig, tokens, cache, pos, positions=None,
@@ -845,6 +942,7 @@ def forward_with_cache(params, cfg: TransformerConfig, tokens, cache, pos, posit
         clamped = positions.clamp(max=pos_table.shape[0] - 1)
         # aligned rows share row 0's positions, as in the reference
         x = x + (pos_table[clamped] if vector_pos else pos_table[clamped[0]])
+    x = _embed_norm(x, params, cfg)
     rope = _rope_table(cfg, positions if vector_pos else positions[:1])
     # as forward(): a uniform window stays a static int (the flash band
     # prefill and the ring rely on it); per-layer windows ride the
@@ -859,8 +957,7 @@ def forward_with_cache(params, cfg: TransformerConfig, tokens, cache, pos, posit
                                      per_layer_window=varying)
     if last_only:
         x = x[:, -1:]
-    x = _norm(x, params["final_norm"]["scale"], params["final_norm"].get("bias"), cfg)
-    return _vocab_head(x, params, cfg), cache
+    return _vocab_head(_final_norm(x, params, cfg), params, cfg), cache
 
 
 class TransformerModel:

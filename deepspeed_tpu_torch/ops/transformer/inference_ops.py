@@ -11,7 +11,8 @@ as they are plain jnp code outside any Pallas kernel in the reference; a
 hand-written decode-attention kernel is later work. The int8 cache's
 dequantize is plain PyTorch too, so on the card it writes a model-dtype copy
 of the slice it reads (the reference's fuses into its attention read).
-ALiBi is not ported (ROADMAP.md Queue 1 item 10).
+ALiBi's bias (BLOOM) is added to the logits of the cached read, as the
+reference adds it.
 
 Unlike the reference's pure functions, the cache write updates the cache
 tensors in place (no second copy of a cache that can hold gigabytes) and
@@ -25,7 +26,6 @@ import torch
 
 from deepspeed_tpu_torch.ops.quantizer import div_exact
 from deepspeed_tpu_torch.ops.transformer.fused_ops import fused_softmax
-from deepspeed_tpu_torch.utils import not_ported
 
 
 def _is_scalar(pos) -> bool:
@@ -222,8 +222,9 @@ def softmax_context(q, k_cache, v_cache, pos, scale: Optional[float] = None,
     the aligned path and a window. ``read_len`` (int): attend only cache
     slots [0, read_len), the tight-read geometry; the caller guarantees
     every attended position is below it, so the result equals the
-    full-length read. ``alibi_slopes`` is the reference's ALiBi bias, not
-    ported (ROADMAP.md Queue 1 item 10).
+    full-length read. ``alibi_slopes`` (nh,) f32 adds ALiBi's bias, slope
+    times (key position - query position), on both ``positions`` paths (not
+    with the ring, as in the reference).
     """
     B, S, nh, hd = q.shape
     if ring:
@@ -235,8 +236,6 @@ def softmax_context(q, k_cache, v_cache, pos, scale: Optional[float] = None,
             raise ValueError("the ring cache requires a sliding window (local_window)")
         if read_len is not None:
             raise ValueError("tight reads do not apply to the rolling (ring) cache")
-    if alibi_slopes is not None:
-        raise not_ported("ALiBi (alibi_slopes)")
     if read_len is not None:
         k_cache = slice_kv_time(k_cache, read_len)
         v_cache = slice_kv_time(v_cache, read_len)
@@ -262,9 +261,15 @@ def softmax_context(q, k_cache, v_cache, pos, scale: Optional[float] = None,
         mask = (kpos <= pos)[None, None]
     elif _is_scalar(pos):
         qpos = positions[0][:, None]  # (S, 1): absolute positions of the new tokens
+        if alibi_slopes is not None:
+            rel = kpos.float() - qpos.float()  # (S, T)
+            logits = logits + alibi_slopes[None, :, None, None] * rel[None, None]
         mask = (kpos <= qpos)[None, None]
     else:
         qpos = positions[:, :, None]  # (B, S, 1) per-row positions
+        if alibi_slopes is not None:
+            rel = kpos[None].float() - qpos.float()  # (B, S, T)
+            logits = logits + alibi_slopes[None, :, None, None] * rel[:, None]
         mask = (kpos[None] <= qpos)[:, None]  # (B, 1, S, T)
     if local_window is not None and qpos is not None and local_window > 0:
         local_ok = kpos > qpos - local_window

@@ -7,7 +7,9 @@ modes), dispatched where a host sync raises; the serving layer and the fleet
 over card engines: ticks with the telemetry hub, and fleet ticks with the
 health probe and the ops server on their threads, dispatched where a host
 sync raises; a recovery rebuild, and a replica kill with migration, that
-finish every request.
+finish every request; ALiBi's cached reads and a BLOOM-shaped pool's ticks
+dispatched where a host sync raises; and the HF checkpoint reader
+(``module_inject.load_checkpoint``) on tensors written from the card.
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -48,6 +50,7 @@ and one cast: bit for bit.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1273,3 +1276,121 @@ def test_per_token_loop_migrating_twice_dispatches_without_a_host_sync():
         torch.cuda.set_sync_debug_mode(0)
     assert walk == [32, 64]
     assert torch.equal(got, want)
+
+
+def test_alibi_reads_dispatch_without_a_host_sync():
+    """ALiBi's cached reads never wait on the card: the aligned and the
+    vector-position read of ``softmax_context`` (the slopes built before),
+    then a BLOOM-shaped pool's two ticks (ALiBi, the embedding LayerNorm),
+    under ``torch.cuda.set_sync_debug_mode("error")``; the reads equal the
+    same calls on the CPU within 1e-5 (f32, summation order), and the pool's
+    results the same requests served before."""
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.ops.transformer import inference_ops as tops
+
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    B, S, T, nh, nkv, hd = 2, 3, 64, 6, 2, 32
+    q = torch.randn(B, S, nh, hd, generator=g, device="cuda")
+    kc = torch.randn(B, T, nkv, hd, generator=g, device="cuda")
+    vc = torch.randn(B, T, nkv, hd, generator=g, device="cuda")
+    slopes = ttf._alibi_slopes(nh, q.device)
+    pos = torch.tensor([5, 40], device="cuda")
+    vector = (pos, pos[:, None] + torch.arange(S, device="cuda")[None])
+    aligned = (17, (17 + torch.arange(S, device="cuda"))[None].expand(B, S))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [tops.softmax_context(q, kc, vc, p, positions=positions, alibi_slopes=slopes)
+                for p, positions in (vector, aligned)]
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for out, (p, positions) in zip(outs, (vector, aligned)):
+        want = tops.softmax_context(q.cpu(), kc.cpu(), vc.cpu(),
+                                    p.cpu() if torch.is_tensor(p) else p,
+                                    positions=positions.cpu(), alibi_slopes=slopes.cpu())
+        assert (out.cpu() - want).abs().max().item() <= 1e-5
+
+    cfg = ttf.TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=4,
+                                max_seq_len=128, dtype="bfloat16", pos_embedding="alibi",
+                                embed_norm=True)
+    eng = ContinuousBatchingEngine(ttf.TransformerModel(cfg), max_slots=4, cache_len=96,
+                                   pipeline_depth=8, prefill_chunk=32)
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 256, (n,)).astype(np.int32) for n in (20, 7, 33)]
+    for p in prompts:
+        eng.submit(p, max_new_tokens=9)
+    while eng.has_work():
+        eng.step()
+    want = eng.finished()
+    rids = [eng.submit(p, max_new_tokens=9) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            eng.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(eng._inflight) == 2 and not eng.poisoned
+    while eng.has_work():
+        eng.step()
+    got = eng.finished()
+    for r, w in zip(rids, sorted(want)):
+        np.testing.assert_array_equal(got[r], want[w])
+
+
+def test_safetensors_reader_gives_the_same_tensors_on_the_card(tmp_path):
+    """Tensors written from the card by ``chip_smoke.write_safetensors``
+    (the card's machine has no safetensors package) read back through
+    ``module_inject.load_checkpoint`` bit for bit, every dtype, onto the
+    card; and a tiny Llama engine's weights written as HF shards load back
+    through ``init_inference(dir)`` to the same greedy stream."""
+    import chip_smoke
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.module_inject import export
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as tload
+
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tensors = {
+        "bf16": torch.randn(64, 48, generator=g, device="cuda").to(torch.bfloat16),
+        "f32": torch.randn(3, 5, 7, generator=g, device="cuda"),
+        "f16": torch.randn(11, generator=g, device="cuda").half(),
+        "u8": torch.arange(3, dtype=torch.uint8, device="cuda"),  # unaligns the next one
+        "bf16_after": torch.randn(9, generator=g, device="cuda").to(torch.bfloat16),
+        "i64": torch.arange(-4, 4, device="cuda"),
+        "bool": torch.tensor([True, False], device="cuda"),
+        "empty": torch.zeros(0, 3, device="cuda"),
+    }
+    path = str(tmp_path / "t.safetensors")
+    chip_smoke.write_safetensors(path, tensors)
+    got = tload.load_file(path)
+    assert got.keys() == tensors.keys()
+    for k, t in tensors.items():
+        back = got[k].cuda()
+        assert back.dtype == t.dtype and back.shape == t.shape and torch.equal(back, t), k
+
+    cfg = ttf.TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=4,
+                                num_kv_heads=2, ffn_hidden_size=256, max_seq_len=128,
+                                dtype="bfloat16", pos_embedding="rope", norm_type="rmsnorm",
+                                activation="silu_glu", use_bias=False, tie_embeddings=False,
+                                attn_impl="pallas")
+    eng = deepspeed_tpu_torch.init_inference(ttf.TransformerModel(cfg),
+                                             config={"dtype": "bfloat16"})
+    hf_config = {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+                 "vocab_size": 256, "hidden_size": 128, "num_hidden_layers": 2,
+                 "num_attention_heads": 4, "num_key_value_heads": 2, "intermediate_size": 256,
+                 "max_position_embeddings": 128, "rms_norm_eps": 1e-5,
+                 "tie_word_embeddings": False}
+    d = str(tmp_path / "llama")
+    os.makedirs(d)
+    chip_smoke.write_hf_shards(d, export.export_hf_state_dict(eng.params, cfg, "llama"),
+                               hf_config)
+    loaded = deepspeed_tpu_torch.init_inference(d, config={"dtype": "bfloat16"})
+    assert loaded.cfg == eng.cfg
+    toks = torch.randint(0, 256, (2, 32), device="cuda", generator=g)
+    assert torch.equal(loaded.generate(toks, max_new_tokens=8),
+                       eng.generate(toks, max_new_tokens=8))

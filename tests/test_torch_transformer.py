@@ -206,8 +206,8 @@ def test_kv_read_bytes_match_reference():
 
 
 @pytest.mark.parametrize("over", [
-    dict(pos_embedding="alibi"), dict(moe_num_experts=4),
-    dict(norm_position="post"), dict(parallel_residual=True),
+    dict(causal=False), dict(moe_num_experts=4),
+    dict(type_vocab_size=2), dict(activation="quick_gelu"),
     dict(attn_impl="block_sparse", causal=False),
     dict(attn_impl="block_sparse", local_attn_windows=(8, 8)),
     dict(attn_impl="block_sparse", pos_embedding="alibi"),
