@@ -71,6 +71,14 @@ backward):
     engine against the xla engine in f32 at 2 layers, one f32 step at 2
     layers on the card against the same step on the CPU (the model's norms
     through K7/K8 against their plain versions), then a profiled breakdown;
+  - training resumed (``--train-resume`` runs these phases alone): the same
+    GPT-2 125M saved, loaded and resumed, sync and async, bit for bit against
+    an uninterrupted run, torn and corrupt tags refused, two SDC probes of
+    one batch equal (``train_resume``); then a ``TrainSupervisor`` run under
+    a plan of a dispatch error, a torn write, a preemption, a fetch hang and
+    a flipped gradient bit, its loss stream bit for bit the fault-free
+    run's (``train_supervised``); both write their tags under
+    ``checkpoint_dir_root()`` and remove them;
   - block-sparse training, the same entry points on GPT-2 125M at full
     width and depth, seq 4096, micro-batch 2, bf16, the fixed sparsity
     layout: 2 warm-up and 10 timed steps, a model-level check of the
@@ -288,6 +296,18 @@ NORM_TAGS = {
     "fused_norm_fwd_wide_bf16": "fused_norm_fwd_wide_kernelI13__nv_bfloat16S1_E",
     "fused_norm_bwd_wide_bf16": "fused_norm_bwd_wide_kernelI13__nv_bfloat16S1_E",
     "fused_norm_colsum": "fused_norm_colsum_kernel",
+}
+
+# the training path's config: the JAX package's GPT-2 125M bench config
+# (_bench_impl.py:1017-1036 _gpt2_model / _gpt2_config(8))
+TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": 8,
+    "gradient_accumulation_steps": 1,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+    "bf16": {"enabled": True},
+    "zero_optimization": {"stage": 0},
+    "steps_per_print": 1000000,
+    "mesh": {"data": -1},
 }
 
 failures = []
@@ -3687,6 +3707,321 @@ def hf_families_phase(gen, card):
     return total
 
 
+def rss_bytes():
+    """This process's resident set now (VmRSS), in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return None
+
+
+def state_leaves(engine):
+    """Every leaf of the engine's checkpoint state tree, by key (on the card)."""
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import tree_items
+
+    return dict(tree_items(engine._state_tree()))
+
+
+def unequal_leaves(a, b):
+    """Keys of the leaves that differ in any bit between two engines."""
+    la, lb = state_leaves(a), state_leaves(b)
+    if sorted(la) != sorted(lb):
+        return ["<the trees differ in keys>"]
+    return [k for k in la if not torch.equal(la[k], lb[k])]
+
+
+def tag_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def train_resume_phase(gen, card):
+    """``train_resume``: the ``train`` phase's GPT-2 125M (full width and
+    depth, B8 S1024, bf16, flash attention, AdamW) saved, loaded and resumed.
+    Run A trains 6 steps; run B trains 3, saves (sync), and a fresh engine
+    with other weights loads the tag and trains 3 more; then the same with
+    ``async_save`` (the saving engine takes one more step while its writer
+    runs, then fences). Both resumed streams and every leaf of the state
+    tree after step 6 (params, masters, moments, accumulators, loss scale)
+    must equal run A's bit for bit. Then a markerless newest tag is refused
+    with fallback to the one before, a flipped byte in a leaf file is refused
+    by the manifest, and two SDC probes of one batch agree. K1-K3 launch 12
+    and K7/K8 25 times a step (an SDC probe is a step's forward and
+    backward). The tags are written under ``checkpoint_dir_root()`` and
+    removed at the end."""
+    import shutil
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import integrity
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import torch_checkpoint_engine as tce
+
+    t_phase = time.perf_counter()
+    root = os.path.join(checkpoint_dir_root(), f"train_resume_{os.getpid()}")
+    model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="pallas")
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    batches = [{"input_ids": torch.randint(0, V, (8, 1024), generator=gen, device="cuda")}
+               for _ in range(6)]
+
+    def engine(seed, async_save=False):
+        config = dict(TRAIN_CONFIG, checkpoint={"async_save": async_save})
+        return deepspeed_tpu_torch.initialize(model=model, config=config, seed=seed)[0]
+
+    def train(e, steps):
+        return [e.train_batch(iter([batches[e.global_steps]])).item() for _ in range(steps)]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    verify_s = []
+    real_verify = integrity.verify_leaves
+
+    def timed_verify(*args):
+        out, s = timed(lambda: real_verify(*args))
+        verify_s.append(s)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss0, peak0 = rss_bytes(), host_peak_rss_bytes()
+    op_builder.reset_launch_counts()
+    integrity.verify_leaves = timed_verify
+    try:
+        run_a = engine(0)
+        losses_a = train(run_a, 6)
+        # sync: tags at steps 2 and 3
+        run_b = engine(0)
+        sync_dir = os.path.join(root, "sync")
+        losses_b = train(run_b, 2)
+        run_b.save_checkpoint(sync_dir)
+        losses_b += train(run_b, 1)
+        _, sync_save_s = timed(lambda: run_b.save_checkpoint(sync_dir))
+        tag = os.path.join(sync_dir, "global_step3")
+        del run_b
+        resumed = engine(1)
+        (path, _), load_s = timed(lambda: resumed.load_checkpoint(sync_dir))
+        load_verify_s = verify_s[-1]
+        check(path == tag, f"train_resume: loaded {path}, expected {tag}")
+        losses_b += train(resumed, 3)
+        sync_bad = unequal_leaves(resumed, run_a)
+        check(losses_b == losses_a and not sync_bad,
+              f"train_resume (sync): losses {losses_b} vs {losses_a}, "
+              f"{len(sync_bad)} leaves differ: {sync_bad[:3]}")
+        del resumed
+        # async: the next step runs while the writer writes
+        run_d = engine(0, async_save=True)
+        async_dir = os.path.join(root, "async")
+        losses_d = train(run_d, 3)
+        _, async_blocked_s = timed(lambda: run_d.save_checkpoint(async_dir))
+        _, step_during_write_s = timed(lambda: train(run_d, 1))
+        _, fence_s = timed(run_d.checkpoint_engine.wait)
+        del run_d
+        resumed = engine(1, async_save=True)
+        resumed.load_checkpoint(async_dir)
+        losses_d += train(resumed, 3)
+        async_bad = unequal_leaves(resumed, run_a)
+        check(losses_d == losses_a and not async_bad,
+              f"train_resume (async): losses {losses_d} vs {losses_a}, "
+              f"{len(async_bad)} leaves differ: {async_bad[:3]}")
+        # a markerless newest tag falls back to the one before
+        os.remove(os.path.join(tag, integrity.COMMIT_MARKER))
+        path, _ = resumed.load_checkpoint(sync_dir)
+        check(path.endswith("global_step2") and resumed.global_steps == 2,
+              f"train_resume: a markerless global_step3 loaded {path} at step "
+              f"{resumed.global_steps}, expected global_step2")
+        # one flipped byte in one leaf file
+        adir = os.path.join(sync_dir, "global_step2", tce.ARRAYS_DIR)
+        with open(os.path.join(adir, tce.INDEX_FILE)) as fh:
+            leaf_file = os.path.join(adir, json.load(fh)[f"['params']['layers'][{L // 2}]['mlp']['wi']"]["file"])
+        with open(leaf_file, "r+b") as fh:
+            fh.seek(12345)
+            byte = fh.read(1)
+            fh.seek(12345)
+            fh.write(bytes([byte[0] ^ 0x10]))
+        try:
+            resumed.load_checkpoint(sync_dir, tag="global_step2")
+            refused = None
+        except integrity.TornCheckpointError as exc:
+            refused = str(exc)
+        check(refused is not None and "checksum mismatch" in refused,
+              f"train_resume: a flipped byte was not refused by the manifest ({refused})")
+        # two SDC probes of one batch
+        digests = [run_a.sdc_probe(batches[0]) for _ in range(2)]
+        check(digests[0] == digests[1], f"train_resume: SDC probes disagree: {digests}")
+        torch.cuda.synchronize()
+        counts = op_builder.launch_counts()
+        steps = 6 + 3 + 3 + 3 + 1 + 3 + 2  # A, B, resumed, D, D's step mid-write, resumed, probes
+        for kname in KERNELS:
+            check(counts[kname] == L * steps,
+                  f"train_resume: {kname} launched {counts[kname]} times, expected {L} x {steps}")
+        for kname in NORM_KERNELS:
+            check(counts[kname] == (2 * L + 1) * steps,
+                  f"train_resume: {kname} launched {counts[kname]} times, expected "
+                  f"{2 * L + 1} x {steps}")
+        nbytes = tag_bytes(os.path.join(sync_dir, "global_step2"))
+        peak1 = host_peak_rss_bytes()
+        emit({"phase": "train_resume", "model": "gpt2-125m", "batch": 8, "seq": 1024,
+              "layers": L, "dtype": "bfloat16", "losses": losses_a,
+              "resume_bitwise": {"sync": losses_b == losses_a and not sync_bad,
+                                 "async": losses_d == losses_a and not async_bad},
+              "leaves": len(state_leaves(run_a)), "tag_bytes": nbytes,
+              "sync_save_s": sync_save_s, "async_save_blocked_s": async_blocked_s,
+              "async_step_during_write_s": step_during_write_s, "async_fence_s": fence_s,
+              "load_s": load_s, "load_verify_s": load_verify_s,
+              "markerless_fallback": path, "flipped_byte_refused": refused is not None,
+              "sdc_digests": digests,
+              "host_rss_bytes": {"before": rss0, "after": rss_bytes()},
+              "host_peak_rss_bytes": {"before": peak0, "after": peak1},
+              "host_peak_rss_rise_bytes": {k: (peak1[k] - peak0[k]) if peak0[k] else None
+                                           for k in peak0},
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "launches": {k: counts[k] for k in KERNELS + NORM_KERNELS}, "steps": steps,
+              "phase_s": time.perf_counter() - t_phase, "card": card})
+    finally:
+        integrity.verify_leaves = real_verify
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_supervised_phase(gen, card):
+    """``train_supervised``: a ``TrainSupervisor`` run of 10 steps of the
+    ``train`` phase's GPT-2 125M over a ``TpuDataLoader`` of seeded random
+    tokens, host snapshots every 2 steps and committed tags on disk, the
+    telemetry hub on, under a plan of a ``micro_dispatch`` error (step 3), a
+    torn ``checkpoint_write`` (4), a preemption (5, restored from disk past
+    the torn tag), a ``step_fetch`` hang with ``fetch_timeout_s`` set (7,
+    rebuilt from memory) and a ``grad_bitflip`` (9, bit 30) with the sentinel
+    armed (rewound). The loss stream must equal the fault-free run's bit for
+    bit. Prints ``recovery_stats()`` and each rung's milliseconds from the
+    trace."""
+    import shutil
+
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import faults
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.runtime.dataloader import TpuDataLoader
+    from deepspeed_tpu_torch.runtime.resilience import TrainSupervisor
+    from deepspeed_tpu_torch.telemetry import Telemetry, TelemetryConfig, read_trace
+
+    t_phase = time.perf_counter()
+    root = os.path.join(checkpoint_dir_root(), f"train_supervised_{os.getpid()}")
+    model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="pallas")
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    rs = np.random.RandomState(int(torch.randint(0, 2 ** 31, (1,), generator=gen, device="cuda")))
+    rows = [{"input_ids": rs.randint(0, V, 1024).astype(np.int32)} for _ in range(96)]
+    trace = os.path.join(root, "trace.jsonl")
+    os.makedirs(root, exist_ok=True)
+    hubs = []
+
+    def factory():
+        e = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG, seed=0)[0]
+        if not hubs:  # the supervisor adopts the first engine's hub
+            hubs.append(Telemetry(TelemetryConfig(enabled=True, trace_file=trace), role="train"))
+            e.telemetry = hubs[0]
+        return e
+
+    def loader():
+        return TpuDataLoader(rows, batch_size=8, seed=0)
+
+    steps = 10
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    op_builder.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        ref = TrainSupervisor(lambda: deepspeed_tpu_torch.initialize(
+            model=model, config=TRAIN_CONFIG, seed=0)[0], loader()).run(steps)
+        fault_free_s = time.perf_counter() - t0
+        plan = faults.TrainFaultPlan([
+            faults.TrainFault(tick=3, kind="dispatch_error"),
+            faults.TrainFault(tick=4, kind="torn_write"),
+            faults.TrainFault(tick=5, kind="preempt"),
+            faults.TrainFault(tick=7, kind="fetch_hang"),
+            faults.TrainFault(tick=9, kind="grad_bitflip", leaf=f"layers.{L // 2}.mlp.wi", bit=30)])
+        inj = faults.TrainFaultInjector(plan)
+        sup = TrainSupervisor(factory, loader(), fault_hook=inj, recovery={
+            "snapshot_every_n_steps": 2, "snapshot_dir": os.path.join(root, "tags"),
+            "fetch_timeout_s": 30.0, "backoff_s": 0.0,
+            "numeric_sentinel": {"min_history": 4}})
+        t0 = time.perf_counter()
+        losses = sup.run(steps)
+        chaos_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = op_builder.launch_counts()
+        stats = sup.recovery_stats()
+        hubs[0]._writer.close()
+        events = list(read_trace(trace))
+        rung_ms = {
+            "retry": [e["dur_ms"] for e in events if e.get("span") == "train_retry"],
+            "rebuild": [{"source": e["source"], "recovery_ms": e["recovery_ms"]}
+                        for e in events if e.get("event") == "rebuild"],
+            "rewind": [e["rewind_ms"] for e in events if e.get("event") == "rewind"],
+            "snapshot": [{"step": e["step"], "checkpoint_ms": e["checkpoint_ms"],
+                          "committed": e["committed"]}
+                         for e in events if e.get("event") == "snapshot"],
+        }
+        check(losses == ref, f"train_supervised: chaos stream {losses} vs fault-free {ref}")
+        check(inj.pending() == 0 and [f["kind"] for f in inj.fired] == [
+            "dispatch_error", "torn_write", "preempt", "fetch_hang", "grad_bitflip"],
+              f"train_supervised: fired {[f['kind'] for f in inj.fired]}")
+        check(stats["retries"] == 1 and stats["rebuilds"] == 2 and stats["torn_writes"] == 1
+              and stats["rewinds"] == 1 and stats["quarantines"] == 0,
+              f"train_supervised: recovery_stats {stats}")
+        check([r["source"] for r in rung_ms["rebuild"]] == ["disk", "memory"],
+              f"train_supervised: rebuilds {rung_ms['rebuild']}")
+        # one forward and backward a step computed: the fault-free run's 10;
+        # the chaos run's 1-4, 3-6 replayed after the preemption, 7 (its fetch
+        # hangs), 7-8 replayed, 9 (rewound), 9-10 replayed (the injected
+        # dispatch error raises before its forward)
+        step_runs = steps + 4 + 4 + 1 + 2 + 1 + 2
+        for kname in KERNELS + NORM_KERNELS:
+            per = L if kname in KERNELS else 2 * L + 1
+            check(counts[kname] == per * step_runs,
+                  f"train_supervised: {kname} launched {counts[kname]} times, expected "
+                  f"{per} x {step_runs} steps")
+        emit({"phase": "train_supervised", "model": "gpt2-125m", "batch": 8, "seq": 1024,
+              "layers": L, "steps": steps, "losses": losses, "equal_fault_free": losses == ref,
+              "plan": [f.to_dict() for f in plan], "fired": [f["kind"] for f in inj.fired],
+              "recovery_stats": stats, "rung_ms": rung_ms,
+              "fault_free_run_s": fault_free_s, "chaos_run_s": chaos_s,
+              "steps_run_incl_replays": step_runs,
+              "launches": {k: counts[k] for k in KERNELS + NORM_KERNELS},
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+              "phase_s": time.perf_counter() - t_phase, "card": card})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_resume_main():
+    """``python3 chip_smoke.py --train-resume``: the ``train_resume`` and
+    ``train_supervised`` phases alone (no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, fnorm.KERNEL_LIB])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    train_resume_phase(gen, card)
+    train_supervised_phase(gen, card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def smi_card():
     """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4364,16 +4699,7 @@ def main():
 
     # ---- the training path: GPT-2 125M, seq 1024, micro-batch 8, bf16, flash
     # attention, no remat, with the JAX package's bench config
-    # (_bench_impl.py:1017-1036 _gpt2_model / _gpt2_config(8))
-    train_config = {
-        "train_micro_batch_size_per_gpu": 8,
-        "gradient_accumulation_steps": 1,
-        "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
-        "bf16": {"enabled": True},
-        "zero_optimization": {"stage": 0},
-        "steps_per_print": 1000000,
-        "mesh": {"data": -1},
-    }
+    train_config = TRAIN_CONFIG
     model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="pallas")
     engine = deepspeed_tpu_torch.initialize(model=model, config=train_config)[0]
     tcfg = engine.model.cfg
@@ -4604,6 +4930,12 @@ def main():
     del engine
     torch.cuda.empty_cache()
 
+    # ---- the training path resumed: save, load and resume bit for bit (sync
+    # and async), torn and corrupt tags refused, the SDC probe; then the
+    # TrainSupervisor under a chaos plan against the fault-free stream
+    resume_counts = train_resume_phase(gen, card)
+    supervised_counts = train_supervised_phase(gen, card)
+
     # ---- the block-sparse training path: GPT-2 125M at seq 4096, micro-batch
     # 2, bf16, no remat, the JAX package's long_ctx bench shape
     # (_bench_impl.py:277-296 bench_long_ctx) with the attention switched to
@@ -4770,6 +5102,8 @@ def main():
                    "serve_layer": layer_counts.get(kname, 0),
                    "serve_fleet": fleet_counts.get(kname, 0),
                    "train": train_counts.get(kname, 0),
+                   "train_resume": resume_counts.get(kname, 0),
+                   "train_supervised": supervised_counts.get(kname, 0),
                    "train_sparse": sparse_counts.get(kname, 0),
                    "fused_ops": fused_counts.get(kname, 0),
                    "llama_serve": llama_counts.get(kname, 0),
@@ -4856,5 +5190,6 @@ def main():
 if __name__ == "__main__":
     ENTRIES = {("--decode-step",): decode_step_main, ("--serve-pool",): serve_pool_main,
                ("--spec",): spec_main, ("--serve-layer",): serve_layer_main,
-               ("--fleet",): serve_fleet_main, ("--llama",): llama_main, ("--hf",): hf_main}
+               ("--fleet",): serve_fleet_main, ("--llama",): llama_main, ("--hf",): hf_main,
+               ("--train-resume",): train_resume_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

@@ -27,8 +27,9 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
     JSON path. ``params`` is the reference's numpy tree or this package's
     own, else the weights come from ``seed`` (default: the config's
     ``seed``). Runs on ``cuda`` unless ``device="cpu"``. Returns
-    ``(engine, optimizer, training_dataloader, lr_scheduler)``; the data
-    loader is not ported, so the third is always None."""
+    ``(engine, optimizer, training_dataloader, lr_scheduler)``: the third
+    is a ``TpuDataLoader`` over ``training_data`` (batched by
+    ``collate_fn``), or None without it."""
     from deepspeed_tpu_torch.runtime.config import TpuConfig
     from deepspeed_tpu_torch.runtime.engine import TpuEngine
     from deepspeed_tpu_torch.utils import not_ported
@@ -41,11 +42,10 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
         raise ValueError("provide config= (dict or path to JSON)")
     if model is None or loss_fn is not None or model_parameters is not None:
         raise not_ported("initialize(loss_fn=..., model_parameters=...) without a TransformerModel")
-    if training_data is not None or collate_fn is not None:
-        raise not_ported("initialize(training_data=...): the data loader")
     engine = TpuEngine(model, TpuConfig(config), params=params, optimizer=optimizer,
-                       lr_scheduler=lr_scheduler, device=device, seed=seed)
-    return engine, engine.optimizer, None, engine.lr_scheduler
+                       lr_scheduler=lr_scheduler, device=device, seed=seed,
+                       training_data=training_data, collate_fn=collate_fn)
+    return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
 __all__ = ["__version__", "init_inference", "initialize"]

@@ -1,37 +1,65 @@
 """Deterministic fault injection (counterpart of ``deepspeed_tpu/faults.py``):
-the shared plan and injector machinery and the serving domain.
+the shared plan and injector machinery, the serving domain and the train
+domain.
 
 A tick dispatch can raise, a device fetch can hang, a whole engine can
-vanish mid-generation. This module makes those failures *expressible and
-replayable*, so that the serving layer's recovery (serving/engine.py
-"Fault tolerance") is tested to the same bitwise bar as every other
-change:
+vanish mid-generation — or mid-step. This module makes those failures
+*expressible and replayable*, so that both recovery layers (serving/engine.py
+"Fault tolerance", runtime/resilience.py TrainSupervisor) are tested to the
+same bitwise bar as every other change:
 
 - a **fault plan** is a seeded, deterministic schedule of faults keyed on
-  the global serving tick, replayable JSONL like the loadgen workloads
+  a monotonically increasing clock (the global serving tick, or the global
+  optimizer step), replayable JSONL like the loadgen workloads
   (``dump``/``load`` round-trip, ``synth`` for seeded random plans), byte
   for byte the reference's;
-- an **injector** is the plan, armed: installed as the batching engine's
+- an **injector** is the plan, armed: installed as an engine's
   ``fault_hook`` (an explicit injection point the engine calls, no
-  monkeypatching), it raises the planned exception when its tick comes
-  up.
+  monkeypatching), it raises the planned exception when its clock value
+  comes up.
 
-Hook points are ``dispatch`` / ``retire`` / ``set_row``
-(:data:`HOOK_POINTS`); the injector counts serving ticks itself. The
-exception taxonomy the recovery ladder decides by:
-:class:`TickDispatchError` (raised before any engine mutation:
-retryable), :class:`FetchHang` (poisons the tick pipeline: rebuild),
-:class:`EnginePreempted` (whole-engine loss: rebuild).
+Two domains instantiate the machinery:
 
-The reference's train domain (``TrainFault*``, ``plan_bitflip``,
-``flip_float_bit``, the poison helpers) comes with the training
-supervisor (ROADMAP Queue 1 item 11 (b)). stdlib only.
+=======  =========================================  =======================
+domain   hook points                                clock
+=======  =========================================  =======================
+serving  ``dispatch`` / ``retire`` / ``set_row``    serving ticks, counted
+         (:data:`HOOK_POINTS`)                      by the injector itself
+train    ``micro_dispatch`` / ``step_fetch`` /      global optimizer step,
+         ``checkpoint_write`` / ``preempt``         read from ``info``
+         (:data:`TRAIN_HOOK_POINTS`)
+=======  =========================================  =======================
+
+The exception taxonomies the recovery ladders decide by:
+
+- serving: :class:`TickDispatchError` (raised before any engine mutation:
+  retryable), :class:`FetchHang` (poisons the tick pipeline: rebuild),
+  :class:`EnginePreempted` (whole-engine loss: rebuild).
+- train (``runtime/engine.py`` + ``runtime/resilience.py``):
+  :class:`MicroDispatchError` (raised at the top of a micro-step, before
+  anything mutates: cleanly retryable), :class:`StepFetchHang` (the step
+  metrics' fetch hung past the watchdog: rebuild from a snapshot),
+  :class:`TornCheckpointWrite` (the commit marker was never placed: the tag
+  is torn and refused at load), :class:`TrainPreempted` (process loss:
+  resume from the last committed tag on disk).
+
+The train domain also carries **numeric fault kinds**
+(:data:`TRAIN_NUMERIC_KINDS`: ``grad_bitflip`` / ``nan_loss`` /
+``data_poison``), silent corruption: the injector hands the fired record
+back to the hook site, which applies the mutation, and only the
+``NumericSentinel`` (runtime/numerics.py) can catch it. ``synth`` draws
+from the exception kinds only (:attr:`TrainFault.SYNTH_KINDS`).
+
+stdlib + numpy (the corruption helpers work on host numpy arrays, bit for
+bit the reference's).
 """
 
 import json
 import random
 from dataclasses import dataclass, field
 from typing import ClassVar, Dict, FrozenSet, List, Optional, Tuple
+
+import numpy as np
 
 # ---------------------------------------------------------------------------
 # exception taxonomy — serving
@@ -304,3 +332,185 @@ class FaultInjector(PlannedFaultInjector):
     EXCEPTIONS = {"dispatch_error": TickDispatchError,
                   "fetch_hang": FetchHang}
     PREEMPT_EXCEPTION = EnginePreempted
+
+
+# ---------------------------------------------------------------------------
+# exception taxonomy — train
+# ---------------------------------------------------------------------------
+
+
+class MicroDispatchError(InjectedFault):
+    """A transient micro-step dispatch failure raised at the
+    ``micro_dispatch`` hook, BEFORE the engine mutated anything — the
+    cleanly retryable train fault class (same batch: a retried micro-step
+    is bitwise the micro-step)."""
+
+
+class StepFetchHang(InjectedFault, TimeoutError):
+    """The optimizer-step metrics fetch (grad-norm / overflow flag) hung
+    past ``fetch_timeout_s``: the in-flight step's host view is
+    unrecoverable and the engine is poisoned — rebuild from the last
+    committed snapshot."""
+
+
+class TornCheckpointWrite(InjectedFault):
+    """The process died (or the writer failed) between the array commit
+    and the commit-marker placement: the tag on disk is torn/markerless
+    and ``load_checkpoint`` must refuse it."""
+
+
+class TrainPreempted(InjectedFault):
+    """Whole-process preemption mid-training: host snapshot buffers are
+    lost with the process, so resume restores the last *committed* tag
+    from disk. ``degrade`` signals the replacement is smaller (the
+    degrade ladder needs elasticity and more than one device: ROADMAP
+    Queue 1 items 8 and 12)."""
+
+    def __init__(self, message: str, fault: Optional[dict] = None,
+                 degrade: bool = False):
+        super().__init__(message, fault)
+        self.degrade = degrade
+
+
+# ---------------------------------------------------------------------------
+# train domain (consumed by runtime/engine.py + runtime/resilience.py)
+# ---------------------------------------------------------------------------
+
+# fault kind -> the train-engine hook point it fires at by default
+TRAIN_FAULT_KINDS: Dict[str, str] = {
+    "dispatch_error": "micro_dispatch",  # before anything mutates
+    "fetch_hang": "step_fetch",          # at the step metrics' fetch
+    "torn_write": "checkpoint_write",    # between array commit and marker
+    "preempt": "preempt",                # process loss, between steps
+    # numeric (silent-corruption) kinds — mutations, not exceptions
+    "grad_bitflip": "micro_dispatch",    # flip one bit in a grad-acc leaf
+    "nan_loss": "micro_dispatch",        # NaN the micro batch / loss
+    "data_poison": "micro_dispatch",     # scale the micro batch to garbage
+}
+TRAIN_HOOK_POINTS = ("micro_dispatch", "step_fetch", "checkpoint_write",
+                     "preempt")
+# the silent-corruption subset: injected as value mutations on the happy
+# path (the injector returns the fired record instead of raising)
+TRAIN_NUMERIC_KINDS: FrozenSet[str] = frozenset(
+    {"grad_bitflip", "nan_loss", "data_poison"})
+
+#: default scale for ``data_poison`` when the plan leaves ``factor`` unset
+DEFAULT_POISON_FACTOR = 1000.0
+
+
+@dataclass
+class TrainFault(PlannedFault):
+    """One planned train fault, keyed on the global optimizer step (the
+    fault becomes due once the engine's ``global_steps``-derived step
+    index reaches ``tick``; JSONL spells the field ``step``).
+
+    The numeric kinds carry optional targeting fields; their zero values
+    mean "derive deterministically from the plan step" (see
+    :func:`plan_bitflip`) so a bare ``{"step": 7, "kind": "grad_bitflip"}``
+    record replays identically everywhere."""
+
+    leaf: str = ""       # grad_bitflip: dotted grad-leaf path ("" = seeded)
+    bit: int = -1        # grad_bitflip: fp32 bit index 0..31 (-1 = seeded)
+    factor: float = 0.0  # data_poison: scale (0.0 = DEFAULT_POISON_FACTOR)
+
+    KINDS: ClassVar[Dict[str, str]] = TRAIN_FAULT_KINDS
+    POINTS: ClassVar[Tuple[str, ...]] = TRAIN_HOOK_POINTS
+    TICK_KEY: ClassVar[str] = "step"
+    EXTRA_FIELDS: ClassVar[Tuple[str, ...]] = ("leaf", "bit", "factor")
+    SYNTH_KINDS: ClassVar[Tuple[str, ...]] = (
+        "dispatch_error", "fetch_hang", "torn_write", "preempt")
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not -1 <= self.bit <= 31:
+            raise ValueError("grad_bitflip bit must be in [-1, 31] "
+                             f"(got {self.bit})")
+
+    @property
+    def step(self) -> int:
+        return self.tick
+
+
+class TrainFaultPlan(PlannedFaultSchedule):
+    """An ordered, replayable schedule of :class:`TrainFault` entries."""
+
+    fault_cls = TrainFault
+
+
+class TrainFaultInjector(PlannedFaultInjector):
+    """The train plan, armed as ``TpuEngine.fault_hook`` (the supervisor
+    re-installs it on every rebuilt engine). The clock is the global
+    optimizer step the hook site reports in ``info["step"]`` — it
+    survives rebuilds because a restored engine resumes the counter, and
+    a fault that fired during a replayed step does not re-fire
+    (``fired`` lives in the plan, not the engine)."""
+
+    tick_info_key = "step"
+    tick_label = "global step"
+    EXCEPTIONS = {"dispatch_error": MicroDispatchError,
+                  "fetch_hang": StepFetchHang,
+                  "torn_write": TornCheckpointWrite}
+    PREEMPT_EXCEPTION = TrainPreempted
+    MUTATION_KINDS = TRAIN_NUMERIC_KINDS
+
+
+# ---------------------------------------------------------------------------
+# numeric corruption helpers (host numpy, seeded by plan step)
+# ---------------------------------------------------------------------------
+
+
+def plan_bitflip(step: int, sizes: Dict[str, int], leaf: str = "",
+                 bit: int = -1) -> Tuple[str, int, int]:
+    """Resolve a ``grad_bitflip`` record's target deterministically.
+
+    ``sizes`` maps grad-leaf path -> element count. Unset plan fields
+    derive from the plan step — leaf by round-robin over the sorted
+    paths, bit from the exponent/high-mantissa byte (23..30, where a
+    flip is large enough to surface), element by a Knuth-hash stride —
+    so a bare record replays onto the same (leaf, element, bit) triple
+    on every run. Returns ``(leaf_path, element_index, bit_index)``."""
+    if not sizes:
+        raise ValueError("plan_bitflip: no grad leaves to target")
+    names = sorted(sizes)
+    name = leaf if leaf else names[step % len(names)]
+    if name not in sizes:
+        raise KeyError(f"plan_bitflip: unknown grad leaf {name!r} "
+                       f"(choose from {names})")
+    b = bit if bit >= 0 else 23 + (step % 8)
+    elem = (step * 2654435761) % max(int(sizes[name]), 1)
+    return name, elem, b
+
+
+def flip_float_bit(arr, elem: int, bit: int):
+    """A copy of float32 ``arr`` with bit ``bit`` (0=LSB mantissa …
+    30=MSB exponent, 31=sign) of flat element ``elem`` flipped — the
+    classic SDC: one wrong bit in an accumulator, nothing raises."""
+    a = np.ascontiguousarray(arr, dtype=np.float32)
+    flat = a.reshape(-1).copy()
+    words = flat.view(np.uint32)
+    words[elem % flat.size] ^= np.uint32(1) << np.uint32(bit % 32)
+    return flat.reshape(a.shape)
+
+
+def poison_array(arr, factor: float = DEFAULT_POISON_FACTOR):
+    """Deterministically corrupt one batch leaf: float leaves scale by
+    ``factor`` (garbage magnitudes, still finite — the loss spikes but
+    no inf check trips); integer leaves (token ids / targets) are
+    scrambled in-range by an affine permutation so embedding lookups
+    stay legal but the content is wrong."""
+    a = np.asarray(arr)
+    if np.issubdtype(a.dtype, np.floating):
+        return a * np.asarray(factor, dtype=a.dtype)
+    if np.issubdtype(a.dtype, np.integer) and a.size:
+        hi = max(int(a.max()) + 1, 1)
+        return ((a.astype(np.int64) * 31 + 7) % hi).astype(a.dtype)
+    return a
+
+
+def nan_poison_array(arr):
+    """Float leaves become all-NaN (the loss and every grad touching the
+    leaf follow); non-float leaves pass through unchanged."""
+    a = np.asarray(arr)
+    if np.issubdtype(a.dtype, np.floating):
+        return np.full_like(a, np.nan)
+    return a

@@ -9,7 +9,9 @@ reads: ``train_batch_size``, ``train_micro_batch_size_per_gpu``,
 ``fp16``, ``gradient_clipping``, ``prescale_gradients`` /
 ``gradient_predivide_factor``, ``zero_optimization.stage`` 0
 (``runtime/zero/config.py``), ``steps_per_print``, ``wall_clock_breakdown``
-(the engine's timers), ``seed`` and ``mesh`` (one device only). Any other key
+(the engine's timers), ``seed``, ``mesh`` (one device only) and ``checkpoint``
+(``async_save``, ``integrity_manifest``; ``use_ocdbt`` only when false, since
+the port has no Orbax layout). Any other key
 set away from its default (a block switched on, a ZeRO stage above 0, a mesh
 axis above 1) raises ``NotImplementedError`` naming ROADMAP.md, so that no
 config silently takes a path the port does not have.
@@ -78,8 +80,10 @@ _READ = {
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, C.GRADIENT_ACCUMULATION_STEPS,
     C.STEPS_PER_PRINT, C.GRADIENT_CLIPPING, C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR,
     C.WALL_CLOCK_BREAKDOWN, "seed", "fp16", "bf16", "bfloat16", "optimizer", "scheduler",
-    "zero_optimization", "mesh",
+    "zero_optimization", "mesh", "checkpoint",
 }
+# the checkpoint block's keys (the reference's engine.py:520-524, :1758)
+_CHECKPOINT_KEYS = {"async_save", "integrity_manifest", "use_ocdbt"}
 
 
 def _is_off(value) -> bool:
@@ -130,6 +134,13 @@ class TpuConfig:
         self.zero_config = zero_config_from_dict(g("zero_optimization", {}))
         self.mesh = from_dict(MeshConfig, g("mesh", {}))
         self._check_mesh()
+        self.checkpoint = dict(g("checkpoint", None) or {})
+        for key, value in self.checkpoint.items():
+            if key not in _CHECKPOINT_KEYS and not _is_off(value):
+                raise not_ported(f"config key 'checkpoint.{key}'")
+        if self.checkpoint.get("use_ocdbt", False):
+            raise not_ported("checkpoint.use_ocdbt (Orbax's OCDBT layout: the port writes "
+                             "one file per leaf)")
         self._resolve_batch_sizes()
 
     def _check_mesh(self):

@@ -19,27 +19,54 @@ when the precision is bf16/fp16. It runs on CUDA unless ``device="cpu"`` is
 passed; without CUDA and without that argument it raises. It updates its
 buffers in place where the reference's programs donate theirs.
 
+Checkpoints (the reference's engine.py:1693-1929): ``save_checkpoint`` writes
+the state tree (params, the loss scale, the gradient accumulators, the f32
+masters and Adam's state) through ``checkpoint_engine/`` with a checksum
+manifest and a commit marker; ``load_checkpoint`` walks the tags newest
+first past torn ones. A load, a host snapshot's restore and the reference
+bridge (:func:`state_from_reference_snapshot`) copy into the engine's own
+tensors, which ``_param_leaves``, ``_base_leaves``, ``grad_acc`` and the
+moments alias. The fault and health seams that ``runtime/resilience.py``
+drives (engine.py:1109-1197, :1287-1321, :1495-1557): ``fault_hook``,
+``poisoned``, ``fetch_timeout_s``, the numeric faults, ``step_health_scalars``,
+``discard_accumulated_grads`` and ``sdc_probe``. ``deepspeed_io`` wraps a
+dataset in ``runtime/dataloader.TpuDataLoader``.
+
 Outside this slice (each raises ``NotImplementedError`` naming ROADMAP.md):
-ZeRO stages above 0 and offload, meshes larger than one device, pipeline
-and hybrid engines, telemetry, progressive layer drop and random-LTD,
-optimizers other than Adam/AdamW, client optimizers, data loaders and
-checkpoints.
+ZeRO stages above 0 and offload (and so ZeRO-sharded and universal
+checkpoints), meshes larger than one device, pipeline and hybrid engines,
+the engine's per-step telemetry, progressive layer drop and random-LTD,
+optimizers other than Adam/AdamW and client optimizers.
 """
 
-from typing import NamedTuple, Optional
+import os
+import time
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import faults as _faults
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.models import transformer as tf
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.checkpoint_engine import integrity as ckpt_integrity
+from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import (
+    AsyncTorchCheckpointEngine,
+    TorchCheckpointEngine,
+    named_host_leaves,
+    tree_items,
+    tree_map_with_keys,
+)
 from deepspeed_tpu_torch.runtime.config import TpuConfig
-from deepspeed_tpu_torch.runtime.fp16.loss_scaler import create_loss_scaler
+from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader, TpuDataLoader
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScaleState, create_loss_scaler
 from deepspeed_tpu_torch.runtime.lr_schedules import create_lr_scheduler
+from deepspeed_tpu_torch.runtime.numerics import crc_digest
+from deepspeed_tpu_torch.telemetry.telemetry import Telemetry
 from deepspeed_tpu_torch.utils import not_ported
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import EngineTimers, ThroughputTimer
 
 
@@ -47,6 +74,15 @@ class StepMetrics(NamedTuple):
     grad_norm: torch.Tensor
     overflow: torch.Tensor
     loss_scale: torch.Tensor
+
+
+class OptStateTree(NamedTuple):
+    """Adam's state as it stands in the checkpoint tree: the reference's
+    ``AdamState`` fields, the moments shaped as the param tree."""
+
+    step: torch.Tensor  # i32 scalar
+    exp_avg: Any
+    exp_avg_sq: Any
 
 
 _OTHER_OPTIMIZERS = (C.LAMB_OPTIMIZER, C.SGD_OPTIMIZER, C.ADAGRAD_OPTIMIZER, C.LION_OPTIMIZER,
@@ -81,13 +117,26 @@ def _leaves(tree):
     return [tree]
 
 
+def _leaf_names(tree, prefix=""):
+    """Dotted paths of a param tree's leaves, in :func:`_leaves` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in _leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, list):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
 def _is_numpy_tree(tree) -> bool:
     return not torch.is_tensor(tree["embed"]["tok"])
 
 
+def _host_numpy(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
 class TpuEngine:
     def __init__(self, model, config: TpuConfig, params=None, optimizer=None, lr_scheduler=None,
-                 device=None, seed: Optional[int] = None):
+                 device=None, seed: Optional[int] = None, training_data=None, collate_fn=None):
         self.config = config
         self.device = get_accelerator().resolve_device(device)
         if isinstance(model, tf.TransformerConfig):
@@ -128,6 +177,11 @@ class TpuEngine:
             self.params = tf.map_params(lambda p: p.requires_grad_(True), master)
         self._param_leaves = _leaves(self.params)
         self._base_leaves = _leaves(master)  # what the optimizer updates (f32)
+        self._leaf_names = _leaf_names(self.params)
+        # the engine's own random stream, for the draws a step will make
+        # (dropout is not ported yet: no step draws from it so far)
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(int(seed))
 
         # --- optimizer
         if optimizer is None and config.optimizer is not None:
@@ -159,6 +213,35 @@ class TpuEngine:
         self._last_metrics: Optional[StepMetrics] = None
         self._pending_loss = None  # the last forward's loss, with its graph
 
+        # --- dataloader
+        self.training_dataloader = None
+        self._train_iter = None  # train_batch()'s own pass over it
+        if training_data is not None:
+            self.training_dataloader = self.deepspeed_io(training_data, collate_fn=collate_fn)
+
+        # --- checkpoint engine (config checkpoint.async_save selects the
+        # non-blocking engine)
+        ckpt = config.checkpoint
+        engine_cls = (AsyncTorchCheckpointEngine if ckpt.get("async_save", False)
+                      else TorchCheckpointEngine)
+        self.checkpoint_engine = engine_cls(use_ocdbt=ckpt.get("use_ocdbt", False))
+
+        # --- telemetry hub: off; the TrainSupervisor adopts it and re-injects
+        # it into every rebuilt engine (the engine's own per-step events are
+        # ROADMAP Queue 1 item 11 (b))
+        self.telemetry = Telemetry(role="train")
+
+        # --- fault surface: the TrainSupervisor installs an injector as
+        # fault_hook and arms the step-fetch watchdog; both stay inert for
+        # plain training. poisoned flips when a failure lands PAST a
+        # mutation barrier (grad_acc or params already written): the
+        # supervisor must rebuild from the last committed snapshot.
+        self.fault_hook = None          # callable(point, info) or None
+        self.fetch_timeout_s = None     # step-fetch watchdog seconds; None = off
+        self.poisoned = False
+        self._pending_bitflip = None    # fired numeric-fault record or None
+        self._force_nan_loss = False    # nan_loss on a batch of token ids only
+
         self.timers = EngineTimers(enable=config.wall_clock_breakdown)
         self.tput_timer = ThroughputTimer(batch_size=self.train_batch_size,
                                           steps_per_output=config.steps_per_print)
@@ -182,12 +265,48 @@ class TpuEngine:
         return {k: put(v) for k, v in batch.items()}
 
     # ------------------------------------------------------------------
+    # data plumbing
+    # ------------------------------------------------------------------
+    def deepspeed_io(self, dataset, batch_size=None, collate_fn=None, num_local_io_workers=None,
+                     route=None):
+        """A :class:`TpuDataLoader` over ``dataset``, micro-batches of the
+        config's size, shuffled by the config's seed (one process: no
+        striding)."""
+        return TpuDataLoader(dataset, batch_size=batch_size or self.train_micro_batch_size_per_gpu,
+                             collate_fn=collate_fn, seed=self.config.seed)
+
+    # ------------------------------------------------------------------
     # train loop surface (forward / backward / step)
     # ------------------------------------------------------------------
     def forward(self, batch, rng=None):
         """The micro-batch's loss (f32, detached); its graph stays with the
         engine for :meth:`backward`. ``rng`` is the reference's dropout key:
         dropout is not ported, so it is accepted and unused."""
+        if self.fault_hook is not None:
+            # fires BEFORE anything mutates: an injected micro_dispatch
+            # fault leaves the engine exactly as it was, so the
+            # supervisor's retry of the same batch is bitwise the
+            # micro-step that would have run. Numeric kinds come back as a
+            # directive record instead of raising: the values get
+            # corrupted and the step keeps running (the sentinel's problem)
+            directive = self.fault_hook("micro_dispatch", {"step": self.global_steps + 1,
+                                                           "micro": self.micro_steps})
+            if directive is not None:
+                batch = self._apply_numeric_fault(directive, batch)
+        try:
+            loss = self._forward_body(batch)
+        except BaseException:
+            # past the dispatch barrier: poison so recovery rebuilds, never retries
+            self.poisoned = True
+            raise
+        if self._force_nan_loss:
+            # nan_loss on a batch with no float leaves (token ids): the
+            # reported loss is corrupted instead of the data
+            self._force_nan_loss = False
+            loss = torch.full_like(loss, float("nan"))
+        return loss
+
+    def _forward_body(self, batch):
         self.timers(EngineTimers.FORWARD).start()
         self.tput_timer.start()
         loss = self.model.loss(self.params, self._to_device(batch)).float()
@@ -196,6 +315,43 @@ class TpuEngine:
         return loss.detach()
 
     __call__ = forward
+
+    def _apply_numeric_fault(self, record: dict, batch):
+        """Apply a numeric-fault directive the injector handed back
+        (``faults.TRAIN_NUMERIC_KINDS``). ``data_poison`` / ``nan_loss``
+        corrupt the batch on the host; ``grad_bitflip`` waits for the
+        accumulation boundary (:meth:`step`), where the accumulators hold
+        the whole step's gradient."""
+        kind = record.get("kind")
+        if kind == "data_poison":
+            factor = float(record.get("factor") or 0.0) or _faults.DEFAULT_POISON_FACTOR
+            return {k: _faults.poison_array(_host_numpy(v), factor) for k, v in batch.items()}
+        if kind == "nan_loss":
+            host = {k: _host_numpy(v) for k, v in batch.items()}
+            if any(np.issubdtype(a.dtype, np.floating) for a in host.values()):
+                return {k: _faults.nan_poison_array(a) for k, a in host.items()}
+            self._force_nan_loss = True
+            return batch
+        if kind == "grad_bitflip":
+            self._pending_bitflip = record
+        return batch
+
+    @torch.no_grad()
+    def _apply_grad_bitflip(self, record: dict):
+        """Flip one bit of one accumulated-gradient element (an injected
+        SDC). The (leaf, element, bit) target resolves deterministically
+        from the plan record (``faults.plan_bitflip``) over the param
+        tree's dotted leaf paths, and the record is annotated with the
+        resolved target for the injector's fired log. One leaf's host round
+        trip: fault path only."""
+        step = int(record.get("step", self.global_steps + 1))
+        sizes = {name: g.numel() for name, g in zip(self._leaf_names, self.grad_acc)}
+        name, elem, bit = _faults.plan_bitflip(step, sizes, str(record.get("leaf", "") or ""),
+                                               int(record.get("bit", -1)))
+        target = self.grad_acc[self._leaf_names.index(name)]
+        target.copy_(torch.from_numpy(_faults.flip_float_bit(_host_numpy(target), elem, bit)))
+        record["leaf"], record["bit"] = name, bit
+        record.setdefault("elem", elem)
 
     def eval_batch(self, batch, rng=None):
         with torch.no_grad():
@@ -209,13 +365,18 @@ class TpuEngine:
             raise RuntimeError("backward() needs a forward() first")
         self.timers(EngineTimers.BACKWARD).start()
         pending, self._pending_loss = self._pending_loss, None
-        (pending * self.scale_state.scale).backward()
-        with torch.no_grad():
-            for acc, p in zip(self.grad_acc, self._param_leaves):
-                if p.grad is not None:
-                    acc.add_(p.grad if self.predivide == 1.0
-                             else p.grad.float() / self.predivide)
-                    p.grad = None
+        try:
+            (pending * self.scale_state.scale).backward()
+            with torch.no_grad():
+                for acc, p in zip(self.grad_acc, self._param_leaves):
+                    if p.grad is not None:
+                        acc.add_(p.grad if self.predivide == 1.0
+                                 else p.grad.float() / self.predivide)
+                        p.grad = None
+        except BaseException:
+            # the accumulators may hold part of this micro-step
+            self.poisoned = True
+            raise
         self.micro_steps += 1
         self.global_samples += self.train_micro_batch_size_per_gpu
         self.timers(EngineTimers.BACKWARD).stop()
@@ -228,11 +389,44 @@ class TpuEngine:
         if not self.is_gradient_accumulation_boundary():
             self.tput_timer.stop(global_step=False)
             return
+        if self._pending_bitflip is not None:
+            # the deferred grad_bitflip lands now, after every micro-step
+            # accumulated and before the update reads the accumulators
+            record, self._pending_bitflip = self._pending_bitflip, None
+            self._apply_grad_bitflip(record)
+        try:
+            self._step_body()
+        except BaseException:
+            # the update writes params, masters, moments and accumulators
+            # in place: any failure inside the step body (a hung or
+            # injected step_fetch included) leaves them unaccounted for
+            self.poisoned = True
+            raise
+
+    def _guarded_fetch(self, metrics: StepMetrics):
+        """The step metrics' host fetch, under the ``step_fetch`` fault hook
+        and the post-hoc ``fetch_timeout_s`` watchdog (time the blocking
+        fetch, raise TimeoutError when it overran: the step's host view is
+        then untrustworthy and :meth:`step` poisons the engine)."""
+        if self.fault_hook is not None:
+            self.fault_hook("step_fetch", {"step": self.global_steps + 1})
+        if self.fetch_timeout_s is None:
+            return
+        t0 = time.perf_counter()
+        metrics.grad_norm.item()
+        dt = time.perf_counter() - t0
+        if dt > self.fetch_timeout_s:
+            raise TimeoutError(
+                f"step {self.global_steps + 1} metrics fetch took {dt:.3f}s "
+                f"> fetch_timeout_s={self.fetch_timeout_s}")
+
+    def _step_body(self):
         if self.optimizer is None:
             raise RuntimeError("step() requires an optimizer (config or client-provided)")
         self.timers(EngineTimers.STEP).start()
         metrics = self._apply(self.get_lr_value())
         self._last_metrics = metrics
+        self._guarded_fetch(metrics)
         self.global_steps += 1
         if self.fp16_enabled and bool(metrics.overflow):
             # dynamic scaling reads the overflow flag (a host sync, as the
@@ -273,9 +467,16 @@ class TpuEngine:
         torch._foreach_zero_(grads)
         return StepMetrics(grad_norm=gnorm, overflow=overflow, loss_scale=scale)
 
-    def train_batch(self, data_iter):
-        """Full accumulation cycle over ``data_iter``; the mean of its
-        micro-batch losses."""
+    def train_batch(self, data_iter=None):
+        """Full accumulation cycle over ``data_iter`` (by default the
+        engine's ``training_dataloader``, read on from where the last call
+        left it, epoch after epoch); the mean of its micro-batch losses."""
+        if data_iter is None:
+            if self.training_dataloader is None:
+                raise ValueError("train_batch() needs data_iter= or initialize(training_data=...)")
+            if self._train_iter is None:
+                self._train_iter = RepeatingLoader(self.training_dataloader)
+            data_iter = self._train_iter
         losses = []
         for _ in range(self.gradient_accumulation_steps):
             loss = self.forward(next(data_iter))
@@ -307,8 +508,277 @@ class TpuEngine:
     def zero_optimization_stage(self) -> int:
         return self.zero_stage
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise not_ported("checkpoints (save_checkpoint)")
+    # ------------------------------------------------------------------
+    # numerical health: the three engine seams the NumericSentinel /
+    # TrainSupervisor pair drives
+    # ------------------------------------------------------------------
+    def step_health_scalars(self) -> Optional[dict]:
+        """The per-step host scalars the sentinel consumes, from the last
+        step's metrics."""
+        m = self._last_metrics
+        if m is None:
+            return None
+        return {"grad_norm": float(m.grad_norm), "overflow": bool(m.overflow),
+                "loss_scale": float(m.loss_scale)}
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise not_ported("checkpoints (load_checkpoint)")
+    @torch.no_grad()
+    def discard_accumulated_grads(self):
+        """Zero the accumulated gradients WITHOUT applying them — the
+        supervisor's quarantine rung. Params, optimizer state, loss scale
+        and step counters are untouched, so the next step proceeds exactly
+        as if the flagged batch had been excluded from the stream."""
+        self._pending_bitflip = None
+        self._force_nan_loss = False
+        self._pending_loss = None
+        torch._foreach_zero_(self.grad_acc)
+
+    def sdc_probe(self, batch, rng_seed: int = 0) -> int:
+        """One sentinel micro-step, out of band: the loss of ``batch`` and
+        its gradients into throwaway tensors (``torch.autograd.grad``), so
+        ``grad_acc``, the counters and the engine's generator are untouched,
+        then a CRC-32 of the gradient bytes as :meth:`backward` would add
+        them. Two probes of one batch give the same digest where a step is
+        a deterministic function of its inputs. ``rng_seed`` is the
+        reference's dropout key: nothing draws from it yet."""
+        loss = self.model.loss(self.params, self._to_device(batch)).float()
+        grads = torch.autograd.grad(loss * self.scale_state.scale, self._param_leaves,
+                                    allow_unused=True)
+        return crc_digest(
+            (torch.zeros(p.shape) if g is None else g.float() / self.predivide).cpu().numpy()
+            for p, g in zip(self._param_leaves, grads))
+
+    # ------------------------------------------------------------------
+    # checkpointing (reference: engine.py:1693-1929)
+    # ------------------------------------------------------------------
+    def _like_params(self, flat):
+        """A flat list in ``_leaves`` order, shaped as the param tree."""
+        it = iter(flat)
+        return tf.map_params(lambda _: next(it), self.params)
+
+    def _state_tree(self):
+        tree = {"params": self.params, "scale_state": self.scale_state,
+                "grad_acc": self._like_params(self.grad_acc)}
+        if self.master_params is not None:
+            tree["master_params"] = self.master_params
+        if self.opt_state is not None:
+            tree["opt_state"] = OptStateTree(
+                step=torch.tensor(self.opt_state.step, dtype=torch.int32, device=self.device),
+                exp_avg=self._like_params(self.opt_state.exp_avg),
+                exp_avg_sq=self._like_params(self.opt_state.exp_avg_sq))
+        return tree
+
+    def _host_state_tree(self):
+        """A host copy of the state tree (CPU tensors of their own): the
+        engine writes its buffers in place, so what is saved or kept must
+        not alias them."""
+        return tree_map_with_keys(lambda _, t: t.detach().to("cpu", copy=True),
+                                  self._state_tree())
+
+    def _checkpoint_meta(self, client_state=None) -> dict:
+        return {
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "lr_scheduler": self.lr_scheduler.state_dict() if self.lr_scheduler else None,
+            "client_state": client_state or {},
+            "zero_stage": self.zero_stage,
+            "dtype": str(self.model_dtype).removeprefix("torch."),
+        }
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None, save_latest=True,
+                        state_tree=None, manifest=None):
+        """Write tag ``global_step<N>`` under ``save_dir``; ``latest`` names
+        it once it is durable. The state is copied to the host before this
+        returns, async or not. ``state_tree``/``manifest`` let the
+        TrainSupervisor commit an already-captured host snapshot without a
+        second copy; plain callers leave both None."""
+        tag = tag if tag is not None else f"global_step{self.global_steps}"
+        meta = self._checkpoint_meta(client_state)
+        tree = state_tree if state_tree is not None else self._host_state_tree()
+        if manifest is None and self.config.checkpoint.get("integrity_manifest", True):
+            # built from the host copies, on the writer's thread when async
+            manifest = ckpt_integrity.manifest_from_leaves
+        pre_commit = None
+        if self.fault_hook is not None:
+            hook, step = self.fault_hook, self.global_steps
+
+            def pre_commit():
+                # the torn-write injection window: arrays/metadata/manifest
+                # are durable, the commit marker is not yet placed
+                hook("checkpoint_write", {"step": step, "tag": tag})
+
+        self.checkpoint_engine.save(os.path.join(save_dir, tag), tree, meta,
+                                    manifest=manifest, pre_commit=pre_commit)
+        if save_latest:
+
+            def _write_latest():
+                # runs at commit time ('latest' must only ever name durable
+                # checkpoints; async saves defer this to their fence) and is
+                # atomic: a reader sees the old pointer or the new
+                os.makedirs(save_dir, exist_ok=True)
+                tmp = os.path.join(save_dir, f".latest.tmp.{os.getpid()}")
+                with open(tmp, "w") as fh:
+                    fh.write(tag)
+                os.replace(tmp, os.path.join(save_dir, "latest"))
+
+            self.checkpoint_engine.on_commit(_write_latest)
+        log_dist(f"saved checkpoint {save_dir}/{tag}", ranks=[0])
+        return True
+
+    def _ckpt_refused(self, tag, reason):
+        logger.warning(f"refusing checkpoint tag {tag!r}: {reason}")
+        if self.telemetry.enabled:
+            self.telemetry.emit("train_fault", {"event": "ckpt_refused", "tag": str(tag),
+                                                "reason": str(reason)})
+
+    def load_checkpoint(self, load_dir, tag=None, load_optimizer_states=True,
+                        load_lr_scheduler_states=True, verify_integrity=True):
+        """Restore ``tag``, or else what ``latest`` names and then every
+        ``global_step<N>`` tag newest first, refusing torn ones; raises
+        ``TornCheckpointError`` when none is restorable. Returns
+        ``(path, client_state)``, or ``(None, {})`` without ``latest``."""
+        explicit = tag is not None
+        if tag is None:
+            latest = os.path.join(load_dir, "latest")
+            if not os.path.exists(latest):
+                logger.warning(f"no 'latest' file at {load_dir}; nothing loaded")
+                return None, {}
+            with open(latest) as fh:
+                tag = fh.read().strip()
+        candidates = [tag]
+        if not explicit:
+            # resume from the newest restorable state, not just what
+            # 'latest' names: scan every global_step tag newest-first (torn
+            # ones are refused and the walk falls back), keeping the latest
+            # pointer as the lead candidate when it names a foreign tag
+            scanned = [t for _s, t, _c in ckpt_integrity.scan_tags(load_dir)]
+            candidates = scanned if tag in scanned else [tag] + scanned
+        restored = meta = None
+        errors = []
+        for cand in candidates:
+            path = os.path.join(load_dir, cand)
+            try:
+                restored, meta = self.checkpoint_engine.load(
+                    path, self._state_tree(), verify_integrity=verify_integrity)
+                tag = cand
+                break
+            except ckpt_integrity.TornCheckpointError as e:
+                self._ckpt_refused(cand, str(e))
+                errors.append(f"{cand}: {e}")
+        if restored is None:
+            raise ckpt_integrity.TornCheckpointError(
+                f"no committed checkpoint restorable from {load_dir} "
+                f"(refused: {'; '.join(errors) or 'none found'})")
+        path = os.path.join(load_dir, tag)
+        self._restore_state(restored, meta, load_optimizer_states, load_lr_scheduler_states)
+        log_dist(f"loaded checkpoint {path} at step {self.global_steps}", ranks=[0])
+        return path, meta.get("client_state", {})
+
+    @torch.no_grad()
+    def _restore_state(self, restored, meta, load_optimizer_states=True,
+                       load_lr_scheduler_states=True):
+        """Copy a restored state tree into the engine's own tensors (the
+        aliases stay valid) and take its counters — shared by disk loads,
+        host-snapshot restores and the reference bridge. Leaves pair by key,
+        whatever the order of the restored tree's dicts."""
+        src = dict(tree_items(restored))
+        live = self._state_tree()
+        groups = ["params", "grad_acc"] + (["master_params"] if self.master_params is not None
+                                           else [])
+        if load_optimizer_states and self.opt_state is not None:
+            groups.append("opt_state")
+        absent = [key for g in groups for key, _ in tree_items(live[g], f"[{g!r}]")
+                  if key not in src]
+        if absent:
+            raise ValueError(f"the restored state has no leaf {absent[0]!r} "
+                             f"({len(absent)} absent)")
+        for g in groups:
+            for key, dst in tree_items(live[g], f"[{g!r}]"):
+                if key != "['opt_state'].step":  # a count, not a buffer
+                    dst.copy_(src[key])
+        if "opt_state" in groups:
+            self.opt_state.step = int(src["['opt_state'].step"])
+        self.scale_state = LossScaleState(*(
+            src[f"['scale_state'].{f}"].to(self.device, copy=True) for f in LossScaleState._fields))
+        for p in self._param_leaves:
+            p.grad = None
+        self._pending_loss = None
+        self._pending_bitflip = None
+        self._force_nan_loss = False
+        self.global_steps = meta.get("global_steps", 0)
+        self.global_samples = meta.get("global_samples", 0)
+        self.micro_steps = meta.get("micro_steps", 0)
+        self.skipped_steps = meta.get("skipped_steps", 0)
+        if load_lr_scheduler_states and self.lr_scheduler is not None and meta.get("lr_scheduler"):
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        self.poisoned = False
+
+    # ---- host snapshots (TrainSupervisor double buffer) -------------------
+
+    def rng_state(self) -> np.ndarray:
+        """Host copy of the engine's generator state (raw bytes)."""
+        return self._rng.get_state().numpy().copy()
+
+    def set_rng_state(self, key):
+        self._rng.set_state(torch.from_numpy(np.asarray(key).astype(np.uint8)))
+
+    def host_state_snapshot(self, client_state=None):
+        """One atomic unit of training state on the host: ``(host_tree,
+        meta, manifest)``, the full state tree as CPU tensors of its own,
+        the checkpoint metadata and the per-leaf checksum manifest.
+        Captured at a step boundary it is everything a bitwise resume
+        needs."""
+        host_tree = self._host_state_tree()
+        meta = self._checkpoint_meta(client_state)
+        manifest = ckpt_integrity.manifest_from_leaves(named_host_leaves(host_tree))
+        return host_tree, meta, manifest
+
+    def restore_from_host_state(self, host_tree, meta, verify_integrity=None):
+        """Copy a :meth:`host_state_snapshot` (or the tree of
+        :func:`state_from_reference_snapshot`) back into this engine's
+        tensors; ``verify_integrity`` is the manifest to hold it to."""
+        if verify_integrity is not None:
+            problems = ckpt_integrity.verify_leaves(named_host_leaves(host_tree),
+                                                    verify_integrity)
+            if problems:
+                raise ckpt_integrity.TornCheckpointError(
+                    f"host snapshot failed integrity verification "
+                    f"({len(problems)} leaf mismatch(es)): " + "; ".join(problems[:3]))
+        self._restore_state(host_tree, meta)
+
+
+def _reference_tensor(a) -> torch.Tensor:
+    """A host tensor of a reference numpy leaf (an ``ml_dtypes`` bf16 array
+    through its raw 16-bit words: torch cannot read that dtype)."""
+    a = np.array(a)  # a writable C-contiguous copy, 0-d kept 0-d
+    if str(a.dtype) == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def state_from_reference_snapshot(host_tree, meta, cfg: tf.TransformerConfig, device=None):
+    """The reference engine's ``host_state_snapshot()`` tree (numpy leaves)
+    and meta as this package's state tree, for
+    :meth:`TpuEngine.restore_from_host_state`. Params, masters, the
+    accumulators and Adam's moments go through ``params_from_numpy``'s
+    layout rules (the moments are elementwise, so they take their param's
+    transform); the step, the loss scale, the counters and the lr
+    scheduler's state carry over as they are."""
+
+    def tree(t):
+        return tf.params_from_numpy(tf.map_params(_reference_tensor, t), cfg, device)
+
+    def scalar(x):
+        return _reference_tensor(x).to(device)
+
+    ss = host_tree["scale_state"]
+    out = {"params": tree(host_tree["params"]), "grad_acc": tree(host_tree["grad_acc"]),
+           "scale_state": LossScaleState(*(scalar(getattr(ss, f)) for f in LossScaleState._fields))}
+    if "master_params" in host_tree:
+        out["master_params"] = tree(host_tree["master_params"])
+    if "opt_state" in host_tree:
+        opt = host_tree["opt_state"]
+        out["opt_state"] = OptStateTree(step=scalar(opt.step), exp_avg=tree(opt.exp_avg),
+                                        exp_avg_sq=tree(opt.exp_avg_sq))
+    return out, dict(meta)

@@ -8,8 +8,11 @@ over card engines: ticks with the telemetry hub, and fleet ticks with the
 health probe and the ops server on their threads, dispatched where a host
 sync raises; a recovery rebuild, and a replica kill with migration, that
 finish every request; ALiBi's cached reads and a BLOOM-shaped pool's ticks
-dispatched where a host sync raises; and the HF checkpoint reader
-(``module_inject.load_checkpoint``) on tensors written from the card.
+dispatched where a host sync raises; the HF checkpoint reader
+(``module_inject.load_checkpoint``) on tensors written from the card; and
+the training engine's checkpoints and SDC probe at GPT-2 125M's width (a
+save, load and resume bit for bit, sync and async; two probes of one batch
+with one digest).
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -1394,3 +1397,64 @@ def test_safetensors_reader_gives_the_same_tensors_on_the_card(tmp_path):
     toks = torch.randint(0, 256, (2, 32), device="cuda", generator=g)
     assert torch.equal(loaded.generate(toks, max_new_tokens=8),
                        eng.generate(toks, max_new_tokens=8))
+
+
+def _train_engine_125m_width(async_save=False, seed=0):
+    """A 2-layer engine at GPT-2 125M's width: bf16, flash attention, AdamW."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="pallas",
+                                            num_layers=2)
+    config = {"train_micro_batch_size_per_gpu": 4, "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "bf16": {"enabled": True}, "steps_per_print": 10 ** 6,
+              "checkpoint": {"async_save": async_save}}
+    return deepspeed_tpu_torch.initialize(model=model, config=config, seed=seed)[0]
+
+
+def _card_batches(n, vocab):
+    g = torch.Generator(device="cuda").manual_seed(11)
+    return [{"input_ids": torch.randint(0, vocab, (4, 512), generator=g, device="cuda")}
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("async_save", [False, True], ids=["sync", "async"])
+def test_train_checkpoint_resume_is_bitwise_on_the_card(async_save, tmp_path):
+    """Run A: 4 steps. Run B: 2 steps, a save, a fresh engine (other
+    weights) that loads it, 2 more steps. The losses and every leaf of the
+    state tree after step 4 are equal bit for bit."""
+    _need_card()
+    from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import (
+        named_host_leaves,
+    )
+
+    run_a = _train_engine_125m_width()
+    batches = _card_batches(4, run_a.model.cfg.vocab_size)
+    losses_a = [run_a.train_batch(iter([b])).item() for b in batches]
+    run_b = _train_engine_125m_width(async_save)
+    losses_b = [run_b.train_batch(iter([b])).item() for b in batches[:2]]
+    run_b.save_checkpoint(str(tmp_path))
+    run_b.checkpoint_engine.wait()
+    resumed = _train_engine_125m_width(async_save, seed=1)
+    path, _ = resumed.load_checkpoint(str(tmp_path))
+    assert path.endswith("global_step2") and resumed.device.type == "cuda"
+    losses_b += [resumed.train_batch(iter([b])).item() for b in batches[2:]]
+    assert losses_b == losses_a
+    want = dict(named_host_leaves(run_a._state_tree()))
+    got = dict(named_host_leaves(resumed._state_tree()))
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_sdc_probe_gives_one_digest_twice_on_the_card():
+    """Two SDC probes of one batch give one digest (a step on the card is a
+    deterministic function of its inputs); the probe touches neither the
+    accumulators nor the counters."""
+    _need_card()
+    eng = _train_engine_125m_width()
+    (batch,) = _card_batches(1, eng.model.cfg.vocab_size)
+    first = eng.sdc_probe(batch)
+    assert all(float(g.abs().max()) == 0.0 for g in eng.grad_acc)
+    assert eng.micro_steps == 0 and eng.global_steps == 0
+    assert eng.sdc_probe(batch) == first

@@ -151,6 +151,7 @@ def test_config_parses_like_the_reference_on_one_device(over):
     {"zero_optimization": {"stage": 0, "offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 0, "overlap_comm": True}},
     {"progressive_layer_drop": {"enabled": True}},
+    {"checkpoint": {"use_ocdbt": True}},
 ])
 def test_config_raises_outside_the_slice(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

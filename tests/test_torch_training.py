@@ -297,19 +297,27 @@ def test_wall_clock_breakdown_times_forward_backward_and_step():
         assert timer.count == 1 and timer.elapsed() > 0.0
 
 
-def test_initialize_runs_on_cuda_or_raises(monkeypatch):
+def test_initialize_runs_on_cuda_or_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = ttf.TransformerModel(ttf.TransformerConfig(**CFG))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         deepspeed_tpu_torch.initialize(model=model, config=_engine_config(BATCH))
     for kw in (dict(optimizer=torch.optim.SGD([torch.zeros(1)], lr=0.1)),
                dict(config=_engine_config(BATCH, optimizer={"type": "Lamb",
-                                                            "params": {"lr": 1e-3}})),
-               dict(training_data=[_data(0, 0)])):
+                                                            "params": {"lr": 1e-3}}))):
         kw.setdefault("config", _engine_config(BATCH))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             deepspeed_tpu_torch.initialize(model=model, device="cpu", **kw)
-    engine = deepspeed_tpu_torch.initialize(model=model, config=_engine_config(BATCH),
-                                            device="cpu")[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        engine.save_checkpoint("ckpt")
+    # the data loader and checkpoints: ported
+    rows = [{"input_ids": row} for row in _data(0, 0)["input_ids"]]
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(
+        model=model, config=_engine_config(BATCH // 2), device="cpu", training_data=rows)
+    assert len(loader) == 2 and loader is engine.training_dataloader
+    engine.train_batch()
+    assert engine.save_checkpoint(str(tmp_path))
+    assert (tmp_path / "latest").read_text() == "global_step1"
+    fresh = deepspeed_tpu_torch.initialize(model=model, config=_engine_config(BATCH // 2),
+                                           device="cpu", seed=5)[0]
+    path, _ = fresh.load_checkpoint(str(tmp_path))
+    assert path.endswith("global_step1") and fresh.global_steps == 1
+    assert all(torch.equal(a, b) for a, b in zip(fresh._base_leaves, engine._base_leaves))
