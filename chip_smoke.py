@@ -22,7 +22,8 @@ backward):
   - serving (``deepspeed_tpu_torch.init_inference`` -> ``generate``) on
     GPT-2 350M at full width and depth: three requests, then a profiled
     breakdown;
-  - the decode path's other request shapes on the same model: int8 weights
+  - the decode path's other request shapes on the same model (12 of its 24
+    layers, for the script's time limit): int8 weights
     (W8A8) and the int8 KV cache in ``bench_decode``'s geometry (B 8 x 128
     + 128, greedy), four engines {bf16, int8} weights x {model, int8} KV on
     the same weights, each int8 engine's logits against the same engine on
@@ -108,7 +109,17 @@ backward):
     partial rotary; GPT-J 6B: the shared LN and interleaved rotary; OPT-125m
     pre- and post-LN; GPT-Neo-125M: per-layer windows), fused, per-token and
     through the batching pool (``hf_families``). The card's machine has
-    neither transformers nor safetensors, and the port needs neither.
+    neither transformers nor safetensors, and the port needs neither;
+  - training every decoder family the port serves (``--train-decoders`` runs
+    these phases alone): the ``llama2-7b`` preset at full width, 4 of its 32
+    layers, B 2 x S 4096, flash (K1-K3 at hd 128, K7/K8 in RMSNorm), its
+    first step against the xla engine and a 2-layer f32 gradient check
+    (``train_llama``, with a profiled step); Mistral 7B's shape at 2 layers,
+    B 1 x S 8192, the window band and GQA in K1-K3 (``train_mistral``); the
+    six HF families at their published widths and 2 layers, each with an
+    f32 step on the card against the CPU (``train_families``); and Llama 2
+    7B's layout at 2 layers fine-tuned from an HF directory, exported and
+    served from the export (``hf_finetune``).
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after. Prints JSON lines as it goes; the line before the last
 names the card and its power limit (as nvidia-smi reports them), and the
@@ -199,6 +210,11 @@ NORM_SUM_BF16_TOL = 2.0 ** -8
 # loss (~11) within 1e-5 (1e-6 relative) and every gradient leaf within
 # F32_GRAD_REL_TOL of its max |grad| (summation order only)
 NORM_MODEL_LOSS_TOL = 1e-5
+# a relu's input, card against CPU in one f32 step: the two sums round ~1e-6
+# apart at O(1) values, so an input that straddles 0 between them lies within
+# that of 0, and either side's branch is a valid subgradient there; a
+# straddle farther from 0 than 1e-4 is a fault, not rounding
+RELU_KINK_TOL = 1e-4
 # the fused-op chain in bf16, K7/K8 against the plain LayerNorm under
 # autograd, the rest of the chain the same: loss within 1e-3 relative, every
 # gradient within 2**-6 of its largest |plain| value (a few bf16 roundings
@@ -226,6 +242,11 @@ L2_BYTES = 50 * 2 ** 20
 LOGITS_TOL = 0.1
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the k1 and k2_k3 rows at the decoder-training phases' shapes
+TRAIN_K1_ROWS = ("i_llama_train_b2_s4096_h32_hd128",
+                 "j_mistral_train_b1_s8192_h32_hkv8_hd128_w4096")
+TRAIN_K23_ROWS = ("f_llama_train_b2_s4096_h32_hd128",
+                  "g_mistral_train_b1_s8192_h32_hkv8_hd128_w4096")
 # K1's kernels by (dtype, head dim), as substrings of their mangled names:
 # every instantiation of the tensor-core kernel (bf16, f16), and the FMA
 # kernel for f32
@@ -780,6 +801,8 @@ def k7_k8_phase(gen, card):
         "d_ln_2048x1600_f32": (2048, 1600, "ln", torch.float32, torch.float32),
         "e_ln_nobias_77x100_f16_f32_scale": (77, 100, "ln_nobias", torch.float16,
                                              torch.float32),
+        # train_llama's rows: B2 x S4096 of llama2-7b's RMSNorm
+        "f_rms_8192x4096_bf16": (8192, 4096, "rms", torch.bfloat16, torch.bfloat16),
     }
     k78 = {}
     for name, (N, D, kind, dtype, wdtype) in norm_shapes.items():
@@ -4002,6 +4025,651 @@ def train_supervised_phase(gen, card):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# training every decoder family the port serves (``--train-decoders`` runs
+# these phases alone)
+# ---------------------------------------------------------------------------
+
+# train_llama: the llama2-7b preset at full width, 4 of its 32 layers, B 2 x
+# S 4096, flash; the f32 gradient check at 2 layers, B 1 x S 512
+LLAMA_TRAIN = {"layers": 4, "batch": 2, "seq": 4096, "warmup": 2, "steps": 10,
+               "f32_layers": 2, "f32_batch": 1, "f32_seq": 512}
+# train_mistral: Mistral 7B's shape at 2 layers, B 1 x S 8192 (the window
+# band of 4096 is live in K1-K3)
+MISTRAL_TRAIN = {"layers": 2, "batch": 1, "seq": 8192, "warmup": 2, "steps": 10}
+# train_families: every HF family at its published widths, 2 layers, B 4 x
+# S 512, 1 + 8 steps; the f32 step card against CPU at B 1 x S 128
+FAMILY_TRAIN = {"layers": 2, "batch": 4, "seq": 512, "warmup": 1, "steps": 8,
+                "f32_batch": 1, "f32_seq": 128}
+# hf_finetune: Llama 2 7B's layout at 2 layers, B 4 x S 1024 for 3 steps,
+# served B 8 x 128 + 32
+FINETUNE = {"layers": 2, "batch": 4, "seq": 1024, "steps": 3, "serve_batch": 8,
+            "prompt": 128, "new": 32}
+# the kernels a training step on the flash path launches
+STEP_KERNELS = KERNELS + NORM_KERNELS
+
+
+def train_config(batch, dtype="bfloat16"):
+    """TRAIN_CONFIG (bf16, AdamW lr 1e-4 wd 0.01, ZeRO 0) at micro-batch
+    ``batch``; without its bf16 block for an f32 engine."""
+    config = dict(TRAIN_CONFIG, train_micro_batch_size_per_gpu=batch)
+    if dtype == "float32":
+        config.pop("bf16")
+    return config
+
+
+def engine_step(e, data, between=None):
+    """One training step; ``between(e)`` runs after backward, before step."""
+    loss = e.forward(data)
+    e.backward(loss)
+    got = between(e) if between is not None else None
+    e.step()
+    return loss, got
+
+
+def step_launch_rule(cfg):
+    """K1-K3 and K7/K8 launches a training step of ``cfg``: each flash
+    kernel once a layer that takes the flash path (``attn_impl="pallas"``
+    without ALiBi or per-layer windows; none on the masked path), each norm
+    kernel once a norm of the forward (``norms_per_forward``)."""
+    flash = (cfg.attn_impl == "pallas" and cfg.pos_embedding != "alibi"
+             and not cfg.varying_windows)
+    n = norms_per_forward(cfg)
+    return {"flash_fwd": cfg.num_layers * flash, "flash_bwd_dq": cfg.num_layers * flash,
+            "flash_bwd_dkv": cfg.num_layers * flash, "fused_norm_fwd": n, "fused_norm_bwd": n}
+
+
+def alibi_slopes(n):
+    """ALiBi's head slopes (Press et al.): 2^(-8 (i + 1) / n) for n a power
+    of 2; otherwise those of the power of 2 below n, then every other slope
+    of the one above."""
+    c = 2 ** int(math.log2(n))
+    return ([2.0 ** (-8 * (i + 1) / c) for i in range(c)]
+            + [2.0 ** (-4 * (2 * i + 1) / c) for i in range(n - c)])
+
+
+def init_loss(cfg, seq):
+    """The first loss that a random init predicts on uniform random tokens.
+
+    The final norm's output x has unit mean square at init, so the logits
+    have variance sigma^2 = D std_head^2: the tied head is the embedding (std
+    0.02, +0.15 at GPT-2 125M's D 768), an untied head has std 1/sqrt(D)
+    (+0.5), and the loss is ln V + sigma^2 / 2.
+
+    A tied head behind the embedding norm (BLOOM) also scores the current
+    token t. The normed embedding h0 = e_t / sqrt(0.02^2 + eps) is the whole
+    residual stream before the first layer, so x . e_t = 0.02^2 D /
+    sqrt(0.02^2 + eps) / sigma_h, where sigma_h^2 is h0's mean square plus
+    what each of the L pre-LN layers adds: its MLP E[act(z)^2] / (2 L) (wi's
+    std 1/sqrt(D) makes z ~ N(0, 1) on a unit input; wo's is 1/sqrt(F) /
+    sqrt(2 L)) and its attention E[sum_j p_j^2] / (2 L) (independent unit
+    values; p the softmax of scores of variance head_dim * scale^2 less
+    ALiBi's distance penalty, drawn from a seeded generator and averaged over
+    the heads). Position i's loss is then logaddexp(x . e_t, ln(V - 1) +
+    sigma^2 / 2), averaged over the positions that have a target: 18.10 at
+    bloom-560m's width, 2 layers, S 512, where ln V is 12.43."""
+    D, V, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
+    var_e = 0.02 ** 2
+    sigma2 = D * (var_e if cfg.tie_embeddings else 1.0 / D)
+    rest = math.log(V - 1) + sigma2 / 2
+    if not (cfg.tie_embeddings and cfg.embed_norm):
+        return math.log(V) + sigma2 / 2
+    z = torch.linspace(-12.0, 12.0, 240001, dtype=torch.float64)
+    pdf = torch.exp(-z * z / 2) / math.sqrt(2 * math.pi) * (z[1] - z[0])
+    act = {"relu": torch.relu, "silu_glu": torch.nn.functional.silu,
+           "gelu": lambda t: 0.5 * t * (1 + torch.tanh(math.sqrt(2 / math.pi)
+                                                       * (t + 0.044715 * t ** 3)))}
+    mlp = float((act[cfg.activation](z) ** 2 * pdf).sum())
+    scale = cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
+    slopes = alibi_slopes(cfg.num_heads) if cfg.pos_embedding == "alibi" else [0.0] * cfg.num_heads
+    gen = torch.Generator().manual_seed(0)
+    pos = torch.arange(seq, dtype=torch.float64)
+    dist = pos[:, None] - pos[None, :]
+    psq = torch.zeros(seq, dtype=torch.float64)
+    for m in slopes:
+        scores = (torch.randn(seq, seq, generator=gen, dtype=torch.float64)
+                  * math.sqrt(cfg.head_dim) * scale - m * dist)
+        p = torch.softmax(scores.masked_fill(dist < 0, -math.inf), dim=-1)
+        psq += (p ** 2).sum(-1) / len(slopes)
+    sigma_h = torch.sqrt(var_e / (var_e + cfg.norm_eps) + (psq + mlp) / 2)
+    self_dot = D * var_e / math.sqrt(var_e + cfg.norm_eps) / sigma_h
+    return float(torch.logaddexp(self_dot, torch.tensor(rest, dtype=torch.float64))[:-1].mean())
+
+
+def timed_training(e, data, warmup, steps, first_between=None):
+    """``warmup`` steps, then ``steps`` timed ones on one fixed batch, the
+    launch counts set to 0 just before the timed steps and read just after.
+    Returns the losses, the step seconds, the counts, the first step's
+    grad norm and ``first_between``'s result, and the peak card memory of the
+    timed steps."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    loss, first = engine_step(e, data, first_between)
+    losses = [float(loss)]
+    gnorm0 = e.get_global_grad_norm()
+    for _ in range(warmup - 1):
+        losses.append(float(engine_step(e, data)[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    op_builder.reset_launch_counts()
+    step_s = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = engine_step(e, data)[0]
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = op_builder.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    return {"losses": losses, "step_s": step_s, "counts": counts, "grad_norm0": gnorm0,
+            "first": first, "peak": peak}
+
+
+def training_row(what, cfg, run, batch, seq, steps):
+    """The checks every training phase makes of its timed run (launches a
+    step by the model's rule; the first loss finite and within
+    FIRST_LOSS_TOL of ``init_loss``; the mean of the last 3 losses LOSS_DROP
+    under the first) and the fields of its line."""
+    rule = step_launch_rule(cfg)
+    counts = {k: run["counts"].get(k, 0) for k in STEP_KERNELS}
+    for k, per_step in rule.items():
+        check(counts[k] == per_step * steps,
+              f"{what}: {k} launched {counts[k]} times in {steps} steps, expected {per_step} "
+              f"a step")
+    losses = run["losses"]
+    ln_v = math.log(cfg.vocab_size)
+    predicted = init_loss(cfg, seq)
+    check(all(math.isfinite(x) for x in losses) and abs(losses[0] - predicted) <= FIRST_LOSS_TOL,
+          f"{what}: first loss {losses[0]} not finite or not within {FIRST_LOSS_TOL} of the "
+          f"init's {predicted} (ln V {ln_v})")
+    late = statistics.mean(losses[-3:])
+    check(late <= losses[0] - LOSS_DROP,
+          f"{what}: loss fell from {losses[0]} to {late} (last 3), less than {LOSS_DROP}")
+    med = statistics.median(run["step_s"])
+    tokens_per_s = batch * seq / med
+    fpt = cfg.flops_per_token(seq)
+    return {"batch": batch, "seq": seq, "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+            "heads": cfg.num_heads, "kv_heads": cfg.kv_heads, "head_dim": cfg.head_dim,
+            "ffn": cfg.ffn_size, "vocab": cfg.vocab_size, "params": cfg.num_params(),
+            "dtype": cfg.dtype, "attn_impl": cfg.attn_impl,
+            "optimizer": "AdamW lr 1e-4 wd 0.01", "steps": steps, "losses": losses,
+            "first_loss_vs_ln_v": losses[0] - ln_v,
+            "first_loss_vs_init_prediction": losses[0] - predicted,
+            "init_prediction": predicted,
+            "first_loss_tol": FIRST_LOSS_TOL, "loss_drop_last3": losses[0] - late,
+            "loss_drop_min": LOSS_DROP, "step_ms_median": med * 1e3,
+            "step_ms_min": min(run["step_s"]) * 1e3, "step_ms_max": max(run["step_s"]) * 1e3,
+            "tokens_per_s": tokens_per_s, "flops_per_token": fpt,
+            "step_tflop": fpt * batch * seq / 1e12,
+            "mfu": fpt * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
+            "peak_memory_bytes": run["peak"],
+            "launches": counts, "launches_per_step": {k: c / steps for k, c in counts.items()},
+            "launch_rule_per_step": rule}
+
+
+def leaf_rel(got, ref):
+    """max |got - ref| / max |ref| a leaf; a leaf whose gradient is 0 on the
+    reference side (GPT-J's unused ln2) is held to 0 on the other."""
+    out = {}
+    for name, g in ref.items():
+        m = float(g.abs().max())
+        d = float((got[name].to(g.device) - g).abs().max())
+        out[name] = d / m if m > 0 else d
+    return out
+
+
+def f32_step(cfg, params, data, device):
+    """(loss, {leaf: f32 gradient on the host}, params) of one f32 step's
+    forward and backward (TF32 off) of a fresh engine of ``cfg`` on
+    ``device``, from ``params`` (None: the seeded init)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    e = deepspeed_tpu_torch.initialize(model=tf.TransformerModel(cfg), params=params,
+                                       config=train_config(data.shape[0], "float32"),
+                                       device=device)[0]
+    loss = e.forward({"input_ids": data.to(device)})
+    e.backward(loss)
+    grads = {name: g.detach().cpu() for (name, _), g in zip(named_leaves(e.params), e.grad_acc)}
+    return float(loss), grads, e.params
+
+
+@contextlib.contextmanager
+def relu_branches(pinned=None):
+    """Records the input of each ``F.relu`` call of the model in call order
+    (``["inputs"]``, on the host) or, given another run's records
+    (``pinned``), takes that run's branch where the two inputs straddle 0:
+    the same subgradient on both sides of a card-against-CPU comparison.
+    ``["straddles"]`` counts those inputs, ``["straddle_max_abs"]`` is the
+    largest |input| among them on either side."""
+    import torch.nn.functional as F
+
+    real = F.relu
+    rec = {"inputs": [], "straddles": 0, "straddle_max_abs": 0.0}
+
+    def relu(x, inplace=False):
+        rec["inputs"].append(x.detach().cpu())
+        if pinned is None:
+            return real(x, inplace=inplace)
+        other = pinned["inputs"][len(rec["inputs"]) - 1].to(x.device)
+        straddle = (x > 0) != (other > 0)
+        if bool(straddle.any()):
+            rec["straddles"] += int(straddle.sum())
+            rec["straddle_max_abs"] = max(rec["straddle_max_abs"],
+                                          float(x.detach()[straddle].abs().max()),
+                                          float(other[straddle].abs().max()))
+        return torch.where(other > 0, x, torch.zeros_like(x))
+
+    F.relu = relu
+    try:
+        yield rec
+    finally:
+        F.relu = real
+
+
+def step_breakdown(e, data, kernel_names, med_ms, card):
+    """One training step under the profiler: device time by kernel and by
+    category (the ``*_breakdown`` lines), cross-checked against CUDA events
+    recorded around the same step: the kernels of one stream cannot add up
+    to more than the events' span, and their sum over the span is the
+    device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        engine_step(e, data)
+        end.record()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    events_ms = start.elapsed_time(end)
+    tk = device_kernels(prof)
+    tdev = sum(t for _, t, _ in tk)
+    check(not tk or tdev * 1e3 <= events_ms * (1 + PROFILER_SPAN_TOL),
+          f"breakdown: the profiler's kernels add up to {tdev * 1e3} ms, more than the "
+          f"{events_ms} ms between CUDA events around the same step")
+    per_kernel = {}
+    for kname in kernel_names:
+        tag = f"{kname}_kernel"
+        t = sum(x for k, x, _ in tk if tag in k)
+        per_kernel[kname] = {"device_s": t, "share_of_device_time": t / tdev if tdev else None,
+                             "launches": sum(n for k, _, n in tk if tag in k)}
+    return tk, {
+        "step_wall_s_under_profiler": prof_wall, "step_ms_median_unprofiled": med_ms,
+        "device_kernel_s": tdev if tk else "not measured",
+        "cuda_events_step_ms": events_ms,
+        "profiler_device_ms_over_events_ms": tdev * 1e3 / events_ms if tk else "not measured",
+        "device_busy_share": tdev / prof_wall if tk else "not measured",
+        "device_busy_share_of_unprofiled_step": tdev / med_ms * 1e3 if tk else "not measured",
+        "device_kernel_launches": sum(n for _, _, n in tk),
+        "kernels": per_kernel,
+        "by_category": by_category(tk),
+        "top_kernels": [{"name": k[:120], "s": t, "launches": n}
+                        for k, t, n in sorted(tk, key=lambda x: -x[1])[:15]],
+        "card": card}
+
+
+def first_step_vs_xla(what, cfg, init_params, data, loss0, gnorm0, extra=None):
+    """The first bf16 step of an xla-attention engine on the same initial
+    weights (a 7B-width flash engine already freed): loss within
+    TRAIN_LOSS_TOL, grad norm within TRAIN_GNORM_REL_TOL; ``extra(engine)``,
+    run after its backward, adds its dict of metrics to the result."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    xcfg = dataclasses.replace(cfg, attn_impl="xla")
+    xe = deepspeed_tpu_torch.initialize(model=tf.TransformerModel(xcfg), params=init_params,
+                                        config=train_config(data["input_ids"].shape[0]),
+                                        device="cuda")[0]
+    xloss, more = engine_step(xe, data, extra)
+    xloss = float(xloss)
+    xgnorm = xe.get_global_grad_norm()
+    peak = torch.cuda.max_memory_allocated()
+    del xe
+    torch.cuda.empty_cache()
+    rel = abs(gnorm0 - xgnorm) / xgnorm
+    check(abs(loss0 - xloss) <= TRAIN_LOSS_TOL and rel <= TRAIN_GNORM_REL_TOL,
+          f"{what}: first step vs xla engine: loss {loss0} vs {xloss}, grad norm {gnorm0} vs "
+          f"{xgnorm}")
+    return {"loss": loss0, "xla_loss": xloss, "loss_abs_diff": abs(loss0 - xloss),
+            "grad_norm": gnorm0, "xla_grad_norm": xgnorm, "grad_norm_rel_diff": rel,
+            "loss_tol": TRAIN_LOSS_TOL, "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL,
+            "xla_step_peak_memory_bytes": peak, **(more or {})}
+
+
+def train_llama_phase(gen, card):
+    """The ``llama2-7b`` preset at full width (D 4096, 32 heads of 128,
+    SwiGLU 11008, vocab 32000, untied) at 4 of its 32 layers, bf16, flash,
+    AdamW: 2 warm-up and 10 timed steps on one fixed B 2 x S 4096 batch, K1-K3
+    4 and K7/K8 9 a step; the first step against the xla engine on the same
+    weights (the flash engine freed first: the xla path's (2, 32, 4096,
+    4096) scores take ~25 GB over 4 layers); one step under the profiler
+    (``train_llama_breakdown``); every gradient leaf of a 2-layer f32 flash
+    engine (TF32 off, B 1 x S 512) against the xla engine's. Returns the
+    timed steps' launch counts and the line."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    s = LLAMA_TRAIN
+    B, S = s["batch"], s["seq"]
+    model = tf.TransformerModel.from_preset("llama2-7b", dtype="bfloat16", attn_impl="pallas",
+                                            num_layers=s["layers"])
+    engine = deepspeed_tpu_torch.initialize(model=model, config=train_config(B),
+                                            device="cuda")[0]
+    cfg = engine.model.cfg
+    init_params = tf.map_params(lambda p: p.detach().to("cpu", copy=True), engine.master_params)
+    data = {"input_ids": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")}
+    run = timed_training(engine, data, s["warmup"], s["steps"])
+    row = training_row("train_llama", cfg, run, B, S, s["steps"])
+    tk, breakdown = step_breakdown(engine, data, KERNELS, row["step_ms_median"], card)
+    check(bool(tk), "train_llama breakdown: the profiler saw no device kernel")
+    del engine
+    row["first_step_vs_xla"] = first_step_vs_xla("train_llama", cfg, init_params, data,
+                                                 run["losses"][0], run["grad_norm0"])
+    del init_params
+    # every gradient leaf in f32 (TF32 off), 2 layers: flash against xla
+    f32_cfg = dataclasses.replace(cfg, dtype="float32", num_layers=s["f32_layers"])
+    f32_data = data["input_ids"][:s["f32_batch"], :s["f32_seq"]]
+    loss_f, grads_f, params_f = f32_step(f32_cfg, None, f32_data, "cuda")
+    loss_x, grads_x, _ = f32_step(dataclasses.replace(f32_cfg, attn_impl="xla"), params_f,
+                                  f32_data, "cuda")
+    del params_f
+    rel = leaf_rel(grads_f, grads_x)
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= F32_GRAD_REL_TOL and abs(loss_f - loss_x) <= F32_LOSS_TOL,
+          f"train_llama f32: flash vs xla engine: loss {loss_f} vs {loss_x}, worst leaf "
+          f"{worst} at {rel[worst]} of its max |grad|")
+    row["f32_vs_xla"] = {
+        "layers": s["f32_layers"], "batch": s["f32_batch"], "seq": s["f32_seq"],
+        "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "loss_flash": loss_f, "loss_xla": loss_x, "loss_abs_diff": abs(loss_f - loss_x),
+        "loss_tol": F32_LOSS_TOL, "leaves": len(rel), "worst_leaf": worst,
+        "worst_rel": rel[worst], "rel_tol": F32_GRAD_REL_TOL}
+    del grads_f, grads_x
+    row = {"phase": "train_llama", "model": f"llama2-7b width, {cfg.num_layers} of 32 layers",
+           **row, "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(row)
+    emit({"phase": "train_llama_breakdown", "model": row["model"], "batch": B, "seq": S,
+          **breakdown})
+    torch.cuda.empty_cache()
+    return run["counts"], row
+
+
+def train_mistral_phase(gen, card):
+    """Mistral 7B's shape (``MISTRAL_7B``: 32 heads, 8 kv heads, SwiGLU
+    14336, the 4096-position window) at 2 layers, bf16, flash: 2 warm-up and
+    10 timed steps on one fixed B 1 x S 8192 batch, so that the window band
+    is live in K1-K3 (GQA group 4); the first step against the xla engine on
+    the same weights (the flash engine freed first); the first step's wk/wv
+    gradient norms a layer finite and non-zero. Returns the timed steps'
+    launch counts."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    s = MISTRAL_TRAIN
+    B, S = s["batch"], s["seq"]
+    cfg = tf.TransformerConfig(**dict(MISTRAL_7B, num_layers=s["layers"], dtype="bfloat16",
+                                      local_attn_windows=(4096,) * s["layers"]))
+    engine = deepspeed_tpu_torch.initialize(model=tf.TransformerModel(cfg),
+                                            config=train_config(B), device="cuda")[0]
+    init_params = tf.map_params(lambda p: p.detach().to("cpu", copy=True), engine.master_params)
+    data = {"input_ids": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")}
+
+    def kv_norms(e):
+        return [{part: float(blocks[i].norm()) for i, part in ((1, "wk"), (2, "wv"))}
+                for blocks in wqkv_grad_blocks(e, cfg)]
+
+    run = timed_training(engine, data, s["warmup"], s["steps"], kv_norms)
+    row = training_row("train_mistral", cfg, run, B, S, s["steps"])
+    del engine
+    kv = run["first"]
+    check(all(math.isfinite(v) and v > 0 for layer in kv for v in layer.values()),
+          f"train_mistral: a wk/wv gradient norm is not finite and positive: {kv}")
+    row["first_step_vs_xla"] = first_step_vs_xla("train_mistral", cfg, init_params, data,
+                                                 run["losses"][0], run["grad_norm0"])
+    del init_params
+    emit({"phase": "train_mistral", "model": f"Mistral 7B shape, {cfg.num_layers} of 32 layers",
+          "window": cfg.uniform_window, **row, "first_step_wk_wv_grad_norms": kv,
+          "phase_s": time.perf_counter() - t_phase, "card": card})
+    torch.cuda.empty_cache()
+    return run["counts"]
+
+
+def family_train_config(entry):
+    """A family's published config as its policy maps it, cut to
+    FAMILY_TRAIN's depth (GPT-Neo's per-layer windows with it), in bf16."""
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as lc
+    from deepspeed_tpu_torch.module_inject import policies
+
+    cfg = policies.config_from_hf(lc.HFConfig(entry["config"]))
+    L = FAMILY_TRAIN["layers"]
+    over = {"num_layers": L, "dtype": "bfloat16"}
+    if cfg.local_attn_windows is not None:
+        over["local_attn_windows"] = tuple(cfg.local_attn_windows[:L])
+    return dataclasses.replace(cfg, **over)
+
+
+def train_families_phase(gen, card):
+    """Each of ``HF_FAMILIES`` at its published widths (its policy's
+    config: the masked path, as the policies convert them), 2 layers, bf16,
+    AdamW: 1 warm-up and 8 timed steps on one fixed B 4 x S 512 batch, the
+    launches a step by the family's norm count (K1-K3 none); then one f32
+    step (TF32 off) at B 1 x S 128 on the card against the same step on the
+    CPU, every gradient leaf within F32_GRAD_REL_TOL of its max and the loss
+    within NORM_MODEL_LOSS_TOL. Returns the timed steps' launch counts."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    s = FAMILY_TRAIN
+    B, S = s["batch"], s["seq"]
+    total, rows = {}, {}
+    for family, entry in HF_FAMILIES.items():
+        t0 = time.perf_counter()
+        cfg = family_train_config(entry)
+        engine = deepspeed_tpu_torch.initialize(model=tf.TransformerModel(cfg),
+                                                config=train_config(B), device="cuda")[0]
+        init_params = tf.map_params(lambda p: p.detach().to("cpu", copy=True),
+                                    engine.master_params)
+        data = {"input_ids": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                           device="cuda")}
+        name = family.split(",")[0] + (" post-LN" if cfg.norm_position == "post" else "")
+        run = timed_training(engine, data, s["warmup"], s["steps"])
+        row = training_row(f"train_families {name}", cfg, run, B, S, s["steps"])
+        del engine
+        for k, c in run["counts"].items():
+            total[k] = total.get(k, 0) + c
+        f32_cfg = dataclasses.replace(cfg, dtype="float32")
+        f32_data = data["input_ids"][:s["f32_batch"], :s["f32_seq"]]
+        torch.cuda.empty_cache()
+        with relu_branches() as card_relu:
+            loss_c, grads_c, _ = f32_step(f32_cfg, init_params, f32_data, "cuda")
+        # the CPU takes the card's branch at a relu input that straddles 0
+        with relu_branches(card_relu) as kinks:
+            loss_h, grads_h, _ = f32_step(f32_cfg, init_params, f32_data.cpu(), "cpu")
+        del card_relu
+        rel = leaf_rel(grads_c, grads_h)
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= F32_GRAD_REL_TOL and abs(loss_c - loss_h) <= NORM_MODEL_LOSS_TOL
+              and kinks["straddle_max_abs"] <= RELU_KINK_TOL,
+              f"train_families {name} f32: card vs CPU: loss {loss_c} vs {loss_h}, worst leaf "
+              f"{worst} at {rel[worst]} of its max |grad|, {kinks['straddles']} relu inputs "
+              f"straddling 0 up to {kinks['straddle_max_abs']}")
+        rows[family] = {
+            "variant": entry["variant"], **row,
+            "pos_embedding": cfg.pos_embedding, "norm_position": cfg.norm_position,
+            "parallel_residual": cfg.parallel_residual, "shared_ln": cfg.shared_ln,
+            "embed_norm": cfg.embed_norm, "rope_dim": cfg.rope_dim,
+            "rope_interleaved": cfg.rope_interleaved, "lm_head_bias": cfg.lm_head_bias,
+            "local_attn_windows": cfg.local_attn_windows, "attn_scale": cfg.attn_scale,
+            "activation": cfg.activation,
+            "f32_card_vs_cpu": {
+                "batch": s["f32_batch"], "seq": s["f32_seq"], "loss_card": loss_c,
+                "loss_cpu": loss_h, "loss_abs_diff": abs(loss_c - loss_h),
+                "loss_tol": NORM_MODEL_LOSS_TOL, "leaves": len(rel), "worst_leaf": worst,
+                "worst_rel": rel[worst], "rel_tol": F32_GRAD_REL_TOL,
+                "relu_straddles": kinks["straddles"],
+                "relu_straddle_max_abs": kinks["straddle_max_abs"],
+                "relu_kink_tol": RELU_KINK_TOL},
+            "family_s": time.perf_counter() - t0}
+        del init_params, grads_c, grads_h
+        torch.cuda.empty_cache()
+    emit({"phase": "train_families", "families": rows,
+          "launches": {k: total.get(k, 0) for k in STEP_KERNELS},
+          "phase_s": time.perf_counter() - t_phase, "card": card})
+    return total
+
+
+def hf_finetune_phase(gen, card):
+    """A fine-tune from an HF directory and back out to one: Llama 2 7B's
+    layout at 2 layers (``LLAMA2_7B_CONFIG``, ``num_hidden_layers`` 2,
+    random bf16 weights) written as two safetensors shards by
+    ``write_hf_shards``; ``convert_hf_checkpoint`` -> ``initialize(params=)``
+    (bf16) -> 3 steps on one B 4 x S 1024 batch -> ``save_hf_checkpoint``
+    -> ``init_inference`` from that directory. Checks: the exported tensors
+    equal the engine's bf16 params bit for bit; the served greedy stream (B
+    8 x 128 + 32) equals ``generate`` of an engine built directly from the
+    trained params bit for bit; the launches (K1-K3 2 and K7/K8 5 a step;
+    K1 2 and K7 5 a forward of each ``generate``). Prints the write, load
+    and export seconds. Counts from 0 over the whole path; returns them."""
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.module_inject import export
+    from deepspeed_tpu_torch.module_inject import load_checkpoint as lc
+    from deepspeed_tpu_torch.module_inject import policies
+    from deepspeed_tpu_torch.ops import op_builder
+
+    t_phase = time.perf_counter()
+    s = FINETUNE
+    hf_config = dict(LLAMA2_7B_CONFIG, num_hidden_layers=s["layers"])
+    cfg0 = dataclasses.replace(policies.config_from_hf(lc.HFConfig(hf_config)),
+                               dtype="bfloat16")
+    base = tf.map_params(lambda p: p.to(torch.bfloat16), tf.init(gen, cfg0))
+    root = checkpoint_dir_root()
+    op_builder.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="hf_finetune_", dir=root) as d:
+        src, out = os.path.join(d, "base"), os.path.join(d, "finetuned")
+        os.makedirs(src)
+        t0 = time.perf_counter()
+        written = write_hf_shards(src, export.export_hf_state_dict(base, cfg0, "llama"),
+                                  hf_config)
+        write_s = time.perf_counter() - t0
+        del base
+        t0 = time.perf_counter()
+        cfg, tree = lc.convert_hf_checkpoint(src)
+        cfg = dataclasses.replace(cfg, dtype="bfloat16")
+        engine = deepspeed_tpu_torch.initialize(model=tf.TransformerModel(cfg), params=tree,
+                                                config=train_config(s["batch"]),
+                                                device="cuda")[0]
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del tree
+        check(cfg == cfg0, f"hf_finetune: the converted config {cfg} differs from {cfg0}")
+        data = {"input_ids": torch.randint(0, cfg.vocab_size, (s["batch"], s["seq"]),
+                                           generator=gen, device="cuda")}
+        before = op_builder.launch_counts()
+        losses = [float(engine_step(engine, data)[0]) for _ in range(s["steps"])]
+        torch.cuda.synchronize()
+        train_counts = {k: op_builder.launch_counts()[k] - before[k] for k in STEP_KERNELS}
+        rule = step_launch_rule(cfg)
+        check(train_counts == {k: c * s["steps"] for k, c in rule.items()},
+              f"hf_finetune: {s['steps']} steps launched {train_counts}, expected {rule} a step")
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"hf_finetune: losses {losses} not finite or not falling")
+        t0 = time.perf_counter()
+        export.save_hf_checkpoint(out, engine.params, cfg, "llama",
+                                  hf_config=lc.HFConfig(hf_config))
+        export_s = time.perf_counter() - t0
+        saved = torch.load(os.path.join(out, "pytorch_model.bin"), map_location="cpu")
+        want = export.export_hf_state_dict(engine.params, cfg, "llama")
+        exact = (sorted(saved) == sorted(want)
+                 and all(torch.equal(saved[k].to(torch.bfloat16), want[k].cpu())
+                         and torch.equal(saved[k], want[k].cpu().float()) for k in want))
+        check(exact, "hf_finetune: the exported tensors differ from the engine's bf16 params")
+        del saved, want
+        t0 = time.perf_counter()
+        served = deepspeed_tpu_torch.init_inference(out, config={"dtype": "bfloat16"},
+                                                    device="cuda")
+        torch.cuda.synchronize()
+        serve_load_s = time.perf_counter() - t0
+    direct = deepspeed_tpu_torch.init_inference(tf.TransformerModel(cfg),
+                                                config={"dtype": "bfloat16"},
+                                                params=engine.params, device="cuda")
+    del engine
+    check(served.cfg == direct.cfg,
+          f"hf_finetune: the served config {served.cfg} differs from {direct.cfg}")
+    toks = torch.randint(0, cfg.vocab_size, (s["serve_batch"], s["prompt"]), generator=gen,
+                         device="cuda")
+    before = op_builder.launch_counts()
+    got = served.generate(toks, max_new_tokens=s["new"])
+    want = direct.generate(toks, max_new_tokens=s["new"])
+    torch.cuda.synchronize()
+    serve_counts = {k: op_builder.launch_counts()[k] - before[k] for k in STEP_KERNELS}
+    L = cfg.num_layers
+    serve_rule = {"flash_fwd": 2 * L, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                  "fused_norm_fwd": 2 * norms_per_forward(cfg) * s["new"], "fused_norm_bwd": 0}
+    check(serve_counts == serve_rule,
+          f"hf_finetune: two generates launched {serve_counts}, expected {serve_rule}")
+    same = torch.equal(got, want)
+    check(same and tuple(got.shape) == (s["serve_batch"], s["prompt"] + s["new"]),
+          "hf_finetune: the stream served from the exported directory differs from the "
+          "trained engine's")
+    counts = op_builder.launch_counts()
+    emit({"phase": "hf_finetune", "model": f"meta-llama/Llama-2-7b-hf layout, {L} layers",
+          "params": cfg.num_params(), "checkpoint_tensor_bytes": written, "checkpoint_root": root,
+          "write_s": write_s, "load_s": load_s, "export_s": export_s,
+          "serve_load_s": serve_load_s, "train_batch": s["batch"], "train_seq": s["seq"],
+          "losses": losses, "export_equal_to_params": exact,
+          "serve_batch": s["serve_batch"], "prompt": s["prompt"], "new_tokens": s["new"],
+          "served_stream_equal_to_direct": same,
+          "train_launches": train_counts, "train_launch_rule_per_step": rule,
+          "serve_launches": serve_counts, "serve_launch_rule": serve_rule,
+          "phase_s": time.perf_counter() - t_phase, "card": card})
+    del served, direct
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_decoders(gen, card):
+    """The four decoder-training phases in order; {path: launch counts} and
+    ``train_llama``'s line."""
+    llama_counts, llama_row = train_llama_phase(gen, card)
+    counts = {"train_llama": llama_counts, "train_mistral": train_mistral_phase(gen, card),
+              "train_families": train_families_phase(gen, card),
+              "hf_finetune": hf_finetune_phase(gen, card)}
+    return counts, llama_row
+
+
+def train_decoders_main():
+    """``python3 chip_smoke.py --train-decoders``: the decoder-training
+    phases alone (``train_llama``, ``train_mistral``, ``train_families``,
+    ``hf_finetune``; no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all([fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, fnorm.KERNEL_LIB])
+    train_decoders(torch.Generator(device="cuda").manual_seed(0), card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def train_resume_main():
     """``python3 chip_smoke.py --train-resume``: the ``train_resume`` and
     ``train_supervised`` phases alone (no ``kernels`` line)."""
@@ -4303,6 +4971,11 @@ def main():
         # 7B: GQA group 4, the 4096-position window)
         "g_llama2_7b_b8_s512": (8, 512, 32, 32, 128, True, None, bf16),
         "h_mistral_7b_b1_s4608_w4096": (1, 4608, 32, 8, 128, True, 4096, bf16),
+        # the training shapes of train_llama (llama2-7b, B2 S4096) and
+        # train_mistral (Mistral 7B, B1 S8192: GQA group 4, the window band)
+        "i_llama_train_b2_s4096_h32_hd128": (2, 4096, 32, 32, 128, True, None, bf16),
+        "j_mistral_train_b1_s8192_h32_hkv8_hd128_w4096": (1, 8192, 32, 8, 128, True, 4096,
+                                                          bf16),
     }
     k1 = {}
     for name, (B, S, H, Hkv, hd, causal, window, dtype) in shapes.items():
@@ -4331,7 +5004,11 @@ def main():
             "tol_o": K1_O_TOL[dtype], "tol_lse": K1_LSE_TOL,
             "kernel_ms": kernel_ms,
             "tflops": 4.0 * hd * attention_pairs(S, S, causal, window) * B * H / kernel_ms * 1e-9,
-            "plain_ms": cuda_ms(lambda: fa._reference_fwd(q, k, v, causal, hd ** -0.5, window)),
+            # the plain version at the training shapes (2**30 scores and more)
+            # eagerly: a CUDA graph of its f32 scores would not fit beside
+            # the cached warm-up's
+            "plain_ms": (events_ms if B * H * S * S >= 2 ** 30 else cuda_ms)(
+                lambda: fa._reference_fwd(q, k, v, causal, hd ** -0.5, window)),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=H != Hkv)),
@@ -4349,6 +5026,10 @@ def main():
         "c_gqa_window64": (2, 512, 8, 2, 64, True, 64, torch.bfloat16),
         "d_gqa_noncausal": (2, 512, 8, 2, 64, False, None, torch.bfloat16),
         "e_train_b8_s1024_f32": (8, 1024, 12, 12, 64, True, None, torch.float32),
+        # the training shapes of train_llama and train_mistral at hd 128
+        "f_llama_train_b2_s4096_h32_hd128": (2, 4096, 32, 32, 128, True, None, torch.bfloat16),
+        "g_mistral_train_b1_s8192_h32_hkv8_hd128_w4096": (1, 8192, 32, 8, 128, True, 4096,
+                                                          torch.bfloat16),
     }
     k23 = {}
     for name, (B, S, H, Hkv, hd, causal, window, dtype) in bwd_shapes.items():
@@ -4375,8 +5056,12 @@ def main():
         k2_ms = cuda_ms(lambda: fa._cuda_bwd_dq(q, k, v, do, lse, delta, causal, scale, window))
         k3_ms = cuda_ms(lambda: fa._cuda_bwd_dkv(q, k, v, do, lse, delta, causal, scale, window))
         plain_iters = 2 if S >= 1024 else 10
-        plain_ms = cuda_ms(lambda: fa._reference_bwd(q, k, v, o, lse, do, causal, scale, window),
-                           iters=plain_iters, replays=2)
+        if B * H * S * S >= 2 ** 30:  # as K1's plain version at these shapes: eagerly
+            plain_ms = events_ms(lambda: fa._reference_bwd(q, k, v, o, lse, do, causal, scale,
+                                                           window), iters=plain_iters)
+        else:
+            plain_ms = cuda_ms(lambda: fa._reference_bwd(q, k, v, o, lse, do, causal, scale,
+                                                         window), iters=plain_iters, replays=2)
         # the library yardstick, timed only: SDPA forward + backward minus SDPA forward
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         dot = do.transpose(1, 2)
@@ -4563,31 +5248,34 @@ def main():
         torch.cuda.empty_cache()
 
     # ---- K3's GQA head sum, bit for bit: each query head's dk/dv partial
-    # rounded to bf16, summed over the group in f32 in head order, rounded once
-    B, S, H, Hkv, hd = 2, 512, 8, 2, 64
-    group = H // Hkv
-    q, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
-             for _ in range(2))
-    k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
-            for _ in range(2))
-    o, lse = fa._reference_fwd(q, k, v, True, hd ** -0.5, None)
-    _, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    _, dk1, dv1 = fa.flash_attention_bwd(q, k.repeat_interleave(group, 2),
-                                         v.repeat_interleave(group, 2), o, lse, do, causal=True)
-    torch.cuda.synchronize()
-    gqa = {}
-    for gname, got, per_head in (("dk", dk, dk1), ("dv", dv, dv1)):
-        parts = per_head.reshape(B, S, Hkv, group, hd)
-        total = parts[..., 0, :].float()
-        for i in range(1, group):
-            total = total + parts[..., i, :].float()
-        want = total.to(torch.bfloat16)
-        gqa[gname] = {"bitwise_equal": bool(torch.equal(got, want)),
-                      "max_abs_diff": (got.float() - want.float()).abs().max().item()}
-        check(gqa[gname]["bitwise_equal"], f"K3 GQA {gname}: not the per-head-rounded group sum")
-    emit({"phase": "k3_gqa_rounding", "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
-          "dtype": "bfloat16", **gqa})
-    del q, k, v, do, o, lse, dk, dv, dk1, dv1
+    # rounded to bf16, summed over the group in f32 in head order, rounded once;
+    # at hd 64, and at Mistral's heads (32 over 8, hd 128) with a live band
+    for B, S, H, Hkv, hd, window in ((2, 512, 8, 2, 64, None), (1, 2048, 32, 8, 128, 512)):
+        group = H // Hkv
+        q, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda", dtype=torch.bfloat16)
+                for _ in range(2))
+        o, lse = fa._reference_fwd(q, k, v, True, hd ** -0.5, window)
+        _, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window)
+        _, dk1, dv1 = fa.flash_attention_bwd(q, k.repeat_interleave(group, 2),
+                                             v.repeat_interleave(group, 2), o, lse, do,
+                                             causal=True, window=window)
+        torch.cuda.synchronize()
+        gqa = {}
+        for gname, got, per_head in (("dk", dk, dk1), ("dv", dv, dv1)):
+            parts = per_head.reshape(B, S, Hkv, group, hd)
+            total = parts[..., 0, :].float()
+            for i in range(1, group):
+                total = total + parts[..., i, :].float()
+            want = total.to(torch.bfloat16)
+            gqa[gname] = {"bitwise_equal": bool(torch.equal(got, want)),
+                          "max_abs_diff": (got.float() - want.float()).abs().max().item()}
+            check(gqa[gname]["bitwise_equal"],
+                  f"K3 GQA hd {hd} {gname}: not the per-head-rounded group sum")
+        emit({"phase": "k3_gqa_rounding", "B": B, "S": S, "H": H, "Hkv": Hkv, "hd": hd,
+              "window": window, "dtype": "bfloat16", **gqa})
+        del q, k, v, do, o, lse, dk, dv, dk1, dv1
 
     k78 = k7_k8_phase(gen, card)
     fused_counts = fused_ops_phase(gen, card)
@@ -4698,122 +5386,53 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- the training path: GPT-2 125M, seq 1024, micro-batch 8, bf16, flash
-    # attention, no remat, with the JAX package's bench config
-    train_config = TRAIN_CONFIG
+    # attention, no remat, with the JAX package's bench config; the first
+    # step against the xla engine on the same weights, with each layer's
+    # q/k/v gradient blocks
     model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="pallas")
-    engine = deepspeed_tpu_torch.initialize(model=model, config=train_config)[0]
+    engine = deepspeed_tpu_torch.initialize(model=model, config=TRAIN_CONFIG)[0]
     tcfg = engine.model.cfg
-    B_T, S_T, L_T, V_T = 8, 1024, tcfg.num_layers, tcfg.vocab_size
+    B_T, S_T, V_T = 8, 1024, tcfg.vocab_size
     init_params = tf.map_params(lambda p: p.detach().clone(), engine.master_params)
     batch = {"input_ids": torch.randint(0, V_T, (B_T, S_T), generator=gen, device="cuda")}
-
-    def train_step(e, before_step=None, data=None):
-        loss = e.forward(batch if data is None else data)
-        e.backward(loss)
-        got = before_step(e) if before_step is not None else None
-        e.step()
-        return (loss, got) if before_step is not None else loss
 
     def snapshot(e):
         return [tuple(b.clone() for b in blocks) for blocks in wqkv_grad_blocks(e, tcfg)]
 
     warmup, steps = 2, 10
-    loss0, wqkv0 = train_step(engine, snapshot)
-    losses = [float(loss0)]
-    gnorm0 = engine.get_global_grad_norm()
-    for _ in range(warmup - 1):
-        losses.append(float(train_step(engine)))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    op_builder.reset_launch_counts()
-    step_s = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        loss = train_step(engine)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        losses.append(float(loss))
-    train_counts = op_builder.launch_counts()
-    peak_bytes = torch.cuda.max_memory_allocated()
-    for kname in KERNELS:
-        check(train_counts[kname] == L_T * steps,
-              f"train: {kname} launched {train_counts[kname]} times in {steps} steps, "
-              f"expected {L_T} per step")
-    norms_per_step = 2 * L_T + 1  # two a layer and the final norm, each forward and backward
-    for kname in NORM_KERNELS:
-        check(train_counts[kname] == norms_per_step * steps,
-              f"train: {kname} launched {train_counts[kname]} times in {steps} steps, "
-              f"expected {norms_per_step} per step")
-    ln_v = math.log(V_T)
-    check(all(math.isfinite(x) for x in losses) and abs(losses[0] - ln_v) <= FIRST_LOSS_TOL,
-          f"train: first loss {losses[0]} not finite or not within {FIRST_LOSS_TOL} of ln V {ln_v}")
-    late = statistics.mean(losses[-3:])
-    check(late <= losses[0] - LOSS_DROP,
-          f"train: loss fell from {losses[0]} to {late} (last 3), less than {LOSS_DROP}")
+    run = timed_training(engine, batch, warmup, steps, snapshot)
+    train_counts = run["counts"]
+    losses, gnorm0 = run["losses"], run["grad_norm0"]
+    med_s = statistics.median(run["step_s"])
+    row = training_row("train", tcfg, run, B_T, S_T, steps)
 
-    # the same first step through the xla-attention engine on the same weights
-    xla_model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="xla")
-    xla_engine = deepspeed_tpu_torch.initialize(model=xla_model, config=train_config,
-                                                params=init_params)[0]
-    xla_loss, wqkv_rel = train_step(xla_engine, lambda e: [
-        [float((a - b).norm() / b.norm()) for a, b in zip(mine, theirs)]
-        for mine, theirs in zip(wqkv0, wqkv_grad_blocks(e, tcfg))])
-    xla_loss = float(xla_loss)
-    xla_gnorm = xla_engine.get_global_grad_norm()
-    del xla_engine, wqkv0  # init_params stays for the block-sparse dense-layout check
-    torch.cuda.empty_cache()
-    gnorm_rel = abs(gnorm0 - xla_gnorm) / xla_gnorm
-    check(abs(losses[0] - xla_loss) <= TRAIN_LOSS_TOL and gnorm_rel <= TRAIN_GNORM_REL_TOL,
-          f"train: first step vs xla engine: loss {losses[0]} vs {xla_loss}, "
-          f"grad norm {gnorm0} vs {xla_gnorm}")
-    wqkv_worst = {part: max(layer[i] for layer in wqkv_rel) for i, part in enumerate("qkv")}
-    med_s = statistics.median(step_s)
-    tokens_per_s = B_T * S_T / med_s
-    emit({"phase": "train", "model": "gpt2-125m", "batch": B_T, "seq": S_T, "layers": L_T,
-          "dtype": "bfloat16", "attn_impl": "pallas", "optimizer": "AdamW lr 1e-4 wd 0.01",
-          "warmup_steps": warmup, "steps": steps, "losses": losses,
-          "first_loss_vs_ln_v": losses[0] - ln_v, "loss_drop_last3": losses[0] - late,
-          "loss_drop_min": LOSS_DROP,
-          "step_ms_median": med_s * 1e3, "step_ms_min": min(step_s) * 1e3,
-          "step_ms_max": max(step_s) * 1e3, "tokens_per_s": tokens_per_s,
-          "mfu": tcfg.flops_per_token(S_T) * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
-          "flops_per_token": tcfg.flops_per_token(S_T),
-          "peak_memory_bytes": peak_bytes,
-          "launches": {k: train_counts[k] for k in KERNELS + NORM_KERNELS},
-          "launches_per_step": {k: train_counts[k] / steps for k in KERNELS + NORM_KERNELS},
-          "first_step_vs_xla": {"loss": losses[0], "xla_loss": xla_loss,
-                                "grad_norm": gnorm0, "xla_grad_norm": xla_gnorm,
-                                "grad_norm_rel_diff": gnorm_rel, "loss_tol": TRAIN_LOSS_TOL,
-                                "grad_norm_rel_tol": TRAIN_GNORM_REL_TOL,
-                                "wqkv_grad_rel_diff_worst_layer": wqkv_worst,
-                                "wqkv_grad_rel_diff_per_layer_qkv": wqkv_rel},
-          "card": card})
+    def wqkv_vs_flash(e):
+        rel = [[float((a - b).norm() / b.norm()) for a, b in zip(mine, theirs)]
+               for mine, theirs in zip(run["first"], wqkv_grad_blocks(e, tcfg))]
+        return {"wqkv_grad_rel_diff_worst_layer": {part: max(layer[i] for layer in rel)
+                                                   for i, part in enumerate("qkv")},
+                "wqkv_grad_rel_diff_per_layer_qkv": rel}
+
+    # init_params stays for the block-sparse dense-layout check
+    row["first_step_vs_xla"] = first_step_vs_xla("train", tcfg, init_params, batch, losses[0],
+                                                 gnorm0, wqkv_vs_flash)
+    del run["first"]
+    emit({"phase": "train", "model": "gpt2-125m", "warmup_steps": warmup, **row, "card": card})
 
     # ---- the model's gradients through K1-K3 in f32 (TF32 off), 2 layers at
     # the same width: the flash engine against the xla-attention engine
-    f32_config = {k: v for k, v in train_config.items() if k != "bf16"}
-
-    def f32_grads(models):
+    def f32_grads(cfgs):
         """{key: (loss, {leaf: f32 gradient})} of one f32 step on ``batch``
-        for each model, every engine from the first engine's weights."""
+        for each config, every engine from the first engine's weights."""
         out, f32_params = {}, None
-        for key, m in models.items():
-            e = deepspeed_tpu_torch.initialize(model=m, config=f32_config, params=f32_params)[0]
-            f32_params = e.params
-            f32_loss = e.forward(batch)
-            e.backward(f32_loss)
-            out[key] = (float(f32_loss), {name: g for (name, _), g in
-                                          zip(named_leaves(e.params), e.grad_acc)})
-            del e
-        torch.cuda.synchronize()
+        for key, c in cfgs.items():
+            loss, grads, f32_params = f32_step(c, f32_params, batch["input_ids"], "cuda")
+            out[key] = (loss, grads)
         return out
 
-    def rel_per_leaf(got, ref):
-        return {name: float((got[name] - g).abs().max() / g.abs().max()) for name, g in ref.items()}
-
-    grads = f32_grads({impl: tf.TransformerModel.from_preset(
-        "gpt2-125m", dtype="float32", attn_impl=impl, num_layers=2) for impl in ("pallas", "xla")})
-    f32_rel = rel_per_leaf(grads["pallas"][1], grads["xla"][1])
+    grads = f32_grads({impl: tf.get_config("gpt2-125m", dtype="float32", attn_impl=impl,
+                                           num_layers=2) for impl in ("pallas", "xla")})
+    f32_rel = leaf_rel(grads["pallas"][1], grads["xla"][1])
     worst = max(f32_rel, key=f32_rel.get)
     f32_dloss = abs(grads["pallas"][0] - grads["xla"][0])
     check(f32_rel[worst] <= F32_GRAD_REL_TOL and f32_dloss <= F32_LOSS_TOL,
@@ -4832,25 +5451,15 @@ def main():
     # ---- the model's norms on the card (K7/K8) against the CPU (their plain
     # versions, as every kernel's): one f32 step (TF32 off) of a 2-layer
     # engine at GPT-2 125M's width, the same weights and batch on both
-    def norm_step(device, params, data):
-        m = tf.TransformerModel.from_preset("gpt2-125m", dtype="float32", attn_impl="pallas",
-                                            num_layers=2)
-        e = deepspeed_tpu_torch.initialize(model=m, config=f32_config, params=params,
-                                           device=device)[0]
-        step_loss = e.forward({"input_ids": data.to(device)})
-        e.backward(step_loss)
-        return e.params, float(step_loss), {name: g.detach().cpu() for (name, _), g in
-                                            zip(named_leaves(e.params), e.grad_acc)}
-
+    norm_cfg = tf.get_config("gpt2-125m", dtype="float32", attn_impl="pallas", num_layers=2)
     norm_batch = batch["input_ids"][:2]
     op_builder.reset_launch_counts()
-    card_params, card_loss, card_grads = norm_step("cuda", None, norm_batch)
+    card_loss, card_grads, card_params = f32_step(norm_cfg, None, norm_batch, "cuda")
     torch.cuda.synchronize()
     norm_counts = op_builder.launch_counts()
-    cpu_params = tf.map_params(lambda p: p.detach().cpu(), card_params)
-    _, cpu_loss, cpu_grads = norm_step("cpu", cpu_params, norm_batch.cpu())
-    del card_params, cpu_params
-    norm_rel = rel_per_leaf(card_grads, cpu_grads)
+    cpu_loss, cpu_grads, _ = f32_step(norm_cfg, card_params, norm_batch, "cpu")
+    del card_params
+    norm_rel = leaf_rel(card_grads, cpu_grads)
     norm_worst = max(norm_rel, key=norm_rel.get)
     norm_leaves = {k: v for k, v in norm_rel.items() if "ln" in k or "final_norm" in k}
     check(all(norm_counts[k] == 5 for k in NORM_KERNELS),
@@ -4871,53 +5480,10 @@ def main():
     del card_grads, cpu_grads
     torch.cuda.empty_cache()
 
-    from torch.profiler import ProfilerActivity, profile
-
-    def step_breakdown(e, data, kernel_names, med_ms):
-        """One training step under the profiler: device time by kernel and
-        by category (the ``*_breakdown`` lines), cross-checked against CUDA
-        events recorded around the same step: the kernels of one stream
-        cannot add up to more than the events' span, and their sum over the
-        span is the device's busy share."""
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            start.record()
-            train_step(e, data=data)
-            end.record()
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        events_ms = start.elapsed_time(end)
-        tk = device_kernels(prof)
-        tdev = sum(t for _, t, _ in tk)
-        check(not tk or tdev * 1e3 <= events_ms * (1 + PROFILER_SPAN_TOL),
-              f"breakdown: the profiler's kernels add up to {tdev * 1e3} ms, more than the "
-              f"{events_ms} ms between CUDA events around the same step")
-        per_kernel = {}
-        for kname in kernel_names:
-            tag = f"{kname}_kernel"
-            t = sum(x for k, x, _ in tk if tag in k)
-            per_kernel[kname] = {"device_s": t, "share_of_device_time": t / tdev if tdev else None,
-                                 "launches": sum(n for k, _, n in tk if tag in k)}
-        return tk, {
-            "step_wall_s_under_profiler": prof_wall, "step_ms_median_unprofiled": med_ms,
-            "device_kernel_s": tdev if tk else "not measured",
-            "cuda_events_step_ms": events_ms,
-            "profiler_device_ms_over_events_ms": tdev * 1e3 / events_ms if tk else "not measured",
-            "device_busy_share": tdev / prof_wall if tk else "not measured",
-            "device_busy_share_of_unprofiled_step": tdev / med_ms * 1e3 if tk else "not measured",
-            "device_kernel_launches": sum(n for _, _, n in tk),
-            "kernels": per_kernel,
-            "by_category": by_category(tk),
-            "top_kernels": [{"name": k[:120], "s": t, "launches": n}
-                            for k, t, n in sorted(tk, key=lambda x: -x[1])[:15]],
-            "card": card}
-
     # ---- where the training step's time goes: one step under the profiler;
     # each flash kernel's profiled time per launch beside its CUDA-graph time
     # from the k1 / k2_k3 phases at the same shape
-    tk, row = step_breakdown(engine, batch, KERNELS, med_s * 1e3)
+    tk, row = step_breakdown(engine, batch, KERNELS, med_s * 1e3, card)
     graph_ms = {"flash_fwd": k1["e_train_b8_s1024"]["kernel_ms"],
                 "flash_bwd_dq": k23["a_train_b8_s1024"]["k2_ms"],
                 "flash_bwd_dkv": k23["a_train_b8_s1024"]["k3_ms"]}
@@ -4941,69 +5507,36 @@ def main():
     # (_bench_impl.py:277-296 bench_long_ctx) with the attention switched to
     # the block-sparse kernels and the default layout (the fixed pattern,
     # block 64, 4 local blocks, 1 global block, bidirectional, masked causal)
-    sparse_config = dict(train_config, train_micro_batch_size_per_gpu=2)
     smodel = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", max_seq_len=4096,
                                              attn_impl="block_sparse")
-    sengine = deepspeed_tpu_torch.initialize(model=smodel, config=sparse_config)[0]
-    scfg = sengine.model.cfg
     B_S, S_S = 2, 4096
+    sengine = deepspeed_tpu_torch.initialize(model=smodel, config=train_config(B_S))[0]
+    scfg = sengine.model.cfg
     sbatch = {"input_ids": torch.randint(0, V_T, (B_S, S_S), generator=gen, device="cuda")}
-    slosses = [float(train_step(sengine, data=sbatch)) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    op_builder.reset_launch_counts()
-    sstep_s = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        loss = train_step(sengine, data=sbatch)
-        torch.cuda.synchronize()
-        sstep_s.append(time.perf_counter() - t0)
-        slosses.append(float(loss))
-    sparse_counts = op_builder.launch_counts()
-    speak_bytes = torch.cuda.max_memory_allocated()
+    srun = timed_training(sengine, sbatch, warmup, steps)
+    sparse_counts = srun["counts"]
+    smed_s = statistics.median(srun["step_s"])
+    # K1-K3 none, K7/K8 by the norm count: the training row's rule
+    srow = training_row("train_sparse", scfg, srun, B_S, S_S, steps)
     for kname in SPARSE_KERNELS:
-        check(sparse_counts[kname] == L_T * steps,
+        check(sparse_counts[kname] == scfg.num_layers * steps,
               f"train_sparse: {kname} launched {sparse_counts[kname]} times in {steps} steps, "
-              f"expected {L_T} per step")
+              f"expected {scfg.num_layers} per step")
     slayout, sblock = tf._sparse_layout((("mode", "fixed"),), scfg.num_heads, S_S)
     svariant = bs.kernel_variant(torch.bfloat16, min(sblock, bs.MAX_TILE))
     check(svariant == "tensor_core",
           f"train_sparse: K4-K6 at block {sblock} run the {svariant} kernels, not the "
           f"tensor-core ones")
-    for kname in KERNELS:
-        check(sparse_counts[kname] == 0,
-              f"train_sparse: {kname} launched {sparse_counts[kname]} times, expected none")
-    for kname in NORM_KERNELS:
-        check(sparse_counts[kname] == norms_per_step * steps,
-              f"train_sparse: {kname} launched {sparse_counts[kname]} times in {steps} steps, "
-              f"expected {norms_per_step} per step")
-    check(all(math.isfinite(x) for x in slosses) and abs(slosses[0] - ln_v) <= FIRST_LOSS_TOL,
-          f"train_sparse: first loss {slosses[0]} not finite or not within {FIRST_LOSS_TOL} "
-          f"of ln V {ln_v}")
-    slate = statistics.mean(slosses[-3:])
-    check(slate <= slosses[0] - LOSS_DROP,
-          f"train_sparse: loss fell from {slosses[0]} to {slate} (last 3), less than {LOSS_DROP}")
     live_pairs = attention_pairs(S_S, S_S, True, None, layout=slayout, block=sblock)
-    dense_fpt = scfg.flops_per_token(S_S)
     attn_dense = 12 * scfg.num_layers * scfg.hidden_size * S_S
-    sparse_fpt = dense_fpt - attn_dense + attn_dense * live_pairs / scfg.num_heads / S_S ** 2
-    smed_s = statistics.median(sstep_s)
-    stokens_per_s = B_S * S_S / smed_s
-    emit({"phase": "train_sparse", "model": "gpt2-125m", "batch": B_S, "seq": S_S,
-          "layers": L_T, "dtype": "bfloat16", "attn_impl": "block_sparse",
-          "sparse_attention": "default (fixed, block 64)", "optimizer": "AdamW lr 1e-4 wd 0.01",
+    sparse_fpt = (srow["flops_per_token"] - attn_dense
+                  + attn_dense * live_pairs / scfg.num_heads / S_S ** 2)
+    emit({"phase": "train_sparse", "model": "gpt2-125m", "warmup_steps": warmup, **srow,
+          "sparse_attention": "default (fixed, block 64)",
           "live_causal_pairs_per_head": live_pairs / scfg.num_heads,
-          "warmup_steps": warmup, "steps": steps, "losses": slosses,
-          "first_loss_vs_ln_v": slosses[0] - ln_v, "loss_drop_last3": slosses[0] - slate,
-          "loss_drop_min": LOSS_DROP,
-          "step_ms_median": smed_s * 1e3, "step_ms_min": min(sstep_s) * 1e3,
-          "step_ms_max": max(sstep_s) * 1e3, "tokens_per_s": stokens_per_s,
-          "mfu_dense_attention_count": dense_fpt * stokens_per_s / PEAK_FLOPS[torch.bfloat16],
-          "flops_per_token_dense_attention": dense_fpt,
-          "mfu_live_pairs_count": sparse_fpt * stokens_per_s / PEAK_FLOPS[torch.bfloat16],
-          "flops_per_token_live_pairs": sparse_fpt,
-          "peak_memory_bytes": speak_bytes,
-          "variant": svariant,
+          "mfu_live_pairs_count": (sparse_fpt * srow["tokens_per_s"]
+                                   / PEAK_FLOPS[torch.bfloat16]),
+          "flops_per_token_live_pairs": sparse_fpt, "variant": svariant,
           "launches": {k: sparse_counts[k] for k in SPARSE_KERNELS + KERNELS + NORM_KERNELS},
           "launches_per_step": {k: sparse_counts[k] / steps
                                 for k in SPARSE_KERNELS + KERNELS + NORM_KERNELS},
@@ -5017,9 +5550,9 @@ def main():
     dmodel = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16",
                                              attn_impl="block_sparse",
                                              sparse_attention=dense_layout)
-    dengine = deepspeed_tpu_torch.initialize(model=dmodel, config=train_config,
+    dengine = deepspeed_tpu_torch.initialize(model=dmodel, config=TRAIN_CONFIG,
                                              params=init_params)[0]
-    dloss = float(train_step(dengine))
+    dloss = float(engine_step(dengine, batch)[0])
     dgnorm = dengine.get_global_grad_norm()
     del dengine, init_params
     torch.cuda.empty_cache()
@@ -5028,12 +5561,10 @@ def main():
           f"train_sparse_dense_layout: first step vs flash engine: loss {dloss} vs {losses[0]}, "
           f"grad norm {dgnorm} vs {gnorm0}")
     grads = f32_grads({
-        "block_sparse": tf.TransformerModel.from_preset(
-            "gpt2-125m", dtype="float32", attn_impl="block_sparse", num_layers=2,
-            sparse_attention=dense_layout),
-        "xla": tf.TransformerModel.from_preset("gpt2-125m", dtype="float32", attn_impl="xla",
-                                               num_layers=2)})
-    d_rel = rel_per_leaf(grads["block_sparse"][1], grads["xla"][1])
+        "block_sparse": tf.get_config("gpt2-125m", dtype="float32", attn_impl="block_sparse",
+                                      num_layers=2, sparse_attention=dense_layout),
+        "xla": tf.get_config("gpt2-125m", dtype="float32", attn_impl="xla", num_layers=2)})
+    d_rel = leaf_rel(grads["block_sparse"][1], grads["xla"][1])
     d_worst = max(d_rel, key=d_rel.get)
     d_dloss = abs(grads["block_sparse"][0] - grads["xla"][0])
     check(d_rel[d_worst] <= F32_GRAD_REL_TOL and d_dloss <= F32_LOSS_TOL,
@@ -5057,7 +5588,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- where the block-sparse training step's time goes
-    tk, row = step_breakdown(sengine, sbatch, SPARSE_KERNELS, smed_s * 1e3)
+    tk, row = step_breakdown(sengine, sbatch, SPARSE_KERNELS, smed_s * 1e3, card)
     emit({"phase": "train_sparse_breakdown", **row})
     check(bool(tk), "train_sparse breakdown: the profiler saw no device kernel")
     del sengine
@@ -5083,11 +5614,37 @@ def main():
           and family_counts.get("fused_norm_fwd", 0) > 0,
           "HF paths: K1 never launched on hf_load, or K7 on hf_load or hf_families")
 
+    # ---- training every decoder family: Llama 2 7B's width (4 layers),
+    # Mistral 7B's shape (2 layers, the window band), the six HF families,
+    # and a fine-tune from an HF directory back out to one, each path
+    # counted from 0
+    decoder_counts, _ = train_decoders(gen, card)
+
     e1, a23, a456 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"], k456["a_fixed_b2_s4096"]
     a78 = k78["a_ln_8192x768_bf16"]
 
     def bwd_err(grad_names):
         return max(row["max_abs_err"][g] for row in k23.values() for g in grad_names)
+
+    def train_bwd_shapes(kernel):
+        """K2's or K3's numbers at the decoder-training shapes (k2_k3 f, g)."""
+        return {name: {"max_abs_err": k23[name]["max_abs_err"], "ms": k23[name][f"{kernel}_ms"],
+                       "plain_ms": k23[name]["plain_bwd_ms"],
+                       "bound_ms": k23[name][f"{kernel}_bound_ms"],
+                       "bound_by": k23[name][f"{kernel}_bound_by"],
+                       "library_ms": k23[name]["sdpa_bwd_ms"],
+                       "tflops": k23[name][f"{kernel}_tflops"]} for name in TRAIN_K23_ROWS}
+
+    def train_norm_shape(kernel):
+        """K7's or K8's numbers at train_llama's rows (k7_k8 f)."""
+        row = k78["f_rms_8192x4096_bf16"]
+        keys = {"ms": f"{kernel}_ms", "bound_ms": f"{kernel}_bound_ms",
+                "bound_by": f"{kernel}_bound_by",
+                "plain_ms": "plain_fwd_ms" if kernel == "k7" else "plain_bwd_ms",
+                "library_ms": "library_fwd_ms" if kernel == "k7" else "library_bwd_ms"}
+        return {"shape": "RMSNorm rows 8192 x D 4096 bf16 (train_llama)",
+                "max_abs_err": row["max_abs_err"]["out" if kernel == "k7" else "dx"],
+                "variant": row["variant"], **{k: row[v] for k, v in keys.items()}}
 
     def sparse_err(grad_names):
         return max(row["max_abs_err"][g] for row in k456.values() for g in grad_names)
@@ -5109,7 +5666,8 @@ def main():
                    "llama_serve": llama_counts.get(kname, 0),
                    "mistral_ring": ring_counts.get(kname, 0),
                    "hf_load": hf_counts.get(kname, 0),
-                   "hf_families": family_counts.get(kname, 0)}
+                   "hf_families": family_counts.get(kname, 0),
+                   **{path: c.get(kname, 0) for path, c in decoder_counts.items()}}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
@@ -5126,20 +5684,25 @@ def main():
          "bound_by": e1["bound_by"], "library_ms": e1["library_ms"],
          "llama_shapes": {name: {key: k1[name][key] for key in (
              "max_abs_err_o", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "tflops")} for name in ("g_llama2_7b_b8_s512", "h_mistral_7b_b1_s4608_w4096")}},
+             "tflops")} for name in ("g_llama2_7b_b8_s512", "h_mistral_7b_b1_s4608_w4096")},
+         "llama_train_shapes": {name: {key: k1[name][key] for key in (
+             "max_abs_err_o", "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "tflops")} for name in TRAIN_K1_ROWS}},
         {"name": "flash_bwd_dq", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{pallas}/flash_attention.py:222",
          **launches("flash_bwd_dq"), "max_abs_err": bwd_err(["dq"]), "variant": a23["variant"],
          "shape": "B8 S1024 H12 hd64 causal bf16",
          "ms": a23["k2_ms"], "plain_ms": a23["plain_bwd_ms"], "bound_ms": a23["k2_bound_ms"],
-         "bound_by": a23["k2_bound_by"], "library_ms": a23["sdpa_bwd_ms"]},
+         "bound_by": a23["k2_bound_by"], "library_ms": a23["sdpa_bwd_ms"],
+         "llama_train_shapes": train_bwd_shapes("k2")},
         {"name": "flash_bwd_dkv", "route": "cuda", "source": f"{src}/flash_bwd.cu",
          "replaces": f"{pallas}/flash_attention.py:271",
          **launches("flash_bwd_dkv"), "max_abs_err": bwd_err(["dk", "dv"]),
          "variant": a23["variant"],
          "shape": "B8 S1024 H12 hd64 causal bf16",
          "ms": a23["k3_ms"], "plain_ms": a23["plain_bwd_ms"], "bound_ms": a23["k3_bound_ms"],
-         "bound_by": a23["k3_bound_by"], "library_ms": a23["sdpa_bwd_ms"]},
+         "bound_by": a23["k3_bound_by"], "library_ms": a23["sdpa_bwd_ms"],
+         "llama_train_shapes": train_bwd_shapes("k3")},
         {"name": "block_sparse_fwd", "route": "cuda", "source": f"{src}/block_sparse_fwd.cu",
          "replaces": f"{pallas}/block_sparse_attention.py:31", **launches("block_sparse_fwd"),
          "max_abs_err": sparse_err(["o"]), "variant": a456["variant"], "shape": sparse_shape,
@@ -5169,14 +5732,15 @@ def main():
              "bound_ms", "bound_by")},
          "llama_decode_shape": {key: llama_k7[key] for key in (
              "rows", "D", "dtype", "kind", "variant", "max_abs_err", "ms", "plain_ms",
-             "library_ms", "bound_ms", "bound_by")}},
+             "library_ms", "bound_ms", "bound_by")},
+         "llama_train_shape": train_norm_shape("k7")},
         {"name": "fused_norm_bwd", "route": "cuda", "source": f"{src}/fused_norm.cu",
          "replaces": f"{pallas}/fused_norm.py:55", **launches("fused_norm_bwd"),
          "max_abs_err": max(row["max_abs_err"]["dx"] for row in k78.values()),
          "variant": a78["variant"], "shape": norm_shape, "ms": a78["k8_ms"],
          "plain_ms": a78["plain_bwd_ms"],
          "bound_ms": a78["k8_bound_ms"], "bound_by": a78["k8_bound_by"],
-         "library_ms": a78["library_bwd_ms"]},
+         "library_ms": a78["library_bwd_ms"], "llama_train_shape": train_norm_shape("k8")},
     ]})
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
@@ -5191,5 +5755,6 @@ if __name__ == "__main__":
     ENTRIES = {("--decode-step",): decode_step_main, ("--serve-pool",): serve_pool_main,
                ("--spec",): spec_main, ("--serve-layer",): serve_layer_main,
                ("--fleet",): serve_fleet_main, ("--llama",): llama_main, ("--hf",): hf_main,
-               ("--train-resume",): train_resume_main}
+               ("--train-resume",): train_resume_main,
+               ("--train-decoders",): train_decoders_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

@@ -82,12 +82,6 @@ def _check_config(config: InferenceConfig) -> None:
         raise ValueError(f"kv_read_floor must be a positive power of 2, got {floor!r}")
 
 
-def _is_reference_tree(tree) -> bool:
-    """The reference's layout (layers stacked in one dict: numpy arrays, or
-    the HF policies' tensors), not this package's list of layers."""
-    return isinstance(tree["layers"], dict)
-
-
 def _map_with_path(fn, tree, path=()):
     """``fn(path, leaf)`` over a nested dict/list tree; ``path`` holds the
     keys (and list indices) from the root."""
@@ -187,7 +181,7 @@ class InferenceEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.model.init(gen)
-        elif _is_reference_tree(params):
+        elif tf.is_reference_tree(params):
             params = tf.params_from_numpy(params, cfg, self.device)
         # cast to the model dtype, THEN quantize: the scales stay f32
         dt = cfg.torch_dtype

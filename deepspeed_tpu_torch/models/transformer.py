@@ -37,11 +37,17 @@ LayerNorm over the embeddings (``embed_norm``), post-LN (OPT with
 ``do_layer_norm_before=False``: no final norm) and the parallel residual
 with or without the shared LN (GPT-NeoX, GPT-J), with the lm head's bias.
 
+Every decoder shape that serves also trains: ``loss_fn`` takes gradients
+through rope (the rotation in f32, the table built once a forward from the
+positions alone), GQA (the flash kernels sum each kv head's group; the
+masked path repeats the kv heads, whose gradients autograd sums), uniform
+windows on the flash band, per-layer windows and ALiBi on the masked path,
+``embed_norm``, post-LN and the parallel residual.
+
 Features outside the slices (MoE, the encoders: bidirectional attention,
 token types and ``quick_gelu``, sequence parallelism, block-sparse attention
-with windows or ALiBi, and for training rope, windows, ALiBi, ``embed_norm``,
-post-LN, the parallel residual, dropout, remat, random-LTD and progressive
-layer drop) raise ``NotImplementedError``; see ROADMAP.md.
+with windows or ALiBi, and for training dropout, remat, random-LTD and
+progressive layer drop) raise ``NotImplementedError``; see ROADMAP.md.
 """
 
 import functools
@@ -398,6 +404,14 @@ def _init_tree(generator: Optional[torch.Generator], cfg: TransformerConfig):
         layers.append(layer)
     params["layers"] = layers
     return params
+
+
+def is_reference_tree(tree) -> bool:
+    """The reference's layout (layers stacked in one dict: numpy arrays, or
+    the tensors of ``module_inject``'s policies, as
+    ``load_checkpoint.convert_hf_checkpoint`` returns them), which
+    ``params_from_numpy`` takes, not this package's list of layers."""
+    return isinstance(tree["layers"], dict)
 
 
 def params_from_numpy(tree, cfg: TransformerConfig, device=None):
@@ -780,22 +794,16 @@ def _ce_from_logits(logits, batch, tokens, denom=None):
 
 
 def check_trainable(cfg: TransformerConfig) -> None:
-    """Raise for the training features outside the training slice."""
+    """Raise for the training features outside the training slices: every
+    decoder family that serves also trains (rope, GQA, windows, ALiBi,
+    ``embed_norm``, post-LN, the parallel residual); dropout, remat,
+    random-LTD and progressive layer drop do not yet."""
     check_supported(cfg)
-    variant = "item 10's training half"
     checks = [
-        (cfg.pos_embedding == "rope",
-         "training with rope (Llama training: item 7's training half, after \"Perf\" 8)"),
-        (cfg.pos_embedding == "alibi", f"training with ALiBi ({variant})"),
-        (cfg.embed_norm, f"training with embed_norm ({variant})"),
-        (cfg.norm_position != "pre", f"training post-LN ({variant})"),
-        (cfg.parallel_residual, f"training the parallel residual ({variant})"),
-        (cfg.local_attn_windows is not None,
-         "training with local_attn_windows (item 7's training half, after \"Perf\" 8)"),
-        (cfg.dropout > 0.0, f"dropout={cfg.dropout}"),
-        (cfg.remat, "activation checkpointing (remat)"),
-        (cfg.random_ltd, "random-LTD"),
-        (cfg.pld_enabled, "progressive layer drop"),
+        (cfg.dropout > 0.0, f"dropout={cfg.dropout} (Queue 1 item 10)"),
+        (cfg.remat, "activation checkpointing (remat, Queue 1 item 10)"),
+        (cfg.random_ltd, "random-LTD (Queue 1 item 10)"),
+        (cfg.pld_enabled, "progressive layer drop (Queue 1 item 10)"),
     ]
     for bad, feature in checks:
         if bad:

@@ -13,11 +13,14 @@ master weights, a cast back into the model-dtype parameters, and a zeroed
 accumulator; the lr is read before the scheduler advances.
 ``train_batch(data_iter)`` runs one accumulation cycle.
 
-Parameters come from a seeded ``torch.Generator`` or from ``params=`` (the
-reference's numpy tree or this package's own). The engine keeps f32 masters
-when the precision is bf16/fp16. It runs on CUDA unless ``device="cpu"`` is
-passed; without CUDA and without that argument it raises. It updates its
-buffers in place where the reference's programs donate theirs.
+Parameters come from a seeded ``torch.Generator`` or from ``params=``: the
+reference's layout (its numpy tree, or the tensors that
+``module_inject.load_checkpoint.convert_hf_checkpoint`` reads from an HF
+directory, which is how a fine-tune starts) or this package's own. The
+engine keeps f32 masters when the precision is bf16/fp16. It runs on CUDA
+unless ``device="cpu"`` is passed; without CUDA and without that argument it
+raises. It updates its buffers in place where the reference's programs
+donate theirs.
 
 Checkpoints (the reference's engine.py:1693-1929): ``save_checkpoint`` writes
 the state tree (params, the loss scale, the gradient accumulators, the f32
@@ -126,10 +129,6 @@ def _leaf_names(tree, prefix=""):
     return [prefix[:-1]]
 
 
-def _is_numpy_tree(tree) -> bool:
-    return not torch.is_tensor(tree["embed"]["tok"])
-
-
 def _host_numpy(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
@@ -162,7 +161,7 @@ class TpuEngine:
         seed = config.seed if seed is None else seed
         if params is None:
             master = model.init(torch.Generator(device=self.device).manual_seed(int(seed)))
-        elif _is_numpy_tree(params):
+        elif tf.is_reference_tree(params):
             master = tf.params_from_numpy(params, model.cfg, self.device)
         else:
             master = params

@@ -12,7 +12,9 @@ dispatched where a host sync raises; the HF checkpoint reader
 (``module_inject.load_checkpoint``) on tensors written from the card; and
 the training engine's checkpoints and SDC probe at GPT-2 125M's width (a
 save, load and resume bit for bit, sync and async; two probes of one batch
-with one digest).
+with one digest); and the decoder families' training: K2/K3 at Llama 2 7B's
+head dim 128 (group 1, and Mistral's group 4 with a window) and a 2-layer
+Llama-width step on the flash path against the xla path.
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -1458,3 +1460,75 @@ def test_sdc_probe_gives_one_digest_twice_on_the_card():
     assert all(float(g.abs().max()) == 0.0 for g in eng.grad_acc)
     assert eng.micro_steps == 0 and eng.global_steps == 0
     assert eng.sdc_probe(batch) == first
+
+
+# training every decoder family: K2/K3 at Llama 2 7B's head dim 128, with
+# MHA (group 1) and Mistral's GQA group 4 with a window, against the plain
+# backward; then one Llama-width training step on the flash path against the
+# same step on the masked (xla) path
+@pytest.mark.parametrize("B,S,H,Hkv,hd,window", [(1, 2048, 8, 8, 128, None),
+                                                 (1, 2048, 16, 4, 128, 512)],
+                         ids=["llama_mha_hd128", "mistral_gqa4_window512_hd128"])
+def test_flash_backward_matches_plain_version_at_the_training_head_dim(B, S, H, Hkv, hd, window):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(S + H)
+    q, do = (torch.randn(B, S, H, hd, generator=g, device="cuda", dtype=torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, hd, generator=g, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    scale = hd ** -0.5
+    o, lse = tfa._reference_fwd(q, k, v, True, scale, window)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert dk.shape == (B, S, Hkv, hd) and dv.shape == (B, S, Hkv, hd)
+    for got, ref in zip((dq, dk, dv), tfa._reference_bwd(q, k, v, o, lse, do, True, scale,
+                                                          window)):
+        assert torch.isfinite(got).all()
+        assert _grad_err(got, ref) <= GRAD_REL_TOL[torch.bfloat16]
+
+
+# the first bf16 step of the flash engine against the xla engine on the same
+# weights: the two attention paths round at different places (chip_smoke.py's
+# TRAIN_LOSS_TOL and TRAIN_GNORM_REL_TOL)
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GNORM_REL_TOL = 0.01
+
+
+def test_llama_width_training_step_on_flash_matches_the_xla_engine():
+    """A 2-layer ``llama2-7b`` engine (D 4096, 32 heads of 128, SwiGLU 11008,
+    vocab 32000, untied), bf16, B 1 x S 1024: the flash engine's first loss
+    and grad norm against the xla engine's on the same initial weights, with
+    K1-K3 launched once a layer and K7/K8 once a norm."""
+    _need_card()
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    config = {"train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-4, "weight_decay": 0.01}},
+              "bf16": {"enabled": True}, "steps_per_print": 10 ** 6}
+    results, init = {}, None
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {"input_ids": torch.randint(0, 32000, (1, 1024), generator=g, device="cuda")}
+    for impl in ("pallas", "xla"):
+        model = tf.TransformerModel.from_preset("llama2-7b", dtype="bfloat16", attn_impl=impl,
+                                                num_layers=2)
+        eng = deepspeed_tpu_torch.initialize(model=model, config=config, params=init)[0]
+        if init is None:
+            init = tf.map_params(lambda p: p.detach().cpu(), eng.master_params)
+        before = dict(LAUNCHES)
+        loss = eng.forward(batch)
+        eng.backward(loss)
+        eng.step()
+        torch.cuda.synchronize()
+        launched = {k: LAUNCHES[k] - before[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                                          "flash_bwd_dkv", "fused_norm_fwd",
+                                                          "fused_norm_bwd")}
+        flash = 2 if impl == "pallas" else 0
+        assert launched == {"flash_fwd": flash, "flash_bwd_dq": flash, "flash_bwd_dkv": flash,
+                            "fused_norm_fwd": 5, "fused_norm_bwd": 5}
+        results[impl] = (loss.item(), eng.get_global_grad_norm())
+        del eng
+        torch.cuda.empty_cache()
+    (lf, gf), (lx, gx) = results["pallas"], results["xla"]
+    assert abs(lf - lx) <= TRAIN_LOSS_TOL
+    assert abs(gf - gx) / gx <= TRAIN_GNORM_REL_TOL

@@ -5,7 +5,8 @@ in f32 on the CPU: ALiBi with the embedding LayerNorm (BLOOM), post-LN (OPT
 with ``do_layer_norm_before=False``), the parallel residual with and without
 the shared LN (GPT-J, GPT-NeoX), partial and interleaved rotary at model
 level, and the lm head's bias; and the refusals around them (ALiBi off the
-ring and block-sparse, the training half).
+ring and block-sparse). Their training is held in
+``tests/test_torch_decoder_training.py``.
 
 Tolerances:
   - ALiBi's slopes: bit for bit (the same float64 formula rounded once to
@@ -319,21 +320,6 @@ def test_block_sparse_refuses_alibi():
     cfg = ttf.TransformerConfig(**dict(TINY, pos_embedding="alibi", attn_impl="block_sparse"))
     with pytest.raises(NotImplementedError, match="block-sparse attention with ALiBi"):
         ttf.check_supported(cfg)
-
-
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-def test_training_the_variants_is_refused(variant):
-    cfg = ttf.TransformerConfig(**dict(TINY, **VARIANTS[variant]))
-    ttf.check_supported(cfg)  # serving takes it
-    match = "item 7" if cfg.pos_embedding == "rope" else "item 10's training half"
-    with pytest.raises(NotImplementedError, match=match):
-        ttf.check_trainable(cfg)
-    if cfg.pos_embedding == "rope":
-        import dataclasses
-
-        cfg = dataclasses.replace(cfg, pos_embedding="learned", rope_dim=None)
-        with pytest.raises(NotImplementedError, match="item 10's training half"):
-            ttf.check_trainable(cfg)
 
 
 @pytest.mark.parametrize("over", [dict(causal=False), dict(type_vocab_size=2),

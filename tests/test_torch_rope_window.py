@@ -225,15 +225,6 @@ def test_varying_windows_stay_off_the_flash_kernel(monkeypatch):
         assert calls == want
 
 
-@pytest.mark.parametrize("over", [dict(pos_embedding="rope"), dict(local_attn_windows=(8, 8))],
-                         ids=["rope", "windows"])
-def test_training_with_rope_or_windows_is_refused(over):
-    cfg = ttf.TransformerConfig(**dict(TINY, **over))
-    ttf.check_supported(cfg)  # serving takes it
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ttf.check_trainable(cfg)
-
-
 @pytest.mark.parametrize("windows", [None, (8, 0), (0, 0)], ids=["none", "varying", "zeros"])
 def test_a_ring_without_one_window_is_refused(windows):
     cfg = ttf.TransformerConfig(**dict(TINY, pos_embedding="rope", rolling_kv_cache=True,
