@@ -119,7 +119,16 @@ backward):
     six HF families at their published widths and 2 layers, each with an
     f32 step on the card against the CPU (``train_families``); and Llama 2
     7B's layout at 2 layers fine-tuned from an HF directory, exported and
-    served from the export (``hf_finetune``).
+    served from the export (``hf_finetune``);
+  - ZeRO through the port's comm (``--train-zero`` runs this phase alone):
+    a process group started by ``init_distributed`` on NCCL, one rank a
+    card, on a ``file://`` store; each facade collective on CUDA f32 and
+    bf16; GPT-2 125M (B8 S1024 bf16, flash) at ZeRO stages 0-3 on
+    ``{fsdp: -1}``, 5 steps each, and Llama 2 7B's width at 2 layers (B1
+    S4096) at stages 0 and 3, 3 steps each: loss streams and final params
+    bit for bit across the stages and, for GPT-2, to the engine without a
+    process group; one step's NCCL calls under the profiler
+    (``train_zero``).
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after. Prints JSON lines as it goes; the line before the last
 names the card and its power limit (as nvidia-smi reports them), and the
@@ -4639,6 +4648,207 @@ def hf_finetune_phase(gen, card):
     return counts
 
 
+# train_zero: ZeRO stages through the port's comm on NCCL (one rank a card)
+ZERO_GPT2 = {"batch": 8, "seq": 1024, "steps": 5}
+ZERO_LLAMA = {"layers": 2, "batch": 1, "seq": 4096, "steps": 3}
+
+
+def facade_collectives(comm, world):
+    """Each collective of the comm facade on CUDA f32 and bf16 tensors: its
+    answer against what ``world`` ranks holding the same tensor would get
+    (every rank here holds ``x``), bit for bit."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.arange(world * 4 * 8, device="cuda", dtype=torch.float32) % 7 + 1
+             ).reshape(world * 4, 8).to(dtype)
+        n = float(world)
+        want = {
+            "all_reduce_sum": (comm.all_reduce(x, comm.ReduceOp.SUM), x * n),
+            "all_reduce_avg": (comm.all_reduce(x, comm.ReduceOp.AVG), x * n / n),
+            "all_reduce_max": (comm.all_reduce(x, comm.ReduceOp.MAX), x),
+            "all_reduce_min": (comm.all_reduce(x, comm.ReduceOp.MIN), x),
+            "all_reduce_prod": (comm.all_reduce(x, comm.ReduceOp.PROD), x ** world),
+            "all_gather": (comm.all_gather(x, axis=1), torch.cat([x] * world, 1)),
+            "all_gather_stacked": (comm.all_gather(x, tiled=False), torch.stack([x] * world)),
+            "reduce_scatter": (comm.reduce_scatter(x, scatter_dimension=0),
+                               (x * n).chunk(world, 0)[comm.get_rank()]),
+            "all_to_all": (comm.all_to_all(x, "fsdp", split_axis=0, concat_axis=1),
+                           torch.cat(x.chunk(world, 0), 1)),
+            "broadcast": (comm.broadcast(x, src=0), x),
+        }
+        for name, (got, ref) in want.items():
+            ok = got.dtype == dtype and got.is_cuda and torch.equal(got, ref.to(dtype))
+            check(ok, f"train_zero: {name} on CUDA {dtype} differs from its answer")
+            out[f"{name}_{str(dtype).removeprefix('torch.')}"] = ok
+    return out
+
+
+def nccl_kernels(e, data):
+    """One step under the profiler: the NCCL calls the host made (c10d's
+    ``nccl:*`` ranges) and the NCCL kernels the card ran, with their device
+    seconds. With one rank NCCL runs an in-place reduction as no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine_step(e, data)
+        torch.cuda.synchronize()
+    calls = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CPU and ev.name().startswith("nccl:"):
+            calls[ev.name()] = calls.get(ev.name(), 0) + 1
+    tk = [(k, t, n) for k, t, n in device_kernels(prof) if "nccl" in k.lower()]
+    return {"host_calls": calls, "kernel_launches": sum(n for _, _, n in tk),
+            "kernel_device_s": sum(t for _, t, _ in tk), "kernels": sorted({k[:60] for k, _, _ in tk})}
+
+
+def zero_run(model, stage, data, steps, counts, profile_nccl=False):
+    """An engine at ZeRO ``stage`` on ``{fsdp: -1}``, ``steps`` steps on one
+    batch: the losses (as their f32 bits), the step ms, the peak memory of
+    the start-up and of the steps, the launch counts (added to ``counts``)
+    and the gathered final params (on the card)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.ops import op_builder
+
+    conf = dict(train_config(data["input_ids"].shape[0]), mesh={"fsdp": -1},
+                zero_optimization={"stage": stage, "stage3_param_persistence_threshold": 0})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e = deepspeed_tpu_torch.initialize(model=model, config=conf, device="cuda", seed=0)[0]
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    op_builder.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = engine_step(e, data)[0]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    for k, c in op_builder.launch_counts().items():
+        counts[k] = counts.get(k, 0) + c
+    row = {"stage": stage, "mesh": e.mesh.shape if e.mesh is not None else None,
+           "losses": [float(x) for x in losses],
+           "step_ms": step_ms, "step_ms_median_after_first": statistics.median(step_ms[1:]),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "init_peak_allocated_bytes": init_peak,
+           "master_elems_on_rank": sum(t.numel() for t in e._base_leaves),
+           "launches": op_builder.launch_counts()}
+    final = e.gathered_params()
+    if profile_nccl:  # a sixth step, after the final params are taken
+        row["nccl_one_step"] = nccl_kernels(e, data)
+    loss_bits = torch.stack(losses).view(torch.int32).cpu()
+    del e
+    torch.cuda.empty_cache()
+    return row, loss_bits, final
+
+
+def same_bits(a, b):
+    """Whether two param trees hold the same leaves (by name), bit for bit."""
+    la, lb = dict(named_leaves(a)), dict(named_leaves(b))
+    return la.keys() == lb.keys() and all(torch.equal(la[k], lb[k]) for k in la)
+
+
+def train_zero_phase(gen, card):
+    """ZeRO through the port's comm on NCCL, one rank a card (one card here,
+    so every placement is whole, as the reference places it at fsdp 1):
+    the plain engine's GPT-2 125M steps (no process group) first; then the
+    process group through ``comm.init_distributed`` on a ``file://`` store;
+    each facade collective on CUDA f32 and bf16; GPT-2 125M (B8 S1024 bf16,
+    flash, AdamW) at stages 0-3 on ``{fsdp: -1}``, 5 steps each, the loss
+    streams and final params bit for bit equal across the stages and to the
+    plain engine's, one step profiled for its NCCL kernels; Llama 2 7B's
+    width at 2 layers (B1 S4096) at stage 3 against stage 0, 3 steps each,
+    bit for bit. Returns the launch counts of the driven runs."""
+    import tempfile
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import comms_logging
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    g, ll = ZERO_GPT2, ZERO_LLAMA
+    gpt2 = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="pallas")
+    data = {"input_ids": torch.randint(0, 50257, (g["batch"], g["seq"]), generator=gen,
+                                       device="cuda")}
+    counts = {}
+    plain, plain_bits, plain_final = zero_run(gpt2, 0, data, g["steps"], {})
+    check(not comm.has_process_group(), "train_zero: a process group before init_distributed")
+    world = torch.cuda.device_count()
+    store = tempfile.mkdtemp(prefix="dstorch_zero_")
+    mesh = deepspeed_tpu_torch.init_distributed(mesh_shape={"fsdp": -1}, device="cuda",
+                                                init_method=f"file://{store}/store", rank=0,
+                                                world_size=1, enable_comms_logging=True)
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        check(backend == "nccl", f"train_zero: the process group runs {backend}, not nccl")
+        collectives = facade_collectives(comm, comm.get_world_size())
+        logged = comm.get_comms_logger().summary()
+        check(logged.get("all_reduce", {}).get("count") == 10
+              and logged["all_reduce"]["total_bytes"] == 5 * 32 * world * (4 + 2),
+              f"train_zero: the comms log counted {logged.get('all_reduce')}")
+        rows, finals = [], {}
+        for stage in range(4):
+            row, bits, final = zero_run(gpt2, stage, data, g["steps"], counts,
+                                        profile_nccl=stage == 3)
+            check(torch.equal(bits, plain_bits) and same_bits(final, plain_final),
+                  f"train_zero gpt2 stage {stage}: the loss stream or the final params differ "
+                  f"from the plain engine's ({row['losses']} vs {plain['losses']})")
+            check(row["launches"].get("flash_fwd") == 12 * g["steps"]
+                  and row["launches"].get("flash_bwd_dkv") == 12 * g["steps"],
+                  f"train_zero gpt2 stage {stage}: K1-K3 launches {row['launches']}")
+            rows.append(row)
+            del final
+        check(sum(rows[-1]["nccl_one_step"]["host_calls"].values()) > 0,
+              f"train_zero: the profiler saw no NCCL call in a step ({rows[-1]['nccl_one_step']})")
+        del plain_final
+        llama = tf.TransformerModel.from_preset("llama2-7b", dtype="bfloat16",
+                                                attn_impl="pallas", num_layers=ll["layers"])
+        ldata = {"input_ids": torch.randint(0, 32000, (ll["batch"], ll["seq"]), generator=gen,
+                                            device="cuda")}
+        l0, l0_bits, l0_final = zero_run(llama, 0, ldata, ll["steps"], counts)
+        l3, l3_bits, l3_final = zero_run(llama, 3, ldata, ll["steps"], counts)
+        check(torch.equal(l0_bits, l3_bits) and same_bits(l0_final, l3_final),
+              f"train_zero llama: stage 3 differs from stage 0 ({l3['losses']} vs {l0['losses']})")
+        del l0_final, l3_final
+        emit({"phase": "train_zero", "world": comm.get_world_size(), "backend": backend,
+              "mesh": mesh.shape, "device_mesh": str(mesh.device_mesh),
+              "collectives": collectives, "comms_log": comm.get_comms_logger().summary(),
+              "msg_bytes_f32_4x8": comms_logging.get_msg_size(torch.zeros(4, 8)),
+              "gpt2_125m": {"batch": g["batch"], "seq": g["seq"], "plain_engine": plain,
+                            "stages": rows},
+              "llama2_7b_width": {"layers": ll["layers"], "batch": ll["batch"],
+                                  "seq": ll["seq"], "stage0": l0, "stage3": l3},
+              "phase_s": time.perf_counter() - t_phase, "card": card})
+    finally:
+        comm.destroy()
+    check(not comm.has_process_group(), "train_zero: the process group outlived destroy()")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_zero_main():
+    """``python3 chip_smoke.py --train-zero``: the ``train_zero`` phase alone
+    (no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, fnorm.KERNEL_LIB])
+    train_zero_phase(torch.Generator(device="cuda").manual_seed(0), card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def train_decoders(gen, card):
     """The four decoder-training phases in order; {path: launch counts} and
     ``train_llama``'s line."""
@@ -5619,6 +5829,7 @@ def main():
     # and a fine-tune from an HF directory back out to one, each path
     # counted from 0
     decoder_counts, _ = train_decoders(gen, card)
+    zero_counts = train_zero_phase(gen, card)
 
     e1, a23, a456 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"], k456["a_fixed_b2_s4096"]
     a78 = k78["a_ln_8192x768_bf16"]
@@ -5667,7 +5878,8 @@ def main():
                    "mistral_ring": ring_counts.get(kname, 0),
                    "hf_load": hf_counts.get(kname, 0),
                    "hf_families": family_counts.get(kname, 0),
-                   **{path: c.get(kname, 0) for path, c in decoder_counts.items()}}
+                   **{path: c.get(kname, 0) for path, c in decoder_counts.items()},
+                   "train_zero": zero_counts.get(kname, 0)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
@@ -5756,5 +5968,6 @@ if __name__ == "__main__":
                ("--spec",): spec_main, ("--serve-layer",): serve_layer_main,
                ("--fleet",): serve_fleet_main, ("--llama",): llama_main, ("--hf",): hf_main,
                ("--train-resume",): train_resume_main,
-               ("--train-decoders",): train_decoders_main}
+               ("--train-decoders",): train_decoders_main,
+               ("--train-zero",): train_zero_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

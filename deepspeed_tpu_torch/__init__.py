@@ -19,17 +19,33 @@ def init_inference(model, config=None, params=None, device=None, seed: int = 0,
                  draft_model=draft_model, draft_params=draft_params)
 
 
+def init_distributed(mesh_shape=None, device=None, init_method=None, rank=None, world_size=None,
+                     **kwargs):
+    """Reference: ``deepspeed_tpu.comm.init_distributed``: start the process
+    group (given ``init_method``) and shape the mesh; see
+    ``deepspeed_tpu_torch.comm.init_distributed``."""
+    from deepspeed_tpu_torch import comm
+
+    return comm.init_distributed(mesh_shape=mesh_shape, device=device, init_method=init_method,
+                                 rank=rank, world_size=world_size, **kwargs)
+
+
 def initialize(args=None, model=None, optimizer=None, model_parameters=None, training_data=None,
                lr_scheduler=None, loss_fn=None, params=None, collate_fn=None, config=None,
-               config_params=None, device=None, seed=None):
-    """Create a training engine (reference: ``deepspeed_tpu.initialize``) on
-    one device: a ``TransformerModel`` (or its config) and a config dict or
-    JSON path. ``params`` is the reference's numpy tree or this package's
-    own, else the weights come from ``seed`` (default: the config's
-    ``seed``). Runs on ``cuda`` unless ``device="cpu"``. Returns
+               config_params=None, device=None, seed=None, mesh=None):
+    """Create a training engine (reference: ``deepspeed_tpu.initialize``): a
+    ``TransformerModel`` (or its config) and a config dict or JSON path.
+    ``params`` is the reference's numpy tree or this package's own, else the
+    weights come from ``seed`` (default: the config's ``seed``). Runs on
+    ``cuda`` unless ``device="cpu"``. Under a process group
+    (:func:`init_distributed`) the engine trains on the config's ``mesh``,
+    or on ``mesh`` (a shape dict or a ``comm.Mesh``) when given, with the
+    config's ZeRO stage; without one, on its one device. Returns
     ``(engine, optimizer, training_dataloader, lr_scheduler)``: the third
     is a ``TpuDataLoader`` over ``training_data`` (batched by
     ``collate_fn``), or None without it."""
+    import json
+
     from deepspeed_tpu_torch.runtime.config import TpuConfig
     from deepspeed_tpu_torch.runtime.engine import TpuEngine
     from deepspeed_tpu_torch.utils import not_ported
@@ -42,10 +58,15 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None, tra
         raise ValueError("provide config= (dict or path to JSON)")
     if model is None or loss_fn is not None or model_parameters is not None:
         raise not_ported("initialize(loss_fn=..., model_parameters=...) without a TransformerModel")
+    if mesh is not None:
+        if isinstance(config, str):
+            with open(config) as fh:
+                config = json.load(fh)
+        config = dict(config, mesh=dict(getattr(mesh, "shape", mesh)))
     engine = TpuEngine(model, TpuConfig(config), params=params, optimizer=optimizer,
                        lr_scheduler=lr_scheduler, device=device, seed=seed,
                        training_data=training_data, collate_fn=collate_fn)
     return engine, engine.optimizer, engine.training_dataloader, engine.lr_scheduler
 
 
-__all__ = ["__version__", "init_inference", "initialize"]
+__all__ = ["__version__", "init_distributed", "init_inference", "initialize"]

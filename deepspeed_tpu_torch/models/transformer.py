@@ -44,6 +44,20 @@ masked path repeats the kv heads, whose gradients autograd sums), uniform
 windows on the flash band, per-layer windows and ALiBi on the masked path,
 ``embed_norm``, post-LN and the parallel residual.
 
+Training also runs tensor parallel (``tp``, a ``parallel.tensor_parallel.
+TensorParallel``), on the placements of :func:`logical_specs` under the
+reference's rules: a layer's attention holds ``wq``, ``wk`` and ``wv``
+as leaves of their own in place of ``wqkv`` (and ``bq``/``bk``/``bv``);
+each tensor rank holds its rows of ``wq``/``wi``/``wg`` (its output
+columns) and its columns of ``wo``, slices its kv heads' rows out of the
+whole ``wk``/``wv`` (which the rules keep whole), and all-reduces after
+each row-parallel product. Attention runs the kernels on the rank's own
+H/tp query and Hkv/tp kv heads, with the per-head quantities (ALiBi's
+slopes, a block-sparse layout's rows) taken at the rank's head offset;
+where the head counts do not divide the width, every rank computes every
+head, as the reference does. The vocabulary splits over the ranks: the
+embedding, the logits and the cross-entropy are vocab-parallel.
+
 Features outside the slices (MoE, the encoders: bidirectional attention,
 token types and ``quick_gelu``, sequence parallelism, block-sparse attention
 with windows or ALiBi, and for training dropout, remat, random-LTD and
@@ -72,6 +86,7 @@ from deepspeed_tpu_torch.ops.transformer.inference_ops import (
     softmax_context,
     update_kv_cache,
 )
+from deepspeed_tpu_torch.parallel import tensor_parallel as tpm
 from deepspeed_tpu_torch.utils import not_ported
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -342,31 +357,35 @@ def map_params(fn, tree):
 # init and the weight bridge
 # ---------------------------------------------------------------------------
 
-def init(generator: torch.Generator, cfg: TransformerConfig):
+def init(generator: torch.Generator, cfg: TransformerConfig, place=None):
     """Parameter tree in f32 on the generator's device (the engine casts to
     the model dtype). Same shapes and scales as the reference's ``init``;
-    the numbers differ (another generator)."""
+    the numbers differ (another generator). ``place`` maps each leaf as it
+    is drawn (the engine moves them to the host one at a time, so that the
+    device never holds the whole f32 tree); the numbers do not change."""
     check_supported(cfg)
-    return _init_tree(generator, cfg)
+    return _init_tree(generator, cfg, place)
 
 
-def _init_tree(generator: Optional[torch.Generator], cfg: TransformerConfig):
+def _init_tree(generator: Optional[torch.Generator], cfg: TransformerConfig, place=None):
     """:func:`init` without the check; with ``generator=None`` the tree is
     on the meta device: its shapes, with no numbers."""
     dev = torch.device("meta") if generator is None else generator.device
     D, V, F_, L = cfg.hidden_size, cfg.vocab_size, cfg.ffn_size, cfg.num_layers
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    place = place or (lambda t: t)
 
     def normal(*shape, std):
         if generator is None:
             return torch.empty(shape, device=dev, dtype=torch.float32)
-        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32) * std
+        return place(torch.randn(shape, generator=generator, device=dev,
+                                 dtype=torch.float32) * std)
 
     def zeros(*shape):
-        return torch.zeros(shape, device=dev, dtype=torch.float32)
+        return place(torch.zeros(shape, device=dev, dtype=torch.float32))
 
     def ones(*shape):
-        return torch.ones(shape, device=dev, dtype=torch.float32)
+        return place(torch.ones(shape, device=dev, dtype=torch.float32))
 
     params = {"embed": {"tok": normal(V, D, std=0.02)}, "final_norm": {"scale": ones(D)}}
     if cfg.pos_embedding == "learned":
@@ -521,6 +540,41 @@ def reference_shapes(cfg: TransformerConfig):
     return map_params(lambda t: tuple(t.shape), _reference_layout(_init_tree(None, cfg), cfg))
 
 
+_ATTN_LOGICAL = {"wq": ("embed", "heads"), "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+                 "wo": ("heads", "embed"), "bq": ("heads",), "bk": ("kv",), "bv": ("kv",),
+                 "bo": ("embed",)}
+_MLP_LOGICAL = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"), "wo": ("mlp", "embed"),
+                "bi": ("mlp",), "bo": ("embed",)}
+
+
+def logical_specs(shapes, cfg: TransformerConfig):
+    """Per-dimension logical axis names of the reference's layout (a tree
+    shaped as :func:`reference_shapes`), the reference's ``logical_specs``:
+    the stacked layers' leading dim is ``"layers"``, which no rule shards."""
+
+    def annotate(path, shape):
+        last = path[-1]
+        pre = ("layers",) if path[0] == "layers" else ()
+        if "attn" in path:
+            return pre + _ATTN_LOGICAL[last]
+        if "mlp" in path:
+            return pre + _MLP_LOGICAL[last]
+        if path[0] in ("final_norm", "embed_norm") or "ln1" in path or "ln2" in path:
+            return pre + ("norm",)
+        if path[0] == "embed":
+            return ("vocab", "embed") if last == "tok" else ("seq", "embed")
+        if path[0] == "lm_head":
+            return ("embed", "vocab") if last == "w" else ("vocab",)
+        return tuple(None for _ in shape)
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        return annotate(path, tree)
+
+    return walk(shapes, ())
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -564,12 +618,16 @@ def _qkv(h, attn_p, cfg: TransformerConfig, rope=None):
     qkv = _linear(h, attn_p["wqkv"], attn_p.get("bqkv"))
     q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
     q, k, v = q.unflatten(-1, (nh, hd)), k.unflatten(-1, (nkv, hd)), v.unflatten(-1, (nkv, hd))
+    return _rotate(q, k, cfg, rope) + (v,)
+
+
+def _rotate(q, k, cfg: TransformerConfig, rope):
     if rope is not None:
         q = apply_rotary_pos_emb(q, None, rot_dim=cfg.rope_dim,
                                  interleaved=cfg.rope_interleaved, table=rope)
         k = apply_rotary_pos_emb(k, None, rot_dim=cfg.rope_dim,
                                  interleaved=cfg.rope_interleaved, table=rope)
-    return q, k, v
+    return q, k
 
 
 @functools.lru_cache(maxsize=16)
@@ -613,7 +671,8 @@ def _sparse_layout(sparse_attention: tuple, num_heads: int, seq_len: int):
     return layout, config.block
 
 
-def _attention(q, k, v, cfg: TransformerConfig, window=None, per_layer_window: bool = False):
+def _attention(q, k, v, cfg: TransformerConfig, window=None, per_layer_window: bool = False,
+               head_offset: int = 0):
     """Causal multi-head / grouped-query attention over a whole segment:
     the flash kernel for ``attn_impl="pallas"``, the block-sparse kernels
     for ``"block_sparse"`` (kv heads repeated first, the layout from
@@ -626,8 +685,14 @@ def _attention(q, k, v, cfg: TransformerConfig, window=None, per_layer_window: b
     (``per_layer_window``: GPT-Neo's alternation, which the reference's
     layer scan carries as a traced scalar) takes the masked einsum path,
     as it does there. ALiBi adds its bias on the masked path, which it
-    never leaves."""
+    never leaves. ``q`` may hold a tensor rank's heads, from global head
+    ``head_offset`` on: the per-head quantities (ALiBi's slopes, the
+    layout's rows) are taken there."""
     B, S, nh, hd = q.shape
+
+    def own_heads(t):
+        return t[head_offset: head_offset + nh]
+
     if window is not None and not per_layer_window and (window <= 0 or window >= S):
         window = None
     if (cfg.attn_impl == "pallas" and cfg.pos_embedding != "alibi"
@@ -639,15 +704,17 @@ def _attention(q, k, v, cfg: TransformerConfig, window=None, per_layer_window: b
         k = k.repeat_interleave(nh // nkv, dim=2)
         v = v.repeat_interleave(nh // nkv, dim=2)
     if cfg.attn_impl == "block_sparse":
-        layout, block = _sparse_layout(cfg.sparse_attention or (("mode", "fixed"),), nh, S)
-        return block_sparse_attention(q, k, v, layout, causal=cfg.causal, block=block,
+        layout, block = _sparse_layout(cfg.sparse_attention or (("mode", "fixed"),),
+                                       cfg.num_heads, S)
+        return block_sparse_attention(q, k, v, own_heads(layout), causal=cfg.causal, block=block,
                                       sm_scale=cfg.attn_scale)
     scale = cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(hd)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if cfg.pos_embedding == "alibi":
         pos = torch.arange(S, device=q.device, dtype=torch.float32)
         rel = pos[None, :] - pos[:, None]  # (q, k): negative into the past
-        logits = logits + _alibi_slopes(nh, q.device)[None, :, None, None] * rel[None, None]
+        slopes = own_heads(_alibi_slopes(cfg.num_heads, q.device))
+        logits = logits + slopes[None, :, None, None] * rel[None, None]
     mask = None
     if cfg.causal:
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
@@ -668,16 +735,31 @@ def _dense_act(cfg: TransformerConfig):
     return lambda x: F.gelu(x, approximate="tanh")
 
 
-def _mlp_block(h, mlp_p, cfg: TransformerConfig):
-    """Dense MLP block: h (B, S, D) -> (B, S, D)."""
+def _mlp_block(h, mlp_p, cfg: TransformerConfig, tp=None):
+    """Dense MLP block: h (B, S, D) -> (B, S, D). Under ``tp`` the hidden
+    dim is this rank's block, and the output sums over the ranks before
+    its bias."""
+    if tp is not None:
+        h = tpm.copy_to(h, tp)
     if cfg.activation == "silu_glu":
         act = F.silu(_linear(h, mlp_p["wg"])) * _linear(h, mlp_p["wi"])
     else:
         act = _dense_act(cfg)(_linear(h, mlp_p["wi"], mlp_p.get("bi")))
-    return _linear(act, mlp_p["wo"], mlp_p.get("bo"))
+    if tp is None:
+        return _linear(act, mlp_p["wo"], mlp_p.get("bo"))
+    return _row_parallel(act, mlp_p["wo"], mlp_p.get("bo"), tp)
 
 
-def _embed(params, cfg: TransformerConfig, tokens):
+def _row_parallel(x, w, b, tp):
+    """A row-parallel product: this rank's rows of ``w``, summed over the
+    tensor ranks, then the (whole) bias."""
+    out = tpm.reduce_from(_linear(x, w), tp)
+    return out if b is None else out + b
+
+
+def _embed(params, cfg: TransformerConfig, tokens, tp=None):
+    if tp is not None:
+        return tpm.vocab_parallel_embedding(tokens, params["embed"]["tok"], tp).to(cfg.torch_dtype)
     return F.embedding(tokens, params["embed"]["tok"]).to(cfg.torch_dtype)
 
 
@@ -697,7 +779,7 @@ def _final_norm(x, params, cfg: TransformerConfig):
     return _norm(x, params["final_norm"]["scale"], params["final_norm"].get("bias"), cfg)
 
 
-def _residual(x, h, attn_out, layer_p, cfg: TransformerConfig):
+def _residual(x, h, attn_out, layer_p, cfg: TransformerConfig, tp=None):
     """The residual topology and MLP of a layer, after its attention
     (``h`` the attention's input): pre-LN (GPT-2, Llama), post-LN (OPT with
     ``do_layer_norm_before=False``) or the parallel residual x + attn(h) +
@@ -705,12 +787,12 @@ def _residual(x, h, attn_out, layer_p, cfg: TransformerConfig):
     mlp_p, ln1, ln2 = layer_p["mlp"], layer_p["ln1"], layer_p["ln2"]
     if cfg.parallel_residual:
         h2 = h if cfg.shared_ln else _norm(x, ln2["scale"], ln2.get("bias"), cfg)
-        return x + attn_out + _mlp_block(h2, mlp_p, cfg)
+        return x + attn_out + _mlp_block(h2, mlp_p, cfg, tp)
     if cfg.norm_position == "pre":
         x = x + attn_out
-        return x + _mlp_block(_norm(x, ln2["scale"], ln2.get("bias"), cfg), mlp_p, cfg)
+        return x + _mlp_block(_norm(x, ln2["scale"], ln2.get("bias"), cfg), mlp_p, cfg, tp)
     x = _norm(x + attn_out, ln1["scale"], ln1.get("bias"), cfg)
-    return _norm(x + _mlp_block(x, mlp_p, cfg), ln2["scale"], ln2.get("bias"), cfg)
+    return _norm(x + _mlp_block(x, mlp_p, cfg, tp), ln2["scale"], ln2.get("bias"), cfg)
 
 
 def _attn_input(x, layer_p, cfg: TransformerConfig):
@@ -723,25 +805,61 @@ def _attn_input(x, layer_p, cfg: TransformerConfig):
 
 
 def _layer_body(x, layer_p, cfg: TransformerConfig, rope=None, window=None,
-                per_layer_window: bool = False):
+                per_layer_window: bool = False, tp=None):
     """One decoder layer over a whole sequence (no cache); ``rope`` the
-    forward's rotary table, ``window`` as :func:`_attention` takes it."""
+    forward's rotary table, ``window`` as :func:`_attention` takes it,
+    ``tp`` this rank's place on the tensor axis."""
     B, S, _ = x.shape
     attn_p = layer_p["attn"]
     h = _attn_input(x, layer_p, cfg)
+    if tp is not None:
+        attn_out = _attention_tp(h, attn_p, cfg, tp, rope, window, per_layer_window)
+        return _residual(x, h, attn_out, layer_p, cfg, tp)
     q, k, v = _qkv(h, attn_p, cfg, rope)
     attn_out = _attention(q, k, v, cfg, window, per_layer_window).reshape(
         B, S, cfg.num_heads * cfg.head_dim)
     return _residual(x, h, _linear(attn_out, attn_p["wo"], attn_p.get("bo")), layer_p, cfg)
 
 
-def forward(params, cfg: TransformerConfig, tokens):
+def _attention_tp(h, attn_p, cfg: TransformerConfig, tp, rope, window, per_layer_window):
+    """The attention block on a tensor rank, up to its output projection:
+    on the rank's own heads where the counts divide the width (the
+    reference's ``_head_shard_map``), else on every head (q gathered from
+    the ranks' columns, the output cut back to this rank's)."""
+    B, S, _ = h.shape
+    hd = cfg.head_dim
+    hc = tpm.copy_to(h, tp)
+    if tp.heads_split(cfg):
+        nh, nkv = cfg.num_heads // tp.size, cfg.kv_heads // tp.size
+
+        def own(name):  # this rank's kv heads of a whole wk/wv (bk/bv)
+            return None if name not in attn_p else tpm.scatter_to(attn_p[name], tp, 0)
+
+        q = _linear(hc, attn_p["wq"], attn_p.get("bq"))
+        k, v = _linear(hc, own("wk"), own("bk")), _linear(hc, own("wv"), own("bv"))
+        q, k = _rotate(q.unflatten(-1, (nh, hd)), k.unflatten(-1, (nkv, hd)), cfg, rope)
+        out = _attention(q, k, v.unflatten(-1, (nkv, hd)), cfg, window, per_layer_window,
+                         head_offset=tp.rank * nh)
+        out = out.reshape(B, S, nh * hd)
+    else:
+        nh, nkv = cfg.num_heads, cfg.kv_heads
+        q = tpm.gather_from(_linear(hc, attn_p["wq"], attn_p.get("bq")), tp)
+        k, v = _linear(h, attn_p["wk"], attn_p.get("bk")), _linear(h, attn_p["wv"], attn_p.get("bv"))
+        q, k = _rotate(q.unflatten(-1, (nh, hd)), k.unflatten(-1, (nkv, hd)), cfg, rope)
+        out = _attention(q, k, v.unflatten(-1, (nkv, hd)), cfg, window, per_layer_window)
+        out = tpm.scatter_to(out.reshape(B, S, nh * hd), tp)
+    return _row_parallel(out, attn_p["wo"], attn_p.get("bo"), tp)
+
+
+def forward(params, cfg: TransformerConfig, tokens, tp=None):
     """tokens (B, S) int -> logits (B, S, V). The reference's ``forward``
     without dropout, LTD, PLD or token types; differentiable in ``params``
-    (the flash path through its own backward kernels)."""
+    (the flash path through its own backward kernels). Under ``tp`` the
+    params are this tensor rank's (``params["layers"]`` may be any iterable
+    of layer dicts) and the logits its block of the vocabulary."""
     check_supported(cfg)
     S = tokens.shape[1]
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp)
     if cfg.pos_embedding == "learned":
         x = x + params["embed"]["pos"][:S].to(cfg.torch_dtype)
     x = _embed_norm(x, params, cfg)
@@ -750,13 +868,16 @@ def forward(params, cfg: TransformerConfig, tokens):
     # scalars, which keeps them on the masked path
     windows = cfg.local_attn_windows or (None,) * cfg.num_layers
     for layer_p, w in zip(params["layers"], windows):
-        x = _layer_body(x, layer_p, cfg, rope, w, cfg.varying_windows)
-    return _vocab_head(_final_norm(x, params, cfg), params, cfg)
+        x = _layer_body(x, layer_p, cfg, rope, w, cfg.varying_windows, tp)
+    return _vocab_head(_final_norm(x, params, cfg), params, cfg, tp)
 
 
-def _vocab_head(x, params, cfg: TransformerConfig):
-    """Hidden states -> vocab logits (tied or untied head)."""
+def _vocab_head(x, params, cfg: TransformerConfig, tp=None):
+    """Hidden states -> vocab logits (tied or untied head); under ``tp``
+    this rank's block of the vocabulary."""
     dtype = cfg.torch_dtype
+    if tp is not None:
+        x = tpm.copy_to(x, tp)
     if cfg.tie_embeddings:
         return _linear(x, params["embed"]["tok"].to(dtype))
     head = params["lm_head"]
@@ -770,18 +891,23 @@ def apply(params, cfg: TransformerConfig, tokens):
     return forward(params, cfg, tokens)
 
 
-def _ce_from_logits(logits, batch, tokens, denom=None):
+def _ce_from_logits(logits, batch, tokens, denom=None, tp=None):
     """Shift + masked token cross-entropy (the reference's, shared with its
     pipeline head). ``labels`` in the batch are taken as they are, else the
     tokens are shifted by one; ``loss_mask`` weights the tokens, and
-    ``denom`` overrides the normaliser."""
+    ``denom`` overrides the normaliser (a data-parallel rank passes its
+    share of the global batch's count). Under ``tp`` the logits are this
+    rank's block of the vocabulary."""
     if "labels" in batch:
         labels = batch["labels"]
         logits_for_loss = logits
     else:
         labels = tokens[..., 1:]
         logits_for_loss = logits[..., :-1, :]
-    nll = softmax_cross_entropy(logits_for_loss, labels)
+    if tp is not None:
+        nll = tpm.vocab_parallel_cross_entropy(logits_for_loss, labels, tp)
+    else:
+        nll = softmax_cross_entropy(logits_for_loss, labels)
     mask = batch.get("loss_mask")
     if mask is not None:
         mask = mask[..., : nll.shape[-1]].float()
@@ -810,16 +936,18 @@ def check_trainable(cfg: TransformerConfig) -> None:
             raise not_ported(feature)
 
 
-def loss_fn(params, cfg: TransformerConfig, batch, rng=None):
+def loss_fn(params, cfg: TransformerConfig, batch, rng=None, tp=None, denom=None):
     """Next-token cross entropy. batch: {'input_ids': (B, S) int} and
     optional 'labels' (shifted internally if absent) and 'loss_mask'.
     ``rng`` is the reference's dropout key: dropout is not ported
-    (:func:`check_trainable` raises for it), so it is accepted and unused."""
+    (:func:`check_trainable` raises for it), so it is accepted and unused.
+    ``tp`` and ``denom`` as :func:`forward` and :func:`_ce_from_logits`
+    take them."""
     check_trainable(cfg)
     if "token_type_ids" in batch:
         raise not_ported("token_type_ids (encoder embeddings)")
     tokens = batch["input_ids"]
-    return _ce_from_logits(forward(params, cfg, tokens), batch, tokens)
+    return _ce_from_logits(forward(params, cfg, tokens, tp), batch, tokens, denom, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -978,8 +1106,8 @@ class TransformerModel:
     def from_preset(cls, name: str, **overrides):
         return cls(get_config(name, **overrides))
 
-    def init(self, generator: torch.Generator):
-        return init(generator, self.cfg)
+    def init(self, generator: torch.Generator, place=None):
+        return init(generator, self.cfg, place)
 
     def loss(self, params, batch, rng=None):
         return loss_fn(params, self.cfg, batch, rng=rng)

@@ -3,18 +3,19 @@
 Counterpart of ``deepspeed_tpu/runtime/config.py`` (``TpuConfig``; reference
 ``DeepSpeedConfig``, config.py:674): the same JSON schema, the same
 ``train_batch_size = micro_batch * grad_accum * dp`` reconciliation (dp is
-1: the port trains on one device) and the same typed blocks for the keys it
+the mesh's ``data`` x ``fsdp``) and the same typed blocks for the keys it
 reads: ``train_batch_size``, ``train_micro_batch_size_per_gpu``,
 ``gradient_accumulation_steps``, ``optimizer``, ``scheduler``, ``bf16`` /
 ``fp16``, ``gradient_clipping``, ``prescale_gradients`` /
-``gradient_predivide_factor``, ``zero_optimization.stage`` 0
-(``runtime/zero/config.py``), ``steps_per_print``, ``wall_clock_breakdown``
-(the engine's timers), ``seed``, ``mesh`` (one device only) and ``checkpoint``
+``gradient_predivide_factor``, ``zero_optimization`` (stages 0-3,
+``runtime/zero/config.py``), ``steps_per_print``, ``wall_clock_breakdown``
+(the engine's timers), ``seed``, ``mesh`` (a shape whose product is the
+world size: the process group's, else 1) and ``checkpoint``
 (``async_save``, ``integrity_manifest``; ``use_ocdbt`` only when false, since
 the port has no Orbax layout). Any other key
-set away from its default (a block switched on, a ZeRO stage above 0, a mesh
-axis above 1) raises ``NotImplementedError`` naming ROADMAP.md, so that no
-config silently takes a path the port does not have.
+set away from its default (a block switched on, an offload tier, a
+multi-slice ``mesh.dcn``) raises ``NotImplementedError`` naming ROADMAP.md,
+so that no config silently takes a path the port does not have.
 """
 
 import dataclasses
@@ -64,8 +65,7 @@ class SchedulerConfig:
 
 @dataclass
 class MeshConfig:
-    """Device mesh axis sizes; -1 on one axis absorbs the remainder (of one
-    device, here)."""
+    """Device mesh axis sizes; -1 on one axis absorbs the remaining ranks."""
 
     pipe: int = 1
     data: int = -1
@@ -99,8 +99,7 @@ def _is_auto(value) -> bool:
 
 
 class TpuConfig:
-    """Parsed, validated config (the reference's ``TpuConfig``, cut to the
-    single-device training path)."""
+    """Parsed, validated config (the reference's ``TpuConfig``)."""
 
     def __init__(self, config):
         if isinstance(config, str):
@@ -146,15 +145,25 @@ class TpuConfig:
     def _check_mesh(self):
         if self.mesh.dcn:
             raise not_ported("a multi-slice mesh (mesh.dcn)")
+        self.mesh_axis_sizes()
+
+    def mesh_axis_sizes(self) -> Dict[str, int]:
+        """The mesh's full {axis: size} over the world (the process
+        group's, else one process; the reference's ``_normalize_mesh_shape``
+        rules)."""
+        from deepspeed_tpu_torch import comm
+
+        n = comm.get_world_size()
         sizes = {k: v for k, v in dataclasses.asdict(self.mesh).items() if k != "dcn"}
-        if [v for v in sizes.values() if v == -1][1:]:
-            raise ConfigError(f"at most one mesh axis may be -1, got {sizes}")
-        big = {k: v for k, v in sizes.items() if v not in (1, -1)}
-        if big:
-            raise not_ported(f"a device mesh larger than one device ({big})")
+        try:
+            return comm.comm._normalize_mesh_shape(sizes, n)
+        except ValueError as e:
+            raise ConfigError(str(e)) from e
 
     def dp_world_size(self) -> int:
-        return 1
+        """Data-parallel world size implied by the mesh (data x fsdp axes)."""
+        sizes = self.mesh_axis_sizes()
+        return sizes["data"] * sizes["fsdp"]
 
     # --- batch triad reconciliation (reference runtime/config.py batch logic)
     def _resolve_batch_sizes(self):

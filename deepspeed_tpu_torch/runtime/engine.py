@@ -1,5 +1,5 @@
 """Training engine (counterpart of ``deepspeed_tpu/runtime/engine.py``
-``TpuEngine``), cut to the single-device path of the training slice.
+``TpuEngine``): one process per device, over a named mesh.
 
 ``forward(batch)`` runs the model's loss with autograd on and returns it;
 ``backward()`` takes the gradient of ``loss * loss_scale``, adds each
@@ -12,6 +12,17 @@ fp16 overflow flag, the global norm, clipping by
 master weights, a cast back into the model-dtype parameters, and a zeroed
 accumulator; the lr is read before the scheduler advances.
 ``train_batch(data_iter)`` runs one accumulation cycle.
+
+Under a process group (``comm.init_distributed``) the engine trains on the
+mesh of its config's ``mesh`` block (or ``initialize(mesh=...)``), with ZeRO
+stages 0-3 over ``fsdp`` and tensor parallelism over ``tensor``: the state
+is this rank's blocks of the reference's placements, mapped onto this
+package's layout (``runtime/zero/partitioned.py``). ``forward(batch)``
+takes this rank's rows or the global batch (cut to this rank's block in
+mesh order) and returns the global batch's loss. Without a process group
+the same state is whole on the one device; so it is wherever nothing is
+split (fsdp and tensor of 1), and there the surfaces that read the state as
+one tree (checkpoints, snapshots, probes) work as on one device.
 
 Parameters come from a seeded ``torch.Generator`` or from ``params=``: the
 reference's layout (its numpy tree, or the tensors that
@@ -36,8 +47,8 @@ drives (engine.py:1109-1197, :1287-1321, :1495-1557): ``fault_hook``,
 dataset in ``runtime/dataloader.TpuDataLoader``.
 
 Outside this slice (each raises ``NotImplementedError`` naming ROADMAP.md):
-ZeRO stages above 0 and offload (and so ZeRO-sharded and universal
-checkpoints), meshes larger than one device, pipeline and hybrid engines,
+offload, the checkpoints, snapshots and probes of an engine whose state is
+split across ranks (Queue 1 item 9 (b)), pipeline and hybrid engines,
 the engine's per-step telemetry, progressive layer drop and random-LTD,
 optimizers other than Adam/AdamW and client optimizers.
 """
@@ -49,6 +60,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch import faults as _faults
 from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.models import transformer as tf
@@ -67,6 +79,7 @@ from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader, TpuDataLoade
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import LossScaleState, create_loss_scaler
 from deepspeed_tpu_torch.runtime.lr_schedules import create_lr_scheduler
 from deepspeed_tpu_torch.runtime.numerics import crc_digest
+from deepspeed_tpu_torch.runtime.zero.partitioned import PartitionedState
 from deepspeed_tpu_torch.telemetry.telemetry import Telemetry
 from deepspeed_tpu_torch.utils import not_ported
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
@@ -138,6 +151,7 @@ class TpuEngine:
                  device=None, seed: Optional[int] = None, training_data=None, collate_fn=None):
         self.config = config
         self.device = get_accelerator().resolve_device(device)
+        self.mesh = self._engine_mesh()
         if isinstance(model, tf.TransformerConfig):
             model = tf.TransformerModel(model)
         if not isinstance(model, tf.TransformerModel):
@@ -159,24 +173,33 @@ class TpuEngine:
                           else 1.0)
 
         seed = config.seed if seed is None else seed
+        # the full f32 params: on the device for one rank; for more, on the
+        # host, where each rank cuts its blocks leaf by leaf (the device
+        # holds only those)
+        staging = (self.device if self.mesh is None or self.mesh.size == 1
+                   else torch.device("cpu"))
         if params is None:
-            master = model.init(torch.Generator(device=self.device).manual_seed(int(seed)))
-        elif tf.is_reference_tree(params):
-            master = tf.params_from_numpy(params, model.cfg, self.device)
+            master = model.init(torch.Generator(device=self.device).manual_seed(int(seed)),
+                                place=lambda t: t.to(staging))
         else:
-            master = params
-        # f32 masters of the caller's values (copies: the caller's tree is never updated)
-        master = tf.map_params(lambda p: p.detach().to(self.device, torch.float32, copy=True), master)
-        if self.mixed_precision:
-            self.master_params = master
-            self.params = tf.map_params(
-                lambda p: p.to(self.model_dtype).requires_grad_(True), master)
-        else:
-            self.master_params = None
-            self.params = tf.map_params(lambda p: p.requires_grad_(True), master)
-        self._param_leaves = _leaves(self.params)
-        self._base_leaves = _leaves(master)  # what the optimizer updates (f32)
-        self._leaf_names = _leaf_names(self.params)
+            if tf.is_reference_tree(params):
+                params = tf.params_from_numpy(params, model.cfg, staging)
+            # copies: the caller's tree is never updated
+            master = tf.map_params(lambda p: p.detach().to(staging, torch.float32, copy=True),
+                                   params)
+        zc = config.zero_config
+        self._state = PartitionedState(
+            model.cfg, self.mesh or comm.build_mesh(device=self.device), self.zero_stage, master,
+            self.model_dtype, zc.param_persistence_threshold, zc.reduce_bucket_size, self.device)
+        del master
+        # the trees of the forward's params and of the f32 masters (None
+        # where the state is held in blocks), and the flat lists the
+        # optimizer's foreach ops take
+        self.params = self._state.tree
+        self.master_params = self._state.master_tree
+        self._param_leaves = _leaves(self.params) if self.params is not None else []
+        self._leaf_names = _leaf_names(self.params) if self.params is not None else []
+        self._base_leaves = self._state.base  # what the optimizer updates (f32)
         # the engine's own random stream, for the draws a step will make
         # (dropout is not ported yet: no step draws from it so far)
         self._rng = torch.Generator(device=self.device)
@@ -192,8 +215,7 @@ class TpuEngine:
         self.opt_state = optimizer.init(self._base_leaves) if optimizer is not None else None
 
         # --- f32 gradient accumulators and the loss scale
-        self.grad_acc = [torch.zeros(p.shape, dtype=torch.float32, device=self.device)
-                         for p in self._param_leaves]
+        self.grad_acc = self._state.grad_acc
         self.scale_state = self.loss_scaler.init(self.device)
 
         # --- lr scheduler
@@ -247,9 +269,35 @@ class TpuEngine:
         log_dist(
             f"TpuEngine ready: zero_stage={self.zero_stage} dtype={self.model_dtype} "
             f"device={self.device} micro_bs={self.train_micro_batch_size_per_gpu} "
-            f"gas={self.gradient_accumulation_steps}",
+            f"gas={self.gradient_accumulation_steps} "
+            f"mesh={self.mesh.shape if self.mesh is not None else None}",
             ranks=[0],
         )
+
+    def _engine_mesh(self):
+        """The comm mesh this engine trains on, shaped by the config's
+        ``mesh`` block, or None without a process group (one device, the
+        state whole)."""
+        shape = self.config.mesh_axis_sizes()
+        if not comm.has_process_group():
+            return None
+        current = comm.get_mesh()
+        if current.shape != shape or current.device != comm.comm.canonical_device(self.device):
+            comm.init_distributed(mesh_shape=shape, device=self.device, verbose=False)
+        return comm.get_mesh()
+
+    def _refuse_split(self, what: str):
+        """The surfaces that read the state as one tree, which an engine
+        whose state is split across ranks does not hold (ZeRO-sharded
+        checkpoints: Queue 1 item 9 (b))."""
+        if self._state.split:
+            raise not_ported(f"{what} of an engine whose state is split across ranks "
+                             "(ZeRO-sharded checkpoints, Queue 1 item 9 (b))")
+
+    def gathered_params(self):
+        """The full model-dtype params in this package's layout, every
+        rank's blocks gathered, in tensors of their own."""
+        return self._state.gathered_params()
 
     def _to_device(self, batch):
         if not isinstance(batch, dict):
@@ -268,10 +316,11 @@ class TpuEngine:
     # ------------------------------------------------------------------
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None, num_local_io_workers=None,
                      route=None):
-        """A :class:`TpuDataLoader` over ``dataset``, micro-batches of the
-        config's size, shuffled by the config's seed (one process: no
-        striding)."""
-        return TpuDataLoader(dataset, batch_size=batch_size or self.train_micro_batch_size_per_gpu,
+        """A :class:`TpuDataLoader` over ``dataset``: global batches (the
+        micro-batch times the mesh's data-parallel width, which ``forward``
+        cuts to this rank's block), shuffled by the config's seed."""
+        rows = self.train_micro_batch_size_per_gpu * self.config.dp_world_size()
+        return TpuDataLoader(dataset, batch_size=batch_size or rows,
                              collate_fn=collate_fn, seed=self.config.seed)
 
     # ------------------------------------------------------------------
@@ -308,10 +357,11 @@ class TpuEngine:
     def _forward_body(self, batch):
         self.timers(EngineTimers.FORWARD).start()
         self.tput_timer.start()
-        loss = self.model.loss(self.params, self._to_device(batch)).float()
-        self._pending_loss = loss
+        local = self._state.local_batch(self._to_device(batch), self.train_micro_batch_size_per_gpu)
+        self._pending_loss = self._state.loss(local).float()
+        out = self._state.global_loss(self._pending_loss)
         self.timers(EngineTimers.FORWARD).stop()
-        return loss.detach()
+        return out
 
     __call__ = forward
 
@@ -343,6 +393,7 @@ class TpuEngine:
         tree's dotted leaf paths, and the record is annotated with the
         resolved target for the injector's fired log. One leaf's host round
         trip: fault path only."""
+        self._refuse_split("an injected gradient bit flip")
         step = int(record.get("step", self.global_steps + 1))
         sizes = {name: g.numel() for name, g in zip(self._leaf_names, self.grad_acc)}
         name, elem, bit = _faults.plan_bitflip(step, sizes, str(record.get("leaf", "") or ""),
@@ -354,7 +405,9 @@ class TpuEngine:
 
     def eval_batch(self, batch, rng=None):
         with torch.no_grad():
-            return self.model.loss(self.params, self._to_device(batch)).float()
+            local = self._state.local_batch(self._to_device(batch),
+                                            self.train_micro_batch_size_per_gpu)
+            return self._state.global_loss(self._state.loss(local).float())
 
     def backward(self, loss=None):
         """Gradient of the last forward's ``loss * scale``, accumulated into
@@ -366,18 +419,13 @@ class TpuEngine:
         pending, self._pending_loss = self._pending_loss, None
         try:
             (pending * self.scale_state.scale).backward()
-            with torch.no_grad():
-                for acc, p in zip(self.grad_acc, self._param_leaves):
-                    if p.grad is not None:
-                        acc.add_(p.grad if self.predivide == 1.0
-                                 else p.grad.float() / self.predivide)
-                        p.grad = None
+            self._state.accumulate(self.predivide)
         except BaseException:
             # the accumulators may hold part of this micro-step
             self.poisoned = True
             raise
         self.micro_steps += 1
-        self.global_samples += self.train_micro_batch_size_per_gpu
+        self.global_samples += self.train_micro_batch_size_per_gpu * self.config.dp_world_size()
         self.timers(EngineTimers.BACKWARD).stop()
         return loss if loss is not None else pending.detach()
 
@@ -442,17 +490,19 @@ class TpuEngine:
 
     @torch.no_grad()
     def _apply(self, lr: float) -> StepMetrics:
-        """The reference's ``apply_fn``, in place on the engine's buffers."""
-        cfg = self.config
-        grads = self.grad_acc
+        """The reference's ``apply_fn``, in place on this rank's buffers: the
+        accumulators summed over the data-parallel ranks and divided by
+        ``scale * gas * dp``, the overflow flag and the norm over every
+        block, Adam on this rank's optimizer blocks, the params written
+        back (gathered where their placement is wider)."""
+        cfg, state = self.config, self._state
+        grads = state.reduce_grads()
         scale = self.scale_state.scale
-        torch._foreach_div_(grads, scale * (1 if cfg.prescale_gradients
-                                            else self.gradient_accumulation_steps))
-        if self.fp16_enabled:
-            overflow = ~torch.stack([torch.isfinite(g).all() for g in grads]).all()
-        else:
-            overflow = torch.zeros((), dtype=torch.bool, device=self.device)
-        gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        denom = scale * (1 if cfg.prescale_gradients else self.gradient_accumulation_steps)
+        if state.dp > 1:
+            denom = denom * state.dp
+        torch._foreach_div_(grads, denom)
+        overflow, gnorm = state.overflow_and_norm(grads, with_overflow=self.fp16_enabled)
         if cfg.gradient_clipping > 0.0:
             torch._foreach_mul_(grads, torch.clamp(cfg.gradient_clipping / (gnorm + 1e-6), max=1.0))
         # fp16 skips the step wholesale on overflow (optimizer state included)
@@ -460,10 +510,9 @@ class TpuEngine:
             updates, self.opt_state = self.optimizer.update(grads, self.opt_state,
                                                             self._base_leaves, lr)
             torch._foreach_add_(self._base_leaves, updates)
-            if self.mixed_precision:
-                torch._foreach_copy_(self._param_leaves, self._base_leaves)
+            state.write_back()
         self.scale_state = self.loss_scaler.update(self.scale_state, overflow)
-        torch._foreach_zero_(grads)
+        state.zero_grads()
         return StepMetrics(grad_norm=gnorm, overflow=overflow, loss_scale=scale)
 
     def train_batch(self, data_iter=None):
@@ -539,6 +588,7 @@ class TpuEngine:
         them. Two probes of one batch give the same digest where a step is
         a deterministic function of its inputs. ``rng_seed`` is the
         reference's dropout key: nothing draws from it yet."""
+        self._refuse_split("sdc_probe")
         loss = self.model.loss(self.params, self._to_device(batch)).float()
         grads = torch.autograd.grad(loss * self.scale_state.scale, self._param_leaves,
                                     allow_unused=True)
@@ -591,7 +641,13 @@ class TpuEngine:
         it once it is durable. The state is copied to the host before this
         returns, async or not. ``state_tree``/``manifest`` let the
         TrainSupervisor commit an already-captured host snapshot without a
-        second copy; plain callers leave both None."""
+        second copy; plain callers leave both None. Under data parallelism
+        every rank holds the same state, and rank 0 writes it (as DeepSpeed
+        writes its non-ZeRO checkpoint); the others wait for it."""
+        self._refuse_split("save_checkpoint")
+        if comm.get_world_size() > 1 and comm.get_rank() != 0:
+            comm.barrier()
+            return True
         tag = tag if tag is not None else f"global_step{self.global_steps}"
         meta = self._checkpoint_meta(client_state)
         tree = state_tree if state_tree is not None else self._host_state_tree()
@@ -623,6 +679,8 @@ class TpuEngine:
 
             self.checkpoint_engine.on_commit(_write_latest)
         log_dist(f"saved checkpoint {save_dir}/{tag}", ranks=[0])
+        if comm.get_world_size() > 1:
+            comm.barrier()
         return True
 
     def _ckpt_refused(self, tag, reason):
@@ -637,6 +695,7 @@ class TpuEngine:
         ``global_step<N>`` tag newest first, refusing torn ones; raises
         ``TornCheckpointError`` when none is restorable. Returns
         ``(path, client_state)``, or ``(None, {})`` without ``latest``."""
+        self._refuse_split("load_checkpoint")
         explicit = tag is not None
         if tag is None:
             latest = os.path.join(load_dir, "latest")
@@ -728,6 +787,7 @@ class TpuEngine:
         the checkpoint metadata and the per-leaf checksum manifest.
         Captured at a step boundary it is everything a bitwise resume
         needs."""
+        self._refuse_split("host_state_snapshot")
         host_tree = self._host_state_tree()
         meta = self._checkpoint_meta(client_state)
         manifest = ckpt_integrity.manifest_from_leaves(named_host_leaves(host_tree))
@@ -737,6 +797,7 @@ class TpuEngine:
         """Copy a :meth:`host_state_snapshot` (or the tree of
         :func:`state_from_reference_snapshot`) back into this engine's
         tensors; ``verify_integrity`` is the manifest to hold it to."""
+        self._refuse_split("restore_from_host_state")
         if verify_integrity is not None:
             problems = ckpt_integrity.verify_leaves(named_host_leaves(host_tree),
                                                     verify_integrity)

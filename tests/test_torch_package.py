@@ -32,6 +32,11 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
             "from deepspeed_tpu_torch.runtime.zero import config as zero_config\n"
             "from deepspeed_tpu_torch.runtime.fp16 import loss_scaler\n"
             "from deepspeed_tpu_torch.utils import timer\n"
+            "from deepspeed_tpu_torch import comm\n"
+            "from deepspeed_tpu_torch.comm import comms_logging\n"
+            "from deepspeed_tpu_torch.utils import groups\n"
+            "from deepspeed_tpu_torch.runtime.zero import sharding, tiling, partitioned\n"
+            "from deepspeed_tpu_torch.parallel import partition, tensor_parallel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'deepspeed_tpu'))\n"
             "print(','.join(bad))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)

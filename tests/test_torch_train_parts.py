@@ -146,16 +146,29 @@ def test_config_parses_like_the_reference_on_one_device(over):
 
 
 @pytest.mark.parametrize("extra", [
-    {"zero_optimization": {"stage": 2}}, {"mesh": {"data": 2}},
+    {"mesh": {"data": -1, "dcn": {"data": 2}}},
+    {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
     {"telemetry": {"enabled": True}}, {"pipeline": {"stages": 2}},
     {"zero_optimization": {"stage": 0, "offload_optimizer": {"device": "cpu"}}},
-    {"zero_optimization": {"stage": 0, "overlap_comm": True}},
+    {"zero_optimization": {"stage": 3, "zero_quantized_weights": True}},
     {"progressive_layer_drop": {"enabled": True}},
     {"checkpoint": {"use_ocdbt": True}},
 ])
 def test_config_raises_outside_the_slice(extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TpuConfig(dict(BENCH, **extra))
+
+
+@pytest.mark.parametrize("zero", [
+    {"stage": 1}, {"stage": 2, "overlap_comm": True, "reduce_bucket_size": 5e8},
+    {"stage": 3, "stage3_param_persistence_threshold": 0},
+])
+def test_config_admits_zero_stages_like_the_reference(zero):
+    conf = dict(BENCH, zero_optimization=zero)
+    j, t = JTpuConfig(conf, mesh_device_count=1), TpuConfig(conf)
+    assert t.zero_config.stage == j.zero_config.stage == zero["stage"]
+    assert t.zero_config.param_persistence_threshold == j.zero_config.param_persistence_threshold
+    assert t.dp_world_size() == j.dp_world_size() == 1
 
 
 def test_config_accepts_blocks_left_off():
