@@ -128,7 +128,15 @@ backward):
     S4096) at stages 0 and 3, 3 steps each: loss streams and final params
     bit for bit across the stages and, for GPT-2, to the engine without a
     process group; one step's NCCL calls under the profiler
-    (``train_zero``).
+    (``train_zero``);
+  - the tensor-parallel serving mesh (``--serve-mesh`` runs this phase
+    alone): (a) world 1 through NCCL, the engines on ``{"data": 1,
+    "tensor": 1}`` against the engines without a mesh, Llama 2 7B's width
+    at 4 layers (B 8 x 512 + 64, fused and per token), GPT-2 125M's pool and
+    the serving layer's degrade ladder; (b) tensor 2 as two processes
+    sharing the card over gloo, each rank running K1 at 16 heads (held
+    against the plain attention), its prefill logits and streams held
+    against world 1's (``serve_mesh``).
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after. Prints JSON lines as it goes; the line before the last
 names the card and its power limit (as nvidia-smi reports them), and the
@@ -1055,6 +1063,9 @@ def fused_ops_phase(gen, card):
 # profiled call runs (int8_spans), so that their device time a decode step
 # can be read; "aten::_int_mm" is the int8 product alone
 INT8_SPANS = ("int8_linear", "quantize_kv", "dequantize_kv")
+# decode_int8 and ragged_chunked run GPT-2 350M at full width and 12 of its 24
+# layers, for the script's time limit (to make room for the serving mesh's phase)
+DECODE_SHAPES_LAYERS = 12
 
 
 @contextlib.contextmanager
@@ -1159,9 +1170,10 @@ def top1_check(lp, lx, what):
 
 def decode_int8_phase(gen, card):
     """The decode slice's int8 request shapes on GPT-2 350M at full width and
-    depth, in ``bench_decode``'s geometry (B 8 x prompt 128 + 128 new,
-    greedy, ``max_out_tokens`` 256, tight reads): four engines on the same
-    weights, {bf16, int8} weights x {model, int8} KV, one at a time. Each
+    12 of its 24 layers (``DECODE_SHAPES_LAYERS``), in ``bench_decode``'s
+    geometry (B 8 x prompt 128 + 128 new, greedy, ``max_out_tokens`` 256,
+    tight reads): four engines on the same weights, {bf16, int8} weights x
+    {model, int8} KV, one at a time. Each
     ``decode_int8`` line: the request's wall time and tokens/s with K1/K7/K8
     launches (counted from 0 over the four requests, returned), the decode
     step's wall and device ms, launches, idle share and the int8 steps'
@@ -1176,7 +1188,8 @@ def decode_int8_phase(gen, card):
     from deepspeed_tpu_torch.ops import op_builder
 
     B, P, NEW, CACHE, CPU_ROWS = 8, 128, 128, 256, 2
-    model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16")
+    model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16",
+                                            num_layers=DECODE_SHAPES_LAYERS)
     cfg0 = model.cfg
     L, V, hd = cfg0.num_layers, cfg0.vocab_size, cfg0.head_dim
     base = tf.map_params(lambda p: p.to("cpu", torch.bfloat16), model.init(gen))
@@ -1291,7 +1304,7 @@ def decode_int8_phase(gen, card):
 
 def ragged_chunked_phase(gen, card):
     """Ragged prompts and chunked prefill on GPT-2 350M at full width and
-    depth: B 4, real lengths 128/96/64/17 in a width of 128, left and right
+    12 of its 24 layers (``DECODE_SHAPES_LAYERS``): B 4, real lengths 128/96/64/17 in a width of 128, left and right
     padded, prefilled whole (``attention_mask``) and in chunks of 64 and of
     48 (which does not divide the width), 32 greedy new tokens, with the
     model KV and the int8 KV. Each ``ragged_chunked`` line: the request's
@@ -1310,7 +1323,8 @@ def ragged_chunked_phase(gen, card):
 
     B, W, NEW, CACHE = 4, 128, 32, 256
     lens = (128, 96, 64, 17)
-    model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16")
+    model = tf.TransformerModel.from_preset("gpt2-350m", dtype="bfloat16",
+                                            num_layers=DECODE_SHAPES_LAYERS)
     L, V = model.cfg.num_layers, model.cfg.vocab_size
     params = tf.map_params(lambda p: p.to(torch.bfloat16), model.init(gen))
     torch.cuda.empty_cache()
@@ -3094,6 +3108,50 @@ def decode_step_profile(eng, toks, short=4, long=12):
                                      for name, ms, n in per_kernel[:10]]}
 
 
+def step_launches(eng, toks, short=4, long=12):
+    """{kernel name: launches} of a decode step of greedy ``generate`` at
+    toks' shape, as (long - short) / (long - short tokens), or None where the
+    profile lost a marker. One profile holds a call of ``short`` tokens, then
+    a marker kernel (an int16 fill, which ``generate`` never launches), a
+    call of each length and a marker after each, all on the card's stream
+    with a synchronize between: the kernels between two markers are the
+    call's. A profile now and then misses kernels at its start, which moved
+    a reading taken from a profile of each call alone by whole launches a
+    step: here such a loss falls on the first call, which counts for
+    nothing. The markers split the kernels by the card's own order, where
+    ``record_function`` ranges on the host's clock now and then put a call's
+    first kernels in the wrong range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def mark():
+        torch.cuda.synchronize()
+        torch.full((1,), 1, dtype=torch.int16, device="cuda")
+
+    generate_wall(eng, toks, short)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.generate(toks, max_new_tokens=short)
+        for n in (short, long):
+            mark()
+            eng.generate(toks, max_new_tokens=n)
+        mark()
+        torch.cuda.synchronize()
+    names = [e.name() for e in sorted(
+        (e for e in prof.profiler.kineto_results.events()
+         if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+         and e.duration_ns() > 0), key=lambda e: e.start_ns())]
+    marks = [i for i, name in enumerate(names) if "FillFunctor<short>" in name]
+    if len(marks) != 3:
+        return None
+    counts = [{}, {}]
+    for c, lo, hi in zip(counts, marks, marks[1:]):
+        for name in names[lo + 1:hi]:
+            c[name] = c.get(name, 0) + 1
+    per_step = {k: (counts[1].get(k, 0) - counts[0].get(k, 0)) / (long - short)
+                for k in set(counts[0]) | set(counts[1])}
+    return {k: v for k, v in per_step.items() if v}
+
+
 def llama_serve_phase(gen, card):
     """Llama 2 7B serving (the repo's ``llama2-7b`` preset at full width and
     depth: 32 layers, D 4096, 32 heads of 128, SwiGLU 11008, vocab 32000,
@@ -4849,6 +4907,446 @@ def train_zero_main():
     return 1 if failures else 0
 
 
+# ---------------------------------------------------------------------------
+# serve_mesh: the tensor-parallel serving mesh
+# ---------------------------------------------------------------------------
+
+# Llama 2 7B's published width at 4 of its 32 layers (D 4096, 32 heads of
+# 128, SwiGLU 11008, vocab 32000, which splits over 2), B 8 x 512 + 64 bf16
+MESH_LLAMA = {"layers": 4, "batch": 8, "prompt": 512, "new": 64}
+# the streams of tensor 2 against world 1's: equal, or first differing where
+# world 1's top-2 margin is under this (the row-parallel sums run in another
+# order in bf16)
+MESH_TIE = 0.2
+# tensor 2's prefill logits (bf16) against f32 logits on the same bf16
+# weights: at most this many times world 1's own bf16 error there; and at
+# every step the token tensor 2 chose is within that limit of world 1's best
+# on the same prefix. Each bf16 forward rounds its activations and sums in
+# its own order; a wrong head, cache or vocabulary split moves the logits by
+# their spread (a std of about 1 here) instead
+MESH_NOISE_FACTOR = 2.0
+MESH_RANKS_TIMEOUT_S = 300
+
+
+def mesh_llama_model():
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    return tf.TransformerModel.from_preset("llama2-7b", dtype="bfloat16", attn_impl="pallas",
+                                           num_layers=MESH_LLAMA["layers"])
+
+
+def mesh_llama_config(extra=None):
+    return {"dtype": "bfloat16", "attn_impl": "pallas", **(extra or {})}
+
+
+def read_trace(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def serve_mesh_rank(rank, world, store, out_dir, prompt, new):
+    """One rank of ``serve_mesh`` (b): a gloo process group over the ranks
+    sharing card 0; rank 0 builds the Llama engine on ``{"data": 1,
+    "tensor": world}`` from the seed, generates, then takes the prefill's
+    logits (``forward``); every other rank serves as
+    ``inference.mesh.serve_worker``. Each rank holds every K1 call's output
+    against the plain attention on the same q, k and v, and writes its K1
+    calls (the query heads and max |Δ| of each), its launch counts, its
+    peak card memory and the foreign modules it imported to ``out_dir``."""
+    import datetime
+    import pickle
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference import mesh as mesh_mod
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import op_builder
+
+    out = {}
+    torch.cuda.set_device(0)
+    k1, real = [], tf.flash_attention
+
+    def recording(q, k, v, **kw):
+        o = real(q, k, v, **kw)
+        want = fa.mha_reference(q, k, v, causal=kw.get("causal", True),
+                                sm_scale=kw.get("sm_scale"), window=kw.get("window"))
+        k1.append((int(q.shape[2]), float((o.float() - want.float()).abs().max())))
+        return o
+
+    tf.flash_attention = recording
+    try:
+        comm.init_distributed(device="cuda:0", init_method=f"file://{store}", rank=rank,
+                              world_size=world, dist_backend="gloo",
+                              timeout=datetime.timedelta(seconds=MESH_RANKS_TIMEOUT_S),
+                              verbose=False)
+        torch.cuda.reset_peak_memory_stats()
+        op_builder.reset_launch_counts()
+        if rank == 0:
+            trace = os.path.join(out_dir, "mesh_trace.jsonl")
+            try:
+                eng = deepspeed_tpu_torch.init_inference(
+                    mesh_llama_model(), seed=0, config=mesh_llama_config({
+                        "mesh": {"shape": {"data": 1, "tensor": world}},
+                        "telemetry": {"enabled": True, "trace_file": trace}}))
+                out["shard"] = [eng.shard.attn, eng.shard.mlp, eng.shard.embed, eng.shard.head]
+                out["kv_shard_width"] = eng.kv_shard_width
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out["tokens"] = eng.generate(torch.from_numpy(prompt).cuda(),
+                                             max_new_tokens=new).cpu().numpy()
+                out["generate_s"] = time.perf_counter() - t0
+                out["events"] = [e for e in read_trace(trace)
+                                 if e.get("kind") == "inference_request"]
+                out["last_logits"] = eng.forward(
+                    torch.from_numpy(prompt).cuda())[:, -1].float().cpu()
+            finally:
+                mesh_mod.shutdown()
+        else:
+            out["ops"] = mesh_mod.serve_worker("cuda:0")
+        torch.cuda.synchronize()
+        out.update(launches=op_builder.launch_counts(), k1=k1,
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    except Exception as e:  # reported by the parent, as a failed check
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        comm.destroy()
+    out["foreign_modules"] = sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu"))
+    with open(os.path.join(out_dir, f"mesh_rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def run_mesh_ranks(world, prompt, new):
+    """``serve_mesh_rank`` on ``world`` spawned processes sharing this card;
+    their results in rank order (a rank that left none reports why)."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    out_dir = tempfile.mkdtemp(prefix="dstorch_mesh_")
+    ctx = mp.start_processes(serve_mesh_rank, args=(world, os.path.join(out_dir, "store"),
+                                                    out_dir, prompt, new),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.perf_counter() + MESH_RANKS_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"the {world} mesh ranks ran past {MESH_RANKS_TIMEOUT_S} s")
+    except Exception as e:  # a rank that died or hung: stop them all
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+        return [{"error": f"{type(e).__name__}: {e}"}] * world
+    results = []
+    for rank in range(world):
+        path = os.path.join(out_dir, f"mesh_rank{rank}.pkl")
+        if os.path.exists(path):
+            with open(path, "rb") as fh:
+                results.append(pickle.load(fh))
+        else:
+            results.append({"error": "the rank left no result"})
+    return results
+
+
+def serve_mesh_phase(gen, card):
+    """The serving mesh (``config.mesh``) on the card. (a) World 1 through
+    NCCL (a process group of one on a ``file://`` store), the engines on
+    ``{"data": 1, "tensor": 1}`` against the engines without a mesh: Llama
+    2 7B's width at 4 layers (B 8 x 512 + 64 bf16, ``generate`` fused and
+    per token) bit for bit, with the launches and device ms of a decode
+    step each (the launches must be equal) and the NCCL kernels a step (0);
+    GPT-2 125M's pool in ``bench_serving``'s geometry (16 of its requests)
+    bit for bit; the serving layer's degrade ladder at 1x1 (a preemption
+    that takes capacity at tick 4, 12 requests), its recovered streams bit
+    for bit the fault-free run's. (b) Tensor 2 as two processes sharing the
+    card over gloo (the collectives through the host), ``generate`` then
+    ``forward``: each rank runs K1 at 16 query heads on each prefill, held
+    against the plain attention on the same q, k and v, and K7 on every
+    norm; the prefill's last logits are within MESH_NOISE_FACTOR times
+    world 1's bf16 error of f32 logits on the same weights; the streams
+    equal world 1's or first differ where world 1's top-2 margin is under
+    MESH_TIE, and at every step the token chosen is within that same limit
+    of world 1's best on the same prefix (world 1's median top-2 margin is
+    reported); the per-chip ``kv_bytes_read`` is half of world 1's; each
+    rank's peak card memory. (b) reports no speed: the ranks share a card
+    and gloo copies through the host. Returns the launch counts of the
+    driven runs (both ranks' of (b))."""
+    import tempfile
+
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.serving import RecoveryConfig, ServingEngine
+    from deepspeed_tpu_torch.serving.faults import Fault, FaultInjector, FaultPlan
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    ml = MESH_LLAMA
+    counts, row = {}, {"card": card}
+    B, S, new = ml["batch"], ml["prompt"], ml["new"]
+    prompt = torch.randint(0, 32000, (B, S), generator=gen, device="cuda")
+    store = tempfile.mkdtemp(prefix="dstorch_mesh_")
+    trace = os.path.join(store, "world1_trace.jsonl")
+    plain = deepspeed_tpu_torch.init_inference(
+        mesh_llama_model(), seed=0,
+        config=mesh_llama_config({"telemetry": {"enabled": True, "trace_file": trace}}))
+    plain_loop = deepspeed_tpu_torch.init_inference(
+        mesh_llama_model(), params=plain.params,
+        config=mesh_llama_config({"fused_generate": False}))
+    want = {"fused": timed_generate(plain, prompt, new), "loop": timed_generate(plain_loop,
+                                                                               prompt, new)}
+    world1_kv = [e for e in read_trace(trace) if e.get("kind") == "inference_request"][-1]
+    mesh = deepspeed_tpu_torch.init_distributed(device="cuda",
+                                                init_method=f"file://{store}/store", rank=0,
+                                                world_size=1)
+    try:
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+        check(backend == "nccl", f"serve_mesh (a): the process group runs {backend}, not nccl")
+        one = {"mesh": {"shape": {"data": 1, "tensor": 1}}}
+        meng = deepspeed_tpu_torch.init_inference(mesh_llama_model(), seed=0,
+                                                  config=mesh_llama_config(one))
+        meng_loop = deepspeed_tpu_torch.init_inference(
+            mesh_llama_model(), seed=0, config=mesh_llama_config(dict(one, fused_generate=False)))
+        check(meng.shard is None and meng.mesh.shape["tensor"] == 1,
+              f"serve_mesh (a): the 1x1 engine holds a shard ({meng.shard})")
+        got = {"fused": drive(counts, lambda: timed_generate(meng, prompt, new)),
+               "loop": drive(counts, lambda: timed_generate(meng_loop, prompt, new))}
+        a = {"world": comm.get_world_size(), "backend": backend, "mesh": mesh.shape}
+        for path in ("fused", "loop"):
+            same = torch.equal(got[path][0], want[path][0])
+            check(same, f"serve_mesh (a): the 1x1 engine's {path} stream differs from the "
+                        f"engine without a mesh")
+            check(got[path][2] == want[path][2],
+                  f"serve_mesh (a) {path}: launches {got[path][2]} against {want[path][2]}")
+            a[f"llama_{path}"] = {"bit_for_bit": same, "wall_s": got[path][1],
+                                  "plain_wall_s": want[path][1], "launches": got[path][2],
+                                  "plain_launches": want[path][2]}
+        toks = prompt[:, :128]
+        # the engine without a mesh, without telemetry, as the 1x1 one runs;
+        # each engine's kernels a step read three times in turns, and its
+        # reading the one that at least two of the three give
+        bare = deepspeed_tpu_torch.init_inference(mesh_llama_model(), params=plain.params,
+                                                  config=mesh_llama_config())
+        t_read = time.perf_counter()
+        step_plain, step_mesh = decode_step_profile(bare, toks), decode_step_profile(meng, toks)
+        engines = {"plain": bare, "mesh_1x1": meng}
+        turns = [(name, step_launches(engines[name], toks))
+                 for name in ("plain", "mesh_1x1", "mesh_1x1", "plain", "plain", "mesh_1x1")]
+        launches = {}
+        for name in engines:
+            seen = [sorted(k.items()) for n, k in turns if n == name and k is not None]
+            launches[name] = next((dict(s) for s in seen if seen.count(s) >= 2), None)
+        totals = [(n, sum(k.values()) if k is not None else None) for n, k in turns]
+        check(None not in launches.values() and launches["mesh_1x1"] == launches["plain"],
+              f"serve_mesh (a): a decode step's kernels on the 1x1 mesh differ from the "
+              f"engine's without one (launches a step in turns: {totals})")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            meng.generate(toks, max_new_tokens=4)
+            torch.cuda.synchronize()
+        nccl = [(k, t, n) for k, t, n in device_kernels(prof) if "nccl" in k.lower()]
+        check(not nccl, f"serve_mesh (a): NCCL kernels on the 1x1 mesh ({nccl[:3]})")
+        a.update(decode_step={"plain": step_plain, "mesh_1x1": step_mesh,
+                              "launches_per_step": {n: sum(k.values()) if k else None
+                                                    for n, k in launches.items()},
+                              "launches_per_step_in_turns": totals,
+                              "readings_s": time.perf_counter() - t_read},
+                 nccl_kernels_per_4_step_generate=sum(n for _, _, n in nccl))
+        del bare
+        del meng, meng_loop, plain_loop
+
+        # GPT-2 125M: the pool and the serving layer's degrade ladder at 1x1
+        build = ServingBuild(gen)
+        queue = build.queue[:16]
+        streams = {}
+        for name, extra in (("plain", None), ("mesh_1x1", one)):
+            eng = build.engine(extra, warm=False, tokens_per_tick=SERVE_BURST)
+            # only the mesh's runs count as its path's launches
+            stats, results = (drive(counts, lambda: replay_schedule(eng, queue, 1)) if extra
+                              else replay_schedule(eng, queue, 1))
+            streams[name] = results
+            a[f"gpt2_pool_{name}"] = {"tokens_per_s": stats["tokens_per_s"],
+                                      "ticks": stats["ticks"]}
+            del eng
+        pool_same = all(x is not None and y is not None and np.array_equal(x, y)
+                        for x, y in zip(streams["plain"], streams["mesh_1x1"]))
+        check(pool_same, "serve_mesh (a): the 1x1 pool's streams differ from the pool's "
+                         "without a mesh")
+        a["gpt2_pool_bit_for_bit"] = pool_same
+        ladder_queue = [(0, p, n) for _, p, n in build.queue[:12]]
+        served = {}
+        for faulted in (False, True):
+            eng = build.engine(one, warm=False, tokens_per_tick=SERVE_BURST)
+            kw = {}
+            if faulted:
+                eng.fault_hook = FaultInjector(FaultPlan([Fault(tick=4, kind="preempt",
+                                                                degrade=True)]))
+                kw = dict(engine_factory=lambda mesh_shape=None: build.engine(
+                    {"mesh": {"shape": mesh_shape or one["mesh"]["shape"]}}, warm=False,
+                    tokens_per_tick=SERVE_BURST),
+                    degrade_mesh_shapes=[{"data": 1, "tensor": 1}],
+                    recovery=RecoveryConfig(backoff_s=0.0))
+            srv = ServingEngine(eng, clock=time.perf_counter, **kw)
+            _, results = drive(counts, lambda: replay_schedule(srv, ladder_queue, 1))
+            served[faulted] = (results, srv.recovery_stats())
+            srv.close()
+            del srv, eng
+        stats = served[True][1]
+        check(stats["rebuilds"] == 1 and stats["degrade_level"] == 1
+              and stats["lost_requests"] == 0, f"serve_mesh (a): the degrade ladder's stats {stats}")
+        # a re-admitted request prefills its emitted tokens, where the
+        # fault-free run decoded them one by one: in bf16 the two round
+        # apart, so a recovered stream is equal where the card gives it, or
+        # first differs at a top-2 margin under the bf16 tie rule
+        agree = []
+        for (_, p, _), got, want_row in zip(ladder_queue, served[True][0], served[False][0]):
+            check(got is not None and want_row is not None,
+                  "serve_mesh (a): a request of the ladder did not finish")
+            if got is None or want_row is None:
+                continue
+
+            def m(want_row=want_row, p=p):
+                return top2_margins(teacher_forced_logits(
+                    build.params, build.model.cfg, 128, p,
+                    torch.from_numpy(np.asarray(want_row)[p.size:]).cuda()))
+
+            agree.append(stream_agreement(np.asarray(got), np.asarray(want_row), p, m,
+                                          "serve_mesh (a) degrade ladder"))
+        a["degrade_ladder"] = {"requests": len(ladder_queue),
+                               "bit_equal_to_fault_free": sum(e["equal"] for e in agree),
+                               "differing": [e for e in agree if not e["equal"]],
+                               "rebuilds": stats["rebuilds"],
+                               "degrade_level": stats["degrade_level"],
+                               "recovery_ms": stats.get("recovery_ms")}
+        a["s"] = time.perf_counter() - t_phase
+        row["a_world1_nccl"] = a
+        del build
+    finally:
+        comm.destroy()
+    torch.cuda.empty_cache()
+
+    # world 1's prefill logits in bf16, and in f32 on the same (bf16) weights:
+    # the bf16 error of one forward, which sets (b)'s limit
+    with torch.inference_mode():
+        last_bf16 = plain.forward(prompt)[:, -1].float()
+        f32 = deepspeed_tpu_torch.init_inference(
+            mesh_llama_model(), params=tf.map_params(lambda p: p.float(), plain.params),
+            config=mesh_llama_config({"dtype": "float32"}))
+        last_f32 = f32.forward(prompt)[:, -1].float()
+        del f32
+    torch.cuda.empty_cache()
+    world1_err = float((last_bf16 - last_f32).abs().max())
+
+    # (b) tensor 2: two processes on this card over gloo
+    ranks = run_mesh_ranks(2, prompt.cpu().numpy(), new)
+    errors = [r.get("error") for r in ranks if r.get("error")]
+    check(not errors, f"serve_mesh (b): a rank failed: {errors}")
+    b = {"world": 2, "backend": "gloo (through the host)", "errors": errors}
+    if not errors:
+        L = ml["layers"]
+        forwards = new + 1  # generate's prefill and new - 1 decode steps, then forward
+        for rank, r in enumerate(ranks):
+            launched = r["launches"]
+            for k, c in launched.items():
+                counts[k] = counts.get(k, 0) + c
+            check(launched.get("flash_fwd") == 2 * L and launched.get("fused_norm_fwd")
+                  == (2 * L + 1) * forwards and not launched.get("fused_norm_bwd"),
+                  f"serve_mesh (b) rank {rank}: launches {launched}, the rule is K1 {2 * L} and "
+                  f"K7 {(2 * L + 1) * forwards}")
+            heads = sorted({h for h, _ in r["k1"]})
+            k1_err = max(e for _, e in r["k1"])
+            check(heads == [16], f"serve_mesh (b) rank {rank}: K1 ran at {heads} query heads, "
+                                 f"not 16")
+            check(k1_err <= K1_O_TOL[torch.bfloat16],
+                  f"serve_mesh (b) rank {rank}: K1 at 16 heads against the plain attention: "
+                  f"max |Δ| {k1_err} > {K1_O_TOL[torch.bfloat16]}")
+            check(r["foreign_modules"] == [], f"serve_mesh (b) rank {rank} imported "
+                                              f"{r['foreign_modules']}")
+            b[f"rank{rank}"] = {"launches": launched, "k1_query_heads": heads,
+                                "k1_calls": len(r["k1"]), "k1_max_abs_err": k1_err,
+                                "k1_tol": K1_O_TOL[torch.bfloat16],
+                                "peak_allocated_bytes": r["peak_allocated_bytes"],
+                                **({"worker_ops": r["ops"]} if "ops" in r else {})}
+        r0 = ranks[0]
+        b["shard"] = r0["shard"]
+        ev = r0["events"][-1]
+        check(ev["kv_bytes_read"] * 2 == world1_kv["kv_bytes_read"],
+              f"serve_mesh (b): per-chip kv bytes {ev['kv_bytes_read']} against world 1's "
+              f"{world1_kv['kv_bytes_read']}")
+        b["kv_bytes_read_per_chip"] = ev["kv_bytes_read"]
+        b["kv_bytes_read_world1"] = world1_kv["kv_bytes_read"]
+        # the prefill's logits: tensor 2 as near the f32 logits as world 1
+        last_mesh = r0["last_logits"].cuda()
+        mesh_err = float((last_mesh - last_f32).abs().max())
+        limit = MESH_NOISE_FACTOR * world1_err
+        check(mesh_err <= limit, f"serve_mesh (b): prefill logits against f32: max |Δ| "
+                                 f"{mesh_err} > {MESH_NOISE_FACTOR} x world 1's {world1_err}")
+        b["prefill_logits"] = {"max_abs_err_vs_f32": mesh_err,
+                               "world1_max_abs_err_vs_f32": world1_err, "limit": limit,
+                               "max_abs_diff_vs_world1": float((last_mesh - last_bf16).abs().max()),
+                               "world1_logits_std": float(last_bf16.std())}
+        # the streams: world 1's logits teacher-forced along each row of
+        # tensor 2's stream give, at every step, world 1's top-2 margin and
+        # how far tensor 2's token sits below world 1's best
+        world1 = want["fused"][0].cpu().numpy()
+        rows_cmp, margins, gaps = [], [], []
+        for i in range(B):
+            got_row, want_row = r0["tokens"][i], world1[i]
+            mine = torch.from_numpy(got_row[S:]).cuda()
+            lg = teacher_forced_logits(plain.params, plain.cfg, plain.config.kv_read_floor,
+                                       prompt[i].cpu().numpy(), mine)
+            margin, gap = top2_margins(lg), (lg.max(-1).values
+                                             - lg.gather(-1, mine[:, None].long())[:, 0]).cpu()
+            margins.append(margin)
+            gaps.append(gap)
+            entry = {"equal": bool(np.array_equal(got_row, want_row)), "max_gap": float(gap.max())}
+            if not entry["equal"]:
+                j = int(np.nonzero(got_row[S:] != want_row[S:])[0][0])
+                entry.update(first_diff_step=j, margin=float(margin[j]))
+                check(float(margin[j]) < MESH_TIE, f"serve_mesh (b) row {i}: differs from world 1 "
+                                                   f"at step {j}, margin {float(margin[j])} >= "
+                                                   f"{MESH_TIE}")
+            check(float(gap.max()) <= limit, f"serve_mesh (b) row {i}: a token "
+                                             f"{float(gap.max())} below world 1's best > {limit}")
+            rows_cmp.append(entry)
+        b["streams_vs_world1"] = rows_cmp
+        b["rows_equal"] = sum(e["equal"] for e in rows_cmp)
+        b["world1_top2_margin_median"] = float(torch.cat(margins).median())
+        b["token_gap_max"] = float(torch.cat(gaps).max())
+        b["token_gap_steps_nonzero"] = int((torch.cat(gaps) > 0).sum())
+    row["b_tensor2_gloo"] = b
+    del plain
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_mesh", "model": "llama2-7b width (4 layers) and gpt2-125m",
+          "llama": ml, **row, "phase_s": time.perf_counter() - t_phase})
+    return counts
+
+
+def serve_mesh_main():
+    """``python3 chip_smoke.py --serve-mesh``: the ``serve_mesh`` phase alone
+    (no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
+    serve_mesh_phase(torch.Generator(device="cuda").manual_seed(0), card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def train_decoders(gen, card):
     """The four decoder-training phases in order; {path: launch counts} and
     ``train_llama``'s line."""
@@ -5830,6 +6328,9 @@ def main():
     # counted from 0
     decoder_counts, _ = train_decoders(gen, card)
     zero_counts = train_zero_phase(gen, card)
+    # ---- the tensor-parallel serving mesh: world 1 through NCCL against the
+    # engines without a mesh, then tensor 2 as two processes on the card
+    mesh_counts = serve_mesh_phase(gen, card)
 
     e1, a23, a456 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"], k456["a_fixed_b2_s4096"]
     a78 = k78["a_ln_8192x768_bf16"]
@@ -5879,7 +6380,8 @@ def main():
                    "hf_load": hf_counts.get(kname, 0),
                    "hf_families": family_counts.get(kname, 0),
                    **{path: c.get(kname, 0) for path, c in decoder_counts.items()},
-                   "train_zero": zero_counts.get(kname, 0)}
+                   "train_zero": zero_counts.get(kname, 0),
+                   "serve_mesh": mesh_counts.get(kname, 0)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
@@ -5969,5 +6471,5 @@ if __name__ == "__main__":
                ("--fleet",): serve_fleet_main, ("--llama",): llama_main, ("--hf",): hf_main,
                ("--train-resume",): train_resume_main,
                ("--train-decoders",): train_decoders_main,
-               ("--train-zero",): train_zero_main}
+               ("--train-zero",): train_zero_main, ("--serve-mesh",): serve_mesh_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

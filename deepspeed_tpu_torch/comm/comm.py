@@ -22,8 +22,20 @@ No process group starts on its own: :func:`init_distributed` starts one
 only when it is given an ``init_method`` (or finds one already started),
 and a process without one is a world of one, whose collectives return
 copies. CUDA tensors go over NCCL and CPU tensors over gloo: the backend
-follows the device. ``ppermute`` (ring attention's exchange) raises until
+follows the device, unless ``init_distributed(dist_backend=...)`` names
+one. On a gloo group, ``all_reduce`` and ``all_gather`` (the serving
+mesh's) carry a CUDA tensor through the host: gloo takes few collectives
+of CUDA tensors. ``ppermute`` (ring attention's exchange) raises until
 sequence parallelism is ported.
+
+Serving meshes are subsets of the world: :func:`subset_mesh` builds one
+over the first ``prod(shape)`` ranks with its own process groups, without
+touching the global mesh, and a collective names one of its axes by a
+:class:`MeshAxes` handle. Every rank makes every group (``new_group`` is
+collective over the world), so the world's rank 0 announces a new subset
+mesh on the control channel (:func:`control_send`, a gloo group over the
+world that carries the serving controller's host messages) before it
+makes its groups; the other ranks make theirs when they read it.
 """
 
 import datetime
@@ -52,7 +64,18 @@ _TORCH_OPS = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.AVG: dist.ReduceOp.SUM,
               ReduceOp.MAX: dist.ReduceOp.MAX, ReduceOp.MIN: dist.ReduceOp.MIN,
               ReduceOp.PROD: dist.ReduceOp.PRODUCT}
 
-GroupLike = Union[None, str, Sequence[str]]
+
+
+@dataclass(frozen=True)
+class MeshAxes:
+    """A group handle on a mesh other than the global one (a serving mesh,
+    :func:`subset_mesh`): the sub-mesh of ``mesh`` over ``axes``."""
+
+    mesh: "Mesh" = field(compare=False)
+    axes: Tuple[str, ...] = ()
+
+
+GroupLike = Union[None, str, Sequence[str], MeshAxes]
 
 
 def _normalize_mesh_shape(mesh_shape: Optional[dict], n_devices: int) -> dict:
@@ -137,6 +160,8 @@ class CommState:
     initialized: bool = False
     started_group: bool = False  # this module called init_process_group
     comms_logger: Optional[object] = None
+    control: object = None  # the control channel's gloo group over the world
+    subset_meshes: Dict[tuple, "Mesh"] = field(default_factory=dict)
 
 
 _STATE = CommState()
@@ -204,9 +229,10 @@ def init_distributed(mesh_shape: Optional[dict] = None, device=None, init_method
         torch.cuda.set_device(device)
     if not dist.is_initialized() and init_method is not None:
         kwargs = {"timeout": timeout} if timeout is not None else {}
-        if device.type == "cuda":
+        backend = dist_backend or _backend(device)
+        if device.type == "cuda" and backend == "nccl":  # gloo takes no bound device
             kwargs["device_id"] = device
-        dist.init_process_group(dist_backend or _backend(device), init_method=init_method,
+        dist.init_process_group(backend, init_method=init_method,
                                 rank=0 if rank is None else rank,
                                 world_size=1 if world_size is None else world_size, **kwargs)
         _STATE.started_group = True
@@ -235,6 +261,8 @@ def destroy():
     _STATE.initialized = False
     _STATE.started_group = False
     _STATE.comms_logger = None
+    _STATE.control = None
+    _STATE.subset_meshes = {}
 
 
 def get_mesh() -> Mesh:
@@ -268,6 +296,8 @@ def _axes(group: GroupLike) -> Tuple[str, ...]:
     """Resolve a 'group' to mesh axis names. None = all axes (world)."""
     if group is None:
         return MESH_AXES
+    if isinstance(group, MeshAxes):
+        return group.axes
     if isinstance(group, str):
         return (group,)
     return tuple(group)
@@ -277,15 +307,19 @@ def _mesh_or_world() -> Mesh:
     return _STATE.mesh if _STATE.initialized else build_mesh()
 
 
+def _mesh_of(group: GroupLike) -> Mesh:
+    return group.mesh if isinstance(group, MeshAxes) else _mesh_or_world()
+
+
 def get_world_size(group: GroupLike = None) -> int:
-    mesh = _mesh_or_world()
+    mesh = _mesh_of(group)
     return int(np.prod([mesh.shape[ax] for ax in _axes(group)]))
 
 
 def get_rank(group: GroupLike = None) -> int:
     """This rank's index in the world, or in ``group`` (row-major over the
     group's axes in the order given, as the reference's)."""
-    mesh = _mesh_or_world()
+    mesh = _mesh_of(group)
     if group is None:
         return mesh.rank
     coords = mesh.coords
@@ -314,7 +348,9 @@ def _group_of(group: GroupLike):
     takes no process group, except in a world of one under a live process
     group, whose collectives then run on it (NCCL's or gloo's own copy)."""
     axes = _axes(group)
-    size = get_world_size(axes)
+    size = get_world_size(group)
+    if isinstance(group, MeshAxes):  # a subset mesh: its own groups; one rank reduces nothing
+        return (group.mesh.group(axes) if size > 1 else None), size
     if size == 1:
         live_world_of_one = has_process_group() and dist.get_world_size() == 1
         return (dist.group.WORLD if live_world_of_one else None), 1
@@ -340,6 +376,20 @@ def barrier(group: GroupLike = None):
 # all_to_all, ppermute, broadcast)
 # ---------------------------------------------------------------------------
 
+def _run(collective, out, src, pg):
+    """``collective(out, src, pg)``, through host copies for a CUDA tensor on
+    a gloo group (the serving mesh's ranks sharing one card: gloo takes few
+    collectives of CUDA tensors); NCCL and CPU tensors run as they are.
+    ``out is src`` for an op in place."""
+    if not (src.is_cuda and dist.get_backend(pg) == dist.Backend.GLOO):
+        collective(out, src, pg)
+        return
+    host_src = src.cpu()
+    host_out = host_src if out is src else torch.empty(out.shape, dtype=out.dtype)
+    collective(host_out, host_src, pg)
+    out.copy_(host_out)
+
+
 def _log_op(name, tensor, group):
     if _STATE.comms_logger is not None:
         _STATE.comms_logger.append(name, tensor, _axes(group))
@@ -358,7 +408,7 @@ def all_reduce_(tensor, op: str = ReduceOp.SUM, group: GroupLike = None):
         raise ValueError(f"unsupported reduce op {op}")
     pg, size = _group_of(group)
     if pg is not None:
-        dist.all_reduce(tensor, op=_TORCH_OPS[op], group=pg)
+        _run(lambda out, _, g: dist.all_reduce(out, op=_TORCH_OPS[op], group=g), tensor, tensor, pg)
     if op == ReduceOp.AVG:
         tensor.div_(size)
     return tensor
@@ -377,7 +427,7 @@ def all_gather(tensor, group: GroupLike = None, axis: int = 0, tiled: bool = Tru
     if pg is None:
         out.copy_(src)
     else:
-        _all_gather_single(out, src, group=pg)
+        _run(lambda o, s, g: _all_gather_single(o, s, group=g), out, src, pg)
     return out.movedim(0, axis).contiguous()
 
 
@@ -445,6 +495,94 @@ def broadcast(tensor, src: int = 0, group: GroupLike = None):
 
 def axis_index(group: GroupLike = None) -> int:
     return get_rank(_axes(group))
+
+
+# ---------------------------------------------------------------------------
+# Subset meshes and the control channel (the serving controller's)
+# ---------------------------------------------------------------------------
+
+def process_world() -> Tuple[int, int]:
+    """(rank, size) of this process in the live process group's world, or
+    (0, 1) without one."""
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def control_group():
+    """The control channel's group: a gloo group over the whole world (the
+    world's own group when its backend is gloo). Made once, collectively:
+    every rank calls this before its first control message."""
+    if _STATE.control is None:
+        if dist.get_backend() == dist.Backend.GLOO:
+            _STATE.control = dist.group.WORLD
+        else:
+            _STATE.control = dist.new_group(list(range(dist.get_world_size())), backend="gloo")
+    return _STATE.control
+
+
+def control_send(commands):
+    """Broadcast a list of host commands from the world's rank 0 to every
+    other rank (pickled, over the control group)."""
+    dist.broadcast_object_list([commands], src=0, group=control_group())
+
+
+def control_recv():
+    """The next list of commands rank 0 sent with :func:`control_send`."""
+    box = [None]
+    dist.broadcast_object_list(box, src=0, group=control_group())
+    return box[0]
+
+
+def control_send_to(rank: int, obj):
+    """Send one host object from the world's rank 0 to ``rank`` alone
+    (pickled, over the control group)."""
+    dist.send_object_list([obj], dst=rank, group=control_group())
+
+
+def control_recv_own():
+    """The object rank 0 sent this rank with :func:`control_send_to`."""
+    box = [None]
+    dist.recv_object_list(box, src=0, group=control_group())
+    return box[0]
+
+
+def subset_mesh(mesh_shape: dict, device=None) -> Mesh:
+    """A :class:`Mesh` over the first ``prod(mesh_shape)`` ranks of the
+    world (the shape normalized over that count), with a process group for
+    every set of its axes larger than one, of the world's backend; the
+    global mesh stays as it is. Made once a shape: the world's rank 0
+    announces a new one on the control channel, then every rank makes its
+    groups in one order (``new_group`` is collective over the world). A
+    rank outside the subset makes its groups too and gets None."""
+    n = int(np.prod([s for s in mesh_shape.values()] or [1]))
+    shape = _normalize_mesh_shape(dict(mesh_shape), n)
+    key = tuple(shape[ax] for ax in MESH_AXES)
+    rank, world = process_world()
+    device = torch.device(device or "cpu")
+    if key not in _STATE.subset_meshes:
+        groups = {}
+        if world > 1 and n > 1:
+            if rank == 0:
+                control_send([("mesh", dict(mesh_shape))])
+            dims = key
+            ranks = np.arange(n).reshape(dims)
+            big = [ax for ax in MESH_AXES if shape[ax] > 1]
+            for k in range(1, len(big) + 1):
+                for axes in itertools.combinations(big, k):
+                    keep = [MESH_AXES.index(ax) for ax in axes]
+                    rest = [i for i in range(len(MESH_AXES)) if i not in keep]
+                    blocks = ranks.transpose(rest + keep).reshape(
+                        -1, int(np.prod([dims[i] for i in keep])))
+                    for block in blocks:
+                        pg = dist.new_group([int(r) for r in block])
+                        if rank in block:
+                            groups[axes] = pg
+        _STATE.subset_meshes[key] = (shape, groups)
+    shape, groups = _STATE.subset_meshes[key]
+    if rank >= n:
+        return None
+    return Mesh(shape=dict(shape), rank=rank, device=device, groups=groups)
 
 
 # ---------------------------------------------------------------------------

@@ -72,9 +72,18 @@ drives the ``torch.profiler`` window, sets the ``cache_utilization`` and
 (``path: "continuous"``). Every value is host-side already: telemetry adds
 no wait on the device to a tick.
 
-Not ported (``NotImplementedError``, ROADMAP.md Queue 1): a serving mesh
-(``mesh``; item 8), the memory attribution (``memory_snapshot``,
-``hbm_components``; item 11 (b)) and ``analyze_program_memory`` (item 12).
+Serving mesh (``mesh=`` or the engine config's ``mesh``): the pools' KV
+caches split on heads over the mesh's ``tensor`` ranks, while the row state
+and the packed fetch stay whole on every rank (the reference's
+``_tick_shardings``); a draft model lives on the same mesh. The world's
+rank 0 runs the scheduler; each device operation (a tick, a row update, a
+prefill and its splice, a prefix) is a ``inference.mesh.mirrored`` method
+that the other ranks, inside ``serve_worker()``, run on their shards.
+
+Not ported (``NotImplementedError``, ROADMAP.md Queue 1): the memory
+attribution (``memory_snapshot``, ``hbm_components``; item 11 (b)),
+``analyze_program_memory`` (item 12), and a mesh's ``data`` axis (item 8
+(c)).
 """
 
 import time
@@ -85,6 +94,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch.inference import mesh as mesh_mod
 from deepspeed_tpu_torch.inference import ngram
 from deepspeed_tpu_torch.inference.decoding import (
     compile_pool_tick_fn,
@@ -160,18 +170,21 @@ class _TickRecord:
 class _Pool:
     """One fixed-shape slot pool: ``n_slots`` rows of ``length`` KV."""
 
-    def __init__(self, engine, n_slots: int, length: int):
+    def __init__(self, engine, index: int, n_slots: int, length: int):
+        self.index = index
         self.n_slots = n_slots
         self.length = length
         dev = engine.device
-        self.segment_fn = compile_segment_fn(engine.cfg, n_slots, length)
-        self.cache = tf.init_cache(engine.cfg, n_slots, length, device=dev)
+        shard = engine.shard
+        self.segment_fn = compile_segment_fn(shard, engine.cfg, n_slots, length)
+        self.cache = tf.init_cache(engine.cfg, n_slots, length, device=dev, tp=shard)
         self.active: Dict[int, _Request] = {}       # slot -> request
         # device-THREADED tick state: free slots start done=1 (never emit);
         # admission flips a row live
         self.last_tok_dev = torch.zeros(n_slots, dtype=torch.int32, device=dev)
         self.done_dev = torch.ones(n_slots, dtype=torch.int32, device=dev)
-        self.set_row_fn = compile_row_update_fn(engine.cfg, n_slots, donate=engine.donate_cache)
+        self.set_row_fn = compile_row_update_fn(shard, engine.cfg, n_slots,
+                                                donate=engine.donate_cache)
         # speculative tick state: pos/gen join the device-threaded tensors (a
         # spec row advances by its own accepted count, which only the device
         # knows at dispatch), and draft mode keeps a second KV cache of the
@@ -180,11 +193,14 @@ class _Pool:
         if engine.spec_gamma:
             self.pos_dev = torch.full((n_slots,), length, dtype=torch.int32, device=dev)
             self.gen_dev = torch.zeros(n_slots, dtype=torch.int32, device=dev)
-            self.spec_set_row_fn = compile_spec_row_update_fn(engine.cfg, n_slots,
+            self.spec_set_row_fn = compile_spec_row_update_fn(shard, engine.cfg, n_slots,
                                                               donate=engine.donate_cache)
             if engine.spec_mode == "draft":
-                self.draft_segment_fn = compile_segment_fn(engine.draft_cfg, n_slots, length)
-                self.draft_cache = tf.init_cache(engine.draft_cfg, n_slots, length, device=dev)
+                dshard = engine._draft_eng.shard
+                self.draft_segment_fn = compile_segment_fn(dshard, engine.draft_cfg, n_slots,
+                                                           length)
+                self.draft_cache = tf.init_cache(engine.draft_cfg, n_slots, length, device=dev,
+                                                 tp=dshard)
         # host DISPATCH mirrors: the position/emission count each row will
         # have reached once every dispatched tick retires (speculative rows:
         # pos an upper bound, gen a lower one, reconciled at retire)
@@ -224,12 +240,18 @@ class ContinuousBatchingEngine:
                  donate_cache: bool = True,
                  fetch_timeout_s: Optional[float] = None,
                  draft_model=None, draft_params=None, device=None):
-        from deepspeed_tpu_torch.inference.engine import InferenceEngine
+        from deepspeed_tpu_torch.inference.engine import InferenceEngine, draft_config
 
-        if mesh is not None:
-            raise not_ported("a serving mesh for the batching engine (ROADMAP Queue 1 item 8)")
+        ctor = dict(max_slots=max_slots, cache_len=cache_len, cache_buckets=cache_buckets,
+                    eos_token_id=eos_token_id, temperature=temperature, top_k=top_k,
+                    top_p=top_p, seed=seed, tokens_per_tick=tokens_per_tick,
+                    pipeline_depth=pipeline_depth, fused_prefill=fused_prefill,
+                    prefill_chunk=prefill_chunk, donate_cache=donate_cache,
+                    draft_model=draft_model, draft_params=draft_params)
         self._eng = InferenceEngine(model, config=config, params=params, device=device,
-                                    seed=seed)
+                                    seed=seed, mesh=mesh, _announce=False)
+        self.mesh = self._eng.mesh
+        self.shard = self._eng.shard
         # slot caches are written at per-row depths (ragged admission): the
         # pools run plain full/bucket-length caches
         self.cfg = self._eng._ring_off_cfg
@@ -274,12 +296,8 @@ class ContinuousBatchingEngine:
                         "draft-free self-drafting")
                 # the draft shares the cache format: int8 KV covers both trees
                 self._draft_eng = InferenceEngine(
-                    draft_model,
-                    config={"dtype": self._eng.config.dtype,
-                            "kv_cache_dtype": self._eng.config.kv_cache_dtype,
-                            "kv_tight_read": self._eng.config.kv_tight_read,
-                            "kv_read_floor": self._eng.config.kv_read_floor},
-                    params=draft_params, device=self.device, seed=seed)
+                    draft_model, config=draft_config(self._eng.config), params=draft_params,
+                    device=self.device, seed=seed, mesh=self.mesh, _announce=False)
                 self.draft_cfg = self._draft_eng._ring_off_cfg
                 if self.draft_cfg.vocab_size != self.cfg.vocab_size:
                     raise ValueError(
@@ -303,13 +321,14 @@ class ContinuousBatchingEngine:
             for s, l in cache_buckets:
                 assert s >= 1 and 1 <= l <= self.cfg.max_seq_len, (s, l)
         # pools sorted by length: admission scans for the smallest fit
-        self._pools = [_Pool(self, s, l) for s, l in cache_buckets]
+        self._pools = [_Pool(self, i, s, l) for i, (s, l) in enumerate(cache_buckets)]
         self.max_slots = sum(p.n_slots for p in self._pools)
         self.cache_len = max(p.length for p in self._pools)
 
         self._next_rid = 0
         self._next_pid = 0
         self._prefixes: Dict[int, dict] = {}  # prefix caching (register_prefix)
+        self._prefix_caches: Dict[int, dict] = {}  # their KV, by prefix id
         self._pending: List[_Request] = []
         self._results: Dict[int, np.ndarray] = {}
         # dispatched-but-not-retired ticks, oldest first; each entry maps
@@ -342,6 +361,17 @@ class ContinuousBatchingEngine:
         self._tick_index = 0
         # B=1 bucket prefills and their splices, keyed by bucket (and pool)
         self._fns: Dict[tuple, Callable] = {}
+        # rank 0 of a mesh wider than one rank announces the engine: the
+        # workers build theirs from the same arguments and run each of its
+        # device operations
+        if self._draft_eng is not None and self._draft_eng._ctor_args:
+            draft_args = self._draft_eng._ctor_args
+            ctor.update(draft_model=draft_args["model"], draft_params=draft_args["params"])
+            self._draft_eng._ctor_args = {}
+        self._mirror = mesh_mod.controller(
+            self, "ContinuousBatchingEngine", self.mesh,
+            dict(ctor, config=self._eng._worker_config(), **self._eng._ctor_args))
+        self._eng._ctor_args = {}
 
     @property
     def telemetry(self):
@@ -463,19 +493,39 @@ class ContinuousBatchingEngine:
             raise ValueError("prefix does not fit the cache")
         n = prefix.size
         bucket = read_bucket(n, self.cache_len)
-        prefill_fn = self._prefill_for_bucket(bucket)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = prefix
         positions = np.full((1, bucket), bucket, np.int32)
         positions[0, :n] = np.arange(n, dtype=np.int32)
-        small = tf.init_cache(self.cfg, 1, bucket, device=self.device)
+        pid = self._next_pid  # a counter: an id is never recycled
+        self._next_pid += 1
+        self._run_register_prefix(pid, bucket, toks, positions)
+        self._prefixes[pid] = {"tokens": prefix, "cache": self._prefix_caches[pid],
+                               "bucket": bucket, "pid": pid}
+        return pid
+
+    @mesh_mod.mirrored
+    def _run_register_prefix(self, pid: int, bucket: int, toks, positions):
+        """Device half of :meth:`register_prefix`: the B=1 bucket prefill
+        into the prefix's own cache."""
+        prefill_fn = self._prefill_for_bucket(bucket)
+        small = tf.init_cache(self.cfg, 1, bucket, device=self.device, tp=self.shard)
         dtoks, dpos = self._upload(toks, positions)
         with torch.inference_mode():
             _, small = prefill_fn(self._eng.params, dtoks, dpos, small)
-        pid = self._next_pid  # a counter: an id is never recycled
-        self._next_pid += 1
-        self._prefixes[pid] = {"tokens": prefix, "cache": small, "bucket": bucket}
-        return pid
+        self._prefix_caches[pid] = small
+
+    @mesh_mod.mirrored
+    def _run_drop_prefix(self, pid: int):
+        self._prefix_caches.pop(pid, None)
+
+    def _release_prefix(self, pid: int):
+        """Free an unregistered prefix's KV once no queued request holds
+        it (a queued request splices it at admission)."""
+        if pid in self._prefixes or pid not in self._prefix_caches:
+            return
+        if not any(r.prefix is not None and r.prefix["pid"] == pid for r in self._pending):
+            self._run_drop_prefix(pid)
 
     def _require_prefix(self, prefix_id: int) -> dict:
         try:
@@ -490,6 +540,7 @@ class ContinuousBatchingEngine:
         are unaffected)."""
         self._require_prefix(prefix_id)
         self._prefixes.pop(prefix_id)
+        self._release_prefix(prefix_id)
 
     def submit_with_prefix(self, prefix_id: int, suffix_ids, max_new_tokens: int = 32) -> int:
         """Queue a request whose prompt is (registered prefix + suffix); the
@@ -737,15 +788,18 @@ class ContinuousBatchingEngine:
         return None if r >= pool.length else r
 
     def _row_read_bytes(self, pool: _Pool, read_len: Optional[int]) -> int:
+        """KV bytes one row streams a step, per chip on a mesh (the
+        reference's accounting)."""
         return tf.kv_read_bytes_per_row(self.cfg,
-                                        read_len if read_len is not None else pool.length)
+                                        read_len if read_len is not None else pool.length,
+                                        tp=self._eng.kv_shard_width)
 
     def _tick_fn(self, pool: _Pool, read_len: Optional[int], chunk: Optional[int] = None):
         """The pool's tick function at (chunk width, tight-read length)."""
         key = (chunk, read_len)
         if key not in pool.tick_fns:
             pool.tick_fns[key] = compile_pool_tick_fn(
-                self.cfg, pool.n_slots, pool.length,
+                self.shard, self.cfg, pool.n_slots, pool.length,
                 1 if chunk is not None else self.tokens_per_tick,
                 self.temperature, self.top_k, self.top_p,
                 eos_token_id=self.eos_token_id, read_len=read_len,
@@ -781,14 +835,12 @@ class ContinuousBatchingEngine:
         if not live and admit is None:
             return None
 
-        params = self._eng.params
         if admit is not None:
             ctoks, cpos0, nreal, emits = admit.chunks[0]
             aslot = admit.slot
             W = read_bucket(nreal, pool.chunk_cap, _CHUNK_FLOOR)
             extent = max(extent, cpos0 + nreal)
             read_len = self._read_len(pool, extent)
-            fn = self._tick_fn(pool, read_len, chunk=W)
             chunk_toks = np.zeros(W, np.int32)
             chunk_toks[:nreal] = ctoks
             chunk_pos = np.full(W, pool.length, np.int32)
@@ -802,12 +854,8 @@ class ContinuousBatchingEngine:
                 gen[aslot] = admit.gen_base
                 rids[aslot] = admit.rid
                 live[aslot] = admit
-            (d_pos, d_gen, d_quota, d_rids, d_ctoks, d_cpos, d_col,
-             d_mask) = self._upload(pos, gen, quota, rids, chunk_toks, chunk_pos, emit_col,
-                                    emit_mask)
-            packed, pool.cache, pool.last_tok_dev, pool.done_dev = fn(
-                params, pool.cache, pool.last_tok_dev, pool.done_dev, d_pos, d_gen, d_quota,
-                d_rids, self._base_key, d_ctoks, d_cpos, aslot, d_col, d_mask)
+            packed = self._run_tick(pool.index, read_len, W, pos, gen, quota, rids,
+                                    (chunk_toks, chunk_pos, aslot, emit_col, emit_mask))
             admit.chunks.pop(0)
             if not admit.chunks:
                 pool.prefill_q.popleft()
@@ -819,11 +867,7 @@ class ContinuousBatchingEngine:
             advance = 1
         else:
             read_len = self._read_len(pool, extent)
-            fn = self._tick_fn(pool, read_len)
-            d_pos, d_gen, d_quota, d_rids = self._upload(pos, gen, quota, rids)
-            packed, pool.cache, pool.last_tok_dev, pool.done_dev = fn(
-                params, pool.cache, pool.last_tok_dev, pool.done_dev, d_pos, d_gen, d_quota,
-                d_rids, self._base_key)
+            packed = self._run_tick(pool.index, read_len, None, pos, gen, quota, rids)
             host, event = self._fetch_async(packed)
             rec = _TickRecord(host, event, live, k, self._row_read_bytes(pool, read_len), False)
             advance = k
@@ -837,6 +881,29 @@ class ContinuousBatchingEngine:
             pool.disp_gen[slot] += adv
         return rec
 
+    @mesh_mod.mirrored
+    def _run_tick(self, pi: int, read_len: Optional[int], chunk: Optional[int], pos, gen, quota,
+                  rids, admit=None):
+        """Device half of a tick: upload the host vectors, run the pool's
+        tick function at (``chunk``, ``read_len``), thread the pool's state.
+        ``admit`` is a fused tick's (chunk tokens, chunk positions, admitting
+        slot, emit column, emit mask). Returns the packed result."""
+        pool = self._pools[pi]
+        fn = self._tick_fn(pool, read_len, chunk=chunk)
+        if admit is None:
+            d_pos, d_gen, d_quota, d_rids = self._upload(pos, gen, quota, rids)
+            extra = ()
+        else:
+            chunk_toks, chunk_pos, aslot, emit_col, emit_mask = admit
+            (d_pos, d_gen, d_quota, d_rids, d_ctoks, d_cpos, d_col,
+             d_mask) = self._upload(pos, gen, quota, rids, chunk_toks, chunk_pos, emit_col,
+                                    emit_mask)
+            extra = (d_ctoks, d_cpos, aslot, d_col, d_mask)
+        packed, pool.cache, pool.last_tok_dev, pool.done_dev = fn(
+            self._eng.params, pool.cache, pool.last_tok_dev, pool.done_dev, d_pos, d_gen,
+            d_quota, d_rids, self._base_key, *extra)
+        return packed
+
     def _spec_round_bytes(self, pool: _Pool, read_len: Optional[int]) -> int:
         """KV bytes ONE row streams a speculative round: the target's verify
         reads its window once (the gamma+1 queries share one cache read),
@@ -845,7 +912,8 @@ class ContinuousBatchingEngine:
         total = self._row_read_bytes(pool, read_len)
         if self.spec_mode == "draft":
             total += (self.spec_gamma + 1) * tf.kv_read_bytes_per_row(
-                self.draft_cfg, read_len if read_len is not None else pool.length)
+                self.draft_cfg, read_len if read_len is not None else pool.length,
+                tp=self._draft_eng.kv_shard_width)
         return total
 
     def _spec_tick_fn(self, pool: _Pool, read_len: Optional[int]):
@@ -854,9 +922,10 @@ class ContinuousBatchingEngine:
         key = ("spec", read_len)
         if key not in pool.tick_fns:
             pool.tick_fns[key] = compile_spec_pool_tick_fn(
-                self.cfg, pool.n_slots, pool.length, self.spec_gamma, self.temperature,
-                self.top_k, self.top_p, eos_token_id=self.eos_token_id, read_len=read_len,
-                donate=self.donate_cache, draft_cfg=self.draft_cfg)[0]
+                self.shard, self.cfg, pool.n_slots, pool.length, self.spec_gamma,
+                self.temperature, self.top_k, self.top_p, eos_token_id=self.eos_token_id,
+                read_len=read_len, donate=self.donate_cache, draft_cfg=self.draft_cfg,
+                draft_mesh=None if self._draft_eng is None else self._draft_eng.shard)[0]
         return pool.tick_fns[key]
 
     def _dispatch_spec_tick(self, pool: _Pool) -> Optional[_TickRecord]:
@@ -867,7 +936,6 @@ class ContinuousBatchingEngine:
         on the step its last chunk dispatches), so decode rows keep
         speculating through a long prompt's prefill."""
         g, n = self.spec_gamma, pool.n_slots
-        params = self._eng.params
         fused = False
         if self.fused_prefill and pool.prefill_q:
             admit = pool.prefill_q[0]
@@ -877,8 +945,7 @@ class ContinuousBatchingEngine:
             seg_toks[admit.slot, :nreal] = ctoks
             seg_pos = np.full(n, pool.length, np.int32)
             seg_pos[admit.slot] = cpos0
-            d_toks, d_pos = self._upload(seg_toks, seg_pos)
-            _, pool.cache = pool.segment_fn(params, d_toks, pool.cache, d_pos)
+            self._run_segment(pool.index, seg_toks, seg_pos)
             fused = True
             if not admit.chunks:
                 pool.prefill_q.popleft()
@@ -902,15 +969,8 @@ class ContinuousBatchingEngine:
         if not live:
             return None
         read_len = self._read_len(pool, min(extent, pool.length))
-        fn = self._spec_tick_fn(pool, read_len)
-        if self.spec_mode == "draft":
-            d_quota, d_rids, d_mask = self._upload(quota, rids, run_mask)
-            (packed, pool.cache, pool.draft_cache, pool.last_tok_dev, pool.done_dev,
-             pool.pos_dev, pool.gen_dev) = fn(
-                params, self._draft_eng.params, pool.cache, pool.draft_cache,
-                pool.last_tok_dev, pool.done_dev, pool.pos_dev, pool.gen_dev, d_quota, d_rids,
-                d_mask, self._base_key)
-        else:
+        drafts = None
+        if self.spec_mode != "draft":
             drafts = np.zeros((n, g), np.int32)
             order = self._eng.config.speculative.ngram_max_order
             for slot, req in live.items():
@@ -919,11 +979,7 @@ class ContinuousBatchingEngine:
                 ctx = (np.concatenate([req.prompt, np.asarray(req.generated, np.int32)])
                        if req.generated else req.prompt)
                 drafts[slot] = ngram.propose(ctx, g, order)
-            d_quota, d_rids, d_mask, d_drafts = self._upload(quota, rids, run_mask, drafts)
-            (packed, pool.cache, pool.last_tok_dev, pool.done_dev, pool.pos_dev,
-             pool.gen_dev) = fn(params, pool.cache, pool.last_tok_dev, pool.done_dev,
-                                pool.pos_dev, pool.gen_dev, d_quota, d_rids, d_mask, d_drafts,
-                                self._base_key)
+        packed = self._run_spec_tick(pool.index, read_len, quota, rids, run_mask, drafts)
         # dispatch mirrors: pos becomes an UPPER bound (the device advances by
         # accepted + 1 <= gamma + 1; read geometry only) and gen a LOWER one
         # (an active round emits >= 1); _retire reconciles both
@@ -933,6 +989,44 @@ class ContinuousBatchingEngine:
         host, event = self._fetch_async(packed)
         return _TickRecord(host, event, live, g + 1, self._spec_round_bytes(pool, read_len),
                            fused, spec=g)
+
+    @mesh_mod.mirrored
+    def _run_spec_tick(self, pi: int, read_len: Optional[int], quota, rids, run_mask,
+                       drafts=None):
+        """Device half of a speculative tick: the round at ``read_len`` over
+        the pool's threaded state; ``drafts`` (B, gamma) are the host's
+        n-gram proposals (None in draft-model mode). Returns the packed
+        result."""
+        pool = self._pools[pi]
+        fn = self._spec_tick_fn(pool, read_len)
+        params = self._eng.params
+        if self.spec_mode == "draft":
+            d_quota, d_rids, d_mask = self._upload(quota, rids, run_mask)
+            (packed, pool.cache, pool.draft_cache, pool.last_tok_dev, pool.done_dev,
+             pool.pos_dev, pool.gen_dev) = fn(
+                params, self._draft_eng.params, pool.cache, pool.draft_cache,
+                pool.last_tok_dev, pool.done_dev, pool.pos_dev, pool.gen_dev, d_quota, d_rids,
+                d_mask, self._base_key)
+        else:
+            d_quota, d_rids, d_mask, d_drafts = self._upload(quota, rids, run_mask, drafts)
+            (packed, pool.cache, pool.last_tok_dev, pool.done_dev, pool.pos_dev,
+             pool.gen_dev) = fn(params, pool.cache, pool.last_tok_dev, pool.done_dev,
+                                pool.pos_dev, pool.gen_dev, d_quota, d_rids, d_mask, d_drafts,
+                                self._base_key)
+        return packed
+
+    @mesh_mod.mirrored
+    def _run_segment(self, pi: int, toks, pos, draft: bool = False):
+        """A segment forward of pool ``pi`` at per-row positions into its
+        cache (``draft``: the draft model's cache): fused speculative
+        admission chunks, prefix-suffix prefills, the draft's prefill."""
+        pool = self._pools[pi]
+        d_toks, d_pos = self._upload(toks, pos)
+        if draft:
+            _, pool.draft_cache = pool.draft_segment_fn(self._draft_eng.params, d_toks,
+                                                        pool.draft_cache, d_pos)
+        else:
+            _, pool.cache = pool.segment_fn(self._eng.params, d_toks, pool.cache, d_pos)
 
     def _retire(self, recs: Dict[int, _TickRecord], emitted: Dict[int, List[int]]) -> float:
         """Retire one in-flight tick: ONE wait on its packed result per
@@ -1028,7 +1122,7 @@ class ContinuousBatchingEngine:
         """B=1 ragged prefill into a bucket-length cache (any pool)."""
         key = ("prefill_bucket", bucket)
         if key not in self._fns:
-            self._fns[key] = compile_ragged_prefill_fn(self.cfg, 1, bucket)
+            self._fns[key] = compile_ragged_prefill_fn(self.shard, self.cfg, 1, bucket)
         return self._fns[key]
 
     def _insert_for_bucket(self, bucket: int, pi: int):
@@ -1070,6 +1164,11 @@ class ContinuousBatchingEngine:
         queued on the stream, never read back."""
         if self.fault_hook is not None:
             self.fault_hook("set_row", {"tick": self._tick_index, "slot": slot})
+        self._run_set_row(pool.index, slot, tok, flag)
+
+    @mesh_mod.mirrored
+    def _run_set_row(self, pi: int, slot: int, tok: int, flag: int):
+        pool = self._pools[pi]
         pool.last_tok_dev, pool.done_dev = pool.set_row_fn(
             pool.last_tok_dev, pool.done_dev, slot, tok, flag)
 
@@ -1088,8 +1187,8 @@ class ContinuousBatchingEngine:
             pre = req.prefix
             # splice the cached prefix KV into the slot row (the prefix
             # cache itself stays as it is: it serves every request)
-            insert_fn = self._insert_for_bucket(pre["bucket"], pi)
-            pool.cache = insert_fn(pool.cache, pre["cache"], slot)
+            self._run_insert_prefix(pi, slot, pre["pid"], pre["bucket"])
+            self._release_prefix(pre["pid"])
             start = pre["tokens"].size
             toks = req.prompt[start:]
         if self.spec_gamma:
@@ -1109,6 +1208,12 @@ class ContinuousBatchingEngine:
         pool.disp_pos[slot] = start + m - 1
         pool.disp_gen[slot] = req.gen_base
 
+    @mesh_mod.mirrored
+    def _run_insert_prefix(self, pi: int, slot: int, pid: int, bucket: int):
+        pool = self._pools[pi]
+        insert_fn = self._insert_for_bucket(bucket, pi)
+        pool.cache = insert_fn(pool.cache, self._prefix_caches[pid], slot)
+
     def _separate_prefill(self, pool: _Pool, pi: int, slot: int, req: _Request,
                           toks: np.ndarray, start: int):
         """Admission-time prefill of ``toks[:-1]`` into the slot row: the B=1
@@ -1126,21 +1231,27 @@ class ContinuousBatchingEngine:
             seg_toks[slot, :m - 1] = toks[:m - 1]
             seg_pos = np.full(pool.n_slots, pool.length, np.int32)
             seg_pos[slot] = start
-            d_toks, d_pos = self._upload(seg_toks, seg_pos)
-            _, pool.cache = pool.segment_fn(self._eng.params, d_toks, pool.cache, d_pos)
+            self._run_segment(pi, seg_toks, seg_pos)
         else:
             b = read_bucket(m - 1, pool.length)
-            prefill_fn = self._prefill_for_bucket(b)
-            insert_fn = self._insert_for_bucket(b, pi)
             ptoks = np.zeros((1, b), np.int32)
             ptoks[0, :m - 1] = toks[:m - 1]
             # pads park at bucket (dropped writes), real tokens 0..m-2
             positions = np.full((1, b), b, np.int32)
             positions[0, :m - 1] = np.arange(m - 1, dtype=np.int32)
-            small = tf.init_cache(self.cfg, 1, b, device=self.device)
-            d_toks, d_pos = self._upload(ptoks, positions)
-            _, small = prefill_fn(self._eng.params, d_toks, d_pos, small)
-            pool.cache = insert_fn(pool.cache, small, slot)
+            self._run_prefill_insert(pi, slot, b, ptoks, positions)
+
+    @mesh_mod.mirrored
+    def _run_prefill_insert(self, pi: int, slot: int, b: int, ptoks, positions):
+        """The B=1 bucket prefill of a prompt into its own cache, spliced
+        into pool ``pi``'s row ``slot``."""
+        pool = self._pools[pi]
+        prefill_fn = self._prefill_for_bucket(b)
+        insert_fn = self._insert_for_bucket(b, pi)
+        small = tf.init_cache(self.cfg, 1, b, device=self.device, tp=self.shard)
+        d_toks, d_pos = self._upload(ptoks, positions)
+        _, small = prefill_fn(self._eng.params, d_toks, d_pos, small)
+        pool.cache = insert_fn(pool.cache, small, slot)
 
     def _admit_spec(self, req: _Request, pool: _Pool, pi: int, slot: int, toks: np.ndarray,
                     start: int):
@@ -1162,9 +1273,7 @@ class ContinuousBatchingEngine:
                 dtoks[slot, :mfull - 1] = req.prompt[:mfull - 1]
                 dpos = np.full(pool.n_slots, pool.length, np.int32)
                 dpos[slot] = 0
-                d_toks, d_pos = self._upload(dtoks, dpos)
-                _, pool.draft_cache = pool.draft_segment_fn(self._draft_eng.params, d_toks,
-                                                            pool.draft_cache, d_pos)
+                self._run_segment(pi, dtoks, dpos, draft=True)
         if self.fused_prefill and m > 1:
             req.chunks = self._chunk_schedule(pool, toks[:-1], start)
             pool.prefill_q.append(req)
@@ -1172,11 +1281,16 @@ class ContinuousBatchingEngine:
             self._separate_prefill(pool, pi, slot, req, toks, start)
         if self.fault_hook is not None:
             self.fault_hook("set_row", {"tick": self._tick_index, "slot": slot})
-        pool.last_tok_dev, pool.done_dev, pool.pos_dev, pool.gen_dev = pool.spec_set_row_fn(
-            pool.last_tok_dev, pool.done_dev, pool.pos_dev, pool.gen_dev, slot, int(toks[-1]),
-            0, first_pos, int(req.gen_base))
+        self._run_spec_set_row(pi, slot, int(toks[-1]), first_pos, int(req.gen_base))
         pool.disp_pos[slot] = first_pos
         pool.disp_gen[slot] = req.gen_base
+
+    @mesh_mod.mirrored
+    def _run_spec_set_row(self, pi: int, slot: int, tok: int, first_pos: int, gen_base: int):
+        pool = self._pools[pi]
+        pool.last_tok_dev, pool.done_dev, pool.pos_dev, pool.gen_dev = pool.spec_set_row_fn(
+            pool.last_tok_dev, pool.done_dev, pool.pos_dev, pool.gen_dev, slot, tok, 0,
+            first_pos, gen_base)
 
     def precompile_tick_programs(self, progress: Optional[Callable] = None) -> int:
         """Run (and wait on) the FULL tick family once on throwaway state:
@@ -1185,6 +1299,15 @@ class ContinuousBatchingEngine:
         dispatch uses. Eager PyTorch compiles nothing; the warm-up settles
         the allocator, the kernel libraries and cuBLAS for every shape.
         Returns the count."""
+        self._progress = progress
+        try:
+            return self._run_precompile()
+        finally:
+            self._progress = None
+
+    @mesh_mod.mirrored
+    def _run_precompile(self) -> int:
+        progress = getattr(self, "_progress", None)
         count = 0
         with torch.inference_mode():
             for pool in self._pools:
@@ -1202,7 +1325,8 @@ class ContinuousBatchingEngine:
                     for ch in chunks:
                         t0 = time.time()
                         fn = self._tick_fn(pool, rl, chunk=ch)
-                        cache = tf.init_cache(self.cfg, n, pool.length, device=self.device)
+                        cache = tf.init_cache(self.cfg, n, pool.length, device=self.device,
+                                              tp=self.shard)
 
                         def zeros():
                             return torch.zeros(n, dtype=torch.int32, device=self.device)
@@ -1235,12 +1359,13 @@ class ContinuousBatchingEngine:
         for rl in read_lens:
             t0 = time.time()
             fn = self._spec_tick_fn(pool, rl)
-            cache = tf.init_cache(self.cfg, n, pool.length, device=dev)
+            cache = tf.init_cache(self.cfg, n, pool.length, device=dev, tp=self.shard)
             state = (zeros(), torch.ones(n, dtype=torch.int32, device=dev),
                      torch.full((n,), pool.length, dtype=torch.int32, device=dev), zeros(),
                      zeros(), zeros(), zeros())
             if self.spec_mode == "draft":
-                dcache = tf.init_cache(self.draft_cfg, n, pool.length, device=dev)
+                dcache = tf.init_cache(self.draft_cfg, n, pool.length, device=dev,
+                                       tp=self._draft_eng.shard)
                 out = fn(self._eng.params, self._draft_eng.params, cache, dcache, *state,
                          self._base_key)
             else:
@@ -1255,7 +1380,7 @@ class ContinuousBatchingEngine:
             for W in sorted({read_bucket(m, pool.chunk_cap, _CHUNK_FLOOR)
                              for m in range(1, pool.chunk_cap + 1)}):
                 t0 = time.time()
-                cache = tf.init_cache(self.cfg, n, pool.length, device=dev)
+                cache = tf.init_cache(self.cfg, n, pool.length, device=dev, tp=self.shard)
                 logits, _ = pool.segment_fn(
                     self._eng.params, torch.zeros((n, W), dtype=torch.int64, device=dev), cache,
                     torch.full((n,), pool.length, dtype=torch.int64, device=dev))

@@ -15,6 +15,12 @@ same steps eagerly (CUDA graphs are later work), with the same read
 geometry: prefill, then one Python loop per :func:`read_stages` stage. The
 ``compile_*`` functions keep the reference's names and build plain
 functions, so that a CUDA-graph capture can take their place.
+
+Every ``compile_*`` function takes the mesh first, as the reference's do:
+``None`` on one device, or this rank's ``ServingShard`` of a serving mesh
+(``inference/mesh.py``), whose params and KV cache the function then runs
+on; its forward gathers the logits, so sampling and acceptance see the
+global vocabulary and every rank computes the same tokens.
 """
 
 import time
@@ -68,13 +74,14 @@ def read_stages(prompt_len: int, n_steps: int, cache_len: int, floor: Optional[i
 
 
 def decode_kv_bytes(cfg, prompt_len: int, new_tokens: int, cache_len: int,
-                    floor: Optional[int] = None) -> int:
+                    floor: Optional[int] = None, tp: int = 1) -> int:
     """KV-cache bytes ONE sequence row streams across the ``new_tokens - 1``
     decode steps of a generation (prefill excluded), following the read
-    geometry the decode loop executes (read_stages)."""
+    geometry the decode loop executes (read_stages); ``tp`` (the cache's
+    head-shard width) makes them each rank's."""
     total = 0
     for r, n in read_stages(prompt_len, new_tokens - 1, cache_len, floor):
-        total += n * tf.kv_read_bytes_per_row(cfg, r if r is not None else cache_len)
+        total += n * tf.kv_read_bytes_per_row(cfg, r if r is not None else cache_len, tp=tp)
     return total
 
 
@@ -213,7 +220,7 @@ def select_token_rows(logits, temperature: float, top_k: int, base_key: int, rid
     return _gumbel_max(filtered, u).to(torch.int32)
 
 
-def compile_decode_fns(cfg, batch_size: int, cache_len: int):
+def compile_decode_fns(mesh, cfg, batch_size: int, cache_len: int):
     """(prefill_fn, decode_fn, None, None): the aligned prefill and the
     1-wide decode step, the reference's quadruple without shardings. The
     prefill (``pos`` 0: flash attention under ``attn_impl="pallas"``) returns
@@ -225,16 +232,16 @@ def compile_decode_fns(cfg, batch_size: int, cache_len: int):
 
     def prefill(params, tokens, cache):
         assert tokens.shape[0] == batch_size and tf.cache_alloc_len(cache) <= cache_len
-        return tf.forward_with_cache(params, cfg, tokens, cache, 0, last_only=True)
+        return tf.forward_with_cache(params, cfg, tokens, cache, 0, last_only=True, tp=mesh)
 
     def decode(params, tok, cache, pos):
-        logits, cache = tf.forward_with_cache(params, cfg, tok, cache, pos)
+        logits, cache = tf.forward_with_cache(params, cfg, tok, cache, pos, tp=mesh)
         return logits[:, -1], cache
 
     return prefill, decode, None, None
 
 
-def compile_generate_fn(cfg, batch_size: int, cache_len: int, max_new_tokens: int,
+def compile_generate_fn(mesh, cfg, batch_size: int, cache_len: int, max_new_tokens: int,
                         temperature: float, top_k: int, top_p: float,
                         read_floor: Optional[int] = None):
     """Whole-generation function, counterpart of the reference's fused
@@ -250,14 +257,15 @@ def compile_generate_fn(cfg, batch_size: int, cache_len: int, max_new_tokens: in
     def fn(params, tokens, cache, generator=None):
         B, S = tokens.shape
         assert B == batch_size and tf.cache_alloc_len(cache) == cache_len
-        logits, cache = tf.forward_with_cache(params, cfg, tokens, cache, 0, last_only=True)
+        logits, cache = tf.forward_with_cache(params, cfg, tokens, cache, 0, last_only=True,
+                                              tp=mesh)
         last = select_token(logits[:, -1], temperature, top_k, generator, top_p)
         out = [last]
         pos = S
         for read_len, n in read_stages(S, max_new_tokens - 1, cache_len, read_floor):
             for _ in range(n):
                 step_logits, cache = tf.forward_with_cache(
-                    params, cfg, last[:, None], cache, pos, read_len=read_len)
+                    params, cfg, last[:, None], cache, pos, read_len=read_len, tp=mesh)
                 last = select_token(step_logits[:, -1], temperature, top_k, generator, top_p)
                 out.append(last)
                 pos += 1
@@ -289,7 +297,7 @@ def decode_loop(prefill_fn, decode_fn, params, tokens, cache, max_new_tokens: in
     return torch.cat([tokens.to(torch.int32), torch.stack(out, dim=1)], dim=1)
 
 
-def compile_ragged_prefill_fn(cfg, batch_size: int, cache_len: int):
+def compile_ragged_prefill_fn(mesh, cfg, batch_size: int, cache_len: int):
     """Prefill over LEFT- or RIGHT-padded prompts with explicit (B, S)
     positions: pads carry position ``cache_len``, so their KV writes drop,
     and real tokens pack densely at 0..len-1 per row. Returns
@@ -298,12 +306,14 @@ def compile_ragged_prefill_fn(cfg, batch_size: int, cache_len: int):
     def prefill(params, tokens, positions, cache):
         assert tokens.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
         zero = torch.zeros(tokens.shape[0], dtype=torch.long, device=tokens.device)
-        return tf.forward_with_cache(params, cfg, tokens, cache, zero, positions=positions)
+        return tf.forward_with_cache(params, cfg, tokens, cache, zero, positions=positions,
+                                     tp=mesh)
 
     return prefill
 
 
-def compile_segment_fn(cfg, batch_size: int, cache_len: int, read_len: Optional[int] = None):
+def compile_segment_fn(mesh, cfg, batch_size: int, cache_len: int,
+                       read_len: Optional[int] = None):
     """Cached segment forward with PER-ROW positions (``pos``: (B,) tensor);
     ``read_len`` builds the tight-read variant, which attends only the first
     ``read_len`` cache slots (the caller guarantees every live row's extent
@@ -311,7 +321,7 @@ def compile_segment_fn(cfg, batch_size: int, cache_len: int, read_len: Optional[
 
     def segment(params, toks, cache, pos):
         assert toks.shape[0] == batch_size and tf.cache_alloc_len(cache) == cache_len
-        return tf.forward_with_cache(params, cfg, toks, cache, pos, read_len=read_len)
+        return tf.forward_with_cache(params, cfg, toks, cache, pos, read_len=read_len, tp=mesh)
 
     return segment
 
@@ -434,7 +444,7 @@ def _clone_cache(cache):
             for name, c in cache.items()}
 
 
-def compile_pool_tick_fn(cfg, batch_size: int, cache_len: int, n_tokens: int,
+def compile_pool_tick_fn(mesh, cfg, batch_size: int, cache_len: int, n_tokens: int,
                          temperature: float, top_k: int, top_p: float,
                          eos_token_id: Optional[int] = None, read_len: Optional[int] = None,
                          chunk: Optional[int] = None, donate: bool = True):
@@ -504,7 +514,7 @@ def compile_pool_tick_fn(cfg, batch_size: int, cache_len: int, n_tokens: int,
             toks, emitted = [], []
             for _ in range(k):
                 logits, cache = tf.forward_with_cache(params, cfg, lt[:, None].long(), cache, p,
-                                                      read_len=read_len)
+                                                      read_len=read_len, tp=mesh)
                 tok = sample(logits[:, 0], rids, g, base_key)
                 lt2, dn2, g, em = accept(tok, lt, dn, g, quota, ones)
                 p = torch.where(dn == 0, p + 1, p)
@@ -536,7 +546,7 @@ def compile_pool_tick_fn(cfg, batch_size: int, cache_len: int, n_tokens: int,
         positions[:, 0] = pos
         positions[admit_slot] = chunk_pos
         logits, cache = tf.forward_with_cache(params, cfg, toks, cache, pos.long(),
-                                              positions=positions, read_len=read_len)
+                                              positions=positions, read_len=read_len, tp=mesh)
         col = emit_col.long().view(batch_size, 1, 1).expand(batch_size, 1, logits.shape[-1])
         tok = sample(logits.gather(1, col)[:, 0], rids, gen, base_key)
         last2, done2, _, emitted = accept(tok, last_tok, done, gen, quota, emit_mask)
@@ -548,7 +558,7 @@ def compile_pool_tick_fn(cfg, batch_size: int, cache_len: int, n_tokens: int,
     return run, None, None
 
 
-def compile_row_update_fn(cfg, batch_size: int, donate: bool = True):
+def compile_row_update_fn(mesh, cfg, batch_size: int, donate: bool = True):
     """Row update of the threaded tick state: admission sets one slot's
     ``last_tok``/``done`` without reading or rebuilding the (possibly still
     in flight) tensors: two fills queued behind any tick already on the
@@ -568,11 +578,11 @@ def compile_row_update_fn(cfg, batch_size: int, donate: bool = True):
     return set_row
 
 
-def compile_spec_pool_tick_fn(cfg, batch_size: int, cache_len: int, gamma: int,
+def compile_spec_pool_tick_fn(mesh, cfg, batch_size: int, cache_len: int, gamma: int,
                               temperature: float, top_k: int, top_p: float,
                               eos_token_id: Optional[int] = None,
                               read_len: Optional[int] = None, donate: bool = True,
-                              draft_cfg=None):
+                              draft_cfg=None, draft_mesh=None):
     """Speculative continuous-batching tick (the reference's signature less
     ``mesh`` and the shardings): every active row proposes ``gamma``
     tokens, ONE target forward over the (gamma+1)-wide window verifies all
@@ -581,8 +591,9 @@ def compile_spec_pool_tick_fn(cfg, batch_size: int, cache_len: int, gamma: int,
     the bonus token and the new positions land in one packed int32 buffer,
     so the host keeps its one fetch a tick and dispatch-ahead composes.
 
-    Draft-model mode (``draft_cfg`` given): a second model proposes
-    autoregressively through its own pool-geometry KV cache (gamma 1-wide
+    Draft-model mode (``draft_cfg`` given): a second model, on the same
+    mesh (``draft_mesh`` its shard), proposes autoregressively through its
+    own pool-geometry KV cache (gamma 1-wide
     steps and one more that caches the last proposal's KV)::
 
         run(params, draft_params, cache, draft_cache, last_tok, done, pos,
@@ -704,7 +715,8 @@ def compile_spec_pool_tick_fn(cfg, batch_size: int, cache_len: int, gamma: int,
                base_key):
         wpos = torch.where(active, pos.long(), cache_len)
         seg = torch.cat([last_tok.long()[:, None], drafts], dim=1)
-        vlogits, cache = tf.forward_with_cache(params, cfg, seg, cache, wpos, read_len=read_len)
+        vlogits, cache = tf.forward_with_cache(params, cfg, seg, cache, wpos, read_len=read_len,
+                                               tp=mesh)
         packed, last2, done2, pos2, gen2 = accept_round(
             vlogits, drafts, qstack, active, pos, gen, quota, last_tok, done, rids, base_key)
         for t, new in ((last_tok, last2), (done, done2), (pos, pos2), (gen, gen2)):
@@ -738,7 +750,8 @@ def compile_spec_pool_tick_fn(cfg, batch_size: int, cache_len: int, gamma: int,
             # draft's context is whole when every proposal is accepted
             dlogits, draft_cache = tf.forward_with_cache(
                 draft_params, draft_cfg, cur[:, None], draft_cache,
-                torch.where(active, pos.long() + i, cache_len), read_len=read_len)
+                torch.where(active, pos.long() + i, cache_len), read_len=read_len,
+                tp=draft_mesh)
             if i == gamma:
                 break
             lg = dlogits[:, 0]
@@ -759,7 +772,7 @@ def compile_spec_pool_tick_fn(cfg, batch_size: int, cache_len: int, gamma: int,
     return run, None, None
 
 
-def compile_spec_row_update_fn(cfg, batch_size: int, donate: bool = True):
+def compile_spec_row_update_fn(mesh, cfg, batch_size: int, donate: bool = True):
     """:func:`compile_row_update_fn` for the speculative tick's wider
     device-threaded state: ``pos``/``gen`` ride the tick chain too, so
     admission sets them the same enqueue-only way (``fill_``). Returns
@@ -966,11 +979,13 @@ def speculative_decode_loop(t_prefill, t_segment, d_prefill, d_decode, params_t,
 def speculative_generate(cfg, params, draft, tokens, max_new_tokens: int, temperature: float,
                          top_k: int, top_p: float, generator, gamma: int,
                          max_out_tokens: Optional[int], get_fns,
-                         eos_token_id: Optional[int] = None):
+                         eos_token_id: Optional[int] = None, tp=None):
     """Speculative-decoding orchestration (the verify round's cache slack,
     function lookup, cache init, loop). ``get_fns(B, cache_len) ->
     (t_prefill, t_segment)`` supplies the target's functions; ``draft`` is
-    an ``InferenceEngine`` that provides its own through ``_spec_fns``."""
+    an ``InferenceEngine`` that provides its own through ``_spec_fns``.
+    ``tp`` is the target's shard of a serving mesh (the draft's is its
+    engine's ``shard``)."""
     if draft.cfg.vocab_size != cfg.vocab_size:
         raise ValueError(
             f"draft must share the vocabulary: draft vocab {draft.cfg.vocab_size} != "
@@ -982,8 +997,8 @@ def speculative_generate(cfg, params, draft, tokens, max_new_tokens: int, temper
     cache_len = bounded_cache_len(total, max(cfg.max_seq_len, total), max_out_tokens)
     t_prefill, t_segment = get_fns(B, cache_len)
     d_prefill, d_decode = draft._spec_fns(B, cache_len)
-    cache_t = tf.init_cache(cfg, B, cache_len, device=tokens.device)
-    cache_d = tf.init_cache(draft.cfg, B, cache_len, device=tokens.device)
+    cache_t = tf.init_cache(cfg, B, cache_len, device=tokens.device, tp=tp)
+    cache_d = tf.init_cache(draft.cfg, B, cache_len, device=tokens.device, tp=draft.shard)
     return speculative_decode_loop(
         t_prefill, t_segment, d_prefill, d_decode, params, draft.params, tokens, cache_t,
         cache_d, max_new_tokens, gamma, temperature, top_k, top_p, generator,

@@ -24,10 +24,22 @@ emits the reference's ``inference_request`` event through the engine's
 hub (``self.telemetry``, which the batching engine and the serving layer
 share); only then does a call wait on the device for its timing.
 
+A serving mesh (``config.mesh``, or ``tensor_parallel.tp_size``, which
+means ``{"data": -1, "tensor": tp_size}`` as in the reference) serves the
+model tensor parallel over ranks (``inference/mesh.py``): the placements
+are the reference's (``parallel.partition.serving_placements``), each
+rank holds its blocks of them (sliced from the full tree, only the blocks
+moved to its device) and a KV cache of its kv heads, and the world's rank
+0 drives every call while the other ranks run ``inference.mesh.
+serve_worker()``. Every generate path runs on the mesh, with the
+reference's per-chip ``kv_bytes_read``. ``{"tensor": 1}`` runs exactly the
+engine without a mesh.
+
 Features outside the slice raise ``NotImplementedError`` (ROADMAP.md):
-tensor-parallel meshes, ``profile_model_time``, and telemetry on a per-token
-loop that can migrate its cache (the reference's memory snapshot at each
-migration belongs to ROADMAP.md Queue 1 item 11 (b)).
+``profile_model_time``, telemetry on a per-token loop that can migrate its
+cache (the reference's memory snapshot at each migration belongs to
+ROADMAP.md Queue 1 item 11 (b)), and on a mesh wider than one rank a
+``data`` axis, int8 weights and block-sparse attention (item 8 (c)).
 """
 
 import dataclasses
@@ -37,7 +49,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.accelerator import get_accelerator
+from deepspeed_tpu_torch.inference import mesh as mesh_mod
 from deepspeed_tpu_torch.inference.config import InferenceConfig
 from deepspeed_tpu_torch.inference.decoding import (
     bounded_cache_len,
@@ -55,7 +69,13 @@ from deepspeed_tpu_torch.inference.decoding import (
 from deepspeed_tpu_torch.models import transformer as tf
 from deepspeed_tpu_torch.ops.flash_attention import supports_seq_len
 from deepspeed_tpu_torch.ops.quantizer import fake_quantize, quantize_weight
+from deepspeed_tpu_torch.parallel.partition import (
+    mesh_tensor_width,
+    serving_mesh,
+    serving_placements,
+)
 from deepspeed_tpu_torch.telemetry import Telemetry
+from deepspeed_tpu_torch.telemetry.config import TelemetryConfig
 from deepspeed_tpu_torch.utils import not_ported
 from deepspeed_tpu_torch.utils.logging import log_dist
 
@@ -67,8 +87,6 @@ _QUANT_GROUPS = ("attn", "mlp", "lm_head")
 
 def _check_config(config: InferenceConfig) -> None:
     checks = [
-        (config.tensor_parallel.tp_size > 1, "tensor_parallel.tp_size > 1"),
-        (config.mesh.shape is not None or config.mesh.rules, "a serving mesh (config.mesh)"),
         (config.moe.enabled, "MoE inference"),
         (config.profile_model_time, "profile_model_time"),
     ]
@@ -127,12 +145,44 @@ def fake_quantize_weights(params, cfg, num_bits: int):
                          tf.params_from_numpy(_map_with_path(fq, ref_tree), cfg, dev))
 
 
+def resolve_mesh(config: InferenceConfig, mesh=None):
+    """The serving mesh of an engine (None: one device), as the reference's
+    engine picks it: ``mesh`` as given; else ``config.mesh.shape`` (a
+    subset mesh over the first ranks; -1 absorbs the world); else the
+    global mesh where one is initialized; else ``{"data": -1, "tensor":
+    tp_size}`` when ``tensor_parallel.tp_size`` is over 1. Raises for an
+    axis other than ``data``/``tensor`` over 1, and, on a mesh wider than
+    one rank, for ``data`` over 1 (item 8 (c))."""
+    if mesh is not None:
+        return mesh
+    shape = config.mesh.shape
+    if shape is None and comm.is_initialized() and mesh_tensor_width(comm.get_mesh()) > 1:
+        shape = {ax: n for ax, n in comm.get_mesh().shape.items()}
+    if shape is None and config.tensor_parallel.tp_size > 1:
+        shape = {"data": -1, "tensor": config.tensor_parallel.tp_size}
+    if shape is None:
+        return None
+    shape = dict(shape)
+    if -1 in shape.values():
+        shape = comm.comm._normalize_mesh_shape(shape, comm.process_world()[1])
+    others = {ax: n for ax, n in shape.items() if ax not in ("data", "tensor") and n != 1}
+    if others:
+        raise mesh_mod.refuse(f"serving mesh axes {others}")
+    data, tensor = int(shape.get("data", 1)), int(shape.get("tensor", 1))
+    if data > 1 and data * tensor > 1:
+        raise mesh_mod.refuse(f"a serving mesh with data={data} (the pool's rows split over "
+                              "data ranks)")
+    return serving_mesh(data, tensor)
+
+
 class InferenceEngine:
-    def __init__(self, model, config=None, params=None, device=None, seed: int = 0):
+    def __init__(self, model, config=None, params=None, device=None, seed: int = 0,
+                 mesh=None, _announce: bool = True):
         self.config = InferenceConfig.parse(config)
         _check_config(self.config)
         # the reference's dispatch: a checkpoint directory converts shard by
         # shard, an HF torch module in place (module_inject)
+        ckpt_dir = model if isinstance(model, str) and params is None else None
         if isinstance(model, str):
             from deepspeed_tpu_torch.module_inject.load_checkpoint import convert_hf_checkpoint
 
@@ -177,12 +227,37 @@ class InferenceEngine:
         self.cfg = cfg
         self.model = tf.TransformerModel(cfg)
         self.device = get_accelerator().resolve_device(device)
-
-        if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = self.model.init(gen)
-        elif tf.is_reference_tree(params):
-            params = tf.params_from_numpy(params, cfg, self.device)
+        self.mesh = resolve_mesh(self.config, mesh)
+        if mesh_tensor_width(self.mesh) > 1:
+            if self._weight_quant:
+                raise mesh_mod.refuse(
+                    "int8 weights on a mesh wider than one rank (the row-split wo would scale "
+                    "each rank's slice of a row on its own)")
+            if cfg.attn_impl == "block_sparse":
+                raise mesh_mod.refuse("a block-sparse model on a mesh wider than one rank")
+        # the reference's placements, and this rank's modes of them
+        self.param_specs, self.shard = None, None
+        if self.mesh is not None:
+            ref_shapes = tf.reference_shapes(cfg)
+            self.param_specs = serving_placements(
+                self.mesh, tf.map_params(lambda s: torch.empty(s, device="meta"), ref_shapes),
+                tf.logical_specs(ref_shapes, cfg), rules=self.config.mesh.rules,
+                use_rules=self.config.mesh.use_rules)
+            self.shard = mesh_mod.serving_shard(cfg, self.mesh, self.param_specs)
+        drawn, full = params is None, None
+        if isinstance(params, mesh_mod.Blocks):
+            params = params.tree  # a worker's own blocks, cut by rank 0
+        else:
+            # on a mesh the full tree stays on the host (a drawn leaf goes
+            # there as it is drawn): each rank moves only its blocks
+            host = self.shard is not None
+            if params is None:
+                gen = torch.Generator(device=self.device).manual_seed(seed)
+                params = self.model.init(gen, place=(lambda t: t.cpu()) if host else None)
+            elif tf.is_reference_tree(params):
+                params = tf.params_from_numpy(params, cfg, "cpu" if host else self.device)
+            full = params if host else None  # the workers' blocks come from it
+            params = mesh_mod.shard_params(params, cfg, self.shard)
         # cast to the model dtype, THEN quantize: the scales stay f32
         dt = cfg.torch_dtype
         params = tf.map_params(
@@ -198,9 +273,48 @@ class InferenceEngine:
         # layer re-injects its hub into every rebuilt engine
         self.telemetry = Telemetry(self.config.telemetry, role="inference")
         self._request_id = 0
+        # rank 0 of a mesh wider than one rank announces the engine to the
+        # workers: they build their shards from the same arguments
+        self._mirror = None
+        # what a worker builds its shard from (held only on a mesh's rank 0):
+        # the seed, the checkpoint's path, or its blocks of the param tree
+        self._ctor_args = {}
+        if mesh_tensor_width(self.mesh) > 1 and not mesh_mod.is_worker():
+            self._ctor_args = {"model": ckpt_dir or model.cfg, "seed": seed, "params": (
+                None if drawn or ckpt_dir else mesh_mod.RankBlocks(full, cfg, self.shard))}
+        if _announce:
+            self._mirror = mesh_mod.controller(
+                self, "InferenceEngine", self.mesh,
+                dict(self._ctor_args, config=self._worker_config()))
+            self._ctor_args = {}
         log_dist(f"InferenceEngine ready: dtype={cfg.dtype} quant={self._weight_quant} "
                  f"kv_cache_dtype={cfg.kv_cache_dtype} attn_impl={cfg.attn_impl} "
-                 f"device={self.device}", ranks=[0])
+                 f"device={self.device} mesh={None if self.mesh is None else self.mesh.shape}",
+                 ranks=[0])
+
+    def _worker_config(self) -> InferenceConfig:
+        """This engine's config as a worker builds its shard from it: the
+        resolved mesh shape, and no telemetry (rank 0 emits it)."""
+        shape = (None if self.mesh is None
+                 else {"data": self.mesh.shape["data"], "tensor": self.mesh.shape["tensor"]})
+        return dataclasses.replace(
+            self.config, telemetry=TelemetryConfig(),
+            mesh=dataclasses.replace(self.config.mesh, shape=shape))
+
+    @property
+    def kv_shard_width(self) -> int:
+        """How many ways this engine's KV cache splits its heads (1 without
+        a mesh, or where the heads do not divide the width): the divisor of
+        the per-chip ``kv_bytes_read``."""
+        if self.shard is None:
+            return 1
+        return self.cfg.kv_heads // self.shard.cache_kv_heads(self.cfg)
+
+    @mesh_mod.mirrored
+    def _attach_draft(self, draft: "InferenceEngine"):
+        """``init_inference(draft_model=)``: the draft speculative decoding
+        uses on every ``generate`` call (on a mesh, on each rank)."""
+        self._draft_engine = draft
 
     def _ring_cache_len(self, max_len: int, prompt_len: int) -> int:
         """Rolling-cache sizing: the cache shrinks to the window when the
@@ -229,11 +343,20 @@ class InferenceEngine:
         return torch.tensor(np.asarray(input_ids), dtype=torch.long, device=self.device)
 
     @torch.inference_mode()
+    @mesh_mod.mirrored
     def forward(self, input_ids):
-        """Full-sequence logits (B, S, V)."""
+        """Full-sequence logits (B, S, V). On a mesh wider than one rank the
+        forward runs cached over a fresh cache of the sequence's length
+        (every rank returns the whole logits)."""
         t0 = time.time()
         tokens = self._tokens(input_ids)
-        logits = tf.apply(self.params, self.cfg, tokens)
+        if self.shard is None:
+            logits = tf.apply(self.params, self.cfg, tokens)
+        else:
+            B, S = tokens.shape
+            cfg = self._ring_off_cfg
+            cache = tf.init_cache(cfg, B, S, device=self.device, tp=self.shard)
+            logits, _ = tf.forward_with_cache(self.params, cfg, tokens, cache, 0, tp=self.shard)
         return self._finish_request("forward", t0, logits, prompt_tokens=tokens.shape[1],
                                     new_tokens=0, batch=tokens.shape[0])
 
@@ -247,7 +370,8 @@ class InferenceEngine:
         default the cache length) used."""
         if not self.telemetry.enabled:
             return None
-        per_row = decode_kv_bytes(self.cfg, prompt_len, new_tokens, cache_len, floor)
+        per_row = decode_kv_bytes(self.cfg, prompt_len, new_tokens, cache_len, floor,
+                                  tp=self.kv_shard_width)
         decoded = max(new_tokens - 1, 0)
         alloc = alloc if alloc is not None else cache_len
         fields = {
@@ -305,6 +429,7 @@ class InferenceEngine:
         return result
 
     @torch.inference_mode()
+    @mesh_mod.mirrored
     def generate(self, input_ids, max_new_tokens: int = 32, temperature: float = 0.0,
                  top_k: int = 0, top_p: float = 1.0,
                  generator: Optional[torch.Generator] = None,
@@ -323,6 +448,9 @@ class InferenceEngine:
         row decodes from its own length, and the prompt region is returned
         as given. With ``prefill_chunk_size`` set, every prompt (masked or
         not) prefills in chunks of that many columns.
+
+        On a serving mesh every rank runs the call: rank 0's goes to the
+        workers first, and each rank returns the same tokens.
 
         Passing ``draft`` (a second, smaller engine on the same vocabulary)
         switches to lossless speculative decoding: the draft proposes
@@ -367,14 +495,14 @@ class InferenceEngine:
             result = speculative_generate(
                 self._ring_off_cfg, self.params, draft, tokens, max_new_tokens, temperature,
                 top_k, top_p, generator, gamma, self.config.max_out_tokens,
-                get_fns=self._spec_fns, eos_token_id=eos_token_id)
+                get_fns=self._spec_fns, eos_token_id=eos_token_id, tp=self.shard)
             result = self._finish_request("speculative", t0, result, prompt_tokens=S,
                                           new_tokens=max_new_tokens, batch=B)
             if eos_token_id is not None:
                 result = self._truncate_eos(result, S, eos_token_id)
             return result
         if self.config.prefill_chunk_size or attention_mask is not None:
-            cache = tf.init_cache(self.cfg, B, max_len, device=self.device)
+            cache = tf.init_cache(self.cfg, B, max_len, device=self.device, tp=self.shard)
             # TTFT stamp of the host-driven loops (telemetry only: stamping
             # waits for the first token)
             timings = {} if self.telemetry.enabled else None
@@ -416,9 +544,9 @@ class InferenceEngine:
         # tight reads never apply to the ring geometry (already O(window))
         floor = None if self.cfg.rolling_kv_cache else self._tight_floor()
         if self.config.fused_generate:
-            fn = compile_generate_fn(self.cfg, B, max_len, max_new_tokens, temperature,
-                                     top_k, top_p, read_floor=floor)
-            cache = tf.init_cache(self.cfg, B, max_len, device=self.device)
+            fn = compile_generate_fn(self.shard, self.cfg, B, max_len, max_new_tokens,
+                                     temperature, top_k, top_p, read_floor=floor)
+            cache = tf.init_cache(self.cfg, B, max_len, device=self.device, tp=self.shard)
             t0 = time.time()
             result = fn(self.params, tokens, cache, generator)
             return self._finish_request(
@@ -435,10 +563,10 @@ class InferenceEngine:
         alloc = max_len if floor is None else min(read_bucket(S + 1, max_len, floor), max_len)
         final_alloc = (max_len if floor is None
                        else min(read_bucket(max(S + 1, total - 1), max_len, floor), max_len))
-        prefill_fn, decode_fn, _, _ = compile_decode_fns(self.cfg, B, max_len)
+        prefill_fn, decode_fn, _, _ = compile_decode_fns(self.shard, self.cfg, B, max_len)
         if floor is not None:
             decode_fn = self._migrating_decode_fn(decode_fn, max_len, floor)
-        cache = tf.init_cache(self.cfg, B, alloc, device=self.device)
+        cache = tf.init_cache(self.cfg, B, alloc, device=self.device, tp=self.shard)
         timings = {} if self.telemetry.enabled else None
         t0 = time.time()
         result = decode_loop(prefill_fn, decode_fn, self.params, tokens, cache, max_new_tokens,
@@ -496,8 +624,8 @@ class InferenceEngine:
                 r = read_bucket(active, max_len, floor)
                 read_len = None if r >= max_len else r
             if read_len not in fns:
-                fns[read_len] = compile_segment_fn(self._ring_off_cfg, batch_size, max_len,
-                                                   read_len)
+                fns[read_len] = compile_segment_fn(self.shard, self._ring_off_cfg, batch_size,
+                                                   max_len, read_len)
             return fns[read_len](params, toks, cache, pos)
 
         return dispatch
@@ -505,7 +633,7 @@ class InferenceEngine:
     def _ragged_fns_for(self, batch_size: int, max_len: int):
         """(ragged_prefill_fn, segment_fn) of the attention_mask and
         chunked-prefill paths."""
-        return (compile_ragged_prefill_fn(self._ring_off_cfg, batch_size, max_len),
+        return (compile_ragged_prefill_fn(self.shard, self._ring_off_cfg, batch_size, max_len),
                 self._segment_fn(batch_size, max_len))
 
     def _spec_fns(self, batch_size: int, max_len: int):
@@ -513,7 +641,7 @@ class InferenceEngine:
         (a (gamma+1)-wide verify) and the draft (1-wide steps) alike: the
         aligned prefill of :func:`compile_decode_fns` and the full-read
         segment dispatcher."""
-        prefill_fn = compile_decode_fns(self._ring_off_cfg, batch_size, max_len)[0]
+        prefill_fn = compile_decode_fns(self.shard, self._ring_off_cfg, batch_size, max_len)[0]
         return prefill_fn, self._segment_fn(batch_size, max_len)
 
     @staticmethod
@@ -536,16 +664,23 @@ def init_inference(model, config=None, params=None, device=None, seed: int = 0,
 
     ``draft_model`` (with ``speculative.enabled``) attaches a smaller
     same-vocabulary model whose engine drives speculative decoding on every
-    ``generate`` call. The draft takes the target's ``dtype`` and cache
-    format (``kv_cache_dtype``, ``kv_tight_read``, ``kv_read_floor``);
-    ``draft_params`` may be the reference's numpy tree."""
+    ``generate`` call. The draft takes the target's ``dtype``, cache
+    format (``kv_cache_dtype``, ``kv_tight_read``, ``kv_read_floor``) and
+    mesh; ``draft_params`` may be the reference's numpy tree."""
     engine = InferenceEngine(model, config=config, params=params, device=device, seed=seed)
     if draft_model is not None:
-        engine._draft_engine = InferenceEngine(
-            draft_model,
-            config={"dtype": engine.config.dtype,
-                    "kv_cache_dtype": engine.config.kv_cache_dtype,
-                    "kv_tight_read": engine.config.kv_tight_read,
-                    "kv_read_floor": engine.config.kv_read_floor},
-            params=draft_params, device=engine.device, seed=seed)
+        engine._attach_draft(InferenceEngine(
+            draft_model, config=draft_config(engine.config), params=draft_params,
+            device=engine.device, seed=seed, mesh=engine.mesh))
     return engine
+
+
+def draft_config(config: InferenceConfig) -> dict:
+    """A draft engine's config: the target's ``dtype`` and cache format
+    (``kv_cache_dtype``, ``kv_tight_read``, ``kv_read_floor``) on the
+    target's mesh."""
+    return {"dtype": config.dtype, "kv_cache_dtype": config.kv_cache_dtype,
+            "kv_tight_read": config.kv_tight_read, "kv_read_floor": config.kv_read_floor,
+            "mesh": {"shape": config.mesh.shape, "rules": config.mesh.rules,
+                     "use_rules": config.mesh.use_rules},
+            "tensor_parallel": {"tp_size": config.tensor_parallel.tp_size}}

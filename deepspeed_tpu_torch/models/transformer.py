@@ -73,6 +73,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.ops.block_sparse_attention import block_sparse_attention
 from deepspeed_tpu_torch.ops.cross_entropy import softmax_cross_entropy
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention, supports_seq_len
@@ -609,14 +610,22 @@ def _rope_table(cfg: TransformerConfig, positions):
     return rope_table(positions, cfg.rope_theta, cfg.rope_dim or cfg.head_dim)
 
 
-def _qkv(h, attn_p, cfg: TransformerConfig, rope=None):
+def _qkv(h, attn_p, cfg: TransformerConfig, rope=None, tp=None):
     """Project h -> (q, k, v) heads: one fused matmul, split into strided
     views (the flash kernel and the cache write read them as they are),
     then, with rope, q and k rotated through the forward's table ``rope``
-    (:func:`_rope_table`), as the reference's ``_qkv`` rotates them."""
+    (:func:`_rope_table`), as the reference's ``_qkv`` rotates them. Under a
+    serving shard ``tp`` the fused weight holds this rank's rows: its own
+    heads (``"heads"``), or its block of q's columns and every kv head
+    (``"columns"``: q is gathered over the ranks)."""
     nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    if tp is not None and tp.attn == "heads":
+        nh, nkv = tp.local_heads(cfg)
+    q_cols = nh * hd // tp.size if tp is not None and tp.attn == "columns" else nh * hd
     qkv = _linear(h, attn_p["wqkv"], attn_p.get("bqkv"))
-    q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
+    q, k, v = qkv.split([q_cols, nkv * hd, nkv * hd], dim=-1)
+    if q_cols != nh * hd:
+        q = comm.all_gather(q, tp.group, axis=-1)
     q, k, v = q.unflatten(-1, (nh, hd)), k.unflatten(-1, (nkv, hd)), v.unflatten(-1, (nkv, hd))
     return _rotate(q, k, cfg, rope) + (v,)
 
@@ -955,12 +964,14 @@ def loss_fn(params, cfg: TransformerConfig, batch, rng=None, tp=None, denom=None
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: TransformerConfig, batch_size: int, max_len: Optional[int] = None,
-               device=None):
+               device=None, tp=None):
     """Per-layer KV cache: {"k", "v"} of (L, B, T, kv_heads, head_dim) in the
     model dtype, or with ``kv_cache_dtype="int8"`` each component
-    {"q8": int8 of that shape, "s": f32 (L, B, T, kv_heads, 1)}."""
+    {"q8": int8 of that shape, "s": f32 (L, B, T, kv_heads, 1)}. Under a
+    serving shard ``tp`` the cache holds this rank's kv heads."""
     T = max_len or cfg.max_seq_len
-    shape = (cfg.num_layers, batch_size, T, cfg.kv_heads, cfg.head_dim)
+    kv_heads = cfg.kv_heads if tp is None else tp.cache_kv_heads(cfg)
+    shape = (cfg.num_layers, batch_size, T, kv_heads, cfg.head_dim)
     if cfg.kv_cache_dtype == "int8":
         def component():
             return {"q8": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -984,20 +995,24 @@ def cache_alloc_len(cache) -> int:
     return (k["q8"] if isinstance(k, dict) else k).shape[2]
 
 
-def kv_read_bytes_per_row(cfg: TransformerConfig, read_len: int) -> int:
+def kv_read_bytes_per_row(cfg: TransformerConfig, read_len: int, tp: int = 1) -> int:
     """Device-memory bytes ONE sequence row's attention streams from the KV
     cache when a decode step attends ``read_len`` slots: K and V across all
     layers, int8 payload and f32 per-token-per-head scales when
-    ``kv_cache_dtype == "int8"``."""
+    ``kv_cache_dtype == "int8"``. ``tp`` is the width the cache's heads
+    split over (``parallel.partition.kv_shard_width``): the bytes are then
+    each rank's, as the reference counts them per chip."""
+    assert cfg.kv_heads % tp == 0, (cfg.kv_heads, tp)
     if cfg.kv_cache_dtype == "int8":
         per_slot = cfg.kv_heads * (cfg.head_dim * 1 + 4)  # q8 payload + s
     else:
         per_slot = cfg.kv_heads * cfg.head_dim * torch.finfo(cfg.torch_dtype).bits // 8
-    return 2 * cfg.num_layers * read_len * per_slot
+    return 2 * cfg.num_layers * read_len * per_slot // tp
 
 
 def _layer_body_cached(x, layer_p, k_cache, v_cache, cfg: TransformerConfig, positions, pos,
-                       read_len=None, rope=None, window=None, per_layer_window: bool = False):
+                       read_len=None, rope=None, window=None, per_layer_window: bool = False,
+                       tp=None):
     """One decoder layer over a segment of S new tokens with KV cache.
 
     x: (B, S, D); k_cache/v_cache: (B, T, nkv, hd) of THIS layer (or its
@@ -1006,13 +1021,22 @@ def _layer_body_cached(x, layer_p, k_cache, v_cache, cfg: TransformerConfig, pos
     tight-reads the cache; ``rope`` is the forward's rotary table;
     ``window`` the layer's local window (0 or None = unlimited), a
     per-layer one (``per_layer_window``) kept off the flash prefill, as the
-    reference's layer scan keeps its traced windows. Returns (x, k_cache,
+    reference's layer scan keeps its traced windows. ``tp`` is this rank's
+    ``ServingShard`` on a serving mesh: the layer's params and cache are
+    the rank's, ALiBi's slopes are taken at its head offset, and the
+    row-parallel products sum over the ranks. Returns (x, k_cache,
     v_cache).
     """
     B, S, _ = x.shape
     attn_p = layer_p["attn"]
     h = _attn_input(x, layer_p, cfg)
-    q, k, v = _qkv(h, attn_p, cfg, rope)
+    if tp is not None and tp.attn == "whole":
+        attn_tp = None
+    else:
+        attn_tp = tp
+    q, k, v = _qkv(h, attn_p, cfg, rope, attn_tp)
+    nh = q.shape[2]
+    offset = 0 if attn_tp is None else attn_tp.head_offset(cfg)
 
     # PREFILL fast path: pos is the literal int 0 only for a prefill, where
     # attention over the segment is exactly causal self-attention; lengths
@@ -1039,33 +1063,43 @@ def _layer_body_cached(x, layer_p, k_cache, v_cache, cfg: TransformerConfig, pos
                 "rolling KV cache: a multi-token segment longer than the ring must take the "
                 f"flash prefill path (S={S}, cache={cache_T}); a segment read through the "
                 "ring would see its own evictions")
-        slopes = (_alibi_slopes(cfg.num_heads, q.device) if cfg.pos_embedding == "alibi"
-                  else None)
+        slopes = (_alibi_slopes(cfg.num_heads, q.device)[offset: offset + nh]
+                  if cfg.pos_embedding == "alibi" else None)
         attn_out = softmax_context(q, k_cache, v_cache, pos, scale=cfg.attn_scale,
                                    positions=positions, alibi_slopes=slopes,
                                    local_window=window, ring=ring,
                                    read_len=None if ring else read_len)
-    attn_out = _linear(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim),
-                       attn_p["wo"], attn_p.get("bo"))
-    return _residual(x, h, attn_out, layer_p, cfg), k_cache, v_cache
+    attn_out = attn_out.reshape(B, S, nh * cfg.head_dim)
+    if attn_tp is None:
+        attn_out = _linear(attn_out, attn_p["wo"], attn_p.get("bo"))
+    else:
+        if attn_tp.attn == "columns":  # every head here: keep this rank's columns
+            start, n = attn_tp.block(attn_out.shape[-1])
+            attn_out = attn_out.narrow(-1, start, n)
+        attn_out = _row_parallel(attn_out, attn_p["wo"], attn_p.get("bo"), attn_tp)
+    mlp_tp = tp if tp is not None and tp.mlp else None
+    return _residual(x, h, attn_out, layer_p, cfg, mlp_tp), k_cache, v_cache
 
 
 def forward_with_cache(params, cfg: TransformerConfig, tokens, cache, pos, positions=None,
-                       read_len=None, last_only: bool = False):
+                       read_len=None, last_only: bool = False, tp=None):
     """Segment forward with KV cache (prefill: S = prompt len, pos = 0;
     decode: S = 1). ``pos`` is a Python int (rows aligned) or a (B,) tensor
     of per-row depths; ``positions`` (B, S) overrides the derived positions
     (requires vector ``pos``). ``read_len`` tight-reads the cache time axis.
     ``last_only`` runs the vocab head on the last position only (logits
     (B, 1, V)); that row's numbers are unchanged. The cache is updated in
-    place. Returns (logits, cache)."""
+    place. ``tp`` (a ``ServingShard``) runs this rank of a serving mesh on
+    its params and cache; the logits come back whole on every rank (a
+    vocab-split head is gathered over the ranks), so a sampler sees the
+    global vocabulary. Returns (logits, cache)."""
     check_supported(cfg)
     B, S = tokens.shape
     dev = tokens.device
     if read_len is not None and read_len >= cache_alloc_len(cache):
         read_len = None  # degenerate slice: the allocation is already tight
     vector_pos = torch.is_tensor(pos) and pos.dim() == 1
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, tp if tp is not None and tp.embed else None)
     if positions is not None:
         if not vector_pos:
             raise ValueError("explicit positions require a vector pos")
@@ -1090,10 +1124,13 @@ def forward_with_cache(params, cfg: TransformerConfig, tokens, cache, pos, posit
         x, _, _ = _layer_body_cached(x, layer_p, _layer_cache(cache["k"], i),
                                      _layer_cache(cache["v"], i), cfg, positions, pos,
                                      read_len=read_len, rope=rope, window=windows[i],
-                                     per_layer_window=varying)
+                                     per_layer_window=varying, tp=tp)
     if last_only:
         x = x[:, -1:]
-    return _vocab_head(_final_norm(x, params, cfg), params, cfg), cache
+    if tp is None or not tp.head:
+        return _vocab_head(_final_norm(x, params, cfg), params, cfg), cache
+    logits = _vocab_head(_final_norm(x, params, cfg), params, cfg, tp)
+    return comm.all_gather(logits, tp.group, axis=-1), cache
 
 
 class TransformerModel:

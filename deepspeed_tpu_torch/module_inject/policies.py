@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.models.transformer import TransformerConfig
-from deepspeed_tpu_torch.utils import not_ported
 from deepspeed_tpu_torch.utils.logging import logger
 
 
@@ -51,6 +50,11 @@ class HFPolicy:
     """Base: subclass per architecture (reference policy ABC, policy.py)."""
 
     ARCHITECTURES: Tuple[str, ...] = ()
+    # family-specific partition rules, fronting DEFAULT_RULES in
+    # partition_rules (first match wins). Every policy lands in the builtin
+    # naming the default table covers, so none needs its own; a head count
+    # the width does not divide is clipped leaf by leaf at placement
+    tp_rules: Tuple = ()
 
     @classmethod
     def matches(cls, hf_config) -> bool:
@@ -903,10 +907,17 @@ def config_from_hf(hf_config) -> TransformerConfig:
 
 
 def partition_rules(hf_config=None):
-    """The reference's tensor-parallel rule table for a converted model
-    (``InferenceConfig.mesh.rules``): the port has no tensor-parallel mesh
-    yet, so this raises, as ``config.mesh.rules`` does."""
-    raise not_ported("partition_rules (tensor-parallel serving meshes: Queue 1 item 8)")
+    """The regex partition-rule table of a converted model's param tree
+    (the reference's): the policy's ``tp_rules``, then
+    ``parallel/partition.DEFAULT_RULES`` (heads, MLP and vocabulary on
+    ``tensor``). Pass it, or your own overrides, as
+    ``InferenceConfig.mesh.rules``."""
+    from deepspeed_tpu_torch.parallel.partition import DEFAULT_RULES
+
+    rules = ()
+    if hf_config is not None:
+        rules = tuple(policy_for(hf_config).tp_rules)
+    return rules + tuple(DEFAULT_RULES)
 
 
 def convert_hf_model(hf_model) -> Tuple[TransformerConfig, Dict]:

@@ -9,8 +9,11 @@ clipped to what the mesh and the weight's dims allow. The specs are the
 port's own (``runtime/zero/sharding.PartitionSpec``); the trees are nested
 dicts and lists of anything with a ``shape``.
 
-The serving mesh (``serving_mesh``, the batching engine's and the loadgen's
-``--mesh``) raises until the serving half of Queue 1 item 8 is ported.
+The serving mesh (:func:`serving_mesh`) is a ``("data", "tensor")`` mesh
+over the first ``data*tensor`` ranks of the world, with process groups of
+its own, and :func:`serving_placements` gives a serving engine's spec tree
+the way the reference's engine picks it: the model's logical axes, user
+rules laid over them leaf by leaf, or the whole regex table (``use_rules``).
 """
 
 import re
@@ -18,8 +21,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from deepspeed_tpu_torch.runtime.zero.sharding import PartitionSpec
-from deepspeed_tpu_torch.utils import not_ported
+from deepspeed_tpu_torch.runtime.zero.sharding import PartitionSpec, ShardingPolicy
 
 DEFAULT_RULES: Tuple[Tuple[str, PartitionSpec], ...] = (
     # attention: column-split q/k/v, row-split output projection
@@ -170,8 +172,45 @@ def apply_rule_overrides(mesh, abstract_params, base_specs, rules):
     return _rebuild(abstract_params, iter(out))
 
 
-def serving_mesh(data: int = 1, tensor: int = 1, devices=None):
-    raise not_ported("the serving mesh (serving_mesh: the serving half of Queue 1 item 8)")
+def serving_mesh(data: int = 1, tensor: int = 1):
+    """A ``("data", "tensor")``-shaped serving mesh over the FIRST
+    ``data*tensor`` ranks of the world (``comm.subset_mesh``): its own
+    process groups, and the global comm state left as it is, so engines of
+    several widths coexist in one world. Raises the reference's
+    ``ValueError`` for a shape wider than the world. A rank outside the
+    mesh gets None."""
+    from deepspeed_tpu_torch import comm
+
+    world = comm.process_world()[1]
+    need = int(data) * int(tensor)
+    if need < 1:
+        raise ValueError(f"mesh needs >= 1 device, got {data}x{tensor}")
+    if need > world:
+        raise ValueError(f"mesh {data}x{tensor} needs {need} devices, only {world} available")
+    return comm.subset_mesh({"data": int(data), "tensor": int(tensor)})
+
+
+def serving_placements(mesh, shapes, logical=None, rules=None, use_rules: bool = False):
+    """The spec tree of a serving engine's params (``shapes``: leaves with
+    a ``shape`` in the reference's layout, e.g. meta tensors), as
+    the reference's ``InferenceEngine`` picks it: the regex table (user
+    ``rules`` first, then ``DEFAULT_RULES``) under ``use_rules`` or without
+    ``logical`` axis names; else the logical axes' placements
+    (``ShardingPolicy`` at stage 0) with the user rules laid over them leaf
+    by leaf. Every spec is clipped to the mesh and the leaf's dims
+    (:func:`_clip_spec_to_mesh`): a dim the width does not divide, such as
+    GPT-2's vocabulary of 50,257 over two ranks, stays whole."""
+    if use_rules or logical is None:
+        return partition_params(mesh, shapes, rules=rules)
+    policy = ShardingPolicy(_mesh_sizes(mesh), stage=0)
+    leaves = [leaf for _, leaf in _items(shapes)]
+    names = [n for _, n in _items(logical)]
+    base = _rebuild(shapes, iter([_clip_spec_to_mesh(policy.param_spec(_shape(leaf), n),
+                                                     _shape(leaf), mesh)
+                                  for leaf, n in zip(leaves, names)]))
+    if rules:
+        return apply_rule_overrides(mesh, shapes, base, rules)
+    return base
 
 
 def parse_mesh_arg(spec: str) -> Dict[str, int]:

@@ -17,7 +17,7 @@ plus the vocab-parallel embedding and cross-entropy, where each rank holds
 a block of the vocabulary's rows.
 """
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 import torch.nn.functional as F
@@ -30,10 +30,12 @@ AXIS = "tensor"
 @dataclass(frozen=True)
 class TensorParallel:
     """This rank's place on the ``tensor`` axis: ``size`` ranks, this one
-    ``rank``."""
+    ``rank``; ``group`` the axis's handle (the global mesh's ``tensor``, or
+    a serving mesh's ``comm.MeshAxes``)."""
 
     size: int
     rank: int
+    group: object = field(default=AXIS, compare=False)
 
     def heads_split(self, cfg) -> bool:
         """Whether attention runs on this rank's heads alone: the query and
@@ -49,65 +51,107 @@ class TensorParallel:
         return self.rank * (n // self.size), n // self.size
 
 
+@dataclass(frozen=True)
+class ServingShard(TensorParallel):
+    """A serving rank's place on the serving mesh's ``tensor`` axis and the
+    modes its placements give the cached forward (``inference/mesh.
+    serving_shard`` derives them from the spec tree):
+
+      ``attn``   ``"heads"``: q/k/v column-split on whole heads, each rank
+                 attending its H/T query and Hkv/T kv heads over a cache of
+                 its kv heads, ``wo`` row-split; ``"columns"``: the q/``wo``
+                 split where the head counts do not divide the width: q
+                 gathered, every kv head on every rank (a whole cache), the
+                 output cut back to this rank's columns; ``"whole"``: the
+                 attention whole on every rank
+      ``mlp``    the MLP's in/gate column-split and ``wo`` row-split
+      ``embed``  the embedding's rows split over the vocabulary
+      ``head``   the logits split over the vocabulary, gathered before the
+                 sampler
+    """
+
+    attn: str = "whole"
+    mlp: bool = False
+    embed: bool = False
+    head: bool = False
+
+    def local_heads(self, cfg):
+        """(query heads, kv heads) this rank attends (in ``"columns"``: after
+        the gather of q)."""
+        if self.attn == "heads":
+            return cfg.num_heads // self.size, cfg.kv_heads // self.size
+        return cfg.num_heads, cfg.kv_heads
+
+    def cache_kv_heads(self, cfg) -> int:
+        """The kv heads of this rank's KV cache."""
+        return cfg.kv_heads // self.size if self.attn == "heads" else cfg.kv_heads
+
+    def head_offset(self, cfg) -> int:
+        """The global index of this rank's first query head."""
+        return self.rank * (cfg.num_heads // self.size) if self.attn == "heads" else 0
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return comm.all_reduce(g, comm.ReduceOp.SUM, AXIS)
+        return comm.all_reduce(g, comm.ReduceOp.SUM, ctx.group), None
 
 
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
-        return comm.all_reduce(x, comm.ReduceOp.SUM, AXIS)
+    def forward(ctx, x, group):
+        return comm.all_reduce(x, comm.ReduceOp.SUM, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
 class _GatherFrom(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, rank):
+    def forward(ctx, x, dim, rank, group):
         ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
-        return comm.all_gather(x, AXIS, axis=dim, tiled=True)
+        return comm.all_gather(x, group, axis=dim, tiled=True)
 
     @staticmethod
     def backward(ctx, g):
-        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), None, None
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(), None, None, None
 
 
 class _ScatterTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, start, n):
-        ctx.dim = dim
+    def forward(ctx, x, dim, start, n, group):
+        ctx.dim, ctx.group = dim, group
         return x.narrow(dim, start, n).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return comm.all_gather(g.contiguous(), AXIS, axis=ctx.dim, tiled=True), None, None, None
+        return (comm.all_gather(g.contiguous(), ctx.group, axis=ctx.dim, tiled=True),
+                None, None, None, None)
 
 
 def copy_to(x, tp: TensorParallel):
-    return _CopyTo.apply(x)
+    return _CopyTo.apply(x, tp.group)
 
 
 def reduce_from(x, tp: TensorParallel):
-    return _ReduceFrom.apply(x)
+    return _ReduceFrom.apply(x, tp.group)
 
 
 def gather_from(x, tp: TensorParallel, dim: int = -1):
-    return _GatherFrom.apply(x, dim % x.dim(), tp.rank)
+    return _GatherFrom.apply(x, dim % x.dim(), tp.rank, tp.group)
 
 
 def scatter_to(x, tp: TensorParallel, dim: int = -1):
     """This rank's block of dim ``dim`` of a tensor every rank holds whole."""
     dim %= x.dim()
     start, n = tp.block(x.shape[dim])
-    return _ScatterTo.apply(x, dim, start, n)
+    return _ScatterTo.apply(x, dim, start, n, tp.group)
 
 
 def _vocab_block(labels, tp: TensorParallel, n_local: int):

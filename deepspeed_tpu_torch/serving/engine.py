@@ -45,10 +45,15 @@ the device to a tick:
   ``telemetry/timeline.py`` reconstructs into one per-request timeline
   with critical-path attribution.
 
-Not ported (``NotImplementedError``, ROADMAP.md Queue 1): rebuilding onto
-smaller meshes (``degrade_mesh_shapes``; item 8, the batching engine
-takes no mesh) and the device-memory headroom (``hbm_headroom_bytes``,
-and ``statusz``'s ``hbm_*`` keys, which are absent; item 11 (b)).
+Rebuilds may degrade onto smaller serving meshes (``degrade_mesh_shapes``,
+the reference's ladder): the serving layer runs on the world's rank 0 and
+the meshes' other ranks serve the engines it builds (``inference/mesh.py``).
+The process groups of every rung are made when the layer is built, never
+mid-serve.
+
+Not ported (``NotImplementedError``, ROADMAP.md Queue 1): the device-memory
+headroom (``hbm_headroom_bytes``, and ``statusz``'s ``hbm_*`` keys, which
+are absent; item 11 (b)).
 
 Single-threaded by design, like the engine it wraps: the caller (or
 ``serving/loadgen.py``) drives ``step()``; everything is deterministic
@@ -91,6 +96,7 @@ from deepspeed_tpu_torch.serving.request import (
     ServeRequest,
 )
 from deepspeed_tpu_torch.telemetry.spans import SpanEmitter
+from deepspeed_tpu_torch.parallel.partition import serving_mesh
 from deepspeed_tpu_torch.utils import not_ported
 from deepspeed_tpu_torch.utils.logging import logger
 
@@ -156,9 +162,10 @@ class ServingEngine:
             raise ValueError("max_queue_depth must be >= 1")
         if aging_s <= 0:
             raise ValueError("aging_s must be > 0")
-        if degrade_mesh_shapes:
-            raise not_ported("degraded-mesh rebuilds (degrade_mesh_shapes; the batching "
-                             "engine's serving mesh, ROADMAP Queue 1 item 8)")
+        for shape in degrade_mesh_shapes or []:
+            # every rung's process groups now: making a group is collective
+            # over the world, which a rebuild mid-serve must not wait on
+            serving_mesh(int(shape.get("data", 1)), int(shape.get("tensor", 1)))
         if pipeline_depth is not None:
             if pipeline_depth < 0:
                 raise ValueError("pipeline_depth must be >= 0")
@@ -177,8 +184,7 @@ class ServingEngine:
         # hub so counters and the trace file stay continuous);
         # degrade_mesh_shapes lists successively smaller mesh shapes to
         # fall back to when the full-size rebuild fails or a preemption
-        # took capacity with it (graceful degradation; not ported, so the
-        # list is always empty here and every rebuild is at full size).
+        # took capacity with it (graceful degradation).
         self.engine_factory = engine_factory
         self.degrade_mesh_shapes = list(degrade_mesh_shapes or [])
         self.recovery_cfg = RecoveryConfig.parse(recovery)

@@ -26,16 +26,21 @@ workloads and arrivals for the same seeds.
     python -m deepspeed_tpu_torch.serving.loadgen --preset gpt2-125m --dtype bfloat16
     python -m deepspeed_tpu_torch.serving.loadgen --device cpu --replicas 1,2 --kill-replica 5:12
     python -m deepspeed_tpu_torch.serving.loadgen --device cpu --replicas 2 --scenario FILE.jsonl
+    python -m deepspeed_tpu_torch.serving.loadgen --device cpu --mesh 1:2 --ab-mesh --mesh-out R.json
 
 The fleet's replicas share one device (``--device``) and one host thread.
-Not ported (the flags exit with the item that brings them, ROADMAP.md
-Queue 1): the serving mesh (``--mesh``, ``--ab-mesh``, ``--mesh-out``,
-``--chaos-degrade``; item 8).
+A serving mesh (``--mesh``, ``--ab-mesh``, ``--mesh-out``,
+``--chaos-degrade``) runs on ranks: the command starts the processes its
+widest mesh needs itself (``torch.distributed`` over a ``file://`` store
+under the temporary directory; gloo on the CPU, or where ranks share a
+card), runs the loadgen on rank 0 and ``inference.mesh.serve_worker`` on
+the others. A mesh's ``data`` axis over 1 exits naming Queue 1 item 8 (c).
 """
 
 import argparse
 import json
 import math
+import os
 import random
 import sys
 import time
@@ -653,6 +658,75 @@ def format_summary(summary: dict) -> str:
     return "\n".join(lines) + "\n"
 
 
+def format_mesh_ab(results: "Dict[str, dict]") -> str:
+    """Side-by-side sharded-vs-replicated comparison (``--mesh`` sweep /
+    ``--ab-mesh``): one scorecard per mesh width, then the throughput and
+    host-blocked ms per token of each width against the replicated
+    (``1x1``) side."""
+    def _dims(key):  # numeric order: 1x2 before 1x16
+        d, _, t = key.partition("x")
+        try:
+            return (int(d), int(t))
+        except ValueError:
+            return (1 << 30, 0)
+
+    keys = sorted(results, key=lambda k: (k != "1x1", _dims(k)))
+    lines = []
+    for key in keys:
+        lines += [f"== mesh {key} ==", format_summary(results[key]).rstrip(), ""]
+    base = results.get("1x1")
+    if base is not None:
+        for key in keys:
+            if key == "1x1":
+                continue
+            cur = results[key]
+            t0, t1 = base.get("throughput_tok_s"), cur.get("throughput_tok_s")
+            if t0 and t1 is not None:
+                lines.append(f"throughput tok/s 1x1 -> {key}: {t0} -> {t1} "
+                             f"({t1 / t0:.2f}x)")
+            b0 = (base.get("host") or {}).get("block_ms_per_token")
+            b1 = (cur.get("host") or {}).get("block_ms_per_token")
+            if b0 is not None and b1 is not None:
+                lines.append(f"host-blocked ms/token 1x1 -> {key}: "
+                             f"{b0:.4f} -> {b1:.4f}")
+    return "\n".join(lines) + "\n"
+
+
+def mesh_record(results: "Dict[str, dict]", workload_args: dict,
+                device: str = "cuda") -> dict:
+    """The JSON serving record of a mesh sweep: per-width throughput and
+    host-blocked ms per token, the winning width, the workload and the
+    summaries. ``device_kind`` names the ranks' device and ``n_devices``
+    the ranks of the world."""
+    import torch
+
+    from deepspeed_tpu_torch import comm
+
+    dev = torch.device(device)
+    device_kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
+    per_width = {
+        key: {
+            "throughput_tok_s": s.get("throughput_tok_s"),
+            "goodput_tok_s": s.get("goodput_tok_s"),
+            "block_ms_per_token": (s.get("host") or {}).get("block_ms_per_token"),
+            "overlap_frac": (s.get("host") or {}).get("overlap_frac"),
+            "shed_rate": s.get("shed_rate"),
+            "ttft_ms": s.get("ttft_ms"),
+        }
+        for key, s in results.items()
+    }
+    winner = max(results, key=lambda k: results[k].get("throughput_tok_s") or 0.0)
+    return {
+        "kind": "serving_mesh_ab",
+        "device_kind": device_kind,
+        "n_devices": comm.process_world()[1],
+        "meshes": per_width,
+        "winner": winner,
+        "workload": workload_args,
+        "summaries": results,
+    }
+
+
 def format_ab(sync: dict, pipelined: dict) -> str:
     """Side-by-side sync-vs-pipelined comparison (``--pipeline-depth`` A/B):
     the two scorecards plus the headline ratios — host-blocked ms per
@@ -720,12 +794,59 @@ def _parse_buckets(spec: str):
     return out
 
 
-# flags of the reference's CLI that need parts of the system the port has
-# not taken yet: flag -> the ROADMAP.md item that brings it
-_MESH = "the serving mesh, ROADMAP Queue 1 item 8"
-_NOT_PORTED_FLAGS = {
-    "mesh": _MESH, "ab_mesh": _MESH, "mesh_out": _MESH, "chaos_degrade": _MESH,
-}
+def _mesh_shapes(spec: Optional[str]) -> List[dict]:
+    from deepspeed_tpu_torch.parallel.partition import parse_mesh_arg
+
+    return [parse_mesh_arg(x) for x in spec.split(",")] if spec else []
+
+
+def _mesh_rank(rank: int, world: int, store: str, device: str, argv, rc_file: str):
+    """One rank of a loadgen mesh run: the process group, then the loadgen
+    on rank 0 and a serving worker on every other rank."""
+    import datetime
+
+    import torch
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference import mesh as mesh_mod
+
+    torch.set_num_threads(1)
+    if device == "cuda":
+        backend = "nccl" if torch.cuda.device_count() >= world else "gloo"  # ranks share a card
+        dev = f"cuda:{rank % torch.cuda.device_count()}"
+    else:
+        backend, dev = "gloo", "cpu"
+    comm.init_distributed(device=dev, init_method=f"file://{store}", rank=rank, world_size=world,
+                          dist_backend=backend, timeout=datetime.timedelta(seconds=600),
+                          verbose=False)
+    try:
+        if rank == 0:
+            try:
+                rc = main(argv)
+            finally:
+                mesh_mod.shutdown()
+            with open(rc_file, "w") as fh:
+                fh.write(str(rc))
+        else:
+            mesh_mod.serve_worker(dev)
+    finally:
+        comm.destroy()
+
+
+def _spawn_mesh_ranks(argv, world: int, device: str) -> int:
+    """Run this command as ``world`` ranks (spawned here) and return rank
+    0's exit code."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="loadgen-mesh-") as tmp:
+        rc_file = os.path.join(tmp, "rc")
+        mp.start_processes(_mesh_rank, args=(world, os.path.join(tmp, "store"), device,
+                                             list(argv), rc_file),
+                           nprocs=world, join=True, start_method="spawn")
+        with open(rc_file) as fh:
+            return int(fh.read())
 
 
 def main(argv=None) -> int:
@@ -864,15 +985,62 @@ def main(argv=None) -> int:
                         "replayable JSONL")
     p.add_argument("--json", action="store_true", dest="as_json",
                    help="emit the summary as JSON instead of the table")
-    for flag, item in _NOT_PORTED_FLAGS.items():
-        p.add_argument("--" + flag.replace("_", "-"), nargs="?", const=True,
-                       default=None, help=f"not ported ({item})")
+    p.add_argument("--mesh", default=None, metavar="DATA:TENSOR[,..]",
+                   help="serving mesh shape(s), e.g. 1:2: attention heads, "
+                        "the MLP's hidden dim, the vocabulary and the KV "
+                        "cache's heads split over that many ranks, which "
+                        "this command starts itself. A comma list sweeps "
+                        "widths over the same workload")
+    p.add_argument("--ab-mesh", action="store_true",
+                   help="sharded-vs-replicated A/B: the SAME workload on "
+                        "the 1:1 mesh AND every --mesh width, per-width "
+                        "scorecards and throughput/host-blocked ratios")
+    p.add_argument("--mesh-out", default=None, metavar="FILE",
+                   help="write the mesh sweep as a JSON serving record "
+                        "(per-width throughput, host-blocked ms/token, "
+                        "winner)")
+    p.add_argument("--chaos-degrade", default=None, metavar="D:T[,..]",
+                   help="graceful-degradation ladder for --chaos: mesh "
+                        "shape(s) to rebuild on when the full-size "
+                        "rebuild fails or a preemption took capacity, "
+                        "e.g. 1:1 after serving --mesh 1:2")
     args = p.parse_args(argv)
 
-    for flag, item in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag) is not None:
-            p.error(f"--{flag.replace('_', '-')} is not ported to "
-                    f"deepspeed_tpu_torch yet ({item})")
+    try:
+        meshes = _mesh_shapes(args.mesh)
+        degrade_shapes = _mesh_shapes(args.chaos_degrade)
+    except ValueError as e:
+        p.error(str(e))
+    for shape in meshes + degrade_shapes:
+        if shape.get("data", 1) > 1:
+            p.error(f"mesh {shape}: a serving mesh with data > 1 is not ported to "
+                    f"deepspeed_tpu_torch yet (ROADMAP Queue 1 item 8 (c))")
+    if args.chaos_degrade and not args.chaos:
+        p.error("--chaos-degrade needs --chaos (it is the rebuild ladder of a "
+                "fault-injected run)")
+    if args.mesh_out and not meshes:
+        p.error("--mesh-out needs --mesh (the record is keyed by the explicit "
+                "serving mesh shape)")
+    if args.mesh_out and (args.ab_pipeline or args.ab_spec):
+        p.error("--mesh-out records a per-width mesh sweep; it does not "
+                "combine with --ab-pipeline / --ab-spec")
+    if args.chaos and (args.ab_mesh or args.mesh_out or len(meshes) > 1):
+        p.error("--chaos measures one fault-injected run; it does not "
+                "combine with the mesh A/B or the mesh sweep")
+    if args.ab_mesh or len(meshes) > 1:
+        if args.ab_pipeline or args.ab_spec:
+            p.error("--ab-pipeline / --ab-spec do not combine with --ab-mesh / a "
+                    "multi-width --mesh sweep (the sweep runs one configuration a "
+                    "width); run the other A/B per width separately")
+        if not [m for m in meshes if (m.get("data", 1), m.get("tensor", 1)) != (1, 1)]:
+            p.error("--ab-mesh needs at least one non-1x1 --mesh width to compare "
+                    "against the replicated baseline, e.g. --mesh 1:2")
+    from deepspeed_tpu_torch import comm
+
+    world = max([s.get("data", 1) * s.get("tensor", 1) for s in meshes + degrade_shapes]
+                or [1])
+    if world > 1 and comm.process_world()[1] == 1:
+        return _spawn_mesh_ranks(sys.argv[1:] if argv is None else argv, world, args.device)
     spec = None
     if args.speculative:
         g, _, m = args.speculative.partition(":")
@@ -917,7 +1085,8 @@ def main(argv=None) -> int:
             p.error(f"--replicas {args.replicas!r} is not N or N,N,..")
         if any(n < 1 for n in fleet_sizes):
             p.error("--replicas sizes must be >= 1")
-        if args.ab_pipeline or args.ab_spec or args.chaos:
+        if (args.ab_pipeline or args.ab_spec or args.chaos or args.ab_mesh or meshes
+                or args.mesh_out):
             p.error("--replicas does not combine with the pipeline/spec/"
                     "mesh A/B modes or engine-level --chaos — fleet chaos is "
                     "--kill-replica / --rolling-restart (replica-level "
@@ -1018,8 +1187,10 @@ def main(argv=None) -> int:
 
     chaos_plan = FaultPlan.load(args.chaos) if args.chaos else None
 
-    def build_cb(depth: int, trace_out=None, spec_side=spec):
+    def build_cb(depth: int, trace_out=None, spec_side=spec, mesh_shape=None):
         cfg = {"dtype": args.dtype}
+        if mesh_shape:
+            cfg["mesh"] = {"shape": mesh_shape}
         if trace_out:
             cfg["telemetry"] = {"enabled": True, "trace_file": trace_out}
         elif args.ops_port is not None:
@@ -1048,19 +1219,20 @@ def main(argv=None) -> int:
             seed=args.seed, device=args.device,
             **engine_kwargs)
 
-    def build_serving(depth: int, trace_out=None, spec_side=spec):
-        cb = build_cb(depth, trace_out=trace_out, spec_side=spec_side)
+    def build_serving(depth: int, trace_out=None, spec_side=spec, mesh_shape=None):
+        cb = build_cb(depth, trace_out=trace_out, spec_side=spec_side, mesh_shape=mesh_shape)
         kw = {}
         if chaos_plan is not None:
             cb.fault_hook = FaultInjector(chaos_plan)
 
-            def factory(mesh_shape=None, _depth=depth, _spec=spec_side):
+            def factory(mesh_shape=None, _depth=depth, _spec=spec_side, _orig=mesh_shape):
                 # replacement engines carry no trace file: the serving
                 # layer re-injects its hub, so the trace file and the
-                # counters stay continuous across rebuilds
-                return build_cb(_depth, spec_side=_spec)
+                # counters stay continuous across rebuilds; mesh_shape is
+                # a degrade rung, else the serve's own mesh
+                return build_cb(_depth, spec_side=_spec, mesh_shape=mesh_shape or _orig)
 
-            kw = dict(engine_factory=factory,
+            kw = dict(engine_factory=factory, degrade_mesh_shapes=degrade_shapes,
                       recovery=RecoveryConfig(
                           max_tick_retries=args.tick_retries,
                           fetch_timeout_s=args.fetch_timeout_s))
@@ -1088,8 +1260,9 @@ def main(argv=None) -> int:
         for k, v in cb._tick_stats.items():
             cb._tick_stats[k] = type(v)(0)
 
-    def one_run(depth: int, trace_out=None, spec_side=spec):
-        serving = build_serving(depth, trace_out=trace_out, spec_side=spec_side)
+    def one_run(depth: int, trace_out=None, spec_side=spec, mesh_shape=None):
+        serving = build_serving(depth, trace_out=trace_out, spec_side=spec_side,
+                                mesh_shape=mesh_shape)
         if args.warm:
             warm_serving(serving)
         if args.ops_port is not None:
@@ -1103,6 +1276,8 @@ def main(argv=None) -> int:
             summary["chaos"] = chaos_scorecard(
                 records, wall_s, serving.recovery_stats(),
                 injected=getattr(injector, "fired", None))
+        if mesh_shape:
+            summary["mesh"] = dict(mesh_shape)
         # close releases the exporter port and flushes the trace
         serving.close()
         return summary
@@ -1112,13 +1287,44 @@ def main(argv=None) -> int:
                           scenario, workload, arrivals, build_cb,
                           span_sampler)
 
+    def write_mesh_record(results):
+        record = mesh_record(results, {
+            "requests": len(workload), "rate": args.rate,
+            "process": args.process, "pipeline_depth": args.pipeline_depth,
+            "donate": not args.no_donate, "slots": args.slots,
+            "cache_len": args.cache_len, "preset": args.preset}, device=args.device)
+        with open(args.mesh_out, "w") as fh:
+            json.dump(record, fh, indent=2, sort_keys=True)
+        print(f"mesh record written to {args.mesh_out}")
+
+    if args.ab_mesh or len(meshes) > 1:
+        # sharded-vs-replicated sweep: the 1x1 mesh is always the baseline
+        # side, each width replays the SAME workload
+        sweep = [{"data": 1, "tensor": 1}] + [
+            m for m in meshes if (m.get("data", 1), m.get("tensor", 1)) != (1, 1)]
+        results = {}
+        for shape in sweep:
+            key = f"{shape.get('data', 1)}x{shape.get('tensor', 1)}"
+            trace = f"{args.trace_out}.{key}.jsonl" if args.trace_out else None
+            results[key] = one_run(args.pipeline_depth, trace_out=trace, mesh_shape=shape)
+        if args.mesh_out:
+            write_mesh_record(results)
+        if args.as_json:
+            print(json.dumps(results, indent=2, sort_keys=True))
+        else:
+            sys.stdout.write(format_mesh_ab(results))
+        return 0
+    mesh_shape = meshes[0] if meshes else None
+
     if args.ab_spec:
         # SAME replayed workload both sides; the plain side writes a
         # sibling trace so both pay identical telemetry overhead
         plain_trace = (args.trace_out + ".plain.jsonl" if args.trace_out
                        else None)
-        plain = one_run(args.pipeline_depth, trace_out=plain_trace, spec_side=None)
-        spec_sum = one_run(args.pipeline_depth, trace_out=args.trace_out)
+        plain = one_run(args.pipeline_depth, trace_out=plain_trace, spec_side=None,
+                        mesh_shape=mesh_shape)
+        spec_sum = one_run(args.pipeline_depth, trace_out=args.trace_out,
+                           mesh_shape=mesh_shape)
         if plain_trace:
             print(f"plain-side trace written to {plain_trace}")
         if args.as_json:
@@ -1130,8 +1336,9 @@ def main(argv=None) -> int:
         # BOTH sides must pay identical telemetry overhead or the A/B is
         # biased — with --trace-out the sync run writes a sibling trace
         sync_trace = args.trace_out + ".sync.jsonl" if args.trace_out else None
-        sync = one_run(0, trace_out=sync_trace)
-        pipelined = one_run(max(args.pipeline_depth, 1), trace_out=args.trace_out)
+        sync = one_run(0, trace_out=sync_trace, mesh_shape=mesh_shape)
+        pipelined = one_run(max(args.pipeline_depth, 1), trace_out=args.trace_out,
+                            mesh_shape=mesh_shape)
         if sync_trace:
             print(f"sync-side trace written to {sync_trace}")
         if args.as_json:
@@ -1140,7 +1347,10 @@ def main(argv=None) -> int:
         else:
             sys.stdout.write(format_ab(sync, pipelined))
     else:
-        summary = one_run(args.pipeline_depth, trace_out=args.trace_out)
+        summary = one_run(args.pipeline_depth, trace_out=args.trace_out, mesh_shape=mesh_shape)
+        if args.mesh_out:  # --mesh-out requires --mesh
+            write_mesh_record({f"{mesh_shape.get('data', 1)}x{mesh_shape.get('tensor', 1)}":
+                               summary})
         if args.as_json:
             print(json.dumps(summary, indent=2, sort_keys=True))
         else:

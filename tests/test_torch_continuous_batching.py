@@ -447,8 +447,14 @@ class TestLifecycle:
     def test_unported_surface_raises(self, setup):
         _, params = setup
         model = ttf.TransformerModel(ttf.TransformerConfig(**CFG))
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ContinuousBatchingEngine(model, params=params, device="cpu", mesh=object())
+        with pytest.raises(NotImplementedError, match=r"item 8 \(c\)"):
+            ContinuousBatchingEngine(model, params=params, device="cpu",
+                                     config={"mesh": {"shape": {"data": 2, "tensor": 1}}})
+        from deepspeed_tpu_torch.parallel.partition import serving_mesh
+
+        one = ContinuousBatchingEngine(model, params=params, device="cpu", max_slots=1,
+                                       mesh=serving_mesh(1, 1))
+        assert one.shard is None and one.mesh.shape["tensor"] == 1
         cb = _port(setup, max_slots=1)
         for name in ("hbm_components", "analyze_program_memory"):
             with pytest.raises(NotImplementedError, match="item 1[12]"):

@@ -14,7 +14,9 @@ the training engine's checkpoints and SDC probe at GPT-2 125M's width (a
 save, load and resume bit for bit, sync and async; two probes of one batch
 with one digest); and the decoder families' training: K2/K3 at Llama 2 7B's
 head dim 128 (group 1, and Mistral's group 4 with a window) and a 2-layer
-Llama-width step on the flash path against the xla path.
+Llama-width step on the flash path against the xla path; and a batching
+engine on a serving mesh of one NCCL rank, whose ticks dispatch where a
+host sync raises and whose stream is the engine's without a mesh.
 
 Runs only with an NVIDIA GPU (marker ``cuda``; skips elsewhere, deciding
 inside each test). It imports neither JAX nor the reference package, so on
@@ -1532,3 +1534,110 @@ def test_llama_width_training_step_on_flash_matches_the_xla_engine():
     (lf, gf), (lx, gx) = results["pallas"], results["xla"]
     assert abs(lf - lx) <= TRAIN_LOSS_TOL
     assert abs(gf - gx) / gx <= TRAIN_GNORM_REL_TOL
+
+
+def test_mesh_engine_pool_ticks_dispatch_without_a_host_sync():
+    """A batching engine on a serving mesh of one rank (a process group of
+    one through NCCL, ``{"tensor": 1}``): its pool ticks dispatch under
+    ``torch.cuda.set_sync_debug_mode("error")``, and its stream equals the
+    engine's without a mesh bit for bit, as it runs what that engine
+    runs."""
+    import tempfile
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    _need_card()
+    cfg = ttf.TransformerConfig(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+                                max_seq_len=128, dtype="bfloat16", attn_impl="pallas")
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 256, n).astype(np.int32) for n in (20, 45, 7)]
+
+    def serve(eng, check_sync):
+        rids = [eng.submit(p, max_new_tokens=9) for p in prompts]
+        if check_sync:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(2):
+                    eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert len(eng._inflight) == 2 and not eng.poisoned
+        while eng.has_work():
+            eng.step()
+        got = eng.finished()
+        return [got[r] for r in rids]
+
+    plain = ContinuousBatchingEngine(ttf.TransformerModel(cfg), max_slots=4, cache_len=96,
+                                     pipeline_depth=8, prefill_chunk=32, seed=0)
+    want = serve(plain, False)
+    store = tempfile.mkdtemp(prefix="dstorch_mesh_")
+    comm.init_distributed(device="cuda", init_method=f"file://{store}/store", rank=0,
+                          world_size=1, verbose=False)
+    try:
+        import torch.distributed as dist
+
+        assert dist.get_backend() == "nccl"
+        eng = ContinuousBatchingEngine(ttf.TransformerModel(cfg),
+                                       config={"mesh": {"shape": {"data": 1, "tensor": 1}}},
+                                       max_slots=4, cache_len=96, pipeline_depth=8,
+                                       prefill_chunk=32, seed=0)
+        assert eng.mesh.shape["tensor"] == 1 and eng.shard is None
+        serve(eng, False)  # the same shapes once, outside the check
+        got = serve(eng, True)
+    finally:
+        comm.destroy()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def _gloo_carry_rank(rank, store, out_dir):
+    """One rank of :func:`test_gloo_carries_cuda_tensors_through_the_host`."""
+    import datetime
+    import pickle
+
+    from deepspeed_tpu_torch import comm
+
+    torch.cuda.set_device(0)
+    comm.init_distributed(device="cuda:0", init_method=f"file://{store}", rank=rank, world_size=2,
+                          dist_backend="gloo", timeout=datetime.timedelta(seconds=120),
+                          verbose=False)
+    try:
+        x = (torch.arange(32, dtype=torch.float32, device="cuda").reshape(4, 8) % 7 + 1) * (rank + 1)
+        x0 = x.clone()
+        outs = {"all_reduce": comm.all_reduce(x), "all_reduce_": comm.all_reduce_(x.clone()),
+                "all_gather": comm.all_gather(x, axis=1)}
+        out = {k: (v.device.type, v.cpu().numpy()) for k, v in outs.items()}
+        out["input_kept"] = bool(torch.equal(x, x0))
+    finally:
+        comm.destroy()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def test_gloo_carries_cuda_tensors_through_the_host():
+    """Two ranks sharing the card on a gloo group (the serving mesh's
+    tensor 2 on one card): ``all_reduce``, ``all_reduce_`` and
+    ``all_gather`` of CUDA tensors go through host copies and come back on
+    the card, equal to numpy's sum and concatenation."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    _need_card()
+    out_dir = tempfile.mkdtemp(prefix="dstorch_carry_")
+    mp.start_processes(_gloo_carry_rank, args=(os.path.join(out_dir, "store"), out_dir),
+                       nprocs=2, join=True, start_method="spawn")
+    base = (np.arange(32, dtype=np.float32).reshape(4, 8) % 7 + 1)
+    for rank in range(2):
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "rb") as fh:
+            out = pickle.load(fh)
+        assert out["input_kept"]
+        for name in ("all_reduce", "all_reduce_"):
+            assert out[name][0] == "cuda"
+            np.testing.assert_array_equal(out[name][1], base * 3)
+        assert out["all_gather"][0] == "cuda"
+        np.testing.assert_array_equal(out["all_gather"][1], np.concatenate([base, base * 2], 1))

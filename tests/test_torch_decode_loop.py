@@ -179,10 +179,10 @@ def test_decode_loop_draws_as_the_fused_function(setup):
     ``compile_generate_fn`` on one generator: the same sampled bits."""
     port = _port(CFG, setup["params"])
     toks = torch.from_numpy(setup["toks"]).long()
-    prefill, decode, _, _ = tdec.compile_decode_fns(port.cfg, 2, 64)
+    prefill, decode, _, _ = tdec.compile_decode_fns(None, port.cfg, 2, 64)
     a = tdec.decode_loop(prefill, decode, port.params, toks, ttf.init_cache(port.cfg, 2, 64),
                          12, 1.0, 0, torch.Generator().manual_seed(3), 0.9)
-    fn = tdec.compile_generate_fn(port.cfg, 2, 64, 12, 1.0, 0, 0.9)
+    fn = tdec.compile_generate_fn(None, port.cfg, 2, 64, 12, 1.0, 0, 0.9)
     b = fn(port.params, toks, ttf.init_cache(port.cfg, 2, 64), torch.Generator().manual_seed(3))
     assert torch.equal(a, b)
 

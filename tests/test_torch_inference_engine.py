@@ -165,8 +165,8 @@ def test_decode_kv_bytes_matches_reference():
 
 
 @pytest.mark.parametrize("config", [
-    {"tensor_parallel": {"tp_size": 2}},
-    {"mesh": {"shape": {"data": 1, "tensor": 2}}}, {"profile_model_time": True},
+    {"mesh": {"shape": {"data": 2, "tensor": 1}}},
+    {"mesh": {"shape": {"expert": 2}}}, {"profile_model_time": True},
 ])
 def test_features_outside_the_slice_raise(config):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

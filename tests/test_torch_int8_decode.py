@@ -425,7 +425,7 @@ def test_int8_weights_greedy_in_f32_matches_reference(kv):
     tparams = teng.quantize_weights(ttf.params_from_numpy(params, tcfg, "cpu"))
     toks = np.random.RandomState(3).randint(0, 128, (2, PROMPT)).astype(np.int32)
     ref = _ref_greedy(jparams, jcfg, toks, NEW, 64)
-    fn = tdec.compile_generate_fn(tcfg, 2, 64, NEW, 0.0, 0, 1.0, read_floor=16)
+    fn = tdec.compile_generate_fn(None, tcfg, 2, 64, NEW, 0.0, 0, 1.0, read_floor=16)
     with torch.inference_mode():
         out = fn(tparams, torch.from_numpy(toks).long(), ttf.init_cache(tcfg, 2, 64), None)
         logits = _np(ttf.apply(tparams, tcfg, torch.from_numpy(ref).long()))

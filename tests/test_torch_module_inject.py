@@ -290,9 +290,16 @@ def test_policy_dispatch_matches_reference(models):
     assert [p.__name__ for p in tpol.POLICIES] == [p.__name__ for p in jpol.POLICIES]
 
 
-def test_partition_rules_wait_for_the_mesh():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tpol.partition_rules()
+def test_partition_rules_wait_for_the_mesh(models):
+    """``partition_rules`` (the table a converted model's ``mesh.rules``
+    takes) equals the reference's, bare and for every servable family."""
+    def table(rules):
+        return [(pattern, tuple(spec)) for pattern, spec in rules]
+
+    assert table(tpol.partition_rules()) == table(jpol.partition_rules())
+    for name in SERVABLE:
+        cfg = models(name).config
+        assert table(tpol.partition_rules(cfg)) == table(jpol.partition_rules(cfg))
 
 
 @pytest.mark.parametrize("name", AUTOTP)

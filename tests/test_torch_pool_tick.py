@@ -94,7 +94,7 @@ def _ref_tick(jeng, k, eos, read_len, chunk, rows, cache, extra):
 
 
 def _port_tick(peng, k, eos, read_len, chunk, rows, cache, extra):
-    fn = tdec.compile_pool_tick_fn(peng.cfg, B, T, k, 0.0, 0, 1.0, eos_token_id=eos,
+    fn = tdec.compile_pool_tick_fn(None, peng.cfg, B, T, k, 0.0, 0, 1.0, eos_token_id=eos,
                                    read_len=read_len, chunk=chunk)[0]
     tc = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
     t = {n: torch.from_numpy(a.copy()) for n, a in rows.items()}
@@ -171,7 +171,7 @@ def test_row_update_matches_reference(engines, donate):
     last, done = np.arange(B, dtype=np.int32), np.ones(B, np.int32)
     jfn = jdec.compile_row_update_fn(jeng.mesh, jeng.cfg, B, donate=False)
     rl, rd = jfn(jnp.asarray(last), jnp.asarray(done), 2, 77, 0)
-    pfn = tdec.compile_row_update_fn(peng.cfg, B, donate=donate)
+    pfn = tdec.compile_row_update_fn(None, peng.cfg, B, donate=donate)
     tl, td = torch.from_numpy(last.copy()), torch.from_numpy(done.copy())
     pl, pd = pfn(tl, td, 2, 77, 0)
     np.testing.assert_array_equal(pl.numpy(), np.asarray(rl))
@@ -184,7 +184,7 @@ def test_row_update_matches_reference(engines, donate):
 def test_tick_without_donation_leaves_inputs(engines):
     _, peng = engines
     rows, cache = _rows(), _cache()
-    fn = tdec.compile_pool_tick_fn(peng.cfg, B, T, 2, 0.0, 0, 1.0, donate=False)[0]
+    fn = tdec.compile_pool_tick_fn(None, peng.cfg, B, T, 2, 0.0, 0, 1.0, donate=False)[0]
     tc = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
     t = {n: torch.from_numpy(a.copy()) for n, a in rows.items()}
     with torch.inference_mode():

@@ -255,8 +255,8 @@ def test_all_pad_chunks_are_skipped(params, monkeypatch):
     calls = []
     real = tdec.compile_ragged_prefill_fn
 
-    def counting(cfg, B, T):
-        fn = real(cfg, B, T)
+    def counting(mesh, cfg, B, T):
+        fn = real(mesh, cfg, B, T)
 
         def wrapped(p, t, pos, cache):
             calls.append(t.shape)

@@ -357,8 +357,14 @@ def test_sampled_streams_equal_across_depth_fusion_and_the_bare_pool(params):
 
 def test_unported_surface_raises(params):
     side = side_of("port", params)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        side.make(max_slots=1, cache_len=32, degrade_mesh_shapes=[{"data": 1, "tensor": 1}])
+    # a degrade ladder builds its rungs' meshes up front: the 1x1 rung is
+    # there in a world of one, a wider one is refused as the reference's
+    # serving_mesh refuses it
+    _, srv, _ = side.make(max_slots=1, cache_len=32,
+                          degrade_mesh_shapes=[{"data": 1, "tensor": 1}])
+    assert srv.degrade_mesh_shapes == [{"data": 1, "tensor": 1}]
+    with pytest.raises(ValueError, match="devices"):
+        side.make(max_slots=1, cache_len=32, degrade_mesh_shapes=[{"data": 1, "tensor": 2}])
     _, srv, _ = side.make(max_slots=1, cache_len=32)
     with pytest.raises(NotImplementedError, match=r"item 11 \(b\)"):
         srv.hbm_headroom_bytes()

@@ -320,7 +320,7 @@ def _ref_tick(setup, jengs, mode, eos, read_len, rows, caches, drafts):
 def _port_tick(setup, pengs, mode, eos, read_len, rows, caches, drafts):
     peng, pdraft = pengs
     fn = tdec.compile_spec_pool_tick_fn(
-        peng.cfg, B, T, GAMMA, 0.0, 0, 1.0, eos_token_id=eos, read_len=read_len,
+        None, peng.cfg, B, T, GAMMA, 0.0, 0, 1.0, eos_token_id=eos, read_len=read_len,
         draft_cfg=pdraft.cfg if mode == "draft" else None)[0]
     tc = [{n: torch.from_numpy(a.copy()) for n, a in c.items()} for c in caches]
     state = [torch.from_numpy(rows[n].copy()) for n in _STATE]
@@ -393,12 +393,12 @@ def test_spec_tick_matches_reference(setup, tick_engines, mode, read_len, with_e
 
 
 def test_spec_row_update_sets_one_row_in_place():
-    set_row = tdec.compile_spec_row_update_fn(None, 3)
+    set_row = tdec.compile_spec_row_update_fn(None, None, 3)
     state = [torch.zeros(3, dtype=torch.int32) for _ in range(4)]
     out = set_row(*state, 1, 7, 1, 40, 5)
     assert all(a is b for a, b in zip(out, state))
     assert [t.tolist() for t in out] == [[0, 7, 0], [0, 1, 0], [0, 40, 0], [0, 5, 0]]
-    copy = tdec.compile_spec_row_update_fn(None, 3, donate=False)(*state, 0, 9, 0, 1, 2)
+    copy = tdec.compile_spec_row_update_fn(None, None, 3, donate=False)(*state, 0, 9, 0, 1, 2)
     assert state[0].tolist() == [0, 7, 0] and copy[0].tolist() == [9, 7, 0]
 
 

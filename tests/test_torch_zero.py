@@ -209,7 +209,11 @@ def test_partition_rules_helpers_are_the_reference_s():
         jmesh = None if mesh is None else _jmesh(mesh)
         assert tpart.mesh_tensor_width(mesh) == jpart.mesh_tensor_width(jmesh)
         assert tpart.kv_shard_width(mesh, cfg) == jpart.kv_shard_width(jmesh, cfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # in a world of one process the serving mesh is the 1x1 one, and a
+    # wider shape is refused as the reference refuses more devices than it has
+    one = tpart.serving_mesh(1, 1)
+    assert one.shape == dict(jpart.serving_mesh(1, 1).shape) and one.size == 1
+    with pytest.raises(ValueError, match="devices"):
         tpart.serving_mesh(1, 2)
 
 

@@ -12,6 +12,9 @@ pickles what it returns. The parent gets the ranks' results in rank order.
 The children import neither JAX nor the reference: each program lives here,
 in a module that imports neither, and every result says whether the rank
 found either in ``sys.modules``. The parent computes the reference.
+
+``serving_program`` is the serving mesh's: rank 0 runs the cases and the
+other ranks serve as ``inference.mesh.serve_worker``s.
 """
 
 import datetime
@@ -195,4 +198,294 @@ def _refusals(engine, ckpt_dir):
     return out
 
 
-PROGRAMS = {"comm": comm_program, "engine": engine_program}
+# ---------------------------------------------------------------------------
+# the serving mesh: rank 0 drives, every other rank serves
+# ---------------------------------------------------------------------------
+
+def _skew_clock(offset_s: float, delay_s: float):
+    """This rank's clocks run ``offset_s`` ahead, and it reads each control
+    message ``delay_s`` late: what a worker does must not depend on
+    either."""
+    import time
+
+    from deepspeed_tpu_torch import comm
+
+    for name in ("time", "monotonic", "perf_counter"):
+        real = getattr(time, name)
+        setattr(time, name, lambda real=real: real() + offset_s)
+    real_recv = comm.comm.control_recv
+
+    def late_recv():
+        time.sleep(delay_s)
+        return real_recv()
+
+    comm.comm.control_recv = late_recv
+    comm.control_recv = late_recv
+
+
+def _events(path):
+    import json
+
+    if not path or not os.path.exists(path):
+        return []
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def _shard_info(engine):
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    shard = engine.shard
+    return {"mesh": None if engine.mesh is None else dict(engine.mesh.shape),
+            "shard": None if shard is None else (shard.attn, shard.mlp, shard.embed, shard.head),
+            "kv_shard_width": engine.kv_shard_width,
+            "specs": None if engine.param_specs is None else ttf.map_params(
+                lambda spec: tuple(spec), engine.param_specs),
+            "local_shapes": ttf.map_params(lambda t: tuple(t.shape), engine.params)}
+
+
+def _mesh_config(case):
+    config = {"dtype": "float32", "kv_read_floor": case.get("floor", 16)}
+    if case.get("tensor") is not None:
+        config["mesh"] = {"shape": {"data": 1, "tensor": case["tensor"]}}
+        config["mesh"].update(case.get("mesh_extra", {}))
+    config.update(case.get("config", {}))
+    return config
+
+
+def _generate_case(case):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    config = _mesh_config(case)
+    config["fused_generate"] = case.get("fused", True)
+    if case.get("trace"):
+        config["telemetry"] = {"enabled": True, "trace_file": case["trace"]}
+    draft = case.get("draft")
+    if draft is not None:
+        config["speculative"] = {"enabled": True, "num_draft_tokens": 3}
+    eng = dst.init_inference(ttf.TransformerConfig(**case["cfg"]), params=case["params"],
+                             config=config, device="cpu",
+                             draft_model=None if draft is None else ttf.TransformerConfig(
+                                 **draft["cfg"]),
+                             draft_params=None if draft is None else draft["params"])
+    out = {"info": _shard_info(eng)}
+    kw = dict(case.get("kw", {}))
+    if kw.pop("generator_seed", None) is not None:
+        kw["generator"] = torch.Generator().manual_seed(5)
+    out["tokens"] = eng.generate(case["tokens"], max_new_tokens=case["new"], **kw).numpy()
+    if case.get("forward"):
+        out["logits"] = eng.forward(case["tokens"]).numpy()
+    out["events"] = _events(case.get("trace"))
+    return out
+
+
+def _pool(case, mesh_shape="case"):
+    from deepspeed_tpu_torch.inference import ContinuousBatchingEngine
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    config = _mesh_config(case if mesh_shape == "case" else dict(case, tensor=mesh_shape))
+    if case.get("trace"):
+        config["telemetry"] = {"enabled": True, "trace_file": case["trace"]}
+    kw = dict(case.get("kw", {}))
+    draft = case.get("draft")
+    if draft is not None:
+        kw.update(draft_model=ttf.TransformerConfig(**draft["cfg"]), draft_params=draft["params"])
+    return ContinuousBatchingEngine(ttf.TransformerConfig(**case["cfg"]), params=case["params"],
+                                    config=config, device="cpu", donate_cache=False, **kw)
+
+
+def _pool_case(case):
+    cb = _pool(case)
+    results, rid_of, pending, tick = {}, {}, list(enumerate(case["subs"])), 0
+    prefix = case.get("prefix")
+    pid = cb.register_prefix(prefix) if prefix is not None else None
+    while pending or cb.has_work():
+        assert tick < 400, "the pool did not drain"
+        for i, (at, prompt, new) in [x for x in pending if x[1][0] <= tick]:
+            rid_of[i] = (cb.submit_with_prefix(pid, prompt, max_new_tokens=new) if pid is not None
+                         else cb.submit(prompt, max_new_tokens=new))
+        pending = [x for x in pending if x[1][0] > tick]
+        cb.step()
+        results.update(cb.finished())
+        tick += 1
+    return {"streams": [results[rid_of[i]] for i in range(len(case["subs"]))],
+            "rids": [rid_of[i] for i in range(len(case["subs"]))],
+            "events": _events(case.get("trace")), "info": _shard_info(cb._eng),
+            "stats": cb.tick_stats()}
+
+
+class _FakeClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _serve_case(case):
+    """A ServingEngine over the case's pool on a fake clock, with a fault
+    plan and a degrade ladder when the case has them."""
+    from deepspeed_tpu_torch.serving import RecoveryConfig, ServingEngine
+    from deepspeed_tpu_torch.serving.faults import Fault, FaultInjector, FaultPlan
+
+    clock = _FakeClock()
+    cb = _pool(case)
+    kw = {}
+    if case.get("faults"):
+        cb.fault_hook = FaultInjector(FaultPlan([Fault(**f) for f in case["faults"]]))
+
+        def factory(mesh_shape=None):
+            tensor = case["tensor"] if mesh_shape is None else mesh_shape.get("tensor", 1)
+            return _pool(case, mesh_shape=tensor)
+
+        kw = dict(engine_factory=factory, recovery=RecoveryConfig(backoff_s=0.0),
+                  sleep=lambda s: None, degrade_mesh_shapes=case.get("degrade", []))
+    srv = ServingEngine(cb, clock=clock, **kw)
+    adms = [srv.submit(p, max_new_tokens=m) for p, m in case["requests"]]
+    n = 0
+    while srv.has_work():
+        assert n < 300, "serving did not drain"
+        clock.t += 0.01
+        srv.step()
+        n += 1
+    done = srv.reap()
+    return {"streams": {a.rid: (done[a.rid].state, [int(t) for t in done[a.rid].tokens])
+                        for a in adms},
+            "recovery": srv.recovery_stats(),
+            "final_mesh": None if srv._cb.mesh is None else dict(srv._cb.mesh.shape)}
+
+
+def _meshes_case(case):
+    from deepspeed_tpu_torch.parallel.partition import serving_mesh
+
+    out = {}
+    for d, t in case["shapes"]:
+        try:
+            out[(d, t)] = dict(serving_mesh(d, t).shape)
+        except ValueError as e:
+            out[(d, t)] = str(e)
+    return out
+
+
+def _refusals_case(case):
+    """What each engine build in ``case["tries"]`` ({name: (model config,
+    engine config)}) says: "ran", or its refusal."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    out = {}
+    for name, (cfg_kw, config) in case["tries"].items():
+        try:
+            dst.init_inference(ttf.TransformerConfig(**cfg_kw), config=config, device="cpu")
+            out[name] = "ran"
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+def _tensor_bytes(x) -> int:
+    if torch.is_tensor(x):
+        return x.numel() * x.element_size()
+    if isinstance(x, dict):
+        return sum(_tensor_bytes(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in x)
+    return 0
+
+
+def _leaves(tree):
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    out = []
+    ttf.map_params(out.append, tree)
+    return out
+
+
+def _built(model, params, case):
+    """An engine on the case's mesh from ``model`` and ``params``: its
+    greedy stream, its logits, its own params, and the tensor bytes rank 0
+    sent to the workers while building it: in messages to every worker
+    (``broadcast``) and to each worker alone (``own``, by rank)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    sent = {"broadcast": 0, "own": {}}
+    real_send, real_send_to = comm.control_send, comm.control_send_to
+
+    def send(commands):
+        sent["broadcast"] += _tensor_bytes(commands)
+        real_send(commands)
+
+    def send_to(rank, obj):
+        sent["own"][rank] = sent["own"].get(rank, 0) + _tensor_bytes(obj)
+        real_send_to(rank, obj)
+
+    comm.control_send, comm.control_send_to = send, send_to
+    try:
+        eng = dst.init_inference(model, params=params, seed=4, config=_mesh_config(case),
+                                 device="cpu")
+    finally:
+        comm.control_send, comm.control_send_to = real_send, real_send_to
+    return eng, {"tokens": eng.generate(case["tokens"], max_new_tokens=case["new"]).numpy(),
+                 "logits": eng.forward(case["tokens"]).numpy(), "sent": sent,
+                 "local": ttf.map_params(lambda t: t.numpy(), eng.params)}
+
+
+def _sources_case(case):
+    """One model on the case's mesh built from the seed and from the param
+    tree of the engine without a mesh on that seed; rank 0's own params
+    against its blocks of that tree, and the bytes of rank 1's blocks and
+    of the whole tree."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference import mesh as mesh_mod
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    cfg = ttf.TransformerConfig(**case["cfg"])
+    plain = dst.init_inference(cfg, seed=4, config=_mesh_config(dict(case, tensor=None)),
+                               device="cpu")
+    out = {}
+    for name, params in (("seed", None), ("tree", plain.params)):
+        eng, out[name] = _built(cfg, params, case)
+        mine = mesh_mod.shard_params(plain.params, cfg, eng.shard)
+        out[name]["local_is_blocks"] = all(
+            torch.equal(a, b) for a, b in zip(_leaves(mine), _leaves(eng.params)))
+    out["rank1_block_bytes"] = _tensor_bytes(
+        mesh_mod.RankBlocks(plain.params, cfg, eng.shard).of_rank(1))
+    out["tree_bytes"] = _tensor_bytes(plain.params)
+    return out
+
+
+def _checkpoint_case(case):
+    """One HF checkpoint directory on the case's mesh, built from the
+    directory and from the tree its converter gives."""
+    from deepspeed_tpu_torch.module_inject.load_checkpoint import convert_hf_checkpoint
+
+    cfg, tree = convert_hf_checkpoint(case["path"])
+    return {"dir": _built(case["path"], None, case)[1], "tree": _built(cfg, tree, case)[1]}
+
+
+_SERVING_CASES = {"generate": _generate_case, "pool": _pool_case, "serve": _serve_case,
+                  "meshes": _meshes_case, "refusals": _refusals_case, "sources": _sources_case,
+                  "checkpoint": _checkpoint_case}
+
+
+def serving_program(rank, cases, skew=None):
+    """The serving mesh's single controller: rank 0 runs each case (an
+    engine on a mesh of the world's first ranks, or on none) and returns
+    its results; every other rank serves as a worker, with its clocks
+    skewed and its reads delayed where ``skew`` says so."""
+    from deepspeed_tpu_torch.inference import mesh as mesh_mod
+
+    if rank != 0:
+        if skew is not None and rank == 1:
+            _skew_clock(*skew)
+        return {"ops": mesh_mod.serve_worker(device="cpu")}
+    try:
+        return {name: _SERVING_CASES[case["kind"]](case) for name, case in cases.items()}
+    finally:
+        mesh_mod.shutdown()
+
+
+PROGRAMS = {"comm": comm_program, "engine": engine_program, "serving": serving_program}
