@@ -136,7 +136,15 @@ backward):
     the serving layer's degrade ladder; (b) tensor 2 as two processes
     sharing the card over gloo, each rank running K1 at 16 heads (held
     against the plain attention), its prefill logits and streams held
-    against world 1's (``serve_mesh``).
+    against world 1's (``serve_mesh``);
+  - ZeRO-sharded checkpoints (``--train-zero-ckpt`` runs this phase alone):
+    GPT-2 125M (B8 S1024 bf16, flash) at stage 3 on ``{fsdp: 2}`` as two
+    processes sharing the card over gloo, saved after 3 of 5 steps (sync,
+    then async from a resumed engine): the resumed stream and state bit for
+    bit the uninterrupted run's, the async tag's bytes the sync tag's; the
+    tag loaded at stage 0 at world 1 over NCCL, leaf for leaf, and through
+    ``zero_to_fp32`` and the universal directory onto stage 1
+    (``train_zero_ckpt``).
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after. Prints JSON lines as it goes; the line before the last
 names the card and its power limit (as nvidia-smi reports them), and the
@@ -147,6 +155,7 @@ Imports nothing of JAX or of the reference package.
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -3806,19 +3815,24 @@ def rss_bytes():
     return None
 
 
-def state_leaves(engine):
-    """Every leaf of the engine's checkpoint state tree, by key (on the card)."""
+def state_leaf_count(engine):
+    """The number of leaves of the engine's checkpoint state tree."""
     from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import tree_items
 
-    return dict(tree_items(engine._state_tree()))
+    return sum(1 for _ in tree_items(engine._state_tree()))
 
 
 def unequal_leaves(a, b):
-    """Keys of the leaves that differ in any bit between two engines."""
-    la, lb = state_leaves(a), state_leaves(b)
-    if sorted(la) != sorted(lb):
-        return ["<the trees differ in keys>"]
-    return [k for k in la if not torch.equal(la[k], lb[k])]
+    """Keys of the leaves that differ in any bit between two engines, each
+    leaf whole (one leaf of each on the host at a time)."""
+    bad = []
+    for (ka, x), (kb, y) in itertools.zip_longest(a._host_leaves(), b._host_leaves(),
+                                                  fillvalue=(None, None)):
+        if ka != kb:
+            return ["<the trees differ in keys>"]
+        if not torch.equal(x, y):
+            bad.append(ka)
+    return bad
 
 
 def tag_bytes(path):
@@ -3958,7 +3972,7 @@ def train_resume_phase(gen, card):
               "layers": L, "dtype": "bfloat16", "losses": losses_a,
               "resume_bitwise": {"sync": losses_b == losses_a and not sync_bad,
                                  "async": losses_d == losses_a and not async_bad},
-              "leaves": len(state_leaves(run_a)), "tag_bytes": nbytes,
+              "leaves": state_leaf_count(run_a), "tag_bytes": nbytes,
               "sync_save_s": sync_save_s, "async_save_blocked_s": async_blocked_s,
               "async_step_during_write_s": step_during_write_s, "async_fence_s": fence_s,
               "load_s": load_s, "load_verify_s": load_verify_s,
@@ -5015,27 +5029,28 @@ def serve_mesh_rank(rank, world, store, out_dir, prompt, new):
         comm.destroy()
     out["foreign_modules"] = sorted(m for m in sys.modules
                                     if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu"))
-    with open(os.path.join(out_dir, f"mesh_rank{rank}.pkl"), "wb") as fh:
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
         pickle.dump(out, fh)
 
 
-def run_mesh_ranks(world, prompt, new):
-    """``serve_mesh_rank`` on ``world`` spawned processes sharing this card;
-    their results in rank order (a rank that left none reports why)."""
+def spawn_ranks(target, world, *args):
+    """``target(rank, world, store, out_dir, *args)`` on ``world`` spawned
+    processes sharing this card, each leaving its result in
+    ``out_dir/rank<r>.pkl``; the results in rank order (a rank that left
+    none reports why)."""
     import pickle
     import tempfile
 
     import torch.multiprocessing as mp
 
-    out_dir = tempfile.mkdtemp(prefix="dstorch_mesh_")
-    ctx = mp.start_processes(serve_mesh_rank, args=(world, os.path.join(out_dir, "store"),
-                                                    out_dir, prompt, new),
+    out_dir = tempfile.mkdtemp(prefix="dstorch_ranks_")
+    ctx = mp.start_processes(target, args=(world, os.path.join(out_dir, "store"), out_dir, *args),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.perf_counter() + MESH_RANKS_TIMEOUT_S
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() > deadline:
-                raise TimeoutError(f"the {world} mesh ranks ran past {MESH_RANKS_TIMEOUT_S} s")
+                raise TimeoutError(f"the {world} ranks ran past {MESH_RANKS_TIMEOUT_S} s")
     except Exception as e:  # a rank that died or hung: stop them all
         for p in ctx.processes:
             if p.is_alive():
@@ -5043,7 +5058,7 @@ def run_mesh_ranks(world, prompt, new):
         return [{"error": f"{type(e).__name__}: {e}"}] * world
     results = []
     for rank in range(world):
-        path = os.path.join(out_dir, f"mesh_rank{rank}.pkl")
+        path = os.path.join(out_dir, f"rank{rank}.pkl")
         if os.path.exists(path):
             with open(path, "rb") as fh:
                 results.append(pickle.load(fh))
@@ -5245,7 +5260,7 @@ def serve_mesh_phase(gen, card):
     world1_err = float((last_bf16 - last_f32).abs().max())
 
     # (b) tensor 2: two processes on this card over gloo
-    ranks = run_mesh_ranks(2, prompt.cpu().numpy(), new)
+    ranks = spawn_ranks(serve_mesh_rank, 2, prompt.cpu().numpy(), new)
     errors = [r.get("error") for r in ranks if r.get("error")]
     check(not errors, f"serve_mesh (b): a rank failed: {errors}")
     b = {"world": 2, "backend": "gloo (through the host)", "errors": errors}
@@ -5342,6 +5357,358 @@ def serve_mesh_main():
     card = smi_card()
     build_all([fa.KERNEL_LIB, fnorm.KERNEL_LIB])
     serve_mesh_phase(torch.Generator(device="cuda").manual_seed(0), card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
+# ---------------------------------------------------------------------------
+# train_zero_ckpt: ZeRO-sharded checkpoints of a split engine
+# ---------------------------------------------------------------------------
+
+# GPT-2 125M (the train phases' B8 S1024 bf16, flash, AdamW) at stage 3 on
+# {fsdp: 2}: two processes sharing the card over gloo, 4 rows a rank; the tag
+# taken after SAVE_AT of STEPS steps
+ZERO_CKPT = {"world": 2, "batch": 8, "seq": 1024, "save_at": 3, "steps": 5}
+# K1 on the model's own q, k and v against the plain attention, both rounded
+# to bf16: within one bf16 unit of the largest output (K1_O_TOL's 3e-2 is an
+# absolute bound for outputs under 4; a layer's outputs here reach 4-8,
+# where one unit is 2^-5)
+K1_REL_TOL_BF16 = 2.0 ** -7
+
+
+def zero_ckpt_data(V):
+    """The global batches every rank (and the parent) draws alike."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    z = ZERO_CKPT
+    return [{"input_ids": torch.randint(0, V, (z["batch"], z["seq"]), generator=gen,
+                                        device="cuda")} for _ in range(z["steps"])]
+
+
+def zero_ckpt_config(stage, async_save=False):
+    z = ZERO_CKPT
+    return dict(train_config(z["batch"] // z["world"]), mesh={"fsdp": z["world"]},
+                zero_optimization={"stage": stage, "stage3_param_persistence_threshold": 0},
+                checkpoint={"async_save": async_save})
+
+
+def rss_rise(fn):
+    """``(fn(), the resident set before, its highest rise while fn ran)``:
+    VmRSS sampled every 2 ms on a thread of its own (the process's peak
+    from getrusage would hide a rise below an earlier peak)."""
+    import threading
+
+    before, top, done = rss_bytes(), [0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            top[0] = max(top[0], rss_bytes())
+            done.wait(0.002)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        got = fn()
+    finally:
+        done.set()
+        thread.join()
+    return got, before, max(top[0], rss_bytes()) - before
+
+
+def zero_ckpt_rank(rank, world, store, out_dir, root):
+    """One rank of ``train_zero_ckpt`` (a): a gloo process group over the
+    ranks sharing card 0. Run A (seed 0) takes SAVE_AT steps, saves (sync),
+    and takes the rest: the uninterrupted stream. Run B (seed 1, the async
+    engine) loads that tag, saves it again (async) and takes the same last
+    steps while its writer writes, then fences. Each rank reports its loss
+    bits, its state's per-leaf checksums after each run and after the load,
+    the saves' and the load's seconds, its steps' ms, its host peak RSS
+    around each save, its launch counts, its first step's K1 calls held
+    against the plain attention, and the foreign modules it imported."""
+    import datetime
+    import pickle
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import integrity
+
+    z, out = ZERO_CKPT, {}
+    torch.cuda.set_device(0)
+    k1, real = [], tf.flash_attention
+
+    def recording(q, k, v, **kw):
+        o = real(q, k, v, **kw)
+        if len(k1) < 12:  # the first step's forward
+            with torch.no_grad():
+                want = fa.mha_reference(q, k, v, causal=kw.get("causal", True),
+                                        sm_scale=kw.get("sm_scale"), window=kw.get("window"))
+                k1.append((tuple(q.shape), float((o.float() - want.float()).abs().max()),
+                           float(want.float().abs().max())))
+        return o
+
+    def checksums(e):
+        """Each gathered param leaf's checksum (the state's other leaves
+        are held to the tag in (b) and by the CPU tests)."""
+        return integrity.manifest_from_leaves(named_leaves(e.gathered_params()))["leaves"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0
+
+    def train(e, batches, ms=None):
+        bits = []
+        for batch in batches:
+            loss, dt = timed(lambda: engine_step(e, batch)[0])
+            bits.append(int(loss.float().view(torch.int32).item()))
+            if ms is not None:
+                ms.append(dt * 1e3)
+        return bits
+
+    tf.flash_attention = recording
+    try:
+        comm.init_distributed(mesh_shape={"fsdp": world}, device="cuda:0",
+                              init_method=f"file://{store}", rank=rank, world_size=world,
+                              dist_backend="gloo",
+                              timeout=datetime.timedelta(seconds=MESH_RANKS_TIMEOUT_S),
+                              verbose=False)
+        model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16", attn_impl="pallas")
+        data = zero_ckpt_data(model.cfg.vocab_size)
+        sync_dir, async_dir = os.path.join(root, "sync"), os.path.join(root, "async")
+        at = z["save_at"]
+        torch.cuda.reset_peak_memory_stats()
+        op_builder.reset_launch_counts()
+        a = deepspeed_tpu_torch.initialize(model=model, config=zero_ckpt_config(3), seed=0)[0]
+        out["step_ms"] = []
+        out["losses_a"] = train(a, data[:at], out["step_ms"])
+        (_, out["sync_save_s"]), out["sync_rss_before"], out["sync_peak_rise"] = rss_rise(
+            lambda: timed(lambda: a.save_checkpoint(sync_dir)))
+        out["losses_a"] += train(a, data[at:], out["step_ms"])
+        out["final_a"] = checksums(a)
+        del a
+        b = deepspeed_tpu_torch.initialize(model=model, config=zero_ckpt_config(3, True),
+                                           seed=1)[0]
+        _, out["load_s"] = timed(lambda: b.load_checkpoint(sync_dir))
+        (_, out["async_blocked_s"]), out["async_rss_before"], out["async_peak_rise"] = rss_rise(
+            lambda: timed(lambda: b.save_checkpoint(async_dir)))
+        out["losses_b"], out["async_steps_s"] = timed(lambda: train(b, data[at:]))
+        _, out["async_fence_s"] = timed(b.checkpoint_engine.wait)
+        out["final_b"] = checksums(b)
+        del b
+        if rank == 0:
+            import filecmp
+
+            tag = f"global_step{at}"
+            files = sorted(os.path.relpath(os.path.join(d, f), os.path.join(sync_dir, tag))
+                           for d, _, fs in os.walk(os.path.join(sync_dir, tag)) for f in fs)
+            out["tag_files"] = len(files)
+            out["tag_bytes"] = tag_bytes(os.path.join(sync_dir, tag))
+            out["async_tag_same_bytes"] = all(
+                filecmp.cmp(os.path.join(sync_dir, tag, f), os.path.join(async_dir, tag, f),
+                            shallow=False) for f in files)
+        torch.cuda.synchronize()
+        out.update(launches=op_builder.launch_counts(), k1=k1,
+                   peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    except Exception as e:  # reported by the parent, as a failed check
+        import traceback
+
+        out["error"] = f"{type(e).__name__}: {e} {traceback.format_exc()[-1500:]}"
+    finally:
+        comm.destroy()
+    out["foreign_modules"] = sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "deepspeed_tpu"))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def train_zero_ckpt_phase(gen, card):
+    """ZeRO-sharded checkpoints on the card. (a) Two processes share the
+    card over gloo (NCCL refuses two ranks on one GPU): GPT-2 125M (B8
+    S1024 bf16, flash, AdamW) at stage 3 on ``{fsdp: 2}`` (``zero_ckpt_rank``):
+    the resumed stream and state equal the uninterrupted run's bit for bit,
+    the loaded state is the tag's, the async tag's bytes are the sync
+    tag's. (b) In this process at world 1 (NCCL), the plain engine at stage
+    0 loads the tag (every leaf the tag's, bit for bit) and takes the last
+    2 steps; ``zero_to_fp32`` of the tag equals the universal directory's
+    ``model_states.npz``, has the reference's shapes for the config and
+    maps back (``leaf_from_numpy``) onto the tag's masters bit for bit; the
+    universal directory loaded into a stage-1
+    engine holds the tag's masters and moments. (c) Each rank launches
+    K1-K3 12 and K7/K8 25 times a step. Returns the launch counts of both
+    ranks and of (b)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.checkpoint import ds_to_universal, load_universal_into_engine
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.ops import op_builder
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import torch_checkpoint_engine as tce
+    from deepspeed_tpu_torch.utils import zero_to_fp32
+
+    t_phase = time.perf_counter()
+    z = ZERO_CKPT
+    at, rest = z["save_at"], z["steps"] - z["save_at"]
+    root = os.path.join(checkpoint_dir_root(), f"train_zero_ckpt_{os.getpid()}")
+    counts, row = {}, {"phase": "train_zero_ckpt", "model": "gpt2-125m", "stage": 3,
+                       "mesh": {"fsdp": z["world"]}, "batch": z["batch"], "seq": z["seq"],
+                       "dtype": "bfloat16", "card": card}
+    try:
+        ranks = spawn_ranks(zero_ckpt_rank, z["world"], root)
+        errors = [r.get("error") for r in ranks if r.get("error")]
+        check(not errors, f"train_zero_ckpt (a): a rank failed: {errors}")
+        if not errors:
+            r0 = ranks[0]
+            for rank, r in enumerate(ranks):
+                check(r["foreign_modules"] == [],
+                      f"train_zero_ckpt: rank {rank} imported {r['foreign_modules']}")
+                check(r["losses_b"] == r["losses_a"][at:] and r["final_b"] == r["final_a"],
+                      f"train_zero_ckpt (a) rank {rank}: the resumed run differs from the "
+                      f"uninterrupted one ({r['losses_b']} vs {r['losses_a'][at:]})")
+                check(r["losses_a"] == r0["losses_a"] and r["final_a"] == r0["final_a"],
+                      f"train_zero_ckpt (a): rank {rank}'s stream differs from rank 0's")
+                worst = max(e / top for _, e, top in r["k1"]) if r["k1"] else None
+                check(len(r["k1"]) == 12 and worst <= K1_REL_TOL_BF16,
+                      f"train_zero_ckpt rank {rank}: K1 against the plain attention {r['k1']}")
+                steps = z["steps"] + rest
+                for kname in KERNELS:
+                    check(r["launches"].get(kname) == 12 * steps,
+                          f"train_zero_ckpt rank {rank}: {kname} launched "
+                          f"{r['launches'].get(kname)} times, expected 12 x {steps}")
+                for kname in NORM_KERNELS:
+                    check(r["launches"].get(kname) == 25 * steps,
+                          f"train_zero_ckpt rank {rank}: {kname} launched "
+                          f"{r['launches'].get(kname)} times, expected 25 x {steps}")
+                for k, c in r["launches"].items():
+                    counts[k] = counts.get(k, 0) + c
+            check(r0["async_tag_same_bytes"],
+                  "train_zero_ckpt (a): the async tag's bytes differ from the sync tag's")
+            losses = [float(np.array(b, np.int32).view(np.float32)) for b in r0["losses_a"]]
+            check(all(np.isfinite(losses)), f"train_zero_ckpt (a): losses {losses}")
+            row.update({
+                "losses": losses, "resume_bitwise": all(
+                    r["losses_b"] == r["losses_a"][at:] and r["final_b"] == r["final_a"]
+                    for r in ranks),
+                "async_tag_same_bytes": r0["async_tag_same_bytes"],
+                "tag_files": r0["tag_files"], "tag_bytes": r0["tag_bytes"],
+                "k1_max_abs_err": max(e for r in ranks for _, e, _ in r["k1"]),
+                "k1_max_err_over_max_o": max(e / top for r in ranks for _, e, top in r["k1"]),
+                **{k: [r[k] for r in ranks] for k in (
+                    "sync_save_s", "async_blocked_s", "async_steps_s", "async_fence_s", "load_s",
+                    "sync_rss_before", "sync_peak_rise", "async_rss_before", "async_peak_rise",
+                    "step_ms", "peak_allocated_bytes", "launches")}})
+        # (b) this process at world 1 over NCCL: the tag onto stage 0 and,
+        # through the universal directory, onto stage 1
+        store = tempfile.mkdtemp(prefix="dstorch_zckpt_")
+        deepspeed_tpu_torch.init_distributed(mesh_shape={"fsdp": -1}, device="cuda",
+                                             init_method=f"file://{store}/store", rank=0,
+                                             world_size=1)
+        tag = os.path.join(root, "sync", f"global_step{at}")
+        try:
+            model = tf.TransformerModel.from_preset("gpt2-125m", dtype="bfloat16",
+                                                    attn_impl="pallas")
+            data = zero_ckpt_data(model.cfg.vocab_size)
+            read, _ = tce.TorchCheckpointEngine().open(tag)
+            op_builder.reset_launch_counts()
+            conf = dict(train_config(z["batch"]), mesh={"fsdp": -1})
+            plain = deepspeed_tpu_torch.initialize(model=model, config=conf, seed=2)[0]
+            t0 = time.perf_counter()
+            plain.load_checkpoint(os.path.join(root, "sync"))
+            torch.cuda.synchronize()
+            stage0_load_s = time.perf_counter() - t0
+            with open(os.path.join(tag, tce.ARRAYS_DIR, tce.INDEX_FILE)) as fh:
+                keys = sorted(json.load(fh))
+            got, same = [], []
+            for k, t in plain._host_leaves():  # one leaf on the host at a time
+                got.append(k)
+                if not torch.equal(t, read(k)):
+                    same.append(k)
+            check(sorted(got) == keys and not same,
+                  f"train_zero_ckpt (b): {len(same)} leaves of the stage-0 engine differ from "
+                  f"the tag's: {same[:3]}")
+            stage0 = [engine_step(plain, batch)[0].item() for batch in data[at:]]
+            check(all(np.isfinite(stage0)), f"train_zero_ckpt (b): stage-0 losses {stage0}")
+            plain_counts = op_builder.launch_counts()
+            paths = plain._state.leaf_paths
+            del plain
+            udir = os.path.join(root, "universal")
+            t0 = time.perf_counter()
+            fp32 = zero_to_fp32.get_fp32_state_dict_from_zero_checkpoint(os.path.join(root, "sync"))
+            z2f_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ds_to_universal(os.path.join(root, "sync"), udir)
+            universal_s = time.perf_counter() - t0
+            with np.load(os.path.join(udir, "model_states.npz")) as npz:
+                diff = [k for k in npz.files if not np.array_equal(npz[k], fp32[k])]
+                check(sorted(npz.files) == sorted(fp32) and not diff,
+                      f"train_zero_ckpt (b): zero_to_fp32 and model_states.npz differ: {diff[:3]}")
+            # held against the tag by the other map: the reference's shapes
+            # for the config, and back through params_from_numpy's layout the
+            # tag's masters, bit for bit
+            shapes = zero_to_fp32._flatten(tf.reference_shapes(model.cfg))
+            wrong = [k for k in shapes if tuple(fp32[k].shape) != tuple(shapes[k])]
+            back = [path for path in paths if not torch.equal(
+                tf.leaf_from_numpy(fp32.__getitem__, path),
+                read("['master_params']" + "".join(f"[{k!r}]" for k in path)))]
+            check(sorted(fp32) == sorted(shapes) and not wrong and not back,
+                  f"train_zero_ckpt (b): zero_to_fp32 against the tag's masters: shapes "
+                  f"{wrong[:3]}, values {back[:3]}")
+            del fp32
+            one = deepspeed_tpu_torch.initialize(
+                model=model, config=dict(conf, zero_optimization={"stage": 1}), seed=3)[0]
+            load_universal_into_engine(one, udir)
+            moved, bad = 0, []
+            for k, t in one._host_leaves():
+                if k.startswith(("['master_params']", "['opt_state'].exp_avg")):
+                    moved += 1
+                    if not torch.equal(t, read(k)):
+                        bad.append(k)
+            check(moved and not bad and one.opt_state.step == at,
+                  f"train_zero_ckpt (b): the universal directory on stage 1 differs from the "
+                  f"tag in {bad[:3]} (step {one.opt_state.step})")
+            del one
+            for k, c in plain_counts.items():
+                counts[k] = counts.get(k, 0) + c
+            for kname in KERNELS:
+                check(plain_counts.get(kname) == 12 * rest,
+                      f"train_zero_ckpt (b): {kname} launched {plain_counts.get(kname)} times")
+            row.update({"stage0_losses": stage0, "stage0_leaves_equal_tag": not same,
+                        "stage0_load_s": stage0_load_s,
+                        "zero_to_fp32_s": z2f_s, "ds_to_universal_s": universal_s,
+                        "zero_to_fp32_equals_universal": not diff,
+                        "zero_to_fp32_maps_back_to_tag": not wrong and not back,
+                        "universal_on_stage1_equals_tag": not bad,
+                        "parent_launches": plain_counts})
+        finally:
+            comm.destroy()
+        emit(dict(row, phase_s=time.perf_counter() - t_phase))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_zero_ckpt_main():
+    """``python3 chip_smoke.py --train-zero-ckpt``: the ``train_zero_ckpt``
+    phase alone (no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    build_all([fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, fnorm.KERNEL_LIB])
+    train_zero_ckpt_phase(torch.Generator(device="cuda").manual_seed(0), card)
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
     return 1 if failures else 0
@@ -6331,6 +6698,9 @@ def main():
     # ---- the tensor-parallel serving mesh: world 1 through NCCL against the
     # engines without a mesh, then tensor 2 as two processes on the card
     mesh_counts = serve_mesh_phase(gen, card)
+    # ---- ZeRO-sharded checkpoints: a stage-3 tag of two processes on the
+    # card over gloo, resumed, loaded at stage 0 and 1, converted offline
+    zero_ckpt_counts = train_zero_ckpt_phase(gen, card)
 
     e1, a23, a456 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"], k456["a_fixed_b2_s4096"]
     a78 = k78["a_ln_8192x768_bf16"]
@@ -6381,7 +6751,8 @@ def main():
                    "hf_families": family_counts.get(kname, 0),
                    **{path: c.get(kname, 0) for path, c in decoder_counts.items()},
                    "train_zero": zero_counts.get(kname, 0),
-                   "serve_mesh": mesh_counts.get(kname, 0)}
+                   "serve_mesh": mesh_counts.get(kname, 0),
+                   "train_zero_ckpt": zero_ckpt_counts.get(kname, 0)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
@@ -6471,5 +6842,6 @@ if __name__ == "__main__":
                ("--fleet",): serve_fleet_main, ("--llama",): llama_main, ("--hf",): hf_main,
                ("--train-resume",): train_resume_main,
                ("--train-decoders",): train_decoders_main,
-               ("--train-zero",): train_zero_main, ("--serve-mesh",): serve_mesh_main}
+               ("--train-zero",): train_zero_main, ("--serve-mesh",): serve_mesh_main,
+               ("--train-zero-ckpt",): train_zero_ckpt_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

@@ -23,9 +23,9 @@ only when it is given an ``init_method`` (or finds one already started),
 and a process without one is a world of one, whose collectives return
 copies. CUDA tensors go over NCCL and CPU tensors over gloo: the backend
 follows the device, unless ``init_distributed(dist_backend=...)`` names
-one. On a gloo group, ``all_reduce`` and ``all_gather`` (the serving
-mesh's) carry a CUDA tensor through the host: gloo takes few collectives
-of CUDA tensors. ``ppermute`` (ring attention's exchange) raises until
+one. On a gloo group every collective carries a CUDA tensor through the
+host (ranks sharing one card: NCCL refuses two ranks on one GPU, and gloo
+takes few collectives of CUDA tensors). ``ppermute`` (ring attention's exchange) raises until
 sequence parallelism is ported.
 
 Serving meshes are subsets of the world: :func:`subset_mesh` builds one
@@ -378,9 +378,9 @@ def barrier(group: GroupLike = None):
 
 def _run(collective, out, src, pg):
     """``collective(out, src, pg)``, through host copies for a CUDA tensor on
-    a gloo group (the serving mesh's ranks sharing one card: gloo takes few
-    collectives of CUDA tensors); NCCL and CPU tensors run as they are.
-    ``out is src`` for an op in place."""
+    a gloo group (ranks sharing one card: gloo takes few collectives of CUDA
+    tensors); NCCL and CPU tensors run as they are. ``out is src`` for an op
+    in place."""
     if not (src.is_cuda and dist.get_backend(pg) == dist.Backend.GLOO):
         collective(out, src, pg)
         return
@@ -446,7 +446,7 @@ def reduce_scatter(tensor, group: GroupLike = None, scatter_dimension: int = 0, 
     if pg is None:
         out.copy_(src)
     else:
-        _reduce_scatter_single(out, src, group=pg)
+        _run(lambda o, s, g: _reduce_scatter_single(o, s, group=g), out, src, pg)
     out = out.movedim(0, dim).contiguous()
     return out if tiled else out.squeeze(dim)
 
@@ -470,7 +470,7 @@ def all_to_all(tensor, group: GroupLike = None, split_axis: int = 0, concat_axis
     if pg is None:
         out.copy_(src)
     else:
-        dist.all_to_all_single(out, src, group=pg)
+        _run(lambda o, s, g: dist.all_to_all_single(o, s, group=g), out, src, pg)
     blocks = out.chunk(size, dim=0)  # block j came from rank j
     blocks = [b.movedim(0, split_axis) for b in blocks]
     if tiled:
@@ -489,7 +489,8 @@ def broadcast(tensor, src: int = 0, group: GroupLike = None):
     pg, _ = _group_of(group)
     out = tensor.clone()
     if pg is not None:
-        dist.broadcast(out, src=dist.get_global_rank(pg, src), group=pg)
+        root = dist.get_global_rank(pg, src)
+        _run(lambda o, _, g: dist.broadcast(o, src=root, group=g), out, out, pg)
     return out
 
 
@@ -519,6 +520,14 @@ def control_group():
         else:
             _STATE.control = dist.new_group(list(range(dist.get_world_size())), backend="gloo")
     return _STATE.control
+
+
+def control_all(flag: bool) -> bool:
+    """Whether ``flag`` holds on every rank of the world: a vote over the
+    control channel, which every rank must reach (a barrier too)."""
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=control_group())
+    return bool(t.item())
 
 
 def control_send(commands):

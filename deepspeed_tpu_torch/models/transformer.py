@@ -441,11 +441,46 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
     or torch tensors (``module_inject``'s policies, in the dtype a
     checkpoint stores); dtypes are kept, and the engine casts to the model
     dtype. A tensor leaf moves to ``device`` before it is transposed or
-    concatenated there."""
+    concatenated there. Each leaf is laid out by :func:`leaf_from_numpy`."""
     check_supported(cfg)
     known = {"embed", "embed_norm", "final_norm", "lm_head", "layers"}
     if set(tree) - known:
         raise not_ported(f"param groups {sorted(set(tree) - known)}")
+
+    def get(name):
+        node = tree
+        for k in name.split("."):
+            node = node[k]
+        return node
+
+    params = {group: {} for group in ("embed", "embed_norm", "final_norm", "lm_head")
+              if group in tree}
+    for group, out in params.items():
+        for k in ("w", "b") if group == "lm_head" else tree[group]:
+            if k in tree[group]:
+                out[k] = leaf_from_numpy(get, (group, k), device)
+    ly = tree["layers"]
+    attn, mlp = ly["attn"], ly["mlp"]
+    keys = ([("attn", "wqkv"), ("attn", "wo")]
+            + ([("attn", "bqkv"), ("attn", "bo")] if "bq" in attn else [])
+            + [("mlp", k) for k in ("wi", "wo", "wg", "bi", "bo") if k in mlp]
+            + [(ln, k) for ln in ("ln1", "ln2") for k in ly[ln]])
+    params["layers"] = []
+    for i in range(cfg.num_layers):
+        layer = {}
+        for block, k in keys:
+            layer.setdefault(block, {})[k] = leaf_from_numpy(get, ("layers", i, block, k), device)
+        params["layers"].append(layer)
+    return params
+
+
+def leaf_from_numpy(get, path, device=None):
+    """Leaf ``path`` of this package's tree (``("layers", 0, "attn",
+    "wqkv")``) from the reference's leaves, laid out as
+    :func:`params_from_numpy` lays it out: ``get(name)`` is the reference's
+    leaf of dotted name ``name`` (``"layers.attn.wq"``), of which a stacked
+    one is indexed by the layer alone (a memory map then reads just that
+    layer's bytes)."""
 
     def t(a, transpose=False):
         if not torch.is_tensor(a):
@@ -459,42 +494,29 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
             return torch.cat([p.to(device) for p in parts], dim=-1)
         return np.concatenate(parts, axis=-1)
 
-    params = {group: {k: t(v) for k, v in tree[group].items()}
-              for group in ("embed", "embed_norm", "final_norm") if group in tree}
-    if "lm_head" in tree:
-        params["lm_head"] = {"w": t(tree["lm_head"]["w"], transpose=True)}
-        if "b" in tree["lm_head"]:
-            params["lm_head"]["b"] = t(tree["lm_head"]["b"])
-    ly = tree["layers"]
-    attn, mlp = ly["attn"], ly["mlp"]
-    layers = []
-    for i in range(cfg.num_layers):
-        layer = {
-            "attn": {"wqkv": t(cat([attn["wq"][i], attn["wk"][i], attn["wv"][i]]), transpose=True),
-                     "wo": t(attn["wo"][i], transpose=True)},
-            "mlp": {"wi": t(mlp["wi"][i], transpose=True), "wo": t(mlp["wo"][i], transpose=True)},
-            "ln1": {k: t(v[i]) for k, v in ly["ln1"].items()},
-            "ln2": {k: t(v[i]) for k, v in ly["ln2"].items()},
-        }
-        if "wg" in mlp:
-            layer["mlp"]["wg"] = t(mlp["wg"][i], transpose=True)
-        if "bq" in attn:
-            layer["attn"]["bqkv"] = t(cat([attn["bq"][i], attn["bk"][i], attn["bv"][i]]))
-            layer["attn"]["bo"] = t(attn["bo"][i])
-        if "bi" in mlp:
-            layer["mlp"]["bi"] = t(mlp["bi"][i])
-            layer["mlp"]["bo"] = t(mlp["bo"][i])
-        layers.append(layer)
-    params["layers"] = layers
-    return params
+    if path[0] != "layers":
+        group, k = path
+        return t(get(f"{group}.{k}"), transpose=path == ("lm_head", "w"))
+    _, i, block, k = path
+    fused = {"wqkv": ("wq", "wk", "wv"), "bqkv": ("bq", "bk", "bv")}
+    if block == "attn" and k in fused:
+        return t(cat([get(f"layers.attn.{n}")[i] for n in fused[k]]), transpose=k == "wqkv")
+    return t(get(f"layers.{block}.{k}")[i], transpose=block in ("attn", "mlp") and k[0] == "w")
 
 
-def _reference_layout(tree, cfg: TransformerConfig):
+def _reference_layout(tree, cfg: Optional[TransformerConfig]):
     """This package's tree -> the reference's layout, as tensors of the
     tree's own dtype and device: ``wqkv`` split back into ``wq``/``wk``/
-    ``wv``, weights transposed to ``x @ w``, layers stacked ``(L, ...)``."""
-    nh, nkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-    split = [nh * hd, nkv * hd, nkv * hd]
+    ``wv``, weights transposed to ``x @ w``, layers stacked ``(L, ...)``.
+    Without ``cfg`` the q rows are read off ``wo``'s columns, and k and v
+    share the rest."""
+    if cfg is not None:
+        q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    else:
+        attn = tree["layers"][0]["attn"]
+        q = attn["wo"].shape[1]
+        kv = (attn["wqkv"].shape[0] - q) // 2
+    split = [q, kv, kv]
 
     def stack(fn):
         return torch.stack([fn(layer) for layer in tree["layers"]])
@@ -525,11 +547,12 @@ def _reference_layout(tree, cfg: TransformerConfig):
     return out
 
 
-def params_to_numpy(tree, cfg: TransformerConfig):
+def params_to_numpy(tree, cfg: Optional[TransformerConfig] = None):
     """The inverse of :func:`params_from_numpy`: this package's tree (of
     parameters or of their gradients) -> the reference's layout as f32 numpy
     arrays: ``wqkv`` split back into ``wq``/``wk``/``wv``, weights transposed
-    to ``x @ w``, layers stacked ``(L, ...)``."""
+    to ``x @ w``, layers stacked ``(L, ...)``. ``cfg`` may be None (a tree
+    read from a checkpoint): the split is then read off the shapes."""
     f32 = map_params(lambda t: t.detach().float().cpu(), tree)
     return map_params(lambda t: t.numpy(), _reference_layout(f32, cfg))
 

@@ -70,17 +70,21 @@ def leaf_crc(arr) -> int:
     return _crc(host_array(arr)[0])
 
 
+def manifest_entry(arr) -> dict:
+    """One leaf's manifest entry: CRC32 of its host bytes, dtype, shape."""
+    a, dtype = host_array(arr)
+    return {"crc32": _crc(a), "dtype": dtype, "shape": list(a.shape)}
+
+
+def manifest_of(entries: Dict[str, dict]) -> dict:
+    """The manifest of ``{key: manifest_entry(leaf)}``."""
+    return {"version": 1, "leaf_count": len(entries), "leaves": dict(entries)}
+
+
 def manifest_from_leaves(named_leaves: Iterable[Tuple[str, object]]) -> dict:
-    """Build the per-leaf manifest from ``(key, host_leaf)`` pairs."""
-    leaves: Dict[str, dict] = {}
-    for key, arr in named_leaves:
-        a, dtype = host_array(arr)
-        leaves[key] = {
-            "crc32": _crc(a),
-            "dtype": dtype,
-            "shape": list(a.shape),
-        }
-    return {"version": 1, "leaf_count": len(leaves), "leaves": leaves}
+    """Build the per-leaf manifest from ``(key, host_leaf)`` pairs (an
+    iterator is consumed one leaf at a time)."""
+    return manifest_of({key: manifest_entry(arr) for key, arr in named_leaves})
 
 
 def verify_leaves(named_leaves: Iterable[Tuple[str, object]],

@@ -14,9 +14,19 @@ Leaves are named as the reference's ``jax.tree_util.keystr`` names the same
 leaf of the same tree: ``['params']['layers'][0]['attn']['wqkv']`` for a
 dict key and a list index, ``['scale_state'].scale`` for a NamedTuple
 field; dict keys are walked in sorted order, as jax flattens them.
+
+Ranks that save one tag together share a :class:`CommitGroup`: the world's
+rank 0 writes every leaf, as each is assembled from the ranks' blocks (the
+leaves may come from an iterator that runs collectives as it is consumed,
+so every rank consumes its own), and the tag is committed only when every
+rank agrees over the control channel, after each has run the pre-commit
+window: then rank 0 places the marker, and no rank goes on before it is
+placed. A load needs no collective: the tag lies on a filesystem every rank
+sees, and each rank reads the leaf files it needs (memory-mapped).
 """
 
 import atexit
+import collections
 import json
 import os
 import re
@@ -27,6 +37,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.runtime.checkpoint_engine import integrity
 from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import CheckpointEngine
 from deepspeed_tpu_torch.runtime.checkpoint_engine.integrity import TornCheckpointError
@@ -92,31 +103,49 @@ def _write_arrays(path: str, leaves, manifest):
     fresh tag directory (an older tag of the same name goes first, stale
     marker and all); returns the manifest, built from the same host bytes
     when ``manifest`` is a function of the named leaves. The files are
-    written by ``_WRITERS`` threads at once: one stream of writes and
-    fsyncs leaves the storage waiting on each file in turn."""
-    if callable(manifest):
-        manifest = manifest(leaves)
+    written by ``_WRITERS`` threads at once (one stream of writes and fsyncs
+    leaves the storage waiting on each file in turn). ``leaves`` may be an
+    iterator that assembles each leaf as it yields: then the leaves waiting
+    on the writers never hold more bytes than the largest leaf so far, so
+    that with the one being assembled no more than two leaves' worth is on
+    the host (a list is on the host already). An iterator is consumed to its
+    end even when a write fails (it may run collectives that other ranks
+    wait on)."""
+    entries = {} if callable(manifest) else None
     if os.path.isdir(path):
         shutil.rmtree(path)
     adir = os.path.join(path, ARRAYS_DIR)
     os.makedirs(adir)
-    index, arrays = {}, {}
-    for key, leaf in leaves:
-        a, dtype = integrity.host_array(leaf)
-        name = _file_name(key)
-        if name in arrays:
-            raise ValueError(f"two leaves map to the file {name!r}")
-        arrays[name] = a
-        index[key] = {"file": name, "dtype": dtype, "shape": list(a.shape)}
-    with ThreadPoolExecutor(max_workers=_WRITERS) as pool:
-        for done in [pool.submit(_write_leaf, os.path.join(adir, name), a)
-                     for name, a in arrays.items()]:
-            done.result()
+    index, pending = {}, collections.deque()
+    streamed, held, largest = not isinstance(leaves, list), 0, 0
+    try:
+        with ThreadPoolExecutor(max_workers=_WRITERS) as pool:
+            for key, leaf in leaves:
+                a, dtype = integrity.host_array(leaf)
+                name = _file_name(key)
+                if any(e["file"] == name for e in index.values()):
+                    raise ValueError(f"two leaves map to the file {name!r}")
+                index[key] = {"file": name, "dtype": dtype, "shape": list(a.shape)}
+                if entries is not None:
+                    entries[key] = integrity.manifest_entry(leaf)
+                pending.append((pool.submit(_write_leaf, os.path.join(adir, name), a), a.nbytes))
+                held, largest = held + a.nbytes, max(largest, a.nbytes)
+                while len(pending) > _WRITERS or (streamed and held > largest):
+                    done, nbytes = pending.popleft()
+                    done.result()
+                    held -= nbytes
+            while pending:
+                pending.popleft()[0].result()
+    except Exception:
+        _drain(leaves)
+        raise
     integrity.write_json_atomic(os.path.join(adir, INDEX_FILE), index)
-    return manifest
+    return integrity.manifest_of(entries) if entries is not None else manifest
 
 
-def _read_leaf(path: str, key: str, entry: dict) -> torch.Tensor:
+def _map_leaf(path: str, key: str, entry: dict) -> torch.Tensor:
+    """The whole leaf ``key`` as a host tensor backed by its file
+    (memory-mapped, copy on write)."""
     fname = os.path.join(path, ARRAYS_DIR, entry["file"])
     dtype = getattr(torch, entry["dtype"])
     shape = tuple(entry["shape"])
@@ -124,7 +153,25 @@ def _read_leaf(path: str, key: str, entry: dict) -> torch.Tensor:
     if not os.path.exists(fname) or os.path.getsize(fname) != want:
         raise TornCheckpointError(f"{path}: leaf {key!r} file {entry['file']} is missing or "
                                   f"not {want} bytes")
-    return torch.from_numpy(np.fromfile(fname, dtype=np.uint8)).view(dtype).reshape(shape)
+    raw = np.memmap(fname, dtype=np.uint8, mode="c") if want else np.empty(0, np.uint8)
+    return torch.from_numpy(raw).view(dtype).reshape(shape)
+
+
+def _drain(leaves):
+    for _ in leaves:
+        pass
+
+
+class CommitGroup:
+    """The ranks of the world that save one tag together: the world's rank
+    0 writes, and :meth:`agree` is a vote of every rank over the control
+    channel."""
+
+    def __init__(self):
+        self.writer = comm.process_world()[0] == 0
+
+    def agree(self, ok: bool) -> bool:
+        return comm.control_all(ok)
 
 
 class TorchCheckpointEngine(CheckpointEngine):
@@ -132,6 +179,11 @@ class TorchCheckpointEngine(CheckpointEngine):
         if use_ocdbt:
             raise not_ported("checkpoint.use_ocdbt (Orbax's OCDBT layout: the port "
                              "writes one file per leaf)")
+        self.world = None  # a CommitGroup where ranks save together
+
+    def writes(self) -> bool:
+        """Whether this rank writes the tags it saves."""
+        return self.world is None or self.world.writer
 
     def save(self, path: str, state_tree, metadata: dict, manifest=None,
              pre_commit=None) -> None:
@@ -142,12 +194,74 @@ class TorchCheckpointEngine(CheckpointEngine):
         torn-write injection window: a raise there leaves a markerless
         tag that ``load`` refuses, exactly like a writer killed
         mid-commit."""
-        path = os.path.abspath(path)
-        manifest = _write_arrays(path, named_host_leaves(state_tree), manifest)
-        _commit_sidecars(path, metadata, manifest, pre_commit)
+        self.save_leaves(path, named_host_leaves(state_tree) if self.writes() else [], metadata,
+                         manifest, pre_commit)
 
-    def load(self, path: str, template_tree, require_commit: bool = True,
+    def save_leaves(self, path: str, leaves, metadata: dict, manifest=None,
+                    pre_commit=None, on_commit=()) -> None:
+        """:meth:`save` of ``(key, host leaf)`` pairs in the tree's order: a
+        list, or an iterator consumed as it yields (each rank of a
+        ``world`` consumes its own; a rank that does not write drains it).
+        ``on_commit``: callbacks to run once the tag is committed, before
+        any rank goes on."""
+        path = os.path.abspath(path)
+        error = None
+        try:
+            if self.writes():
+                manifest = _write_arrays(path, leaves, manifest)
+            else:
+                _drain(leaves)
+        except Exception as exc:  # noqa: BLE001 — every rank votes before it is raised
+            error = exc
+        self._commit(path, metadata, manifest, pre_commit, error, list(on_commit))
+
+    def _commit(self, path, metadata, manifest, pre_commit, error=None, callbacks=None):
+        """Sidecar ordering contract: the arrays are already durable when this
+        runs; metadata next (its presence implies the arrays committed), then
+        the checksum manifest, then — past the injectable ``pre_commit``
+        window, which every rank runs — the atomic commit marker, once every
+        rank agrees, and the ``callbacks`` (each removed from the list as it
+        runs). A death anywhere before the marker leaves a tag that loads as
+        torn; a rank whose part failed raises its error, and the others a
+        ``TornCheckpointError``."""
+        if error is None and self.writes():
+            try:
+                integrity.write_json_atomic(os.path.join(path, integrity.METADATA_FILE),
+                                            metadata)
+                if manifest is not None:
+                    integrity.write_json_atomic(os.path.join(path, integrity.MANIFEST_FILE),
+                                                manifest)
+            except Exception as exc:  # noqa: BLE001 — as above
+                error = exc
+        if error is None and pre_commit is not None:
+            try:
+                pre_commit()
+            except Exception as exc:  # noqa: BLE001 — as above
+                error = exc
+        agreed = error is None if self.world is None else self.world.agree(error is None)
+        if error is not None:
+            raise error
+        if not agreed:
+            raise TornCheckpointError(f"{path}: another rank's part of the commit failed; "
+                                      "the tag stays uncommitted")
+        if self.writes():
+            extra = ({"leaf_count": manifest.get("leaf_count")}
+                     if manifest is not None else None)
+            integrity.write_commit_marker(path, extra=extra)
+        for cb in list(callbacks or ()):
+            cb()
+            callbacks.remove(cb)
+        if self.world is not None:
+            self.world.agree(True)  # no rank goes on before the marker is placed
+
+    def open(self, path: str, keys=None, require_commit: bool = True,
              verify_integrity: bool = True):
+        """Check tag ``path`` and return ``(read, metadata)``: ``read(key)``
+        is the whole leaf as a host tensor backed by its file. Refused
+        (``TornCheckpointError``) without a commit marker, or where a leaf
+        file is short or, with ``verify_integrity``, a leaf of ``keys``
+        (default: every leaf of the tag) fails the manifest's checksum,
+        read one leaf at a time."""
         path = os.path.abspath(path)
         self.wait()
         if require_commit and not integrity.is_committed(path):
@@ -163,29 +277,37 @@ class TorchCheckpointEngine(CheckpointEngine):
                 "checkpoint; load an earlier tag")
         with open(os.path.join(path, ARRAYS_DIR, INDEX_FILE)) as fh:
             index = json.load(fh)
-        keys = [key for key, _ in tree_items(template_tree)]
+        keys = list(index) if keys is None else list(keys)
         absent = [key for key in keys if key not in index]
         if absent:
             raise ValueError(f"{path} holds no leaf {absent[0]!r} of the template "
                              f"({len(absent)} absent): another model, precision or optimizer")
-        host = [(key, _read_leaf(path, key, index[key])) for key in keys]
-        with open(meta_path) as fh:
-            metadata = json.load(fh)
+
+        def read(key):
+            return _map_leaf(path, key, index[key])
+
         if verify_integrity:
             manifest = integrity.read_manifest(path)
             if manifest is not None:
-                problems = integrity.verify_leaves(host, manifest)
+                problems = integrity.verify_leaves(((key, read(key)) for key in keys), manifest)
                 if problems:
                     raise TornCheckpointError(
                         f"{path} failed integrity verification "
                         f"({len(problems)} leaf mismatch(es)): "
                         + "; ".join(problems[:3]))
-        by_key = dict(host)
+        with open(meta_path) as fh:
+            metadata = json.load(fh)
+        return read, metadata
+
+    def load(self, path: str, template_tree, require_commit: bool = True,
+             verify_integrity: bool = True):
+        read, metadata = self.open(path, [key for key, _ in tree_items(template_tree)],
+                                   require_commit, verify_integrity)
         restored = tree_map_with_keys(
-            lambda key, t: by_key[key].to(device=t.device, dtype=t.dtype), template_tree)
+            lambda key, t: read(key).to(device=t.device, dtype=t.dtype), template_tree)
         return restored, metadata
 
-    def wait(self) -> None:
+    def wait(self, alone: bool = False) -> None:
         """Block until in-flight saves are durable (no-op for sync saves)."""
 
     def on_commit(self, callback) -> None:
@@ -194,22 +316,6 @@ class TorchCheckpointEngine(CheckpointEngine):
         the commit fence — 'latest' pointers and anything else that must
         only ever name durable checkpoints goes through here."""
         callback()
-
-
-def _commit_sidecars(path: str, metadata: dict, manifest, pre_commit):
-    """Sidecar ordering contract: the arrays are already durable when this
-    runs; metadata next (its presence implies the arrays committed), then
-    the checksum manifest, then — past the injectable ``pre_commit``
-    window — the atomic commit marker. A death anywhere before the marker
-    leaves a tag that loads as torn."""
-    integrity.write_json_atomic(os.path.join(path, integrity.METADATA_FILE), metadata)
-    if manifest is not None:
-        integrity.write_json_atomic(os.path.join(path, integrity.MANIFEST_FILE), manifest)
-    if pre_commit is not None:
-        pre_commit()
-    extra = ({"leaf_count": manifest.get("leaf_count")}
-             if manifest is not None else None)
-    integrity.write_commit_marker(path, extra=extra)
 
 
 # Engines with a pending (unfenced) save are pinned by a STRONG reference
@@ -223,7 +329,7 @@ _PENDING_ASYNC_ENGINES = set()
 def _drain_async_engines():
     for engine in list(_PENDING_ASYNC_ENGINES):
         try:
-            engine.wait()
+            engine.wait(alone=True)
         except Exception:  # noqa: BLE001 — interpreter exit: nothing is left to report to
             pass
 
@@ -238,7 +344,9 @@ class AsyncTorchCheckpointEngine(TorchCheckpointEngine):
     file writes run on a background thread while training continues.
     ``wait()`` fences: it joins the writer, then places the sidecars and
     runs the commit callbacks; ``load`` and a subsequent ``save`` fence
-    automatically."""
+    automatically. Ranks that save together each reach the fence, where
+    they vote (on the calling thread: the writer thread runs no
+    collective)."""
 
     def __init__(self, use_ocdbt: bool = False):
         super().__init__(use_ocdbt=use_ocdbt)
@@ -246,74 +354,88 @@ class AsyncTorchCheckpointEngine(TorchCheckpointEngine):
         self._pending_meta = None
         self._pending_commits = []
 
-    def save(self, path: str, state_tree, metadata: dict, manifest=None,
-             pre_commit=None) -> None:
+    def save_leaves(self, path: str, leaves, metadata: dict, manifest=None,
+                    pre_commit=None, on_commit=()) -> None:
         path = os.path.abspath(path)
         self.wait()  # one save in flight at a time; flushes prior sidecars
-        leaves = named_host_leaves(state_tree)
         result = {}
+        if self.writes():
+            leaves = list(leaves)  # the host copies, before this returns
 
-        def write():
-            try:
-                result["manifest"] = _write_arrays(path, leaves, manifest)
-            except BaseException as exc:  # noqa: BLE001 — re-raised by the fence
-                result["error"] = exc
+            def write():
+                try:
+                    result["manifest"] = _write_arrays(path, leaves, manifest)
+                except BaseException as exc:  # noqa: BLE001 — re-raised by the fence
+                    result["error"] = exc
 
-        thread = threading.Thread(target=write, name="ckpt-writer")
-        thread.start()
-        self._writer = (thread, result)
+            thread = threading.Thread(target=write, name="ckpt-writer")
+            thread.start()
+            self._writer = (thread, result)
+        else:
+            _drain(leaves)
         # the sidecars ride the next fence (wait()/load()/next save()/
         # atexit), after the writer has made the arrays durable: a commit
         # marker on disk implies the arrays are durable, matching the sync
         # engine's "marker last" ordering
         self._pending_meta = (path, dict(metadata), pre_commit)
+        self._pending_commits.extend(on_commit)
         _PENDING_ASYNC_ENGINES.add(self)
 
     def on_commit(self, callback) -> None:
         self._pending_commits.append(callback)
         _PENDING_ASYNC_ENGINES.add(self)
 
-    def wait(self) -> None:
+    def wait(self, alone: bool = False) -> None:
+        """The fence. ``alone``: the interpreter's exit, where the other
+        ranks may be gone, so there is no vote: the world's writer commits
+        its save once its own writer thread has joined without error (the
+        other ranks' parts were taken before ``save`` returned), and a rank
+        that does not write drops its pending commit."""
         # exception safety: the strong-ref unpin runs regardless — a
         # raising fence must not leave the engine pinned forever
+        world = self.world
         try:
-            manifest = None
+            if alone and world is not None:
+                if not world.writer:
+                    self._pending_meta = None
+                    self._pending_commits.clear()
+                    return
+                self.world = None
+            manifest, error = None, None
             if self._writer is not None:
                 (thread, result), self._writer = self._writer, None
                 thread.join()
-                if "error" in result:
-                    # the arrays never became durable: no marker, and
-                    # nothing may point 'latest' at the tag
-                    self._pending_meta = None
-                    self._pending_commits.clear()
-                    raise result["error"]
-                manifest = result["manifest"]
+                error = result.get("error")
+                manifest = result.get("manifest")
             marker_written = True
             if self._pending_meta is not None:
-                path, metadata, pre_commit = self._pending_meta
+                (path, metadata, pre_commit), self._pending_meta = self._pending_meta, None
                 # the directory can legitimately be gone (test tmp dirs
                 # removed between save and teardown drain) — skip the write
                 # but don't break the fence
-                if os.path.isdir(path):
-                    try:
-                        _commit_sidecars(path, metadata, manifest, pre_commit)
-                    except BaseException:
-                        # torn commit: sidecars before the marker may be
-                        # on disk but the marker is not — the tag must
-                        # load as uncommitted, nothing may point 'latest'
-                        # at it, and a later fence must NOT retroactively
-                        # commit it (a real writer death has no retry)
-                        self._pending_meta = None
-                        self._pending_commits.clear()
-                        raise
-                else:
+                if error is None and self.world is None and not os.path.isdir(path):
                     marker_written = False
                     logger.warning(
                         f"checkpoint dir {path} vanished before the async "
                         "fence; commit marker not written — this tag will "
                         "load as uncommitted and its commit callbacks "
                         "(e.g. the 'latest' pointer) are dropped")
-                self._pending_meta = None
+                else:
+                    try:
+                        self._commit(path, metadata, manifest, pre_commit, error,
+                                     self._pending_commits)
+                    except BaseException:
+                        # the arrays never became durable, or a torn commit:
+                        # sidecars before the marker may be on disk but the
+                        # marker is not — the tag must load as uncommitted,
+                        # nothing may point 'latest' at it, and a later fence
+                        # must NOT retroactively commit it (a real writer
+                        # death has no retry)
+                        self._pending_commits.clear()
+                        raise
+            elif error is not None:
+                self._pending_commits.clear()
+                raise error
             if marker_written:
                 for cb in list(self._pending_commits):
                     cb()
@@ -323,5 +445,6 @@ class AsyncTorchCheckpointEngine(TorchCheckpointEngine):
                 # whose commit marker could not be placed
                 self._pending_commits.clear()
         finally:
+            self.world = world
             if self._pending_meta is None and not self._pending_commits:
                 _PENDING_ASYNC_ENGINES.discard(self)

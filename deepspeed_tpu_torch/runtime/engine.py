@@ -21,8 +21,7 @@ package's layout (``runtime/zero/partitioned.py``). ``forward(batch)``
 takes this rank's rows or the global batch (cut to this rank's block in
 mesh order) and returns the global batch's loss. Without a process group
 the same state is whole on the one device; so it is wherever nothing is
-split (fsdp and tensor of 1), and there the surfaces that read the state as
-one tree (checkpoints, snapshots, probes) work as on one device.
+split (fsdp and tensor of 1).
 
 Parameters come from a seeded ``torch.Generator`` or from ``params=``: the
 reference's layout (its numpy tree, or the tensors that
@@ -37,24 +36,30 @@ Checkpoints (the reference's engine.py:1693-1929): ``save_checkpoint`` writes
 the state tree (params, the loss scale, the gradient accumulators, the f32
 masters and Adam's state) through ``checkpoint_engine/`` with a checksum
 manifest and a commit marker; ``load_checkpoint`` walks the tags newest
-first past torn ones. A load, a host snapshot's restore and the reference
-bridge (:func:`state_from_reference_snapshot`) copy into the engine's own
-tensors, which ``_param_leaves``, ``_base_leaves``, ``grad_acc`` and the
-moments alias. The fault and health seams that ``runtime/resilience.py``
-drives (engine.py:1109-1197, :1287-1321, :1495-1557): ``fault_hook``,
-``poisoned``, ``fetch_timeout_s``, the numeric faults, ``step_health_scalars``,
-``discard_accumulated_grads`` and ``sdc_probe``. ``deepspeed_io`` wraps a
-dataset in ``runtime/dataloader.TpuDataLoader``.
+first past torn ones. A tag holds each leaf whole, in this package's layout,
+whatever the stage and mesh that wrote it: each leaf is assembled from the
+ranks' blocks as it is written (rank 0 writes), and a load cuts each rank's
+blocks from the leaf files, so a tag moves between stages and meshes as it
+is. A load, a host snapshot's restore and the reference bridge
+(:func:`state_from_reference_snapshot`) copy into the engine's own tensors,
+which ``_param_leaves``, ``_base_leaves``, ``grad_acc`` and the moments
+alias. A host snapshot is a copy of this rank's blocks (:class:`HostBlocks`)
+with the whole leaves' manifest. The fault and health seams that
+``runtime/resilience.py`` drives (engine.py:1109-1197, :1287-1321,
+:1495-1557): ``fault_hook``, ``poisoned``, ``fetch_timeout_s``, the numeric
+faults, ``step_health_scalars``, ``discard_accumulated_grads`` and
+``sdc_probe``. ``deepspeed_io`` wraps a dataset in
+``runtime/dataloader.TpuDataLoader``.
 
 Outside this slice (each raises ``NotImplementedError`` naming ROADMAP.md):
-offload, the checkpoints, snapshots and probes of an engine whose state is
-split across ranks (Queue 1 item 9 (b)), pipeline and hybrid engines,
-the engine's per-step telemetry, progressive layer drop and random-LTD,
-optimizers other than Adam/AdamW and client optimizers.
+offload, pipeline and hybrid engines, the engine's per-step telemetry,
+progressive layer drop and random-LTD, optimizers other than Adam/AdamW and
+client optimizers.
 """
 
 import os
 import time
+from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -69,10 +74,10 @@ from deepspeed_tpu_torch.runtime import constants as C
 from deepspeed_tpu_torch.runtime.checkpoint_engine import integrity as ckpt_integrity
 from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import (
     AsyncTorchCheckpointEngine,
+    CommitGroup,
     TorchCheckpointEngine,
     named_host_leaves,
     tree_items,
-    tree_map_with_keys,
 )
 from deepspeed_tpu_torch.runtime.config import TpuConfig
 from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader, TpuDataLoader
@@ -144,6 +149,45 @@ def _leaf_names(tree, prefix=""):
 
 def _host_numpy(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+class _Ref:
+    """A param-shaped leaf of the engine's state tree: leaf ``path`` of this
+    package's tree, of the units of ``what`` (``"param"``, ``"base"`` or
+    ``"grad"``), read from the engine's own tensors of ``name`` (``what``
+    itself, or Adam's ``"exp_avg"``/``"exp_avg_sq"``, which follow
+    ``base``). It is assembled from the ranks' blocks when it is read."""
+
+    __slots__ = ("path", "what", "name")
+
+    def __init__(self, path, what, name):
+        self.path, self.what, self.name = path, what, name
+
+
+@dataclass
+class HostBlocks:
+    """A host snapshot: copies of this rank's units of each
+    component (``units``: ``"param"``, ``"grad"``, ``"base"`` where there
+    are masters, ``"exp_avg"``/``"exp_avg_sq"``), the scalar leaves by tree
+    key, and the (mesh, stage, rank) they were taken on."""
+
+    units: dict
+    scalars: dict
+    layout: tuple
+
+
+class _Leaves:
+    """Leaves by tree key, each read from its file when asked for (a tag's
+    ``read``) and let go after use: a load maps one leaf at a time."""
+
+    def __init__(self, read, keys):
+        self._read, self._keys = read, set(keys)
+
+    def __contains__(self, key):
+        return key in self._keys
+
+    def __getitem__(self, key):
+        return self._read(key)
 
 
 class TpuEngine:
@@ -246,6 +290,8 @@ class TpuEngine:
         engine_cls = (AsyncTorchCheckpointEngine if ckpt.get("async_save", False)
                       else TorchCheckpointEngine)
         self.checkpoint_engine = engine_cls(use_ocdbt=ckpt.get("use_ocdbt", False))
+        if comm.process_world()[1] > 1:  # the ranks save each tag together
+            self.checkpoint_engine.world = CommitGroup()
 
         # --- telemetry hub: off; the TrainSupervisor adopts it and re-injects
         # it into every rebuilt engine (the engine's own per-step events are
@@ -285,14 +331,6 @@ class TpuEngine:
         if current.shape != shape or current.device != comm.comm.canonical_device(self.device):
             comm.init_distributed(mesh_shape=shape, device=self.device, verbose=False)
         return comm.get_mesh()
-
-    def _refuse_split(self, what: str):
-        """The surfaces that read the state as one tree, which an engine
-        whose state is split across ranks does not hold (ZeRO-sharded
-        checkpoints: Queue 1 item 9 (b))."""
-        if self._state.split:
-            raise not_ported(f"{what} of an engine whose state is split across ranks "
-                             "(ZeRO-sharded checkpoints, Queue 1 item 9 (b))")
 
     def gathered_params(self):
         """The full model-dtype params in this package's layout, every
@@ -390,16 +428,23 @@ class TpuEngine:
         """Flip one bit of one accumulated-gradient element (an injected
         SDC). The (leaf, element, bit) target resolves deterministically
         from the plan record (``faults.plan_bitflip``) over the param
-        tree's dotted leaf paths, and the record is annotated with the
-        resolved target for the injector's fired log. One leaf's host round
-        trip: fault path only."""
-        self._refuse_split("an injected gradient bit flip")
+        tree's dotted leaf paths and whole leaves, and the record is
+        annotated with the resolved target for the injector's fired log;
+        on a split engine every rank that holds the element flips it. One
+        element's host round trip: fault path only."""
+        state = self._state
         step = int(record.get("step", self.global_steps + 1))
-        sizes = {name: g.numel() for name, g in zip(self._leaf_names, self.grad_acc)}
+        sizes = {".".join(map(str, path)): int(np.prod(shape, dtype=np.int64))
+                 for path, shape in state.leaf_shapes.items()}
         name, elem, bit = _faults.plan_bitflip(step, sizes, str(record.get("leaf", "") or ""),
                                                int(record.get("bit", -1)))
-        target = self.grad_acc[self._leaf_names.index(name)]
-        target.copy_(torch.from_numpy(_faults.flip_float_bit(_host_numpy(target), elem, bit)))
+        path = state.path_of(name)
+        at = np.unravel_index(elem, state.leaf_shapes[path])
+        for index, block in state.fragments(path, "grad"):
+            if all(sl.start <= i < sl.stop for sl, i in zip(index, at)):
+                local = tuple(int(i - sl.start) for sl, i in zip(index, at))
+                value = _host_numpy(block[local]).reshape(1)
+                block[local] = torch.from_numpy(_faults.flip_float_bit(value, 0, bit))[0]
         record["leaf"], record["bit"] = name, bit
         record.setdefault("elem", elem)
 
@@ -582,46 +627,88 @@ class TpuEngine:
 
     def sdc_probe(self, batch, rng_seed: int = 0) -> int:
         """One sentinel micro-step, out of band: the loss of ``batch`` and
-        its gradients into throwaway tensors (``torch.autograd.grad``), so
-        ``grad_acc``, the counters and the engine's generator are untouched,
-        then a CRC-32 of the gradient bytes as :meth:`backward` would add
-        them. Two probes of one batch give the same digest where a step is
-        a deterministic function of its inputs. ``rng_seed`` is the
-        reference's dropout key: nothing draws from it yet."""
-        self._refuse_split("sdc_probe")
-        loss = self.model.loss(self.params, self._to_device(batch)).float()
-        grads = torch.autograd.grad(loss * self.scale_state.scale, self._param_leaves,
-                                    allow_unused=True)
-        return crc_digest(
-            (torch.zeros(p.shape) if g is None else g.float() / self.predivide).cpu().numpy()
-            for p, g in zip(self._param_leaves, grads))
+        its gradient, accumulated as :meth:`backward` adds it (each rank's
+        share, summed over the data-parallel ranks as the step sums it),
+        then a CRC-32 of the whole logical gradient, leaf by leaf in the
+        tree's order; ``grad_acc`` is put back as it was, and the counters
+        and the engine's generator are untouched. Every rank calls this and
+        gets the same digest. Two probes of one batch give the same digest
+        where a step is a deterministic function of its inputs.
+        ``rng_seed`` is the reference's dropout key: nothing draws from it
+        yet."""
+        state = self._state
+        held = [g.clone() for g in state.grad_acc]
+        torch._foreach_zero_(state.grad_acc)
+        try:
+            local = state.local_batch(self._to_device(batch), self.train_micro_batch_size_per_gpu)
+            (state.loss(local).float() * self.scale_state.scale).backward()
+            state.accumulate(self.predivide)
+            return crc_digest(state.full_leaf(path, "grad").cpu().numpy()
+                              for path in state.leaf_paths)
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(state.grad_acc, held)
 
     # ------------------------------------------------------------------
     # checkpointing (reference: engine.py:1693-1929)
     # ------------------------------------------------------------------
-    def _like_params(self, flat):
-        """A flat list in ``_leaves`` order, shaped as the param tree."""
-        it = iter(flat)
-        return tf.map_params(lambda _: next(it), self.params)
-
     def _state_tree(self):
-        tree = {"params": self.params, "scale_state": self.scale_state,
-                "grad_acc": self._like_params(self.grad_acc)}
-        if self.master_params is not None:
-            tree["master_params"] = self.master_params
+        """The checkpoint state tree: a :class:`_Ref` at each param-shaped
+        leaf (read with :meth:`_host_leaves`, written with ``set_leaf``),
+        the loss scale and Adam's step as tensors."""
+        state = self._state
+
+        def refs(what, name):
+            return state.leaf_tree(lambda path: _Ref(path, what, name))
+
+        tree = {"params": refs("param", "param"), "scale_state": self.scale_state,
+                "grad_acc": refs("grad", "grad")}
+        if self.mixed_precision:
+            tree["master_params"] = refs("base", "base")
         if self.opt_state is not None:
             tree["opt_state"] = OptStateTree(
                 step=torch.tensor(self.opt_state.step, dtype=torch.int32, device=self.device),
-                exp_avg=self._like_params(self.opt_state.exp_avg),
-                exp_avg_sq=self._like_params(self.opt_state.exp_avg_sq))
+                exp_avg=refs("base", "exp_avg"), exp_avg_sq=refs("base", "exp_avg_sq"))
         return tree
 
-    def _host_state_tree(self):
-        """A host copy of the state tree (CPU tensors of their own): the
-        engine writes its buffers in place, so what is saved or kept must
-        not alias them."""
-        return tree_map_with_keys(lambda _, t: t.detach().to("cpu", copy=True),
-                                  self._state_tree())
+    def _units(self, name, blocks=None):
+        """The unit list a :class:`_Ref` of ``name`` reads: a snapshot's
+        copy, Adam's moments, or None (the component's own tensors)."""
+        if blocks is not None:
+            return blocks.units[name]
+        if name in ("exp_avg", "exp_avg_sq"):
+            return getattr(self.opt_state, name)
+        return None
+
+    def _host_leaves(self, blocks: Optional[HostBlocks] = None, keep: bool = True):
+        """``(key, host tensor)`` for every leaf of the state tree, in its
+        order, each assembled when it is reached (collectives on a split
+        engine, which every rank must run: consume this to its end), from
+        the snapshot ``blocks`` where given (which the leaves may alias),
+        else into tensors of their own. ``keep=False`` assembles each leaf
+        and yields none (a rank that does not write)."""
+        for key, leaf in tree_items(self._state_tree()):
+            if isinstance(leaf, _Ref):
+                t = self._state.full_leaf(leaf.path, leaf.what, self._units(leaf.name, blocks))
+            else:
+                t = leaf if blocks is None else blocks.scalars[key]
+            if keep:
+                yield key, t.detach().to("cpu", copy=blocks is None)
+
+    def _layout(self) -> tuple:
+        mesh = tuple(sorted(self.mesh.shape.items())) if self.mesh is not None else None
+        return mesh, self.zero_stage, comm.process_world()[0]
+
+    def _block_units(self, with_moments: bool) -> dict:
+        """This rank's units of each component a :class:`HostBlocks` holds,
+        by name."""
+        state = self._state
+        units = {"param": state.param_units, "grad": state.grad_acc}
+        if self.mixed_precision:
+            units["base"] = state.base
+        if with_moments:
+            units.update(exp_avg=self.opt_state.exp_avg, exp_avg_sq=self.opt_state.exp_avg_sq)
+        return units
 
     def _checkpoint_meta(self, client_state=None) -> dict:
         return {
@@ -640,19 +727,18 @@ class TpuEngine:
         """Write tag ``global_step<N>`` under ``save_dir``; ``latest`` names
         it once it is durable. The state is copied to the host before this
         returns, async or not. ``state_tree``/``manifest`` let the
-        TrainSupervisor commit an already-captured host snapshot without a
-        second copy; plain callers leave both None. Under data parallelism
-        every rank holds the same state, and rank 0 writes it (as DeepSpeed
-        writes its non-ZeRO checkpoint); the others wait for it."""
-        self._refuse_split("save_checkpoint")
-        if comm.get_world_size() > 1 and comm.get_rank() != 0:
-            comm.barrier()
-            return True
+        TrainSupervisor commit an already-captured :meth:`host_state_snapshot`
+        (its :class:`HostBlocks`) without a second copy; plain callers leave
+        both None. With more than one rank every rank calls this: rank 0
+        writes each leaf whole (assembled from the ranks' blocks, one leaf at
+        a time), and the tag is committed once every rank agrees."""
         tag = tag if tag is not None else f"global_step{self.global_steps}"
         meta = self._checkpoint_meta(client_state)
-        tree = state_tree if state_tree is not None else self._host_state_tree()
+        ckpt = self.checkpoint_engine
+        leaves = self._host_leaves(state_tree, keep=ckpt.writes())
         if manifest is None and self.config.checkpoint.get("integrity_manifest", True):
-            # built from the host copies, on the writer's thread when async
+            # built from the host copies as they are written (on the
+            # writer's thread when async)
             manifest = ckpt_integrity.manifest_from_leaves
         pre_commit = None
         if self.fault_hook is not None:
@@ -663,24 +749,20 @@ class TpuEngine:
                 # are durable, the commit marker is not yet placed
                 hook("checkpoint_write", {"step": step, "tag": tag})
 
-        self.checkpoint_engine.save(os.path.join(save_dir, tag), tree, meta,
-                                    manifest=manifest, pre_commit=pre_commit)
-        if save_latest:
+        def _write_latest():
+            # runs at commit time ('latest' must only ever name durable
+            # checkpoints; async saves defer this to their fence) and is
+            # atomic: a reader sees the old pointer or the new
+            os.makedirs(save_dir, exist_ok=True)
+            tmp = os.path.join(save_dir, f".latest.tmp.{os.getpid()}")
+            with open(tmp, "w") as fh:
+                fh.write(tag)
+            os.replace(tmp, os.path.join(save_dir, "latest"))
 
-            def _write_latest():
-                # runs at commit time ('latest' must only ever name durable
-                # checkpoints; async saves defer this to their fence) and is
-                # atomic: a reader sees the old pointer or the new
-                os.makedirs(save_dir, exist_ok=True)
-                tmp = os.path.join(save_dir, f".latest.tmp.{os.getpid()}")
-                with open(tmp, "w") as fh:
-                    fh.write(tag)
-                os.replace(tmp, os.path.join(save_dir, "latest"))
-
-            self.checkpoint_engine.on_commit(_write_latest)
+        ckpt.save_leaves(os.path.join(save_dir, tag), leaves, meta, manifest=manifest,
+                         pre_commit=pre_commit,
+                         on_commit=[_write_latest] if save_latest and ckpt.writes() else [])
         log_dist(f"saved checkpoint {save_dir}/{tag}", ranks=[0])
-        if comm.get_world_size() > 1:
-            comm.barrier()
         return True
 
     def _ckpt_refused(self, tag, reason):
@@ -694,8 +776,10 @@ class TpuEngine:
         """Restore ``tag``, or else what ``latest`` names and then every
         ``global_step<N>`` tag newest first, refusing torn ones; raises
         ``TornCheckpointError`` when none is restorable. Returns
-        ``(path, client_state)``, or ``(None, {})`` without ``latest``."""
-        self._refuse_split("load_checkpoint")
+        ``(path, client_state)``, or ``(None, {})`` without ``latest``.
+        Every rank reads the leaf files and cuts its own blocks; rank 0
+        checks the checksums, and the ranks agree on each tag before any
+        restores it."""
         explicit = tag is not None
         if tag is None:
             latest = os.path.join(load_dir, "latest")
@@ -712,54 +796,68 @@ class TpuEngine:
             # pointer as the lead candidate when it names a foreign tag
             scanned = [t for _s, t, _c in ckpt_integrity.scan_tags(load_dir)]
             candidates = scanned if tag in scanned else [tag] + scanned
-        restored = meta = None
+        ckpt = self.checkpoint_engine
+        keys = [key for key, _ in tree_items(self._state_tree())]
+        read = meta = None
         errors = []
         for cand in candidates:
-            path = os.path.join(load_dir, cand)
             try:
-                restored, meta = self.checkpoint_engine.load(
-                    path, self._state_tree(), verify_integrity=verify_integrity)
+                read, meta = ckpt.open(os.path.join(load_dir, cand), keys,
+                                       verify_integrity=verify_integrity and ckpt.writes())
+                problem = None
+            except ckpt_integrity.TornCheckpointError as e:
+                problem = str(e)
+            if ckpt.world is not None and not ckpt.world.agree(problem is None):
+                problem = problem or "another rank refused it"
+            if problem is None:
                 tag = cand
                 break
-            except ckpt_integrity.TornCheckpointError as e:
-                self._ckpt_refused(cand, str(e))
-                errors.append(f"{cand}: {e}")
-        if restored is None:
+            read = None
+            self._ckpt_refused(cand, problem)
+            errors.append(f"{cand}: {problem}")
+        if read is None:
             raise ckpt_integrity.TornCheckpointError(
                 f"no committed checkpoint restorable from {load_dir} "
                 f"(refused: {'; '.join(errors) or 'none found'})")
         path = os.path.join(load_dir, tag)
-        self._restore_state(restored, meta, load_optimizer_states, load_lr_scheduler_states)
+        self._restore_state(_Leaves(read, keys), meta, load_optimizer_states,
+                            load_lr_scheduler_states)
         log_dist(f"loaded checkpoint {path} at step {self.global_steps}", ranks=[0])
         return path, meta.get("client_state", {})
 
     @torch.no_grad()
-    def _restore_state(self, restored, meta, load_optimizer_states=True,
+    def _restore_state(self, src, meta, load_optimizer_states=True,
                        load_lr_scheduler_states=True):
-        """Copy a restored state tree into the engine's own tensors (the
-        aliases stay valid) and take its counters — shared by disk loads,
-        host-snapshot restores and the reference bridge. Leaves pair by key,
-        whatever the order of the restored tree's dicts."""
-        src = dict(tree_items(restored))
+        """Copy a restored state into the engine's own tensors (the aliases
+        stay valid) and take its counters — shared by disk loads,
+        host-snapshot restores and the reference bridge. ``src`` maps tree
+        keys to whole leaves (leaves pair by key, whatever the order of the
+        restored tree's dicts; each rank cuts its blocks from each), or is a
+        :class:`HostBlocks` of this engine's own layout."""
         live = self._state_tree()
-        groups = ["params", "grad_acc"] + (["master_params"] if self.master_params is not None
-                                           else [])
-        if load_optimizer_states and self.opt_state is not None:
+        groups = ["params", "grad_acc"] + (["master_params"] if "master_params" in live else [])
+        load_opt = load_optimizer_states and self.opt_state is not None
+        if load_opt:
             groups.append("opt_state")
-        absent = [key for g in groups for key, _ in tree_items(live[g], f"[{g!r}]")
-                  if key not in src]
-        if absent:
-            raise ValueError(f"the restored state has no leaf {absent[0]!r} "
-                             f"({len(absent)} absent)")
-        for g in groups:
-            for key, dst in tree_items(live[g], f"[{g!r}]"):
-                if key != "['opt_state'].step":  # a count, not a buffer
-                    dst.copy_(src[key])
-        if "opt_state" in groups:
+        if isinstance(src, HostBlocks):
+            for name, dst in self._block_units(load_opt).items():
+                torch._foreach_copy_(dst, src.units[name])
+            src = src.scalars
+        else:
+            absent = [key for g in groups for key, _ in tree_items(live[g], f"[{g!r}]")
+                      if key not in src]
+            if absent:
+                raise ValueError(f"the restored state has no leaf {absent[0]!r} "
+                                 f"({len(absent)} absent)")
+            for g in groups:
+                for key, dst in tree_items(live[g], f"[{g!r}]"):
+                    if key != "['opt_state'].step":  # a count, not a buffer
+                        self._state.set_leaf(dst.path, dst.what, src[key], self._units(dst.name))
+        if load_opt:
             self.opt_state.step = int(src["['opt_state'].step"])
         self.scale_state = LossScaleState(*(
             src[f"['scale_state'].{f}"].to(self.device, copy=True) for f in LossScaleState._fields))
-        for p in self._param_leaves:
+        for p in self._state.param_units:
             p.grad = None
         self._pending_loss = None
         self._pending_bitflip = None
@@ -782,25 +880,36 @@ class TpuEngine:
         self._rng.set_state(torch.from_numpy(np.asarray(key).astype(np.uint8)))
 
     def host_state_snapshot(self, client_state=None):
-        """One atomic unit of training state on the host: ``(host_tree,
-        meta, manifest)``, the full state tree as CPU tensors of its own,
-        the checkpoint metadata and the per-leaf checksum manifest.
-        Captured at a step boundary it is everything a bitwise resume
+        """One atomic unit of training state on the host: ``(blocks, meta,
+        manifest)``, a :class:`HostBlocks` copy of this rank's blocks (the
+        whole state where nothing is split; never more than this rank's
+        share), the checkpoint metadata and the per-leaf checksum manifest
+        of the whole leaves (assembled one at a time: every rank calls
+        this). Captured at a step boundary it is everything a bitwise resume
         needs."""
-        self._refuse_split("host_state_snapshot")
-        host_tree = self._host_state_tree()
         meta = self._checkpoint_meta(client_state)
-        manifest = ckpt_integrity.manifest_from_leaves(named_host_leaves(host_tree))
-        return host_tree, meta, manifest
+        scalars = {key: leaf.detach().to("cpu", copy=True)
+                   for key, leaf in tree_items(self._state_tree()) if not isinstance(leaf, _Ref)}
+        units = self._block_units(self.opt_state is not None)
+        blocks = HostBlocks({name: [t.detach().to("cpu", copy=True) for t in ts]
+                             for name, ts in units.items()}, scalars, self._layout())
+        return blocks, meta, ckpt_integrity.manifest_from_leaves(self._host_leaves(blocks))
 
     def restore_from_host_state(self, host_tree, meta, verify_integrity=None):
-        """Copy a :meth:`host_state_snapshot` (or the tree of
-        :func:`state_from_reference_snapshot`) back into this engine's
-        tensors; ``verify_integrity`` is the manifest to hold it to."""
-        self._refuse_split("restore_from_host_state")
+        """Copy a :meth:`host_state_snapshot` (onto the layout it was taken
+        on) or a whole state tree (:func:`state_from_reference_snapshot`'s,
+        of which each rank cuts its blocks) back into this engine's tensors;
+        ``verify_integrity`` is the manifest to hold it to."""
+        if isinstance(host_tree, HostBlocks):
+            if host_tree.layout != self._layout():
+                raise ValueError(f"a snapshot of this rank's blocks on {host_tree.layout} does "
+                                 f"not restore onto {self._layout()}")
+            leaves = self._host_leaves(host_tree)
+        else:
+            leaves = named_host_leaves(host_tree)
+            host_tree = dict(tree_items(host_tree))
         if verify_integrity is not None:
-            problems = ckpt_integrity.verify_leaves(named_host_leaves(host_tree),
-                                                    verify_integrity)
+            problems = ckpt_integrity.verify_leaves(leaves, verify_integrity)
             if problems:
                 raise ckpt_integrity.TornCheckpointError(
                     f"host snapshot failed integrity verification "

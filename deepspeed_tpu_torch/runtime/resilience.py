@@ -54,6 +54,13 @@ pre-step state and the cursor replays exactly the batches the lost run
 would have consumed, so the replayed per-step loss stream equals the
 fault-free run's bit for bit wherever a step is a deterministic function
 of its inputs.
+
+On an engine whose state is split across ranks (ZeRO stages 1-3, tensor
+parallelism) every rank runs its own supervisor over the same loader and
+fault plan, in lockstep: a snapshot is each rank's copy of its own blocks
+(with the whole leaves' manifest), the ranks save and load each tag
+together and agree on every commit and every refusal, and the probes and
+sentinel verdicts read values every rank shares.
 """
 
 import time

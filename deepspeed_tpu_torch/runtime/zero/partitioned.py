@@ -44,6 +44,16 @@ data-parallel rank is its share of the global batch's loss: its rows'
 mean, or with a ``loss_mask`` its rows' masked sum over the global count
 (the reference's ``_ce_from_logits`` normalises by the whole batch's
 count).
+
+Whole leaves, for checkpoints, snapshots and the fragment accessors:
+:meth:`PartitionedState.full_leaf` assembles one leaf of this package's
+tree from every rank's blocks of one component (collective: every rank
+calls it, in one order, and gets the same tensor), and
+:meth:`PartitionedState.set_leaf` cuts a whole leaf into this rank's blocks,
+copied into the tensors the optimizer's lists and ``grad_acc`` alias. A
+component is ``"param"``, ``"base"`` or ``"grad"``, or a list aligned with
+the units of one of them (Adam's moments follow ``base``), such as a host
+copy of this rank's units.
 """
 
 import contextlib
@@ -62,6 +72,7 @@ from deepspeed_tpu_torch.runtime.zero.sharding import (
     entry_axes,
     gather_shard,
     local_shard,
+    shard_slices,
 )
 
 DP = ("data", "fsdp")
@@ -191,13 +202,16 @@ class Slot:
 
     def view(self, what: str, j: int):
         """Part ``j`` of component ``what`` (a row view of a whole one)."""
-        t = getattr(self, what)
-        if not torch.is_tensor(t):
-            return None if t[j] is None else t[j].detach()
-        t = t.detach()
+        return self.part_of(getattr(self, what), j)
+
+    def part_of(self, value, j: int):
+        """Part ``j`` of ``value``, a component as this slot holds it."""
+        if not torch.is_tensor(value):
+            return None if value[j] is None else value[j].detach()
+        value = value.detach()
         if len(self.parts) == 1:
-            return t
-        return t.narrow(0, *self.parts[j].src_rows)
+            return value
+        return value.narrow(0, *self.parts[j].src_rows)
 
     def units(self, what: str):
         """The component's tensors that this rank holds."""
@@ -317,8 +331,11 @@ class PartitionedState:
         for p in self.parts:
             by_src.setdefault(p.src, {}).setdefault(p.dst, []).append(p)
         self.slots: List[Slot] = []
+        # this package's leaves, in the order of its trees, and their shapes
+        self.leaf_paths = [path for path, _ in _walk(master)]
+        self.leaf_shapes = {path: tuple(t.shape) for path, t in _walk(master)}
         with torch.no_grad():
-            for path in [path for path, _ in _walk(master)]:
+            for path in self.leaf_paths:
                 full = _get(master, path)
                 _get(master, path[:-1])[path[-1]] = None  # the caller's tree lets it go
                 for dst, parts in by_src[path].items():
@@ -331,8 +348,22 @@ class PartitionedState:
         self.tree = None if self.stage3_gather else self._tree("param")
         self.master_tree = (self._tree("base") if self.mixed
                             and all(torch.is_tensor(s.base) for s in self.slots) else None)
+        self.param_units = [u for s in self.slots for u in s.units("param")]
         self.base = [u for s in self.slots for u in s.units("base")]
         self.grad_acc = [u for s in self.slots for u in s.units("grad")]
+        # where each slot's units start in those lists, and each leaf's parts
+        self._start = {what: {} for what in ("param", "base", "grad")}
+        for what in self._start:
+            n = 0
+            for i, s in enumerate(self.slots):
+                self._start[what][i] = n
+                n += len(s.units(what))
+        self._parts_of = {}
+        for i, s in enumerate(self.slots):
+            for j, p in enumerate(s.parts):
+                self._parts_of.setdefault(p.src, []).append((i, j))
+        for parts in self._parts_of.values():  # row blocks of a fused leaf in row order
+            parts.sort(key=lambda ij: (self.slots[ij[0]].parts[ij[1]].src_rows or (0, 0))[0])
         self.opt_grads = [u for s in self.slots for u in self._opt_grads(s)]
         self.counted = [c for s in self.slots for c in s.counted]
         self._hooks = _Regather(self.fetch) if self.stage3_gather else None
@@ -620,16 +651,17 @@ class PartitionedState:
                 overflow = comm.all_reduce(overflow.float(), comm.ReduceOp.MAX) > 0
         return overflow, gnorm
 
-    def _gather_block(self, s: Slot, j: int, block):
-        """Part ``j``'s tensor-parallel block from its fsdp blocks (in the
-        model dtype)."""
+    def _gather_fsdp(self, s: Slot, j: int, block, dtype):
+        """Part ``j``'s tensor-parallel block from its fsdp blocks (on the
+        device, in ``dtype``; ``block`` is None where another fsdp rank
+        holds the part)."""
         p = s.parts[j]
         if p.fsdp_dim == "layers":
             mine = p.owner == self.fsdp_rank
-            buf = (block.to(self.model_dtype) if mine else
-                   torch.empty(s.tp_shapes[j], dtype=self.model_dtype, device=self.device))
+            buf = (block.to(self.device, dtype) if mine else
+                   torch.empty(s.tp_shapes[j], dtype=dtype, device=self.device))
             return comm.broadcast(buf, p.owner, "fsdp")
-        return comm.all_gather(block.to(self.model_dtype).contiguous(), "fsdp", axis=p.fsdp_dim)
+        return comm.all_gather(block.to(self.device, dtype).contiguous(), "fsdp", axis=p.fsdp_dim)
 
     @torch.no_grad()
     def write_back(self):
@@ -648,7 +680,7 @@ class PartitionedState:
                     continue
                 if p.fsdp_dim is not None and not p.param_sharded:
                     dst.append(target)
-                    src.append(self._gather_block(s, j, block))
+                    src.append(self._gather_fsdp(s, j, block, self.model_dtype))
                 elif self.mixed:
                     dst.append(target)
                     src.append(block)
@@ -662,17 +694,132 @@ class PartitionedState:
         """The full model-dtype params in this package's layout (every
         rank's blocks gathered, in tensors of their own), for comparisons
         and export."""
-        rows = {}
-        with torch.no_grad():
-            for s in self.slots:
-                for j, p in enumerate(s.parts):
-                    t = s.view("param", j) if torch.is_tensor(s.param) else s.param[j]
-                    if p.param_sharded:
-                        t = self._gather_block(s, j, t)
-                    full = gather_shard(t.detach(), p.tp_spec, self.mesh)
-                    rows.setdefault(p.src, []).append(((p.src_rows or (0, 0))[0], full))
+        return self.leaf_tree(lambda path: self.full_leaf(path, "param").clone())
+
+    # ------------------------------------------------------------------
+    # whole leaves (checkpoints, snapshots, the fragment accessors)
+    # ------------------------------------------------------------------
+    def leaf_tree(self, fn):
+        """This package's param tree with ``fn(path)`` at each leaf."""
         tree = {}
-        for path, got in rows.items():
-            got.sort(key=lambda x: x[0])
-            _put(tree, path, torch.cat([x for _, x in got]) if len(got) > 1 else got[0][1].clone())
+        for path in self.leaf_paths:
+            _put(tree, path, fn(path))
         return _port_tree(tree)
+
+    def path_of(self, name) -> Optional[tuple]:
+        """The leaf path of a dotted name (``"layers.0.attn.wqkv"``) or a
+        list of keys, or None where the tree has no such leaf."""
+        keys = ([str(k) for k in name] if isinstance(name, (list, tuple)) else
+                [k for k in str(name).replace("]", "").replace("[", ".").split(".") if k])
+        path = tuple(int(k) if k.isdigit() else k for k in keys)
+        return path if path in self.leaf_shapes else None
+
+    def _value(self, i: int, what, flat=None):
+        """Slot ``i``'s component ``what`` as the slot holds it (a tensor,
+        or a list with None where another rank holds the part); ``flat``, a
+        list aligned with the units of ``what``, is read in its place."""
+        own = getattr(self.slots[i], what)
+        if flat is None:
+            return own
+        start = self._start[what][i]
+        if torch.is_tensor(own):
+            return flat[start]
+        it = iter(flat[start:])
+        return [None if b is None else next(it) for b in own]
+
+    @staticmethod
+    def _split(p: Part, what: str, value) -> bool:
+        """Whether ``value`` holds part ``p`` as its fsdp block."""
+        if torch.is_tensor(value):
+            return False
+        return {"param": p.param_sharded, "grad": p.grad_sharded}.get(what, p.fsdp_dim is not None)
+
+    def _sum_axes(self, p: Part, value) -> tuple:
+        """The axes over which the step sums an accumulator of part ``p``
+        held in ``value`` (:meth:`reduce_grads`). A rank's loss is its share
+        of the global loss, a data-parallel width's worth of it, so these
+        ranks' accumulators sum to ``dp`` times the gradient that one
+        device's accumulator would hold."""
+        return ("data",) if not torch.is_tensor(value) and p.grad_sharded else DP
+
+    @torch.no_grad()
+    def full_leaf(self, path, what: str, flat=None):
+        """Leaf ``path`` of component ``what`` (or of ``flat``, aligned with
+        its units), whole, in this package's layout, from every rank's
+        blocks (the accumulators summed as the step sums them, over
+        ``dp``): on the device where a block was gathered or summed (it may
+        alias this rank's own tensors where nothing was). Collective over
+        the mesh."""
+        rows = []
+        dtype = self.model_dtype if what == "param" else torch.float32
+        for i, j in self._parts_of[path]:
+            s = self.slots[i]
+            p = s.parts[j]
+            value = self._value(i, what, flat)
+            block = s.part_of(value, j)
+            if self._split(p, what, value):
+                block = self._gather_fsdp(s, j, block, dtype)
+            elif not self._whole(p.tp_spec):
+                block = block.to(self.device)
+            if what == "grad" and self.dp > 1:
+                if comm.get_world_size(self._sum_axes(p, value)) > 1:
+                    block = comm.all_reduce(block.to(self.device), comm.ReduceOp.SUM,
+                                            self._sum_axes(p, value))
+                block = block / self.dp
+            rows.append(gather_shard(block, p.tp_spec, self.mesh))
+        return rows[0] if len(rows) == 1 else torch.cat([r.to(rows[0].device) for r in rows])
+
+    @torch.no_grad()
+    def set_leaf(self, path, what: str, full, flat=None):
+        """Copy the whole leaf ``full`` (this package's layout, on any
+        device) into this rank's blocks of component ``what`` (or of
+        ``flat``), in place. Each rank cuts its own: a block that several
+        ranks hold is copied by each, except an accumulator's: the first
+        rank of the axes the step sums over takes ``dp`` times it and the
+        others zero, so that the step's sum divided by ``dp`` is the
+        whole (exactly, for a power of two)."""
+        for i, j in self._parts_of[path]:
+            s = self.slots[i]
+            p = s.parts[j]
+            value = self._value(i, what, flat)
+            dst = s.part_of(value, j)
+            if dst is None:
+                continue
+            if what == "grad" and any(self.mesh.coords[ax] for ax in self._sum_axes(p, value)):
+                dst.zero_()
+                continue
+            x = full if p.src_rows is None else full.narrow(0, *p.src_rows)
+            if not self._whole(p.tp_spec):
+                x = x[shard_slices(x.shape, p.tp_spec, self.mesh)]
+            if self._split(p, what, value):
+                x = self._block(p, x)
+            dst.copy_(x)
+            if what == "grad" and self.dp > 1:
+                dst.mul_(self.dp)
+
+    def fragments(self, path, what: str = "base"):
+        """``(index, block)`` of every block of leaf ``path`` that this rank
+        holds of component ``what``: ``index`` is the block's slices of the
+        whole leaf, ``block`` the tensor (a view of this rank's own)."""
+        out = []
+        for i, j in self._parts_of[path]:
+            s = self.slots[i]
+            p = s.parts[j]
+            value = self._value(i, what)
+            block = s.part_of(value, j)
+            if block is None:
+                continue
+            shape = list(self.leaf_shapes[path])
+            row0 = 0
+            if p.src_rows is not None:
+                row0, shape[0] = p.src_rows
+            index = list(shard_slices(shape, p.tp_spec, self.mesh))
+            d = p.fsdp_dim
+            if self._split(p, what, value) and d != "layers":
+                lo, hi = index[d].start, index[d].stop
+                size = -(-(hi - lo) // self.fsdp)  # torch.chunk's
+                start = min(lo + self.fsdp_rank * size, hi)
+                index[d] = slice(start, min(start + size, hi))
+            index[0] = slice(index[0].start + row0, index[0].stop + row0)
+            out.append((tuple(index), block))
+        return out

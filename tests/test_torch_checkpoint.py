@@ -174,7 +174,7 @@ def _train(engine, steps):
 
 
 def _state(engine):
-    return dict(tce.named_host_leaves(engine._state_tree()))
+    return dict(engine._host_leaves())
 
 
 def _assert_same_state(a, b):

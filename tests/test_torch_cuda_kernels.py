@@ -1429,10 +1429,6 @@ def test_train_checkpoint_resume_is_bitwise_on_the_card(async_save, tmp_path):
     weights) that loads it, 2 more steps. The losses and every leaf of the
     state tree after step 4 are equal bit for bit."""
     _need_card()
-    from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import (
-        named_host_leaves,
-    )
-
     run_a = _train_engine_125m_width()
     batches = _card_batches(4, run_a.model.cfg.vocab_size)
     losses_a = [run_a.train_batch(iter([b])).item() for b in batches]
@@ -1445,8 +1441,8 @@ def test_train_checkpoint_resume_is_bitwise_on_the_card(async_save, tmp_path):
     assert path.endswith("global_step2") and resumed.device.type == "cuda"
     losses_b += [resumed.train_batch(iter([b])).item() for b in batches[2:]]
     assert losses_b == losses_a
-    want = dict(named_host_leaves(run_a._state_tree()))
-    got = dict(named_host_leaves(resumed._state_tree()))
+    want = dict(run_a._host_leaves())
+    got = dict(resumed._host_leaves())
     assert sorted(got) == sorted(want)
     assert all(torch.equal(got[k], want[k]) for k in want)
 
@@ -1641,3 +1637,91 @@ def test_gloo_carries_cuda_tensors_through_the_host():
             np.testing.assert_array_equal(out[name][1], base * 3)
         assert out["all_gather"][0] == "cuda"
         np.testing.assert_array_equal(out["all_gather"][1], np.concatenate([base, base * 2], 1))
+
+
+def _split_ckpt_rank(rank, store, out_dir):
+    """One rank of :func:`test_split_checkpoint_round_trips_on_the_card`."""
+    import datetime
+    import pickle
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import integrity
+
+    torch.cuda.set_device(0)
+    comm.init_distributed(mesh_shape={"fsdp": 2}, device="cuda:0", init_method=f"file://{store}",
+                          rank=rank, world_size=2, dist_backend="gloo",
+                          timeout=datetime.timedelta(seconds=120), verbose=False)
+    out = {}
+    try:
+        x = (torch.arange(32, dtype=torch.float32, device="cuda").reshape(4, 8) % 7 + 1) * (rank + 1)
+        for name, fn in (("reduce_scatter", lambda t: comm.reduce_scatter(t, scatter_dimension=0)),
+                         ("broadcast", lambda t: comm.broadcast(t, src=1)),
+                         ("all_to_all", lambda t: comm.all_to_all(t, "fsdp", split_axis=0,
+                                                                  concat_axis=1))):
+            got, want = fn(x), fn(x.cpu())
+            out[name] = (got.device.type, bool(torch.equal(got.cpu(), want)))
+        model = ttf.TransformerModel(ttf.TransformerConfig(
+            vocab_size=128, hidden_size=128, num_layers=2, num_heads=2, max_seq_len=128,
+            dtype="bfloat16", attn_impl="pallas"))
+        conf = {"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True},
+                "optimizer": {"type": "AdamW", "params": {"lr": 1e-3, "weight_decay": 0.01}},
+                "zero_optimization": {"stage": 3, "stage3_param_persistence_threshold": 0},
+                "mesh": {"fsdp": 2}, "steps_per_print": 10 ** 9}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        data = [{"input_ids": torch.randint(0, 128, (4, 128), generator=gen, device="cuda")}
+                for _ in range(5)]
+
+        def run(e, batches):
+            losses = []
+            for batch in batches:
+                loss = e.forward(batch)
+                e.backward(loss)
+                e.step()
+                losses.append(loss.item())
+            return losses
+
+        def state(e):
+            return integrity.manifest_from_leaves(e._host_leaves())["leaves"]
+
+        ckpt = os.path.join(out_dir, "ckpt")
+        a = deepspeed_tpu_torch.initialize(model=model, config=conf, seed=0)[0]
+        out["uninterrupted"] = run(a, data[:3])
+        a.save_checkpoint(ckpt)
+        out["uninterrupted"] += run(a, data[3:])
+        b = deepspeed_tpu_torch.initialize(model=model, config=conf, seed=1)[0]
+        b.load_checkpoint(ckpt)
+        out["loaded_is_tag"] = state(b) == integrity.read_manifest(
+            os.path.join(ckpt, "global_step3"))["leaves"]
+        out["resumed"] = run(b, data[3:])
+        out["same_state"] = state(a) == state(b)
+    finally:
+        comm.destroy()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+
+
+def test_split_checkpoint_round_trips_on_the_card():
+    """Two ranks sharing the card on a gloo group: ``reduce_scatter``,
+    ``broadcast`` and ``all_to_all`` of CUDA tensors equal the same
+    collectives of their CPU copies; a bf16 GPT-2 (D 128, 2 layers, flash)
+    at stage 3 on ``{fsdp: 2}`` saved after 3 steps loads into a fresh
+    engine (another init) as the tag holds it and continues as the
+    uninterrupted run does, bit for bit."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    _need_card()
+    out_dir = tempfile.mkdtemp(prefix="dstorch_zckpt_")
+    mp.start_processes(_split_ckpt_rank, args=(os.path.join(out_dir, "store"), out_dir),
+                       nprocs=2, join=True, start_method="spawn")
+    for rank in range(2):
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "rb") as fh:
+            out = pickle.load(fh)
+        for name in ("reduce_scatter", "broadcast", "all_to_all"):
+            assert out[name] == ("cuda", True), (rank, name)
+        assert out["loaded_is_tag"] and out["same_state"], rank
+        assert out["resumed"] == out["uninterrupted"][3:], rank

@@ -39,7 +39,6 @@ from deepspeed_tpu.module_inject import load_checkpoint as jlc
 from deepspeed_tpu_torch.models import transformer as ttf
 from deepspeed_tpu_torch.module_inject import export as texport
 from deepspeed_tpu_torch.module_inject import load_checkpoint as tlc
-from deepspeed_tpu_torch.runtime.checkpoint_engine import torch_checkpoint_engine as tce
 from test_torch_training import (BATCH, ENGINE_LOSS_TOL, GAS, PARAM_REL_TOL, STEPS,
                                  _data, _engine_config, _leaves, _rel, _run)
 
@@ -191,7 +190,7 @@ def test_llama_save_at_step_3_and_resume_to_step_6_is_bitwise(tmp_path):
     assert path.endswith("global_step3") and resumed.global_steps == 3
     losses_b += _train(resumed, 3)
     assert losses_b == losses_a
-    sa, sb = (dict(tce.named_host_leaves(e._state_tree())) for e in (run_a, resumed))
+    sa, sb = (dict(e._host_leaves()) for e in (run_a, resumed))
     assert sorted(sa) == sorted(sb) and any("lm_head" in k for k in sa)
     for key in sa:
         assert torch.equal(sa[key], sb[key]), key

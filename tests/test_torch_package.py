@@ -37,6 +37,10 @@ def test_import_pulls_in_neither_jax_nor_the_reference():
             "from deepspeed_tpu_torch.utils import groups\n"
             "from deepspeed_tpu_torch.runtime.zero import sharding, tiling, partitioned\n"
             "from deepspeed_tpu_torch.parallel import partition, tensor_parallel\n"
+            "from deepspeed_tpu_torch import checkpoint\n"
+            "from deepspeed_tpu_torch.checkpoint import ds_to_universal_cli\n"
+            "from deepspeed_tpu_torch.runtime import state_dict_factory\n"
+            "from deepspeed_tpu_torch.utils import tensor_fragment, zero_to_fp32\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'deepspeed_tpu'))\n"
             "print(','.join(bad))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -334,12 +334,9 @@ def test_each_rank_holds_the_reference_s_shards(port_world, name):
                 assert got[what] == ref[what], (rank, what)
     finally:
         jcomm.destroy()
-    for rank in range(2):  # the one-tree surfaces refuse a split state, and run on a whole one
-        for surface, said in port_world[rank][name]["refusals"].items():
-            if name == "stage0":  # every rank holds every leaf whole
-                assert said == "ran", (surface, said)
-            else:
-                assert "item 9 (b)" in said, surface
+    for rank in range(2):  # the one-tree surfaces run on a split state as on a whole one
+        for surface, said in port_world[rank][name]["surfaces"].items():
+            assert said == "ran", (name, surface, said)
     if name == "stage3":  # the placements do split: at least one leaf is halved
         assert got["params"]["layers.attn.wq"] == (2, 32, 64)
         assert got["params"]["layers.mlp.bi"] == (1, 256)

@@ -153,7 +153,7 @@ def engine_program(rank, cases):
         if case.get("shapes"):
             what = ("params", "grad_acc", "opt") + (("master",) if engine.mixed_precision else ())
             out[name] = {w: engine._state.shard_shapes(w) for w in what}
-            out[name]["refusals"] = _refusals(engine, os.path.join(case["ckpt_dir"], name))
+            out[name]["surfaces"] = _one_tree_surfaces(engine, os.path.join(case["ckpt_dir"], name))
             continue
         micro = engine.train_micro_batch_size_per_gpu
         dp_rank = comm.get_rank(comm.batch_axes())
@@ -176,18 +176,18 @@ def engine_program(rank, cases):
     return out
 
 
-def _refusals(engine, ckpt_dir):
-    """What the surfaces that read the state as one tree say: their
-    refusal where the engine's state is split across ranks, else "ran" (a
-    save under ``ckpt_dir`` that rank 0 writes, its load on every rank, a
-    host snapshot restored, a probe)."""
+def _one_tree_surfaces(engine, ckpt_dir):
+    """What the surfaces that read the state as one tree say: "ran", or
+    their refusal (a save under ``ckpt_dir`` that rank 0 writes, its load
+    on every rank, a host snapshot restored, a probe)."""
     snap = []
+    rows = engine.train_micro_batch_size_per_gpu
     calls = {"save_checkpoint": lambda: engine.save_checkpoint(ckpt_dir, tag="t"),
              "load_checkpoint": lambda: engine.load_checkpoint(ckpt_dir, tag="t"),
              "host_state_snapshot": lambda: snap.append(engine.host_state_snapshot()),
              "restore_from_host_state": lambda: engine.restore_from_host_state(
                  *(snap[0][:2] if snap else ({}, {}))),
-             "sdc_probe": lambda: engine.sdc_probe({"input_ids": np.zeros((1, 4), np.int64)})}
+             "sdc_probe": lambda: engine.sdc_probe({"input_ids": np.zeros((rows, 4), np.int64)})}
     out = {}
     for name, call in calls.items():
         try:
@@ -196,6 +196,270 @@ def _refusals(engine, ckpt_dir):
         except NotImplementedError as e:
             out[name] = str(e)
     return out
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-sharded checkpoints: each op on every rank, in one order
+# ---------------------------------------------------------------------------
+
+def _zc_engine(op, seed=None, config=None):
+    """The op's engine: from its params, or (``seed``) from a seeded init,
+    so that only a load can make it equal another."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    model = ttf.TransformerModel(ttf.TransformerConfig(**op["cfg"]))
+    params = op.get("params") if seed is None else None
+    return dst.initialize(model=model, params=params, config=config or op["config"],
+                          device="cpu", seed=seed)[0]
+
+
+def _zc_steps(engine, batches):
+    losses = []
+    for batch in batches:
+        loss = engine.forward(batch)
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss.item())
+    return losses
+
+
+def _zc_whole(engine, rank):
+    """Every leaf of the engine's state tree, whole, by key (rank 0 keeps
+    them; every rank assembles)."""
+    return dict(engine._host_leaves(keep=rank == 0))
+
+
+def _zc_train(rank, op):
+    """Uninterrupted; saved at ``save_at`` and continued; a fresh engine
+    (another init) loading that tag and continuing."""
+    batches, at = op["batches"], op["save_at"]
+    e = _zc_engine(op)
+    out = {"losses_u": _zc_steps(e, batches), "final_u": _zc_whole(e, rank)}
+    conf = dict(op["config"], checkpoint={"async_save": op.get("async", False)})
+    e = _zc_engine(op, config=conf)
+    out["losses_s"] = _zc_steps(e, batches[:at])
+    e.save_checkpoint(op["dir"])
+    out["losses_s"] += _zc_steps(e, batches[at:])
+    e.checkpoint_engine.wait()
+    out["final_s"] = _zc_whole(e, rank)
+    e = _zc_engine(op, seed=7)
+    out["path"] = e.load_checkpoint(op["dir"])[0]
+    out["loaded"] = _zc_whole(e, rank)
+    out["losses_r"] = _zc_steps(e, batches[at:])
+    out["final_r"] = _zc_whole(e, rank)
+    return out
+
+
+def _zc_resume(rank, op):
+    """A fresh engine loading another engine's tag, then continuing."""
+    e = _zc_engine(op, seed=7)
+    out = {"path": e.load_checkpoint(op["dir"], tag=op.get("tag"))[0],
+           "loaded": _zc_whole(e, rank)}
+    out["losses"] = _zc_steps(e, op["batches"])
+    out["final"] = _zc_whole(e, rank)
+    return out
+
+
+def _zc_untrained(rank, op):
+    _zc_engine(op).save_checkpoint(op["dir"])
+    return {}
+
+
+def _zc_fragments(rank, op):
+    """The fragment accessors at two points: after the first batch's
+    forward and backward (``"first"``: the masters still the init, the
+    accumulators holding one gradient), and after that step and the second
+    batch's forward and backward (``"second"``, with the state tree's whole
+    leaves); this rank's fragments, and a write read back."""
+    from deepspeed_tpu_torch.utils import tensor_fragment as tfrag
+
+    def read(e):
+        return {name: {
+            "fp32": tfrag.safe_get_full_fp32_param(e, name),
+            "grad": tfrag.safe_get_full_grad(e, name),
+            "exp_avg": tfrag.safe_get_full_optimizer_state(e, name, "exp_avg"),
+            "exp_avg_sq": tfrag.safe_get_full_optimizer_state(e, name, "exp_avg_sq")}
+            for name in op["names"]}
+
+    e = _zc_engine(op)
+    first, second = op["batches"][:2]
+    e.backward(e.forward(first))
+    out = {"first": read(e)}
+    e.step()
+    e.backward(e.forward(second))
+    out.update(second=read(e), state=_zc_whole(e, rank),
+               fragments={name: [(f.index, f.shape) for f in
+                                 tfrag.get_hp_fragment_mapping(e, name)]
+                          for name in op["names"]})
+    name = op["names"][0]
+    value = out["second"][name]["fp32"] + 1.0
+    out["set_ran"] = tfrag.safe_set_full_fp32_param(e, name, value)
+    out["set_read_back"] = bool(torch.equal(tfrag.safe_get_full_fp32_param(e, name), value))
+    out["unknown"] = (tfrag.safe_get_full_grad(e, "layers.9.mlp.wi"),
+                      tfrag.safe_set_full_fp32_param(e, "nope.w", value))
+    return out
+
+
+def _zc_universal_in(rank, op):
+    """A fresh engine from a universal directory, saved to ``op["save"]``,
+    then continuing."""
+    from deepspeed_tpu_torch.checkpoint import load_universal_into_engine
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    e = _zc_engine(op, seed=7)
+    meta = load_universal_into_engine(e, op["dir"])
+    out = {"meta": meta, "steps": e.global_steps, "loaded": _zc_whole(e, rank)}
+    e.save_checkpoint(op["save"])
+    out["losses"] = _zc_steps(e, op["batches"])
+    out["final"] = ttf.params_to_numpy(e.gathered_params(), e.model.cfg)
+    return out
+
+
+def _zc_exit_drain(rank, op):
+    """An async save left unfenced and drained as the interpreter's exit
+    drains it, rank 1 first while rank 0's writer is held inside its first
+    file: whether a commit marker is on disk after rank 1's drain and
+    before rank 0's, and after rank 0's the marker and the manifest; then
+    every rank loads the tag."""
+    import threading
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import integrity
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import torch_checkpoint_engine as tce
+
+    e = _zc_engine(op, config=dict(op["config"], checkpoint={"async_save": True}))
+    _zc_steps(e, op["batches"][:1])
+    path = os.path.join(op["dir"], "global_step1")
+    entered, release = threading.Event(), threading.Event()
+    write = tce._write_leaf
+
+    def held(fname, a):
+        entered.set()
+        release.wait()
+        write(fname, a)
+
+    out = {}
+    if rank == 0:
+        tce._write_leaf = held
+    try:
+        e.save_checkpoint(op["dir"])
+        if rank == 0:
+            entered.wait()
+        comm.barrier()
+        if rank == 1:
+            tce._drain_async_engines()
+            out["marker_after_rank1_exit"] = integrity.is_committed(path)
+        comm.barrier()
+        if rank == 0:
+            out["marker_before_rank0_exit"] = integrity.is_committed(path)
+            release.set()
+            tce._drain_async_engines()
+            out["marker"] = integrity.is_committed(path)
+            out["manifest"] = integrity.read_manifest(path) is not None
+        comm.barrier()
+    finally:
+        tce._write_leaf = write
+        release.set()
+    out["loaded"] = _zc_engine(op, seed=7).load_checkpoint(op["dir"])[0]
+    return out
+
+
+def _zc_torn(rank, op):
+    """Tags at steps 1-3; a byte of the newest flipped (rank 0 alone checks
+    the checksums), then the marker of the one before removed: each load
+    falls back, and every rank loads the same tag."""
+    import json
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import integrity
+    from deepspeed_tpu_torch.runtime.checkpoint_engine import torch_checkpoint_engine as tce
+
+    e = _zc_engine(op)
+    for batch in op["batches"][:3]:
+        _zc_steps(e, [batch])
+        e.save_checkpoint(op["dir"])
+    out = {}
+    if rank == 0:
+        adir = os.path.join(op["dir"], "global_step3", tce.ARRAYS_DIR)
+        with open(os.path.join(adir, tce.INDEX_FILE)) as fh:
+            leaf = os.path.join(adir, json.load(fh)["['master_params']['embed']['tok']"]["file"])
+        with open(leaf, "r+b") as fh:
+            fh.seek(100)
+            byte = fh.read(1)
+            fh.seek(100)
+            fh.write(bytes([byte[0] ^ 0x10]))
+    comm.barrier()
+    fresh = _zc_engine(op, seed=7)
+    out["flipped"] = (fresh.load_checkpoint(op["dir"])[0], fresh.global_steps)
+    if rank == 0:
+        os.remove(os.path.join(op["dir"], "global_step2", integrity.COMMIT_MARKER))
+    comm.barrier()
+    out["markerless"] = (fresh.load_checkpoint(op["dir"])[0], fresh.global_steps)
+    if rank == 0:
+        os.remove(os.path.join(op["dir"], "global_step1", integrity.COMMIT_MARKER))
+    comm.barrier()
+    try:
+        fresh.load_checkpoint(op["dir"])
+        out["none_left"] = "loaded"
+    except integrity.TornCheckpointError as exc:
+        out["none_left"] = str(exc)
+    return out
+
+
+def _zc_dataset(n=64, seed=11):
+    """Rows that cycle through 16 tokens from a random start after a marker
+    token 127 (the resilience tests' data)."""
+    rs = np.random.RandomState(seed)
+    rows = []
+    for _ in range(n):
+        row = ((rs.randint(0, 16) + np.arange(32)) % 16).astype(np.int32)
+        row[0] = 127
+        rows.append({"input_ids": row})
+    return rows
+
+
+def _zc_supervised(rank, op):
+    """A TrainSupervisor over the op's fault plan (with the sentinel and
+    snapshots on disk) and its fault-free run with the plan's quarantined
+    batches excluded; then two SDC probes of one batch."""
+    from deepspeed_tpu_torch import faults as tfaults
+    from deepspeed_tpu_torch.runtime.dataloader import TpuDataLoader
+    from deepspeed_tpu_torch.runtime.resilience import TrainSupervisor
+
+    def factory():
+        return _zc_engine(op, seed=0)
+
+    def loader(quarantined=()):
+        out = TpuDataLoader(_zc_dataset(), batch_size=op["rows"], seed=0, shuffle=True)
+        for epoch, batch in quarantined:
+            out.quarantine(epoch, batch)
+        return out
+
+    recovery = {"numeric_sentinel": op["sentinel"], "backoff_s": 0.0,
+                "snapshot_every_n_steps": 2, "snapshot_dir": op["dir"]}
+    inj = tfaults.TrainFaultInjector(tfaults.TrainFaultPlan(
+        [tfaults.TrainFault(**f) for f in op["faults"]]))
+    sup = TrainSupervisor(factory, loader(), fault_hook=inj, recovery=recovery)
+    out = {"chaos": sup.run(op["steps"]), "stats": sup.recovery_stats(),
+           "fired": [dict(f) for f in inj.fired]}
+    clean = TrainSupervisor(factory, loader(op["quarantined"]),
+                            recovery={"backoff_s": 0.0, "snapshot_every_n_steps": 0})
+    out["clean"] = clean.run(op["steps"])
+    probe = {"input_ids": np.stack([r["input_ids"] for r in _zc_dataset()[:op["rows"]]])}
+    out["digests"] = [sup.engine.sdc_probe(probe) for _ in range(2)]
+    return out
+
+
+_ZC_OPS = {"train": _zc_train, "resume": _zc_resume, "untrained": _zc_untrained,
+           "fragments": _zc_fragments, "universal_in": _zc_universal_in, "torn": _zc_torn,
+           "supervised": _zc_supervised, "exit_drain": _zc_exit_drain}
+
+
+def zero_checkpoint_program(rank, ops):
+    """Each op of ``ops`` ({name: op}) in order, on every rank; their
+    results by name."""
+    return {name: _ZC_OPS[op["kind"]](rank, op) for name, op in ops.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -488,4 +752,5 @@ def serving_program(rank, cases, skew=None):
         mesh_mod.shutdown()
 
 
-PROGRAMS = {"comm": comm_program, "engine": engine_program, "serving": serving_program}
+PROGRAMS = {"comm": comm_program, "engine": engine_program, "serving": serving_program,
+            "zero_checkpoint": zero_checkpoint_program}
