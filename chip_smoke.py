@@ -22,7 +22,7 @@ backward):
   - serving (``deepspeed_tpu_torch.init_inference`` -> ``generate``) on
     GPT-2 350M at full width and depth: three requests, then a profiled
     breakdown;
-  - the decode path's other request shapes on the same model (12 of its 24
+  - the decode path's other request shapes on the same model (6 of its 24
     layers, for the script's time limit): int8 weights
     (W8A8) and the int8 KV cache in ``bench_decode``'s geometry (B 8 x 128
     + 128, greedy), four engines {bf16, int8} weights x {model, int8} KV on
@@ -144,7 +144,18 @@ backward):
     bit the uninterrupted run's, the async tag's bytes the sync tag's; the
     tag loaded at stage 0 at world 1 over NCCL, leaf for leaf, and through
     ``zero_to_fp32`` and the universal directory onto stage 1
-    (``train_zero_ckpt``).
+    (``train_zero_ckpt``);
+  - Mixture-of-Experts training under remat (``--train-moe`` runs this
+    phase alone): the JAX package's ``moe_gpt_8e`` bench (GPT-2 125M with 8
+    experts top-1, capacity factor 1.25, bf16, xla attention, remat
+    ``nothing_saveable``, AdamW lr 1e-4, ZeRO 0, B8 S1024): (a) the first
+    step against remat off on the same weights bit for bit, both steps'
+    peak memory, 2 + 10 timed steps, a profiled step and the last step's
+    expert load; (b) the same model on the flash path, 3 steps under remat,
+    K1 recomputed (2 a layer a step), its first step bit for bit against
+    remat off; (c) MoE ``generate`` (B 8 x 128 + 32, greedy) on (a)'s
+    trained weights in bf16 against the same weights in f32, and its decode
+    step (``train_moe``).
 Each path is driven with the kernel launch counts set to 0 just before it
 and read just after. Prints JSON lines as it goes; the line before the last
 names the card and its power limit (as nvidia-smi reports them), and the
@@ -1072,9 +1083,10 @@ def fused_ops_phase(gen, card):
 # profiled call runs (int8_spans), so that their device time a decode step
 # can be read; "aten::_int_mm" is the int8 product alone
 INT8_SPANS = ("int8_linear", "quantize_kv", "dequantize_kv")
-# decode_int8 and ragged_chunked run GPT-2 350M at full width and 12 of its 24
-# layers, for the script's time limit (to make room for the serving mesh's phase)
-DECODE_SHAPES_LAYERS = 12
+# decode_int8 and ragged_chunked run GPT-2 350M at full width and 6 of its 24
+# layers, for the script's time limit (12 made room for the serving mesh's
+# phase, 6 for the MoE training phase)
+DECODE_SHAPES_LAYERS = 6
 
 
 @contextlib.contextmanager
@@ -1179,7 +1191,7 @@ def top1_check(lp, lx, what):
 
 def decode_int8_phase(gen, card):
     """The decode slice's int8 request shapes on GPT-2 350M at full width and
-    12 of its 24 layers (``DECODE_SHAPES_LAYERS``), in ``bench_decode``'s
+    6 of its 24 layers (``DECODE_SHAPES_LAYERS``), in ``bench_decode``'s
     geometry (B 8 x prompt 128 + 128 new, greedy, ``max_out_tokens`` 256,
     tight reads): four engines on the same weights, {bf16, int8} weights x
     {model, int8} KV, one at a time. Each
@@ -1313,7 +1325,7 @@ def decode_int8_phase(gen, card):
 
 def ragged_chunked_phase(gen, card):
     """Ragged prompts and chunked prefill on GPT-2 350M at full width and
-    12 of its 24 layers (``DECODE_SHAPES_LAYERS``): B 4, real lengths 128/96/64/17 in a width of 128, left and right
+    6 of its 24 layers (``DECODE_SHAPES_LAYERS``): B 4, real lengths 128/96/64/17 in a width of 128, left and right
     padded, prefilled whole (``attention_mask``) and in chunks of 64 and of
     48 (which does not divide the width), 32 greedy new tokens, with the
     model KV and the int8 KV. Each ``ragged_chunked`` line: the request's
@@ -4152,12 +4164,18 @@ def step_launch_rule(cfg):
     """K1-K3 and K7/K8 launches a training step of ``cfg``: each flash
     kernel once a layer that takes the flash path (``attn_impl="pallas"``
     without ALiBi or per-layer windows; none on the masked path), each norm
-    kernel once a norm of the forward (``norms_per_forward``)."""
+    kernel once a norm of the forward (``norms_per_forward``); under remat K1
+    and K7 once more a layer's for the recompute."""
     flash = (cfg.attn_impl == "pallas" and cfg.pos_embedding != "alibi"
              and not cfg.varying_windows)
     n = norms_per_forward(cfg)
-    return {"flash_fwd": cfg.num_layers * flash, "flash_bwd_dq": cfg.num_layers * flash,
-            "flash_bwd_dkv": cfg.num_layers * flash, "fused_norm_fwd": n, "fused_norm_bwd": n}
+    # under remat (every policy but "full") the backward runs each layer's
+    # forward again: K1 and the layers' norms launch twice
+    again = int(cfg.remat and cfg.remat_policy != "full")
+    layer_norms = n - int(cfg.embed_norm) - int(cfg.norm_position == "pre")
+    return {"flash_fwd": cfg.num_layers * flash * (1 + again),
+            "flash_bwd_dq": cfg.num_layers * flash, "flash_bwd_dkv": cfg.num_layers * flash,
+            "fused_norm_fwd": n + again * layer_norms, "fused_norm_bwd": n}
 
 
 def alibi_slopes(n):
@@ -5714,6 +5732,292 @@ def train_zero_ckpt_main():
     return 1 if failures else 0
 
 
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts training under remat (``--train-moe`` runs this phase
+# alone)
+# ---------------------------------------------------------------------------
+
+# the JAX package's moe_gpt_8e bench (_bench_impl.py:357-392 bench_moe_ep):
+# its config, B8 S1024, 2 warm-up and 10 timed steps; the flash arm 3 steps;
+# generate B 8 x 128 + 32
+MOE_TRAIN = {"batch": 8, "seq": 1024, "warmup": 2, "steps": 10, "flash_steps": 3,
+             "serve_batch": 8, "prompt": 128, "new": 32}
+MOE_ENGINE_CONFIG = {
+    "train_micro_batch_size_per_gpu": 8,
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "bf16": {"enabled": True},
+    "zero_optimization": {"stage": 0},
+    "steps_per_print": 1000000,
+    "mesh": {"data": -1},
+}
+
+
+def moe_model(**over):
+    """``bench_moe_ep``'s model: GPT-2 125M, 8 experts top-1, bf16, remat
+    ``nothing_saveable`` (``over`` replaces fields)."""
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    kw = dict(dtype="bfloat16", remat=True, remat_policy="nothing_saveable",
+              max_seq_len=MOE_TRAIN["seq"], moe_num_experts=8, moe_top_k=1)
+    kw.update(over)
+    return tf.TransformerModel.from_preset("gpt2-125m", **kw)
+
+
+def active_flops_per_token(cfg, seq):
+    """Training FLOPs a token counting only the ``moe_top_k`` experts a token
+    runs (``flops_per_token`` counts all of them): the dense model's count,
+    plus k - 1 more MLPs and the router."""
+    dense = dataclasses.replace(cfg, moe_num_experts=0, moe_use_residual=False)
+    mlp = (3 if cfg.activation == "silu_glu" else 2) * cfg.hidden_size * cfg.ffn_size
+    extra = (cfg.moe_top_k - 1) * mlp + cfg.hidden_size * cfg.moe_num_experts
+    return dense.flops_per_token(seq) + 6.0 * cfg.num_layers * extra
+
+
+@contextlib.contextmanager
+def recorded_gates():
+    """The ``GateOutput`` of every ``topk_gating`` call inside the block
+    (the model's MoE layers, in call order)."""
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    gates, real = [], sharded_moe.topk_gating
+
+    def gating(*args, **kwargs):
+        out = real(*args, **kwargs)
+        gates.append(out)
+        return out
+
+    sharded_moe.topk_gating = gating
+    try:
+        yield gates
+    finally:
+        sharded_moe.topk_gating = real
+
+
+@contextlib.contextmanager
+def recorded_step_logits():
+    """The last position's logits of every cached forward inside the block
+    (a ``generate``'s prefill, then each decode step), on the card."""
+    from deepspeed_tpu_torch.models import transformer as tf
+
+    logits, real = [], tf.forward_with_cache
+
+    def forward_with_cache(*args, **kwargs):
+        out, cache = real(*args, **kwargs)
+        logits.append(out[:, -1].float())
+        return out, cache
+
+    tf.forward_with_cache = forward_with_cache
+    try:
+        yield logits
+    finally:
+        tf.forward_with_cache = real
+
+
+def grads_equal(a, b):
+    """(leaves, leaves not bit for bit equal) of two engines' accumulators."""
+    return len(a), sum(not torch.equal(x, y) for x, y in zip(a, b))
+
+
+def first_step_grads(e, data):
+    """The loss, the f32 gradient accumulators (copies) and the activation
+    peak (the step's peak over what was allocated before it) of one step."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = engine_step(e, data, lambda eng: [g.clone() for g in eng.grad_acc])
+    torch.cuda.synchronize()
+    return float(loss), grads, torch.cuda.max_memory_allocated() - base
+
+
+def train_moe_phase(gen, card):
+    """``bench_moe_ep``'s config on the card: (a) the remat engine's first
+    step against remat off on the same weights (the loss and every gradient
+    leaf bit for bit), each step's activation peak (remat's lower), 2 + 10
+    timed steps (K7 4L + 1 and K8 2L + 1 a step, the first loss at the
+    init's prediction, the loss falling), MFU counting all 8 experts (the
+    reference's ``flops_per_token``) and the active one, a profiled step and
+    the last step's expert load; (b) the flash arm: 3 steps under remat, K1
+    2L, K2/K3 L, K7 4L + 1, K8 2L + 1 a step, its first step's gradients bit
+    for bit against flash without remat; (c) MoE ``generate`` on (a)'s
+    trained weights, bf16 against f32 on the card (equal streams, or the
+    first difference at an f32 top-2 margin under 2 LOGITS_TOL, each step's
+    margin from the f32 engine's own cached forward: a decode step routes
+    with twice the capacity over its rows, so teacher forcing is another
+    computation), and the bf16 engine's decode step. Returns the launch
+    counts of (a)'s timed steps, (b)'s steps and (c)'s requests."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import transformer as tf
+    from deepspeed_tpu_torch.moe.sharded_moe import compute_capacity
+    from deepspeed_tpu_torch.ops import op_builder
+
+    B, S = MOE_TRAIN["batch"], MOE_TRAIN["seq"]
+    model = moe_model()
+    cfg = model.cfg
+    L = cfg.num_layers
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                        device="cuda")}
+    t_phase = time.perf_counter()
+
+    # ---- (a) remat against remat off, then the timed steps
+    engine = deepspeed_tpu_torch.initialize(model=model, config=MOE_ENGINE_CONFIG)[0]
+    init = tf.map_params(lambda p: p.detach().clone(), engine.master_params)
+    off = deepspeed_tpu_torch.initialize(model=moe_model(remat=False), params=init,
+                                         config=MOE_ENGINE_CONFIG)[0]
+    off_loss, off_grads, off_peak = first_step_grads(off, batch)
+    del off
+    torch.cuda.empty_cache()
+    loss0, grads0, remat_peak = first_step_grads(engine, batch)
+    leaves, unequal = grads_equal(off_grads, grads0)
+    del off_grads, grads0
+    check(loss0 == off_loss and unequal == 0,
+          f"train_moe: remat's first step vs remat off: loss {loss0} vs {off_loss}, "
+          f"{unequal} of {leaves} gradient leaves differ")
+    check(remat_peak < off_peak,
+          f"train_moe: remat's step peak {remat_peak} bytes is not under remat off's {off_peak}")
+    run = timed_training(engine, batch, MOE_TRAIN["warmup"] - 1, MOE_TRAIN["steps"])
+    run["losses"] = [loss0] + run["losses"]
+    a_counts = run["counts"]
+    row = training_row("train_moe", cfg, run, B, S, MOE_TRAIN["steps"])
+    med_s = statistics.median(run["step_s"])
+    active = active_flops_per_token(cfg, S)
+    with recorded_gates() as gates:
+        loss = engine.forward(batch)
+    engine.backward(loss)
+    engine.step()
+    counts = torch.stack([g.expert_counts for g in gates[:L]]).sum(0).cpu()
+    kept = sum(int(g.keep.sum()) for g in gates[:L])
+    del gates
+    tk, brow = step_breakdown(engine, batch, NORM_KERNELS, med_s * 1e3, card)
+    check(bool(tk), "train_moe breakdown: the profiler saw no device kernel")
+    emit({"phase": "train_moe", "model": "gpt2-125m x 8 experts (moe_gpt_8e)",
+          "bench": "_bench_impl.py:357-392 bench_moe_ep", "experts": cfg.moe_num_experts,
+          "top_k": cfg.moe_top_k, "capacity_factor": cfg.moe_capacity_factor,
+          "capacity": compute_capacity(B * S, cfg.moe_num_experts, cfg.moe_capacity_factor,
+                                       cfg.moe_min_capacity, cfg.moe_top_k),
+          "remat_policy": cfg.remat_policy, "warmup_steps": MOE_TRAIN["warmup"], **row,
+          "optimizer": "AdamW lr 1e-4",
+          "first_step_vs_remat_off": {"loss": loss0, "remat_off_loss": off_loss,
+                                      "gradient_leaves": leaves, "leaves_not_bit_equal": unequal},
+          "step_activation_peak_bytes": {"remat": remat_peak, "remat_off": off_peak},
+          "flops_per_token_active": active,
+          "mfu_active": active * row["tokens_per_s"] / PEAK_FLOPS[torch.bfloat16],
+          "expert_counts_last_step": counts.tolist(),
+          "tokens_kept_last_step": kept, "token_choices_last_step": B * S * L,
+          "device_ms_by_category": {c: v["device_s"] * 1e3 for c, v in
+                                    brow["by_category"].items()},
+          "device_busy_share_of_unprofiled_step": brow["device_busy_share_of_unprofiled_step"],
+          "device_idle_share": (1 - brow["device_busy_share_of_unprofiled_step"]
+                                if tk else "not measured"),
+          "breakdown": brow, "card": card})
+    trained = tf.map_params(lambda p: p.detach().clone(), engine.master_params)
+    del engine
+    torch.cuda.empty_cache()
+
+    # ---- (b) the flash arm: K1 recomputed under remat
+    flash_off = deepspeed_tpu_torch.initialize(
+        model=moe_model(attn_impl="pallas", remat=False), params=init,
+        config=MOE_ENGINE_CONFIG)[0]
+    f_off_loss, f_off_grads, f_off_peak = first_step_grads(flash_off, batch)
+    del flash_off
+    torch.cuda.empty_cache()
+    flash = deepspeed_tpu_torch.initialize(model=moe_model(attn_impl="pallas"), params=init,
+                                           config=MOE_ENGINE_CONFIG)[0]
+    del init
+    fcfg = flash.model.cfg
+    op_builder.reset_launch_counts()
+    f_loss, f_grads, f_peak = first_step_grads(flash, batch)
+    f_losses = [f_loss] + [float(engine_step(flash, batch)[0])
+                           for _ in range(MOE_TRAIN["flash_steps"] - 1)]
+    torch.cuda.synchronize()
+    b_counts = op_builder.launch_counts()
+    f_leaves, f_unequal = grads_equal(f_off_grads, f_grads)
+    del f_off_grads, f_grads, flash
+    torch.cuda.empty_cache()
+    rule = step_launch_rule(fcfg)
+    steps = MOE_TRAIN["flash_steps"]
+    for k, per_step in rule.items():
+        check(b_counts.get(k, 0) == per_step * steps,
+              f"train_moe flash: {k} launched {b_counts.get(k, 0)} times in {steps} steps, "
+              f"expected {per_step} a step")
+    check(f_loss == f_off_loss and f_unequal == 0,
+          f"train_moe flash: remat's first step vs remat off: loss {f_loss} vs {f_off_loss}, "
+          f"{f_unequal} of {f_leaves} gradient leaves differ")
+    check(all(math.isfinite(x) for x in f_losses), f"train_moe flash: losses {f_losses}")
+    emit({"phase": "train_moe_flash", "attn_impl": "pallas", "steps": steps,
+          "losses": f_losses,
+          "first_step_vs_remat_off": {"loss": f_loss, "remat_off_loss": f_off_loss,
+                                      "gradient_leaves": f_leaves,
+                                      "leaves_not_bit_equal": f_unequal},
+          "step_activation_peak_bytes": {"remat": f_peak, "remat_off": f_off_peak},
+          "launches": {k: b_counts.get(k, 0) for k in STEP_KERNELS},
+          "launches_per_step": {k: b_counts.get(k, 0) / steps for k in STEP_KERNELS},
+          "launch_rule_per_step": rule, "card": card})
+
+    # ---- (c) MoE generate: bf16 against f32 on the same trained weights
+    Bs, P, NEW = MOE_TRAIN["serve_batch"], MOE_TRAIN["prompt"], MOE_TRAIN["new"]
+    toks = torch.randint(0, cfg.vocab_size, (Bs, P), generator=gen, device="cuda")
+    serve_cfg = dataclasses.replace(cfg, remat=False)
+    outs, step_logits = {}, None
+    op_builder.reset_launch_counts()
+    for dtype in ("float32", "bfloat16"):
+        eng = deepspeed_tpu_torch.init_inference(tf.TransformerModel(serve_cfg), params=trained,
+                                                 config={"dtype": dtype})
+        if dtype == "float32":
+            with recorded_step_logits() as step_logits:
+                outs[dtype] = eng.generate(toks, max_new_tokens=NEW).cpu()
+            margins = top2_margins(torch.stack(step_logits[:NEW], dim=1))  # (B, new)
+            del step_logits
+        else:
+            t0 = time.perf_counter()
+            outs[dtype] = eng.generate(toks, max_new_tokens=NEW).cpu()
+            torch.cuda.synchronize()
+            gen_s = time.perf_counter() - t0
+        if dtype == "bfloat16":
+            c_counts = op_builder.launch_counts()
+            decode = step_profile(eng, toks)
+        del eng
+        torch.cuda.empty_cache()
+    del trained
+    streams = [stream_agreement(outs["bfloat16"][b], outs["float32"][b], np.zeros(P),
+                                lambda b=b: margins[b], f"train_moe generate row {b}")
+               for b in range(Bs)]
+    rule = norms_per_forward(serve_cfg) * NEW  # K7: a prefill and NEW - 1 decode steps
+    check(c_counts.get("fused_norm_fwd", 0) == 2 * rule and c_counts.get("fused_norm_bwd", 0) == 0,
+          f"train_moe generate: K7/K8 launched {c_counts.get('fused_norm_fwd', 0)} / "
+          f"{c_counts.get('fused_norm_bwd', 0)} times in two requests, expected {2 * rule} / 0")
+    emit({"phase": "train_moe_generate", "batch": Bs, "prompt": P, "new": NEW,
+          "greedy": True, "attn_impl": serve_cfg.attn_impl,
+          "decode_capacity_factor": 2 * serve_cfg.moe_capacity_factor,
+          "rows_equal": sum(s["equal"] for s in streams), "streams": streams,
+          "margin_tol": 2 * LOGITS_TOL, "bf16_generate_s": gen_s,
+          "launches": {k: c_counts.get(k, 0) for k in STEP_KERNELS},
+          "decode_step": decode, "phase_s": time.perf_counter() - t_phase, "card": card})
+    return {k: a_counts.get(k, 0) + b_counts.get(k, 0) + c_counts.get(k, 0)
+            for k in set(a_counts) | set(b_counts) | set(c_counts)}
+
+
+def train_moe_main():
+    """``python3 chip_smoke.py --train-moe``: the ``train_moe`` phase alone
+    (no ``kernels`` line)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this script needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from deepspeed_tpu_torch.ops import flash_attention as fa
+    from deepspeed_tpu_torch.ops import fused_norm as fnorm
+
+    card = smi_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_all([fa.KERNEL_LIB, fa.BWD_KERNEL_LIB, fnorm.KERNEL_LIB])
+    train_moe_phase(torch.Generator(device="cuda").manual_seed(0), card)
+    if failures:
+        print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
+    return 1 if failures else 0
+
+
 def train_decoders(gen, card):
     """The four decoder-training phases in order; {path: launch counts} and
     ``train_llama``'s line."""
@@ -6701,6 +7005,9 @@ def main():
     # ---- ZeRO-sharded checkpoints: a stage-3 tag of two processes on the
     # card over gloo, resumed, loaded at stage 0 and 1, converted offline
     zero_ckpt_counts = train_zero_ckpt_phase(gen, card)
+    # ---- Mixture-of-Experts training under remat (moe_gpt_8e), its flash
+    # arm with K1 recomputed, and MoE generate on its weights
+    moe_counts = train_moe_phase(gen, card)
 
     e1, a23, a456 = k1["e_train_b8_s1024"], k23["a_train_b8_s1024"], k456["a_fixed_b2_s4096"]
     a78 = k78["a_ln_8192x768_bf16"]
@@ -6752,7 +7059,8 @@ def main():
                    **{path: c.get(kname, 0) for path, c in decoder_counts.items()},
                    "train_zero": zero_counts.get(kname, 0),
                    "serve_mesh": mesh_counts.get(kname, 0),
-                   "train_zero_ckpt": zero_ckpt_counts.get(kname, 0)}
+                   "train_zero_ckpt": zero_ckpt_counts.get(kname, 0),
+                   "train_moe": moe_counts.get(kname, 0)}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
     src = "deepspeed_tpu_torch/ops/csrc"
@@ -6843,5 +7151,5 @@ if __name__ == "__main__":
                ("--train-resume",): train_resume_main,
                ("--train-decoders",): train_decoders_main,
                ("--train-zero",): train_zero_main, ("--serve-mesh",): serve_mesh_main,
-               ("--train-zero-ckpt",): train_zero_ckpt_main}
+               ("--train-zero-ckpt",): train_zero_ckpt_main, ("--train-moe",): train_moe_main}
     sys.exit(ENTRIES.get(tuple(sys.argv[1:]), main)())

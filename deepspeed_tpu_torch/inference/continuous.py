@@ -250,6 +250,9 @@ class ContinuousBatchingEngine:
                     draft_model=draft_model, draft_params=draft_params)
         self._eng = InferenceEngine(model, config=config, params=params, device=device,
                                     seed=seed, mesh=mesh, _announce=False)
+        if self._eng.cfg.moe_num_experts > 0:
+            raise not_ported("MoE layers in the ContinuousBatchingEngine and the serving layer "
+                             "(Queue 1 item 10)")
         self.mesh = self._eng.mesh
         self.shard = self._eng.shard
         # slot caches are written at per-row depths (ragged admission): the

@@ -35,7 +35,13 @@ serve_worker()``. Every generate path runs on the mesh, with the
 reference's per-chip ``kv_bytes_read``. ``{"tensor": 1}`` runs exactly the
 engine without a mesh.
 
+MoE models serve on one device, on the fused and per-token paths (each
+decode step routes its rows with twice the capacity factor, as the
+reference's cached forward does).
+
 Features outside the slice raise ``NotImplementedError`` (ROADMAP.md):
+MoE with int8 weights or speculative decoding (Queue 1 item 10), MoE on a
+mesh wider than one rank or with ``moe.ep_size`` over 1 (item 8 (c)),
 ``profile_model_time``, telemetry on a per-token loop that can migrate its
 cache (the reference's memory snapshot at each migration belongs to
 ROADMAP.md Queue 1 item 11 (b)), and on a mesh wider than one rank a
@@ -86,13 +92,11 @@ _QUANT_GROUPS = ("attn", "mlp", "lm_head")
 
 
 def _check_config(config: InferenceConfig) -> None:
-    checks = [
-        (config.moe.enabled, "MoE inference"),
-        (config.profile_model_time, "profile_model_time"),
-    ]
-    for bad, feature in checks:
-        if bad:
-            raise not_ported(feature)
+    if config.moe.ep_size > 1:
+        raise mesh_mod.refuse(f"MoE inference with moe.ep_size={config.moe.ep_size} (experts "
+                              "split over a serving mesh's expert axis)")
+    if config.profile_model_time:
+        raise not_ported("profile_model_time")
     if config.kv_cache_dtype not in ("model", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'model' or 'int8', got {config.kv_cache_dtype!r}")
     floor = config.kv_read_floor
@@ -224,10 +228,15 @@ class InferenceEngine:
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         tf.check_supported(cfg)
+        if cfg.moe_num_experts > 0 and self._weight_quant:
+            raise not_ported("int8 weights with MoE layers (the experts' stacked 3-D weights; "
+                             "Queue 1 item 10)")
         self.cfg = cfg
         self.model = tf.TransformerModel(cfg)
         self.device = get_accelerator().resolve_device(device)
         self.mesh = resolve_mesh(self.config, mesh)
+        if cfg.moe_num_experts > 0 and mesh_tensor_width(self.mesh) > 1:
+            raise mesh_mod.refuse("a MoE model on a mesh wider than one rank")
         if mesh_tensor_width(self.mesh) > 1:
             if self._weight_quant:
                 raise mesh_mod.refuse(
@@ -477,6 +486,8 @@ class InferenceEngine:
         if generator is None and temperature > 0.0:
             generator = torch.Generator(device=self.device).manual_seed(0)
         speculating = draft is not None or self.config.speculative.enabled
+        if speculating and self.cfg.moe_num_experts > 0:
+            raise not_ported("speculative decoding with MoE layers (Queue 1 item 10)")
         if attention_mask is not None and speculating:
             raise NotImplementedError("speculative decoding does not take attention_mask yet")
         if draft is None and speculating:

@@ -58,10 +58,24 @@ where the head counts do not divide the width, every rank computes every
 head, as the reference does. The vocabulary splits over the ranks: the
 embedding, the logits and the cross-entropy are vocab-parallel.
 
-Features outside the slices (MoE, the encoders: bidirectional attention,
+Mixture-of-Experts layers (``moe_num_experts > 0``) replace the MLP with
+the reference's routed experts (``moe/sharded_moe.moe_forward``): the
+router ``gate`` (D, E) and the experts' ``wi``/``wo``/``wg``/``bi``/``bo``
+stacked over E keep the reference's layout (``x @ w``), the PR-MoE
+residual MLP (``res_*``) takes the dense MLP's, and ``loss_fn`` adds
+``moe_aux_loss_coef`` times the layers' load-balancing loss. The cached
+path routes with twice the capacity factor and no aux loss, as the
+reference's decode does. With ``remat`` each layer runs under
+``runtime/activation_checkpointing.checkpoint_wrapper`` with the config's
+``remat_policy`` (the final norm and the head outside, as in the
+reference); a layer's params may be a callable that fetches them (ZeRO
+stage 3's gather), which then runs inside the recomputed region.
+
+Features outside the slices (the encoders: bidirectional attention,
 token types and ``quick_gelu``, sequence parallelism, block-sparse attention
-with windows or ALiBi, and for training dropout, remat, random-LTD and
-progressive layer drop) raise ``NotImplementedError``; see ROADMAP.md.
+with windows or ALiBi, MoE's random token selection, and for training
+dropout, random-LTD and progressive layer drop) raise
+``NotImplementedError``; see ROADMAP.md.
 """
 
 import functools
@@ -74,6 +88,7 @@ import torch
 import torch.nn.functional as F
 
 from deepspeed_tpu_torch import comm
+from deepspeed_tpu_torch.moe.sharded_moe import moe_forward
 from deepspeed_tpu_torch.ops.block_sparse_attention import block_sparse_attention
 from deepspeed_tpu_torch.ops.cross_entropy import softmax_cross_entropy
 from deepspeed_tpu_torch.ops.flash_attention import flash_attention, supports_seq_len
@@ -88,6 +103,7 @@ from deepspeed_tpu_torch.ops.transformer.inference_ops import (
     update_kv_cache,
 )
 from deepspeed_tpu_torch.parallel import tensor_parallel as tpm
+from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as _ckpt
 from deepspeed_tpu_torch.utils import not_ported
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -335,7 +351,8 @@ def check_supported(cfg: TransformerConfig) -> None:
         (cfg.attn_impl == "block_sparse" and cfg.pos_embedding == "alibi",
          "block-sparse attention with ALiBi"),
         (cfg.kv_cache_dtype not in ("model", "int8"), f"kv_cache_dtype={cfg.kv_cache_dtype!r}"),
-        (cfg.moe_num_experts > 0, "MoE layers"),
+        (cfg.moe_num_experts > 0 and cfg.moe_use_rts,
+         "MoE random token selection (moe_use_rts: the dropout generator, Queue 1 item 10)"),
         (cfg.seq_parallel != "none", f"seq_parallel={cfg.seq_parallel!r}"),
         (cfg.act_quant_bits > 0, "activation fake-quant"),
         (cfg.attn_impl not in ("xla", "pallas", "block_sparse"), f"attn_impl={cfg.attn_impl!r}"),
@@ -402,23 +419,45 @@ def _init_tree(generator: Optional[torch.Generator], cfg: TransformerConfig, pla
     if cfg.use_bias:
         params["final_norm"]["bias"] = zeros(D)
     qkv_out = (nh + 2 * nkv) * hd
+    E = cfg.moe_num_experts
+    wo_std = 1.0 / math.sqrt(F_) / math.sqrt(2 * L)
     layers = []
     for _ in range(L):
+        if E > 0:
+            # the reference's shapes and scales (its models/transformer.py
+            # :300-315): the router and the experts in its layout (x @ w),
+            # stacked over E; the PR-MoE residual MLP in this package's
+            mlp = {"gate": normal(D, E, std=0.02),
+                   "wi": normal(E, D, F_, std=1.0 / math.sqrt(D)),
+                   "wo": normal(E, F_, D, std=wo_std)}
+            if cfg.activation == "silu_glu":
+                mlp["wg"] = normal(E, D, F_, std=1.0 / math.sqrt(D))
+            if cfg.moe_use_residual:
+                mlp["res_wi"] = normal(F_, D, std=1.0 / math.sqrt(D))
+                mlp["res_wo"] = normal(D, F_, std=wo_std)
+                if cfg.activation == "silu_glu":
+                    mlp["res_wg"] = normal(F_, D, std=1.0 / math.sqrt(D))
+                mlp["coef_w"] = normal(D, 2, std=0.02)
+                mlp["coef_b"] = zeros(2)
+        else:
+            mlp = {"wi": normal(F_, D, std=1.0 / math.sqrt(D)), "wo": normal(D, F_, std=wo_std)}
+            if cfg.activation == "silu_glu":
+                mlp["wg"] = normal(F_, D, std=1.0 / math.sqrt(D))
         layer = {
             "attn": {"wqkv": normal(qkv_out, D, std=1.0 / math.sqrt(D)),
                      "wo": normal(D, nh * hd, std=1.0 / math.sqrt(nh * hd) / math.sqrt(2 * L))},
-            "mlp": {"wi": normal(F_, D, std=1.0 / math.sqrt(D)),
-                    "wo": normal(D, F_, std=1.0 / math.sqrt(F_) / math.sqrt(2 * L))},
+            "mlp": mlp,
             "ln1": {"scale": ones(D)},
             "ln2": {"scale": ones(D)},
         }
-        if cfg.activation == "silu_glu":
-            layer["mlp"]["wg"] = normal(F_, D, std=1.0 / math.sqrt(D))
         if cfg.use_bias:
             layer["attn"]["bqkv"] = zeros(qkv_out)
             layer["attn"]["bo"] = zeros(D)
-            layer["mlp"]["bi"] = zeros(F_)
-            layer["mlp"]["bo"] = zeros(D)
+            mlp["bi"] = zeros(E, F_) if E > 0 else zeros(F_)
+            mlp["bo"] = zeros(E, D) if E > 0 else zeros(D)
+            if E > 0 and cfg.moe_use_residual:
+                mlp["res_bi"] = zeros(F_)
+                mlp["res_bo"] = zeros(D)
             layer["ln1"]["bias"] = zeros(D)
             layer["ln2"]["bias"] = zeros(D)
         layers.append(layer)
@@ -463,7 +502,7 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
     attn, mlp = ly["attn"], ly["mlp"]
     keys = ([("attn", "wqkv"), ("attn", "wo")]
             + ([("attn", "bqkv"), ("attn", "bo")] if "bq" in attn else [])
-            + [("mlp", k) for k in ("wi", "wo", "wg", "bi", "bo") if k in mlp]
+            + [("mlp", k) for k in _MLP_ORDER if k in mlp]
             + [(ln, k) for ln in ("ln1", "ln2") for k in ly[ln]])
     params["layers"] = []
     for i in range(cfg.num_layers):
@@ -472,6 +511,11 @@ def params_from_numpy(tree, cfg: TransformerConfig, device=None):
             layer.setdefault(block, {})[k] = leaf_from_numpy(get, ("layers", i, block, k), device)
         params["layers"].append(layer)
     return params
+
+
+# a layer's MLP leaves in the order init lays them out (dense, then MoE's)
+_MLP_ORDER = ("gate", "wi", "wo", "wg", "res_wi", "res_wo", "res_wg", "coef_w", "coef_b", "bi",
+              "bo", "res_bi", "res_bo")
 
 
 def leaf_from_numpy(get, path, device=None):
@@ -501,7 +545,21 @@ def leaf_from_numpy(get, path, device=None):
     fused = {"wqkv": ("wq", "wk", "wv"), "bqkv": ("bq", "bk", "bv")}
     if block == "attn" and k in fused:
         return t(cat([get(f"layers.attn.{n}")[i] for n in fused[k]]), transpose=k == "wqkv")
-    return t(get(f"layers.{block}.{k}")[i], transpose=block in ("attn", "mlp") and k[0] == "w")
+    a = get(f"layers.{block}.{k}")[i]
+    return t(a, transpose=is_transposed(block, k, len(a.shape)))
+
+
+# a layer's matrix weights, stored (out, in) here and (in, out) in the
+# reference; the experts' stacked (3-D) ones and MoE's gate and
+# coefficient keep the reference's layout
+_LINEAR_WEIGHTS = {"attn": ("wq", "wk", "wv", "wo"),
+                   "mlp": ("wi", "wg", "wo", "res_wi", "res_wg", "res_wo")}
+
+
+def is_transposed(block: str, key: str, ndim: int) -> bool:
+    """Whether a layer's leaf ``block.key`` of ``ndim`` dims (one layer's)
+    is the transpose of the reference's."""
+    return ndim == 2 and key in _LINEAR_WEIGHTS.get(block, ())
 
 
 def _reference_layout(tree, cfg: Optional[TransformerConfig]):
@@ -536,9 +594,9 @@ def _reference_layout(tree, cfg: Optional[TransformerConfig]):
         for i, name in enumerate(("bq", "bk", "bv")):
             attn[name] = stack(lambda ly, i=i: ly["attn"]["bqkv"].split(split)[i])
         attn["bo"] = stack(lambda ly: ly["attn"]["bo"])
-    mlp = {k: stack(lambda ly, k=k: ly["mlp"][k].T)
-           for k in ("wi", "wo", "wg") if k in first["mlp"]}
-    mlp.update({k: stack(lambda ly, k=k: ly["mlp"][k]) for k in ("bi", "bo") if k in first["mlp"]})
+    mlp = {k: stack(lambda ly, k=k: ly["mlp"][k].T if is_transposed("mlp", k, v.dim())
+                    else ly["mlp"][k])
+           for k, v in first["mlp"].items()}
     out["layers"] = {
         "attn": attn, "mlp": mlp,
         "ln1": {k: stack(lambda ly, k=k: ly["ln1"][k]) for k in first["ln1"]},
@@ -568,7 +626,15 @@ _ATTN_LOGICAL = {"wq": ("embed", "heads"), "wk": ("embed", "kv"), "wv": ("embed"
                  "wo": ("heads", "embed"), "bq": ("heads",), "bk": ("kv",), "bv": ("kv",),
                  "bo": ("embed",)}
 _MLP_LOGICAL = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"), "wo": ("mlp", "embed"),
-                "bi": ("mlp",), "bo": ("embed",)}
+                "bi": ("mlp",), "bo": ("embed",), "gate": ("embed", None),
+                # PR-MoE residual MLP + mixing coefficient (dense)
+                "res_wi": ("embed", "mlp"), "res_wg": ("embed", "mlp"),
+                "res_wo": ("mlp", "embed"), "res_bi": ("mlp",), "res_bo": ("embed",),
+                "coef_w": ("embed", None), "coef_b": (None,)}
+# the experts' leaves, stacked over E (the reference's :393-396)
+_EXPERT_LOGICAL = {"wi": ("expert", "embed", "mlp"), "wg": ("expert", "embed", "mlp"),
+                   "wo": ("expert", "mlp", "embed"), "bi": ("expert", "mlp"),
+                   "bo": ("expert", "embed")}
 
 
 def logical_specs(shapes, cfg: TransformerConfig):
@@ -582,6 +648,8 @@ def logical_specs(shapes, cfg: TransformerConfig):
         if "attn" in path:
             return pre + _ATTN_LOGICAL[last]
         if "mlp" in path:
+            if cfg.moe_num_experts > 0 and last in _EXPERT_LOGICAL:
+                return pre + _EXPERT_LOGICAL[last]
             return pre + _MLP_LOGICAL[last]
         if path[0] in ("final_norm", "embed_norm") or "ln1" in path or "ln2" in path:
             return pre + ("norm",)
@@ -767,19 +835,68 @@ def _dense_act(cfg: TransformerConfig):
     return lambda x: F.gelu(x, approximate="tanh")
 
 
-def _mlp_block(h, mlp_p, cfg: TransformerConfig, tp=None):
-    """Dense MLP block: h (B, S, D) -> (B, S, D). Under ``tp`` the hidden
-    dim is this rank's block, and the output sums over the ranks before
-    its bias."""
+_EXPERT_KEYS = ("wi", "wg", "wo", "bi", "bo")
+
+
+def _experts(ep, t, cfg: TransformerConfig):
+    """The stacked experts ``ep`` (the reference's layout, each leaf led by
+    E') over their buffers ``t`` (E', C, D): one batched product a weight,
+    the biases added after it, as the reference's vmapped ``expert_fn``."""
+    if cfg.activation == "silu_glu":
+        a = F.silu(torch.bmm(t, ep["wg"])) * torch.bmm(t, ep["wi"])
+    else:
+        a = torch.bmm(t, ep["wi"])
+        if "bi" in ep:
+            a = a + ep["bi"][:, None, :]
+        a = _dense_act(cfg)(a)
+    out = torch.bmm(a, ep["wo"])
+    if "bo" in ep:
+        out = out + ep["bo"][:, None, :]
+    return out
+
+
+def _mlp_act(h, mlp_p, cfg: TransformerConfig, prefix: str = ""):
+    """The MLP's hidden activation (its ``wi``/``wg`` products, the bias,
+    the activation); ``prefix`` picks PR-MoE's residual MLP (``res_``)."""
+    if cfg.activation == "silu_glu":
+        return F.silu(_linear(h, mlp_p[prefix + "wg"])) * _linear(h, mlp_p[prefix + "wi"])
+    return _dense_act(cfg)(_linear(h, mlp_p[prefix + "wi"], mlp_p.get(prefix + "bi")))
+
+
+def _mlp_block(h, mlp_p, cfg: TransformerConfig, tp=None, moe=None, decode: bool = False):
+    """MLP or MoE block: h (B, S, D) -> (out (B, S, D), the MoE's
+    load-balancing loss, None for a dense MLP). Under ``tp`` the hidden dim
+    is this rank's block, and the output sums over the ranks before its
+    bias. A MoE routes under ``moe`` (``moe.sharded_moe.MoEGroups``: the
+    global batch's routing, this rank's experts); ``decode`` is the cached
+    path's, with twice the capacity factor (reference :689)."""
+    if cfg.moe_num_experts > 0:
+        if tp is not None:
+            raise not_ported("MoE layers with tensor parallelism (Queue 1 item 10)")
+        if isinstance(mlp_p["wi"], dict):
+            raise not_ported("MoE layers with int8 weights (Queue 1 item 10)")
+        out, aux, _ = moe_forward(
+            h, mlp_p["gate"], functools.partial(_experts, cfg=cfg),
+            {k: mlp_p[k] for k in _EXPERT_KEYS if k in mlp_p},
+            k=cfg.moe_top_k,
+            capacity_factor=cfg.moe_capacity_factor * (2 if decode else 1),
+            min_capacity=cfg.moe_min_capacity, use_rts=False,
+            drop_tokens=cfg.moe_drop_tokens, groups=moe)
+        if cfg.moe_use_residual:
+            # PR-MoE (reference moe/layer.py:28,45): every token also runs
+            # the dense residual MLP; a learned 2-way softmax mixes the two,
+            # channel 0 the experts', channel 1 the dense MLP's (:123)
+            dense = _linear(_mlp_act(h, mlp_p, cfg, "res_"), mlp_p["res_wo"],
+                            mlp_p.get("res_bo"))
+            coef = torch.softmax(h @ mlp_p["coef_w"] + mlp_p["coef_b"], dim=-1)
+            out = out * coef[..., 0:1] + dense * coef[..., 1:2]
+        return out, aux
     if tp is not None:
         h = tpm.copy_to(h, tp)
-    if cfg.activation == "silu_glu":
-        act = F.silu(_linear(h, mlp_p["wg"])) * _linear(h, mlp_p["wi"])
-    else:
-        act = _dense_act(cfg)(_linear(h, mlp_p["wi"], mlp_p.get("bi")))
+    act = _mlp_act(h, mlp_p, cfg)
     if tp is None:
-        return _linear(act, mlp_p["wo"], mlp_p.get("bo"))
-    return _row_parallel(act, mlp_p["wo"], mlp_p.get("bo"), tp)
+        return _linear(act, mlp_p["wo"], mlp_p.get("bo")), None
+    return _row_parallel(act, mlp_p["wo"], mlp_p.get("bo"), tp), None
 
 
 def _row_parallel(x, w, b, tp):
@@ -811,20 +928,27 @@ def _final_norm(x, params, cfg: TransformerConfig):
     return _norm(x, params["final_norm"]["scale"], params["final_norm"].get("bias"), cfg)
 
 
-def _residual(x, h, attn_out, layer_p, cfg: TransformerConfig, tp=None):
+def _residual(x, h, attn_out, layer_p, cfg: TransformerConfig, tp=None, moe=None,
+              decode: bool = False):
     """The residual topology and MLP of a layer, after its attention
     (``h`` the attention's input): pre-LN (GPT-2, Llama), post-LN (OPT with
     ``do_layer_norm_before=False``) or the parallel residual x + attn(h) +
-    mlp(ln2 x), or mlp(h) with the shared LN (GPT-NeoX, GPT-J)."""
+    mlp(ln2 x), or mlp(h) with the shared LN (GPT-NeoX, GPT-J). Returns
+    (x, the MoE's aux loss or None); ``moe`` and ``decode`` as
+    :func:`_mlp_block` takes them."""
     mlp_p, ln1, ln2 = layer_p["mlp"], layer_p["ln1"], layer_p["ln2"]
     if cfg.parallel_residual:
         h2 = h if cfg.shared_ln else _norm(x, ln2["scale"], ln2.get("bias"), cfg)
-        return x + attn_out + _mlp_block(h2, mlp_p, cfg, tp)
+        out, aux = _mlp_block(h2, mlp_p, cfg, tp, moe, decode)
+        return x + attn_out + out, aux
     if cfg.norm_position == "pre":
         x = x + attn_out
-        return x + _mlp_block(_norm(x, ln2["scale"], ln2.get("bias"), cfg), mlp_p, cfg, tp)
+        out, aux = _mlp_block(_norm(x, ln2["scale"], ln2.get("bias"), cfg), mlp_p, cfg, tp, moe,
+                              decode)
+        return x + out, aux
     x = _norm(x + attn_out, ln1["scale"], ln1.get("bias"), cfg)
-    return _norm(x + _mlp_block(x, mlp_p, cfg, tp), ln2["scale"], ln2.get("bias"), cfg)
+    out, aux = _mlp_block(x, mlp_p, cfg, tp, moe, decode)
+    return _norm(x + out, ln2["scale"], ln2.get("bias"), cfg), aux
 
 
 def _attn_input(x, layer_p, cfg: TransformerConfig):
@@ -837,20 +961,22 @@ def _attn_input(x, layer_p, cfg: TransformerConfig):
 
 
 def _layer_body(x, layer_p, cfg: TransformerConfig, rope=None, window=None,
-                per_layer_window: bool = False, tp=None):
+                per_layer_window: bool = False, tp=None, moe=None):
     """One decoder layer over a whole sequence (no cache); ``rope`` the
     forward's rotary table, ``window`` as :func:`_attention` takes it,
-    ``tp`` this rank's place on the tensor axis."""
+    ``tp`` this rank's place on the tensor axis, ``moe`` its routing
+    groups. Returns (x, the MoE's aux loss or None)."""
     B, S, _ = x.shape
     attn_p = layer_p["attn"]
     h = _attn_input(x, layer_p, cfg)
     if tp is not None:
         attn_out = _attention_tp(h, attn_p, cfg, tp, rope, window, per_layer_window)
-        return _residual(x, h, attn_out, layer_p, cfg, tp)
+        return _residual(x, h, attn_out, layer_p, cfg, tp, moe)
     q, k, v = _qkv(h, attn_p, cfg, rope)
     attn_out = _attention(q, k, v, cfg, window, per_layer_window).reshape(
         B, S, cfg.num_heads * cfg.head_dim)
-    return _residual(x, h, _linear(attn_out, attn_p["wo"], attn_p.get("bo")), layer_p, cfg)
+    return _residual(x, h, _linear(attn_out, attn_p["wo"], attn_p.get("bo")), layer_p, cfg,
+                     moe=moe)
 
 
 def _attention_tp(h, attn_p, cfg: TransformerConfig, tp, rope, window, per_layer_window):
@@ -883,12 +1009,22 @@ def _attention_tp(h, attn_p, cfg: TransformerConfig, tp, rope, window, per_layer
     return _row_parallel(out, attn_p["wo"], attn_p.get("bo"), tp)
 
 
-def forward(params, cfg: TransformerConfig, tokens, tp=None):
+def forward(params, cfg: TransformerConfig, tokens, tp=None, moe=None):
     """tokens (B, S) int -> logits (B, S, V). The reference's ``forward``
     without dropout, LTD, PLD or token types; differentiable in ``params``
     (the flash path through its own backward kernels). Under ``tp`` the
     params are this tensor rank's (``params["layers"]`` may be any iterable
-    of layer dicts) and the logits its block of the vocabulary."""
+    of layer dicts, or of callables that return one) and the logits its
+    block of the vocabulary; ``moe`` the MoE layers' routing groups."""
+    return forward_with_aux(params, cfg, tokens, tp, moe)[0]
+
+
+def forward_with_aux(params, cfg: TransformerConfig, tokens, tp=None, moe=None):
+    """:func:`forward` and the sum of the MoE layers' load-balancing losses
+    (None without MoE layers): the reference's ``forward``'s
+    ``(logits, moe_aux_loss)``. With ``cfg.remat`` each layer runs under
+    ``checkpoint_wrapper`` with ``cfg.remat_policy`` (a callable layer is
+    called inside it, so that the recompute fetches the layer again)."""
     check_supported(cfg)
     S = tokens.shape[1]
     x = _embed(params, cfg, tokens, tp)
@@ -899,9 +1035,26 @@ def forward(params, cfg: TransformerConfig, tokens, tp=None):
     # the reference's layer scan carries per-layer windows as traced
     # scalars, which keeps them on the masked path
     windows = cfg.local_attn_windows or (None,) * cfg.num_layers
-    for layer_p, w in zip(params["layers"], windows):
-        x = _layer_body(x, layer_p, cfg, rope, w, cfg.varying_windows, tp)
-    return _vocab_head(_final_norm(x, params, cfg), params, cfg, tp)
+
+    def layer_fn(x_in, layer, w):
+        layer_p = layer() if callable(layer) else layer
+        return _layer_body(x_in, layer_p, cfg, rope, w, cfg.varying_windows, tp, moe)
+
+    if cfg.remat:
+        layer_fn = _ckpt.checkpoint_wrapper(layer_fn, policy=cfg.remat_policy)
+    aux_total = None
+    for layer, w in zip(params["layers"], windows):
+        # partition_activations (reference checkpointing.py:366): the layer
+        # boundary's activation, which no mesh of the port shards
+        x = _ckpt.partition_saved_activation(x)
+        if _ckpt.profile_enabled():
+            with torch.profiler.record_function("checkpoint_layer"):
+                x, aux = layer_fn(x, layer, w)
+        else:
+            x, aux = layer_fn(x, layer, w)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return _vocab_head(_final_norm(x, params, cfg), params, cfg, tp), aux_total
 
 
 def _vocab_head(x, params, cfg: TransformerConfig, tp=None):
@@ -954,12 +1107,13 @@ def _ce_from_logits(logits, batch, tokens, denom=None, tp=None):
 def check_trainable(cfg: TransformerConfig) -> None:
     """Raise for the training features outside the training slices: every
     decoder family that serves also trains (rope, GQA, windows, ALiBi,
-    ``embed_norm``, post-LN, the parallel residual); dropout, remat,
-    random-LTD and progressive layer drop do not yet."""
+    ``embed_norm``, post-LN, the parallel residual), with MoE layers and
+    remat; dropout, random-LTD and progressive layer drop do not yet."""
     check_supported(cfg)
+    if cfg.remat:
+        _ckpt.resolve_policy(cfg.remat_policy)  # raises for an unknown or offload policy
     checks = [
         (cfg.dropout > 0.0, f"dropout={cfg.dropout} (Queue 1 item 10)"),
-        (cfg.remat, "activation checkpointing (remat, Queue 1 item 10)"),
         (cfg.random_ltd, "random-LTD (Queue 1 item 10)"),
         (cfg.pld_enabled, "progressive layer drop (Queue 1 item 10)"),
     ]
@@ -968,18 +1122,25 @@ def check_trainable(cfg: TransformerConfig) -> None:
             raise not_ported(feature)
 
 
-def loss_fn(params, cfg: TransformerConfig, batch, rng=None, tp=None, denom=None):
-    """Next-token cross entropy. batch: {'input_ids': (B, S) int} and
-    optional 'labels' (shifted internally if absent) and 'loss_mask'.
-    ``rng`` is the reference's dropout key: dropout is not ported
-    (:func:`check_trainable` raises for it), so it is accepted and unused.
-    ``tp`` and ``denom`` as :func:`forward` and :func:`_ce_from_logits`
-    take them."""
+def loss_fn(params, cfg: TransformerConfig, batch, rng=None, tp=None, denom=None, moe=None):
+    """Next-token cross entropy, plus ``moe_aux_loss_coef`` times the MoE
+    layers' load-balancing loss (reference :1377-1378). batch:
+    {'input_ids': (B, S) int} and optional 'labels' (shifted internally if
+    absent) and 'loss_mask'. ``rng`` is the reference's dropout key:
+    dropout is not ported (:func:`check_trainable` raises for it), so it is
+    accepted and unused. ``tp``, ``moe`` and ``denom`` as :func:`forward`
+    and :func:`_ce_from_logits` take them: the aux loss is the global
+    batch's on every data-parallel rank, so each rank's share of the loss
+    carries it whole."""
     check_trainable(cfg)
     if "token_type_ids" in batch:
         raise not_ported("token_type_ids (encoder embeddings)")
     tokens = batch["input_ids"]
-    return _ce_from_logits(forward(params, cfg, tokens, tp), batch, tokens, denom, tp)
+    logits, aux = forward_with_aux(params, cfg, tokens, tp, moe)
+    ce = _ce_from_logits(logits, batch, tokens, denom, tp)
+    if aux is not None:
+        ce = ce + cfg.moe_aux_loss_coef * aux
+    return ce
 
 
 # ---------------------------------------------------------------------------
@@ -1101,7 +1262,8 @@ def _layer_body_cached(x, layer_p, k_cache, v_cache, cfg: TransformerConfig, pos
             attn_out = attn_out.narrow(-1, start, n)
         attn_out = _row_parallel(attn_out, attn_p["wo"], attn_p.get("bo"), attn_tp)
     mlp_tp = tp if tp is not None and tp.mlp else None
-    return _residual(x, h, attn_out, layer_p, cfg, mlp_tp), k_cache, v_cache
+    x, _ = _residual(x, h, attn_out, layer_p, cfg, mlp_tp, decode=True)
+    return x, k_cache, v_cache
 
 
 def forward_with_cache(params, cfg: TransformerConfig, tokens, cache, pos, positions=None,

@@ -12,7 +12,9 @@ reads: ``train_batch_size``, ``train_micro_batch_size_per_gpu``,
 (the engine's timers), ``seed``, ``mesh`` (a shape whose product is the
 world size: the process group's, else 1) and ``checkpoint``
 (``async_save``, ``integrity_manifest``; ``use_ocdbt`` only when false, since
-the port has no Orbax layout). Any other key
+the port has no Orbax layout) and ``activation_checkpointing`` (the
+engine hands it to ``runtime/activation_checkpointing.configure``, which
+raises for what it does not port). Any other key
 set away from its default (a block switched on, an offload tier, a
 multi-slice ``mesh.dcn``) raises ``NotImplementedError`` naming ROADMAP.md,
 so that no config silently takes a path the port does not have.
@@ -64,6 +66,19 @@ class SchedulerConfig:
 
 
 @dataclass
+class ActivationCheckpointingConfig:
+    # reference: activation_checkpointing/checkpointing.py configure() :789
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+    # the remat policy's name (runtime/activation_checkpointing.POLICIES)
+    policy: str = "full"
+
+
+@dataclass
 class MeshConfig:
     """Device mesh axis sizes; -1 on one axis absorbs the remaining ranks."""
 
@@ -80,7 +95,7 @@ _READ = {
     C.TRAIN_BATCH_SIZE, C.TRAIN_MICRO_BATCH_SIZE_PER_GPU, C.GRADIENT_ACCUMULATION_STEPS,
     C.STEPS_PER_PRINT, C.GRADIENT_CLIPPING, C.PRESCALE_GRADIENTS, C.GRADIENT_PREDIVIDE_FACTOR,
     C.WALL_CLOCK_BREAKDOWN, "seed", "fp16", "bf16", "bfloat16", "optimizer", "scheduler",
-    "zero_optimization", "mesh", "checkpoint",
+    "zero_optimization", "mesh", "checkpoint", "activation_checkpointing",
 }
 # the checkpoint block's keys (the reference's engine.py:520-524, :1758)
 _CHECKPOINT_KEYS = {"async_save", "integrity_manifest", "use_ocdbt"}
@@ -131,6 +146,8 @@ class TpuConfig:
         self.optimizer = from_dict(OptimizerConfig, g("optimizer", {})) if g("optimizer") else None
         self.scheduler = from_dict(SchedulerConfig, g("scheduler", {})) if g("scheduler") else None
         self.zero_config = zero_config_from_dict(g("zero_optimization", {}))
+        self.activation_checkpointing = from_dict(ActivationCheckpointingConfig,
+                                                  g("activation_checkpointing", None) or {})
         self.mesh = from_dict(MeshConfig, g("mesh", {}))
         self._check_mesh()
         self.checkpoint = dict(g("checkpoint", None) or {})

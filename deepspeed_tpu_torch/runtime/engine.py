@@ -71,6 +71,7 @@ from deepspeed_tpu_torch.accelerator import get_accelerator
 from deepspeed_tpu_torch.models import transformer as tf
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.runtime import constants as C
+from deepspeed_tpu_torch.runtime.activation_checkpointing import checkpointing as _act_ckpt
 from deepspeed_tpu_torch.runtime.checkpoint_engine import integrity as ckpt_integrity
 from deepspeed_tpu_torch.runtime.checkpoint_engine.torch_checkpoint_engine import (
     AsyncTorchCheckpointEngine,
@@ -201,6 +202,8 @@ class TpuEngine:
         if not isinstance(model, tf.TransformerModel):
             raise not_ported(f"training models of type {type(model).__name__}")
         tf.check_trainable(model.cfg)
+        # the activation_checkpointing block (reference engine.py:543-548)
+        _act_ckpt.configure(deepspeed_config=config)
         self.model = model
         self.zero_stage = config.zero_config.stage
 

@@ -45,6 +45,14 @@ mean, or with a ``loss_mask`` its rows' masked sum over the global count
 (the reference's ``_ce_from_logits`` normalises by the whole batch's
 count).
 
+MoE layers' experts (stacked over E, in the reference's layout) split over
+the ``expert`` axis as their placements say: each expert rank holds its
+E / ep experts, and the forward routes over the global batch
+(``moe.sharded_moe.MoEGroups``). Their gradients sum over ``data`` and
+``fsdp`` only, like every other leaf's; MoE with ``tensor`` over 1 raises.
+Under remat a stage-3 layer is fetched inside its recomputed region, so
+that the backward gathers it again.
+
 Whole leaves, for checkpoints, snapshots and the fragment accessors:
 :meth:`PartitionedState.full_leaf` assembles one leaf of this package's
 tree from every rank's blocks of one component (collective: every rank
@@ -57,6 +65,7 @@ copy of this rank's units.
 """
 
 import contextlib
+import functools
 import weakref
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple, Union
@@ -65,6 +74,7 @@ import torch
 
 from deepspeed_tpu_torch import comm
 from deepspeed_tpu_torch.models import transformer as tf
+from deepspeed_tpu_torch.moe.sharded_moe import MoEGroups
 from deepspeed_tpu_torch.parallel.tensor_parallel import TensorParallel
 from deepspeed_tpu_torch.runtime.zero.sharding import (
     PartitionSpec,
@@ -74,9 +84,9 @@ from deepspeed_tpu_torch.runtime.zero.sharding import (
     local_shard,
     shard_slices,
 )
+from deepspeed_tpu_torch.utils import not_ported
 
 DP = ("data", "fsdp")
-_WEIGHTS = {("attn", n) for n in ("wq", "wk", "wv", "wo")} | {("mlp", n) for n in ("wi", "wg", "wo")}
 
 
 def _walk(tree, prefix=()):
@@ -151,7 +161,8 @@ def plan(cfg: tf.TransformerConfig, mesh_shape: dict, stage: int, threshold: int
         param_sharded = full(policy.param_spec(shape, names)) != tp
         grad_sharded = full(policy.grad_spec(shape, names)) != tp
         stacked = path[0] == "layers"
-        transposed = path[1:] in _WEIGHTS if stacked else path == ("lm_head", "w")
+        transposed = (tf.is_transposed(path[1], path[2], n - 1) if stacked
+                      else path == ("lm_head", "w"))
         diff = [d for d in range(n) if tp[d] != opt[d]]
         per_layer = 1 if stacked else 0
 
@@ -324,6 +335,9 @@ class PartitionedState:
         self.dp = mesh.shape["data"] * mesh.shape["fsdp"]
         self.fsdp, self.fsdp_rank = mesh.shape["fsdp"], mesh.coords["fsdp"]
         self.dp_rank = comm.get_rank(DP) if self.dp > 1 else 0
+        if cfg.moe_num_experts > 0 and tensor > 1:
+            raise not_ported("MoE layers with tensor parallelism (Queue 1 item 10)")
+        self.moe = MoEGroups.of_mesh(mesh) if cfg.moe_num_experts > 0 else None
         self.parts = plan(cfg, mesh.shape, stage, persistence_threshold)
         self.split = self.tp is not None or any(p.fsdp_dim is not None for p in self.parts)
 
@@ -545,12 +559,16 @@ class PartitionedState:
         if self.tree is not None:
             params = self.tree
         else:
+            # each layer fetched as the forward reaches it (inside its
+            # recomputed region under remat, so that the backward gathers
+            # it again)
             params = dict(self.fetch("outer"),
-                          layers=(self.fetch(i) for i in range(self.cfg.num_layers)))
+                          layers=[functools.partial(self.fetch, i)
+                                  for i in range(self.cfg.num_layers)])
         hooks = (torch.autograd.graph.saved_tensors_hooks(self._hooks.pack, self._hooks.unpack)
                  if self._hooks is not None else contextlib.nullcontext())
         with hooks:
-            return tf.loss_fn(params, self.cfg, batch, tp=self.tp, denom=denom)
+            return tf.loss_fn(params, self.cfg, batch, tp=self.tp, denom=denom, moe=self.moe)
 
     def global_loss(self, loss):
         """The reference's loss: the mean of the ranks' shares."""

@@ -1725,3 +1725,52 @@ def test_split_checkpoint_round_trips_on_the_card():
             assert out[name] == ("cuda", True), (rank, name)
         assert out["loaded_is_tag"] and out["same_state"], rank
         assert out["resumed"] == out["uninterrupted"][3:], rank
+
+
+# ---------------------------------------------------------------------------
+# Mixture-of-Experts and remat
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_with_no_batch_dims"])
+def test_moe_flash_step_under_remat_equals_it_without_bit_for_bit(policy):
+    """A bf16 MoE model (D 128, 2 layers, 4 experts top-2 with PR-MoE, the
+    flash path): the loss and every gradient under remat equal those without,
+    bit for bit (the recompute runs K1 and K7 again on the same inputs); K1
+    launches 2 a layer under remat, K2/K3 one, K7 twice a layer's norms plus
+    the final one."""
+    _need_card()
+    from deepspeed_tpu_torch.models import transformer as ttf
+    from deepspeed_tpu_torch.ops.op_builder import reset_launch_counts
+
+    base = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2, max_seq_len=128,
+                dtype="bfloat16", attn_impl="pallas", moe_num_experts=4, moe_top_k=2,
+                moe_use_residual=True)
+    init = ttf.map_params(lambda p: p.to(torch.bfloat16),
+                          ttf.init(torch.Generator(device="cuda").manual_seed(0),
+                                   ttf.TransformerConfig(**base)))
+    toks = torch.randint(0, 256, (4, 128), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    out = {}
+    for remat in (False, True):
+        cfg = ttf.TransformerConfig(**base, remat=remat, remat_policy=policy)
+        params = ttf.map_params(lambda p: p.clone().requires_grad_(True), init)
+        reset_launch_counts()
+        loss = ttf.loss_fn(params, cfg, {"input_ids": toks})
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), [p.grad for p in _tree_leaves(params)], dict(LAUNCHES))
+    assert torch.equal(out[False][0], out[True][0]) and torch.isfinite(out[True][0])
+    for a, b in zip(out[False][1], out[True][1]):
+        assert torch.equal(a, b)
+    launched = out[True][2]
+    assert launched["flash_fwd"] == 4 and launched["flash_bwd_dq"] == 2
+    assert launched["flash_bwd_dkv"] == 2
+    assert launched["fused_norm_fwd"] == 9 and launched["fused_norm_bwd"] == 5
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]

@@ -138,8 +138,8 @@ def test_params_to_numpy_inverts_params_from_numpy(variant):
 
 
 def test_training_features_outside_the_slice_raise():
-    for over in (dict(dropout=0.1), dict(remat=True), dict(random_ltd=True),
-                 dict(pld_enabled=True)):
+    for over in (dict(dropout=0.1), dict(remat=True, remat_policy="offload"),
+                 dict(random_ltd=True), dict(pld_enabled=True)):
         tcfg = ttf.TransformerConfig(**dict(TINY, **over))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttf.loss_fn({}, tcfg, _torch_batch(_batch()))

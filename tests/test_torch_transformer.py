@@ -206,7 +206,7 @@ def test_kv_read_bytes_match_reference():
 
 
 @pytest.mark.parametrize("over", [
-    dict(causal=False), dict(moe_num_experts=4),
+    dict(causal=False), dict(moe_num_experts=4, moe_use_rts=True),
     dict(type_vocab_size=2), dict(activation="quick_gelu"),
     dict(attn_impl="block_sparse", causal=False),
     dict(attn_impl="block_sparse", local_attn_windows=(8, 8)),

@@ -752,5 +752,45 @@ def serving_program(rank, cases, skew=None):
         mesh_mod.shutdown()
 
 
+def moe_program(rank, cases, refused):
+    """MoE engines on the mesh of each case's config, each fed the global
+    batches: the loss stream, the last global norm, the gathered final
+    params in the reference's layout, this rank's block shapes in that
+    layout (``shard_shapes("params")``) and the most gathered weights alive
+    after a forward (stage 3 under remat); then the refusal each config of
+    ``refused`` raises at start-up."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import transformer as ttf
+
+    out = {}
+    for name, case in cases.items():
+        model = ttf.TransformerModel(ttf.TransformerConfig(**case["cfg"]))
+        engine = dst.initialize(model=model, params=case["params"], config=case["config"],
+                                device="cpu")[0]
+        losses, held = [], None
+        for batch in case["batches"]:
+            loss = engine.forward(batch)
+            hooks = engine._state._hooks
+            if hooks is not None:
+                live = sum(ref() is not None for ref, *_ in hooks.live)
+                held = live if held is None else max(held, live)
+            engine.backward(loss)
+            engine.step()
+            losses.append(loss.item())
+        out[name] = {"losses": losses, "gnorm": engine.get_global_grad_norm(),
+                     "gathered_alive_after_forward": held,
+                     "shapes": engine._state.shard_shapes("params"),
+                     "final": ttf.params_to_numpy(engine.gathered_params(), model.cfg),
+                     "mesh": dict(engine.mesh.shape)}
+    for name, (cfg, config) in refused.items():
+        try:
+            dst.initialize(model=ttf.TransformerModel(ttf.TransformerConfig(**cfg)), config=config,
+                           device="cpu")
+            out[name] = "ran"
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
 PROGRAMS = {"comm": comm_program, "engine": engine_program, "serving": serving_program,
-            "zero_checkpoint": zero_checkpoint_program}
+            "zero_checkpoint": zero_checkpoint_program, "moe": moe_program}
